@@ -25,3 +25,9 @@ os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+  config.addinivalue_line(
+      "markers", "cuda: runs a CUDA kernel of samplenerfro_torch; skips "
+      "without a GPU")
