@@ -2,20 +2,34 @@
 
     python3 chip_smoke.py [--seed N] [--profile]
 
+--profile adds torch.profiler tables: one render chunk, one radiance and
+one 'all' train step.
+
 Phases, each of which must pass or the script exits non-zero:
   1. device: a CUDA card is required; prints its name and power limit.
-  2. build: compiles every kernel under samplenerfro_torch/ops/csrc.
+  2. build: compiles every kernel under samplenerfro_torch/ops/csrc, one
+     nvcc per source, all started together.
   3. model: the ship configuration (configs/tpu/ship_*.yaml + .gin) at full
      width with weights drawn from --seed, on a synthetic 512^3 IOR blob
      grid prefiltered 9/3 on the card.
-  4. kernels: each kernel of the render path against its plain PyTorch
-     version on the card, at the render's shapes (the first 8192-ray chunk
-     of the view), with timings beside the kernel's bound.
-  5. main path: one 256x256 view rendered through samplenerfro_torch.eval's
-     render function (8 chunks of 8192 rays); every kernel must have been
-     launched during it.
-  6. CPU cross-check: 256 of those rays rendered with the same model and
-     grid on the CPU (the plain march) against the card's output.
+  4. kernels: each kernel against its plain PyTorch version on the card, at
+     the shapes its path gives it, timed beside its bound: K1 at the
+     render's first 8192-ray chunk; K2 (so3 march) and K3 (its reverse
+     sweep) at a 1024-ray training batch, with so3 weights drawn from
+     --seed at output std 1e-2 so that the head bends the paths.
+  5. render path: one 256x256 view rendered through samplenerfro_torch.eval's
+     render function (8 chunks of 8192 rays); K1 must have been launched
+     once per chunk.
+  6. train path: radiance steps, then 'all' steps, through
+     samplenerfro_torch.train.step.train_step (what `python -m
+     samplenerfro_torch.train` calls) on a repeated synthetic 1024-ray
+     batch with a 128x128 env-ray patch, bf16 MLPs, as a run resumed at
+     step 80000 takes them. Losses and gradients must be finite, the
+     radiance loss must fall, the so3 gradients must be non-zero, and K1
+     must run once per radiance step, K2 and K3 once per 'all' step.
+  7. CPU cross-checks: 256 rays of the view rendered on the CPU (the plain
+     march) against the card; one 'all' step's loss and so3 gradients on
+     128 rays, fp32 MLPs, on the CPU (plain K2 and K3) against the card.
 The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
@@ -30,10 +44,17 @@ import torch
 
 from samplenerfro_torch.data import rays as rays_lib
 from samplenerfro_torch.eval import make_render_fn
+from samplenerfro_torch.models import convert
 from samplenerfro_torch.models import nerf
+from samplenerfro_torch.models.path_sampler import SO3_MAX_DEG
 from samplenerfro_torch.ops import cuda_build
+from samplenerfro_torch.ops import eikonal_vjp
 from samplenerfro_torch.ops import grid as grid_ops
 from samplenerfro_torch.ops import march_kernel
+from samplenerfro_torch.ops import mlp as mlp_ops
+from samplenerfro_torch.train import step as step_lib
+from samplenerfro_torch.train.loop import annealed_alpha
+from samplenerfro_torch.train.loop import batch_to_device
 from samplenerfro_torch.utils import config as config_lib
 from samplenerfro_torch.utils import grid_io
 from samplenerfro_torch.utils import render as render_lib
@@ -53,6 +74,24 @@ K1_ATOL = 1e-4
 # the ulps above; a fine sample may move by those, so colours and opacity
 # agree to ~1e-5 and are held at 1e-4.
 XCHECK_ATOL = 1e-4
+# K2 against its plain version: the march as K1, plus the so3 MLP, whose
+# products K2 sums in its own order (fp32 FMA, no TF32) where cuBLAS sums
+# in another; the refined gradient differs by ~1e-7 relative a step, and
+# 768 steps carry that forward. Held at K1's 1e-4.
+K2_ATOL = 1e-4
+# K3 against autograd of the plain march: the JAX package's own tolerance
+# for its reverse sweep (tests/test_eikonal_vjp.py:108-111), per tensor:
+# |got - want| <= 2e-4 * max|want| + 2e-3 * |want|.
+K3_ATOL_SCALE, K3_RTOL = 2e-4, 2e-3
+SO3_STD = 1e-2     # so3 output init for the kernel phases (ship: 1e-5)
+SO3_ALPHA = 0.7    # annealing progress for the kernel phases
+TRAIN_FROM = 80000  # the train path's steps continue a run at this step
+N_RADIANCE, N_ALL = 12, 4
+XCHECK_RAYS = 128
+# One 'all' step, card against CPU, fp32 MLPs, not randomized: the loss to
+# 1e-4 relative (K1's and K2's ulps moved through the MLPs), the so3
+# gradients at the K3 tolerance.
+XCHECK_LOSS_RTOL = 1e-4
 
 
 def log(msg):
@@ -130,12 +169,11 @@ def model_phase(device, seed, grid_n=GRID_N, **overrides):
       f"{cfg.kernel_sigma}, {args.net_depth}x{args.net_width} MLPs, "
       f"{args.num_coarse_samples}x{args.num_path_samples} march steps, "
       f"{args.num_fine_samples} fine samples: {time.time() - t0:.1f} s")
-  return args, model
+  return args, model, (ndim, nmin, nmax, grid, bindings)
 
 
-def march_bytes_and_flops(spec, pos, batch, num_samples, num_coarse):
-  """K1's least work: outputs written once, inputs and the distinct grid
-  voxels this run's paths touch read once; ~120 fp32 operations a step."""
+def distinct_voxels(spec, pos):
+  """Grid voxels the trilinear gathers at these path vertices touch."""
   nmin, ndelta = spec.axis_tensors(pos.device)
   hi = torch.tensor(spec.ndim, device=pos.device) - 1
   c0 = torch.floor((pos.reshape(-1, 3) - nmin) / ndelta).to(torch.int64)
@@ -147,10 +185,42 @@ def march_bytes_and_flops(spec, pos, batch, num_samples, num_coarse):
         c = torch.minimum(torch.clamp(
             c0 + torch.tensor([dx, dy, dz], device=pos.device), min=0), hi)
         voxels.append((c[:, 0] * ny + c[:, 1]) * nz + c[:, 2])
-  distinct = int(torch.unique(torch.cat(voxels)).numel())
+  return int(torch.unique(torch.cat(voxels)).numel())
+
+
+def march_bytes_and_flops(spec, pos, batch, num_samples, num_coarse):
+  """K1's least work: outputs written once, inputs and the distinct grid
+  voxels this run's paths touch read once; ~120 fp32 operations a step."""
+  distinct = distinct_voxels(spec, pos)
   written = 4 * 7 * batch * (num_samples + num_coarse)
   read = 4 * (6 * batch + num_coarse) + 16 * distinct
   return written + read, 120 * batch * num_samples, distinct
+
+
+def so3_flops(so3):
+  """fp32 operations of one so3 head evaluation: 2 per weight (a multiply
+  and an add) plus the 60 sines and the Rodrigues rotation (~60)."""
+  weights = sum(p.numel() for p in so3[0::2])
+  return 2 * weights + 6 * SO3_MAX_DEG + 60
+
+
+def report_row(name, replaces, err, ms, plain_ms, bound_ms, bound_by):
+  """One kernel's entry of the report line; `launches` is filled from its
+  path's run. No single PyTorch call computes a march or its reverse
+  sweep, so there is no library time."""
+  return {"name": name, "route": "cuda",
+          "source": f"samplenerfro_torch/ops/csrc/{name}.cu",
+          "replaces": f"samplenerfro_tpu/ops/pallas/{replaces}",
+          "launches": None, "max_abs_err": err, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "library_ms": None}
+
+
+def bound(nbytes, flops):
+  """(bound ms, what bounds it) at the card's HBM and fp32 peaks."""
+  t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOPS
+  return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                               "operations")
 
 
 def kernel_phase(model, chunk_rays, jitter):
@@ -178,18 +248,12 @@ def kernel_phase(model, chunk_rays, jitter):
   nbytes, flops, distinct = march_bytes_and_flops(
       ps.spec, want[0], chunk_rays.origins.shape[0], ps.num_samples,
       jitter.shape[0])
-  t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOPS
-  bound_ms = max(t_bytes, t_ops)
+  bound_ms, bound_by = bound(nbytes, flops)
   log(f"  K1 march_lean: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-      f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB incl. {distinct} distinct "
-      f"voxels; {flops / 1e9:.3f} GFLOP = {t_ops:.4f} ms)")
-  return {"name": "march_lean", "route": "cuda",
-          "source": "samplenerfro_torch/ops/csrc/march_lean.cu",
-          "replaces": "samplenerfro_tpu/ops/pallas/march_kernel.py:248",
-          "launches": None, "max_abs_err": err, "ms": ms,
-          "plain_ms": plain_ms, "bound_ms": bound_ms,
-          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-          "library_ms": None}
+      f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB incl. "
+      f"{distinct} distinct voxels; {flops / 1e9:.3f} GFLOP)")
+  return report_row("march_lean", "march_kernel.py:248", err, ms, plain_ms,
+                    bound_ms, bound_by)
 
 
 def main_path_phase(model, view, jitter, chunk, device, profile=False):
@@ -249,7 +313,8 @@ def cross_check_phase(model, view, jitter, rgb_gpu, acc_gpu, n=256):
   model.to("cpu")
   t0 = time.time()
   with torch.no_grad():
-    out = model(flat, jitter.cpu(), randomized=False)[-1]
+    out = model(flat, jitter.cpu(), randomized=False,
+                mlp_dtype=torch.float32)[-1]
   rgb_cpu, acc_cpu = out[0].numpy(), out[2].numpy()
   e_rgb = float(np.abs(rgb_cpu - rgb_gpu.reshape(-1, 3)[idx]).max())
   e_acc = float(np.abs(acc_cpu - acc_gpu.reshape(-1)[idx]).max())
@@ -259,18 +324,263 @@ def cross_check_phase(model, view, jitter, rgb_gpu, acc_gpu, n=256):
     raise SystemExit("cpu cross-check failed")
 
 
+def synthetic_batch(args, seed):
+  """A host training batch: `batch_size` random pixels of a camera at a
+  seeded pose, the target 0.5 + 0.5 * viewdir, and a bg_patch_size^2
+  env-ray patch of the same view."""
+  rng = np.random.RandomState(seed)
+  view = camera_rays(RES, theta=rng.uniform(0, 2 * np.pi),
+                     phi=rng.uniform(0.2, 0.8))
+  flat = rays_lib.namedtuple_map(lambda r: r.reshape(-1, r.shape[-1]), view)
+  idx = rng.choice(RES * RES, args.batch_size, replace=False)
+  rays = rays_lib.namedtuple_map(lambda r: r[idx], flat)
+  ps = args.bg_patch_size
+  x, y = rng.randint(0, RES - ps, 2)
+  env = rays_lib.namedtuple_map(lambda r: r[y:y + ps, x:x + ps], view)
+  return {"pixels": (0.5 + 0.5 * rays.viewdirs).astype(np.float32),
+          "rays": rays, "env_rays": env}
+
+
+def so3_kernel_phases(model, batch, seed):
+  """K2 and K3 against their plain versions on the card, timed, with
+  their bounds, on one training batch's rays."""
+  ps = model.path_sampler
+  dev = ps.grid.device
+  head = mlp_ops.So3MLP(6 * SO3_MAX_DEG, output_init_std=SO3_STD,
+                        generator=torch.Generator().manual_seed(seed))
+  so3 = [p.detach().to(dev) for p in head.params()]
+  o = torch.from_numpy(batch["rays"].origins).to(dev)
+  d = torch.from_numpy(batch["rays"].viewdirs).to(dev)
+  fwd_args = (ps.spec, ps.grid, o, d, ps.near, ps.step_size, ps.num_samples,
+              so3, SO3_ALPHA, SO3_MAX_DEG)
+  traj = march_kernel.march_full(*fwd_args)
+  torch.cuda.synchronize()
+  want = march_kernel.march_full_reference(*fwd_args)
+  per = (traj - want).abs().reshape(-1, 11).amax(dim=0).tolist()
+  log(f"  K2 max abs err per channel (pos 3, dir 3, dist, n, grad n 3): "
+      f"{per}")
+  err2 = max(per)
+  if not (np.all(np.isfinite(per)) and err2 <= K2_ATOL):
+    raise SystemExit(f"K2 disagrees with its plain version: {err2} > "
+                     f"{K2_ATOL}")
+  batch_n, steps = o.shape[0], ps.num_samples
+  active = int((traj[..., 8:11].norm(dim=-1) > 1e-3).sum())
+  distinct = distinct_voxels(ps.spec, traj[..., 0:3])
+  nparams = sum(p.numel() for p in so3)
+  mlp_flops = so3_flops(so3) * active
+  march_ops = 120 * batch_n * steps
+  ms2 = cuda_ms(lambda: march_kernel.march_full(*fwd_args))
+  plain2 = cuda_ms(lambda: march_kernel.march_full_reference(*fwd_args), 3)
+  bytes2 = 44 * batch_n * steps + 16 * distinct + 24 * batch_n + 4 * nparams
+  bound2, by2 = bound(bytes2, mlp_flops + march_ops)
+  log(f"  K2 march_so3: {ms2:.4f} ms, plain {plain2:.3f} ms, bound "
+      f"{bound2:.4f} ms by {by2} ({active} of {batch_n * steps} ray-steps "
+      f"active, {(mlp_flops + march_ops) / 1e9:.3f} GFLOP, "
+      f"{bytes2 / 1e6:.1f} MB incl. {distinct} distinct voxels)")
+
+  # K3 sweeps the plain march's trajectory, the one march_bwd_reference
+  # replays, so that both differentiate the same path: K2's own path
+  # differs by the ulps above, which the PE multiplies by up to 2^9 and
+  # which then flip ReLU masks of the head near 0.
+  cfg = eikonal_vjp.MarchConfig(ps.spec, ps.near, ps.step_size, steps,
+                                SO3_MAX_DEG)
+  gen = torch.Generator().manual_seed(seed + 1)
+  dtraj = torch.randn(traj.shape, generator=gen).to(dev)
+  bwd_args = (cfg, ps.grid, o, d, so3, SO3_ALPHA, want, dtraj)
+  got = eikonal_vjp.march_bwd(*bwd_args)
+  torch.cuda.synchronize()
+  ref = eikonal_vjp.march_bwd_reference(cfg, ps.grid, o, d, so3, SO3_ALPHA,
+                                        dtraj)
+  flat = lambda r: [r[0], r[1], r[2]] + list(r[3])
+  names = ["origins", "directions", "alpha"] + [
+      f"so3 {n}.{k}" for n in ("Dense_0", "Dense_1", "Dense_2", "Dense_3",
+                               "Dense_out") for k in ("weight", "bias")]
+  err3 = 0.0
+  for name, g, w in zip(names, flat(got), flat(ref)):
+    diff = (g - w).abs()
+    scale = float(w.abs().max())
+    worst = float((diff / (K3_ATOL_SCALE * scale + K3_RTOL * w.abs()))
+                  .max()) if scale > 0 else 0.0
+    log(f"  K3 {name}: max abs err {float(diff.max()):.3e} of scale "
+        f"{scale:.3e} ({worst:.3f} of the tolerance)")
+    if not (bool(torch.isfinite(g).all()) and worst <= 1.0):
+      raise SystemExit(f"K3 {name} disagrees with its plain version")
+    err3 = max(err3, float(diff.max()))
+  again = eikonal_vjp.march_bwd(*bwd_args)
+  if not all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))):
+    raise SystemExit("K3 is not deterministic: two runs differ")
+  log("  K3 two runs agree bit for bit")
+  ms3 = cuda_ms(lambda: eikonal_vjp.march_bwd(*bwd_args))
+  plain3 = cuda_ms(lambda: eikonal_vjp.march_bwd_reference(
+      cfg, ps.grid, o, d, so3, SO3_ALPHA, dtraj), 3)
+  # Least work: the head's forward, its backward to the input and its
+  # weight gradients at each active ray-step (3x K2's MLP arithmetic) plus
+  # ~200 operations of step adjoints a ray-step; the trajectory and its
+  # cotangent read once, the voxels once, the weights read and their
+  # gradients written once.
+  flops3 = 3 * mlp_flops + 200 * batch_n * steps
+  bytes3 = (2 * 44 * batch_n * steps + 16 * distinct + 24 * batch_n
+            + 8 * nparams)
+  bound3, by3 = bound(bytes3, flops3)
+  log(f"  K3 march_bwd: {ms3:.4f} ms, plain {plain3:.3f} ms, bound "
+      f"{bound3:.4f} ms by {by3} ({flops3 / 1e9:.3f} GFLOP, "
+      f"{bytes3 / 1e6:.1f} MB)")
+  return (report_row("march_so3", "march_kernel.py:248", err2, ms2, plain2,
+                     bound2, by2),
+          report_row("march_bwd", "march_bwd_kernel.py:168", err3, ms3,
+                     plain3, bound3, by3))
+
+
+def _grads_finite(model):
+  ok = torch.ones((), dtype=torch.bool, device=next(model.parameters()).device)
+  for p in model.parameters():
+    if p.grad is not None:
+      ok = ok & torch.isfinite(p.grad).all()
+  return ok
+
+
+def profile_train_step(model, args, host, device, step, generator):
+  """Device time by kernel for one train step (torch.profiler)."""
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as tprofile
+  optimizer, _, _ = step_lib.create_optimizer(model, args)
+  batch = batch_to_device(host, annealed_alpha(step, args), device)
+  torch.cuda.synchronize()
+  with tprofile(activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+    step_lib.train_step(model, optimizer, batch, step, args, generator)
+    torch.cuda.synchronize()
+  log(f"profile of one {args.stage} train step:")
+  log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+
+
+def _train_steps(model, args, host, device, first_step, n, generator):
+  """n train steps on the repeated batch; returns (losses, steps/s after
+  the first, all finite, [so3 gradient norm per step])."""
+  optimizer, _, _ = step_lib.create_optimizer(model, args)
+  losses, so3_norms, finite, t0 = [], [], None, None
+  for i in range(n):
+    step = first_step + i
+    if i == 1:
+      torch.cuda.synchronize()
+      t0 = time.time()
+    batch = batch_to_device(host, annealed_alpha(step, args), device)
+    stats = step_lib.train_step(model, optimizer, batch, step, args,
+                                generator)
+    ok = _grads_finite(model) & torch.isfinite(stats.loss)
+    finite = ok if finite is None else finite & ok
+    losses.append(stats.loss)
+    so3_norms.append(torch.sqrt(sum(
+        (p.grad**2).sum() for p in model.path_sampler.so3_mlp.parameters()
+        if p.grad is not None) + 0.0))
+  torch.cuda.synchronize()
+  rate = (n - 1) / (time.time() - t0)
+  return ([float(x) for x in losses], rate, bool(finite),
+          [float(x) for x in so3_norms])
+
+
+def train_path_phase(args, scene, device, seed, host, profile=False):
+  """Radiance then 'all' steps through train.step.train_step; returns the
+  launch counts of K1, K2 and K3 during them and the 'all' model."""
+  ndim, nmin, nmax, grid, bindings = scene
+  gen = torch.Generator(device=device).manual_seed(seed)
+  rad_args = argparse.Namespace(**{**vars(args), "stage": "radiance"})
+  all_args = argparse.Namespace(**{**vars(args), "stage": "all"})
+  rad = nerf.construct_nerf(rad_args, ndim, nmin, nmax, grid, bindings,
+                            device=device, seed=seed)
+  allm = nerf.construct_nerf(all_args, ndim, nmin, nmax, grid, bindings,
+                             device=device, seed=seed)
+  torch.cuda.synchronize()
+  march_kernel.march_lean.launches = 0
+  march_kernel.march_full.launches = 0
+  eikonal_vjp.march_bwd.launches = 0
+  losses, rate_r, ok_r, _ = _train_steps(rad, rad_args, host, device,
+                                         TRAIN_FROM + 1, N_RADIANCE, gen)
+  convert.load_into(allm, {k: v for k, v in rad.state_dict().items()
+                           if k != "path_sampler.grid"})
+  losses_a, rate_a, ok_a, so3 = _train_steps(
+      allm, all_args, host, device, TRAIN_FROM + N_RADIANCE + 1, N_ALL, gen)
+  counts = (march_kernel.march_lean.launches, march_kernel.march_full.launches,
+            eikonal_vjp.march_bwd.launches)
+  if profile:
+    last = TRAIN_FROM + N_RADIANCE + N_ALL
+    profile_train_step(rad, rad_args, host, device, last, gen)
+    profile_train_step(allm, all_args, host, device, last, gen)
+  del rad
+  b = args.batch_size
+  log(f"train path ({args.mlp_dtype} MLPs, batch {b}, env patch "
+      f"{args.bg_patch_size}^2): radiance {N_RADIANCE} steps "
+      f"{rate_r:.3f} steps/s {rate_r * b:.1f} rays/s; all {N_ALL} steps "
+      f"{rate_a:.3f} steps/s {rate_a * b:.1f} rays/s (first step of each "
+      f"untimed); launches K1 {counts[0]}, K2 {counts[1]}, K3 {counts[2]}")
+  log(f"  radiance losses {losses}")
+  log(f"  all losses {losses_a}, so3 grad norms {so3}")
+  if not (ok_r and ok_a and np.all(np.isfinite(losses + losses_a))):
+    raise SystemExit("train path: non-finite loss or gradient")
+  if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+    raise SystemExit("train path: the radiance loss did not fall")
+  if not all(np.isfinite(so3)) or min(so3) <= 0:
+    raise SystemExit("train path: so3 gradients are zero or non-finite")
+  if counts != (N_RADIANCE, N_ALL, N_ALL):
+    raise SystemExit(f"train path: launches K1/K2/K3 {counts}, expected "
+                     f"{(N_RADIANCE, N_ALL, N_ALL)}")
+  return counts, allm, all_args
+
+
+def allstep_cross_check(model, args, host, device, seed):
+  """One 'all' step's loss and so3 gradients on XCHECK_RAYS rays, fp32
+  MLPs, not randomized: the card (K2, K3) against the CPU (plain)."""
+  sub = dict(host)
+  sub["rays"] = rays_lib.namedtuple_map(lambda r: r[:XCHECK_RAYS],
+                                        host["rays"])
+  sub["pixels"] = host["pixels"][:XCHECK_RAYS]
+  xargs = argparse.Namespace(**{**vars(args), "randomized": False})
+  model.mlp_dtype = torch.float32
+  jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
+                            torch.Generator().manual_seed(seed))
+  alpha = annealed_alpha(TRAIN_FROM + N_RADIANCE + N_ALL, args)
+
+  def run(dev):
+    model.zero_grad(set_to_none=True)
+    total, _ = step_lib.loss_fn(model, batch_to_device(sub, alpha, dev),
+                                xargs, jitter.to(dev))
+    total.backward()
+    grads = [p.grad.detach().cpu().clone()
+             for p in model.path_sampler.so3_mlp.params()]
+    return float(total.detach()), grads
+
+  loss_gpu, g_gpu = run(device)
+  model.to("cpu")
+  t0 = time.time()
+  loss_cpu, g_cpu = run(torch.device("cpu"))
+  rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+  worst = 0.0
+  for g, w in zip(g_gpu, g_cpu):
+    scale = float(w.abs().max())
+    if scale > 0:
+      worst = max(worst, float(((g - w).abs() / (
+          K3_ATOL_SCALE * scale + K3_RTOL * w.abs())).max()))
+  log(f"all-step cpu cross-check: {XCHECK_RAYS} rays in "
+      f"{time.time() - t0:.1f} s, loss {loss_gpu:.8f} vs {loss_cpu:.8f} "
+      f"(rel {rel:.3e}, tolerance {XCHECK_LOSS_RTOL}), so3 grads at "
+      f"{worst:.3f} of the K3 tolerance")
+  if not (rel <= XCHECK_LOSS_RTOL and worst <= 1.0):
+    raise SystemExit("all-step cpu cross-check failed")
+
+
 def main():
   p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   p.add_argument("--seed", type=int, default=0)
   p.add_argument("--profile", action="store_true",
-                 help="print device time by kernel for one render chunk")
+                 help="print device time by kernel for one render chunk "
+                 "and one train step of each stage")
   ns = p.parse_args()
 
   t_start = time.time()
   card = device_phase()
   device = torch.device("cuda")
   build_phase()
-  args, model = model_phase(device, ns.seed)
+  args, model, scene = model_phase(device, ns.seed)
   view = camera_rays(RES)
   jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
                             torch.Generator().manual_seed(ns.seed), device)
@@ -280,14 +590,23 @@ def main():
       lambda r: torch.from_numpy(
           r.reshape(-1, r.shape[-1])[perm[:args.chunk]].copy()).to(device),
       view)
+  host = synthetic_batch(args, ns.seed)
   with torch.no_grad():
     report = [kernel_phase(model, first, jitter)]
   del first
+  report += so3_kernel_phases(model, host, ns.seed)
   torch.cuda.empty_cache()
 
   rgb, acc, launches = main_path_phase(model, view, jitter, args.chunk,
                                        device, ns.profile)
   report[0]["launches"] = launches
+  counts, all_model, all_args = train_path_phase(args, scene, device,
+                                                 ns.seed, host, ns.profile)
+  report[1]["launches"], report[2]["launches"] = counts[1], counts[2]
+  del scene
+  torch.cuda.empty_cache()
+  allstep_cross_check(all_model, all_args, host, device, ns.seed)
+  del all_model
   cross_check_phase(model, view, jitter, rgb, acc)
 
   log(f"total: {time.time() - t_start:.1f} s")

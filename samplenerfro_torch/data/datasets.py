@@ -1,8 +1,13 @@
-"""Blender test-split loader: transforms_test.json + images -> rays, pixels.
+"""Blender scenes: the test split and the training batches.
 
-Counterpart of the test split of samplenerfro_tpu/data/datasets.py:258-283
-(Blender._load_renderings with _generate_rays). The training split, its
-batching and the other dataset formats are not ported yet.
+Counterpart of samplenerfro_tpu/data/datasets.py:112-283 for the Blender
+format: transforms_<split>.json + images -> rays and pixels, and the
+training split's `all_images`, `single_image` (with precrop) and `tile`
+batching with the `bg_patch_size` env-ray patch. Batches are drawn on the
+host from an explicit np.random.RandomState, with the same calls in the
+same order as the JAX loader draws them from numpy's global state, and
+are built synchronously (the JAX loader's prefetch thread is not ported).
+The other dataset formats are not ported yet.
 """
 
 import json
@@ -11,6 +16,7 @@ import os
 import numpy as np
 
 from samplenerfro_torch.data import rays as rays_lib
+from samplenerfro_torch.data.rays import namedtuple_map
 
 
 def _load_image(fname):
@@ -33,16 +39,16 @@ def _downsample(image, factor):
   return blocks.mean(axis=(1, 3), dtype=np.float32)
 
 
-def load_blender_test(data_dir, factor, use_pixel_centers, white_bkgd,
-                      skip_frames=1):
-  """Load the Blender test split.
+def load_blender(data_dir, split, factor, use_pixel_centers, white_bkgd,
+                 skip_frames=1):
+  """Load one split of a Blender scene.
 
   Returns:
     (rays, images): Rays of [n, h, w, C] float32 numpy fields and
     [n, h, w, 3] float32 pixels (alpha composited on white when
     white_bkgd).
   """
-  with open(os.path.join(data_dir, "transforms_test.json")) as fp:
+  with open(os.path.join(data_dir, f"transforms_{split}.json")) as fp:
     meta = json.load(fp)
   images, cams = [], []
   for i in range(0, len(meta["frames"]), skip_frames):
@@ -60,3 +66,109 @@ def load_blender_test(data_dir, factor, use_pixel_centers, white_bkgd,
   rays = rays_lib.generate_pinhole_rays(w, h, focal, np.stack(cams, axis=0),
                                         use_pixel_centers)
   return rays, images
+
+
+class BlenderTrain:
+  """Iterator of training batches {"pixels", "rays", "env_rays"}.
+
+  Each batch holds `batch_size` rays with their [batch, 3] pixels, and,
+  when `bg_patch_size` > 0, a [p, p] patch of rays of one training image
+  for the background smoothness loss (env_rays; None otherwise).
+  `train_it` counts the batches drawn; precrop applies while it is below
+  `precrop_iters`, and a resumed run sets it to the steps already taken.
+  """
+
+  def __init__(self, args, rng):
+    rays, images = load_blender(args.data_dir, "train", args.factor,
+                                args.use_pixel_centers, args.white_bkgd,
+                                args.skip_frames)
+    self.n_examples, self.h, self.w = images.shape[:3]
+    res = self.h * self.w
+    self.images = images.reshape(self.n_examples, res, 3)
+    self.rays = namedtuple_map(
+        lambda r: r.reshape(self.n_examples, res, r.shape[-1]), rays)
+    if args.batching not in ("all_images", "single_image", "tile"):
+      raise NotImplementedError(
+          f"{args.batching} batching strategy is not implemented.")
+    self.batching = args.batching
+    self.batch_size = args.batch_size
+    self.precrop_iters = args.precrop_iters
+    self.precrop_frac = args.precrop_frac
+    self.patch_size = args.bg_patch_size
+    self.tile_size = int(args.tile_size)
+    self.tile_stride = int(args.tile_stride)
+    self.tile_images = bool(args.tile_images)
+    self.rng = rng
+    self.train_it = 0
+
+  def __iter__(self):
+    return self
+
+  def _coords(self, precrop):
+    coords = np.arange(self.h * self.w).reshape(self.h, self.w)
+    if not precrop:
+      return coords
+    dh = int(self.h // 2 * self.precrop_frac)
+    dw = int(self.w // 2 * self.precrop_frac)
+    return coords[(self.h // 2 - dh):(self.h // 2 + dh),
+                  (self.w // 2 - dw):(self.w // 2 + dw)]
+
+  def _env_rays(self, coords):
+    """The env-ray patch (samplenerfro_tpu/data/datasets.py:159-177)."""
+    image_index = self.rng.randint(0, self.n_examples, ())
+    ph, pw = coords.shape
+    x = self.rng.randint(low=0, high=pw - self.patch_size)
+    y = self.rng.randint(low=0, high=ph - self.patch_size)
+    idx = coords[y:(y + self.patch_size), x:(x + self.patch_size)]
+    return namedtuple_map(lambda r: r[image_index][idx], self.rays)
+
+  def __next__(self):
+    precrop = self.train_it < self.precrop_iters
+    if self.batching == "tile":
+      pixels, rays = self._tile_batch()
+      env_coords = self._coords(False)
+    elif self.batching == "all_images":
+      idx = self.rng.choice(self.n_examples * self.h * self.w,
+                            (self.batch_size,), replace=False)
+      pixels = self.images.reshape(-1, 3)[idx]
+      rays = namedtuple_map(lambda r: r.reshape(-1, r.shape[-1])[idx],
+                            self.rays)
+      env_coords = self._coords(precrop)
+    else:  # single_image
+      image_index = self.rng.randint(0, self.n_examples, ())
+      idx = self.rng.choice(self._coords(precrop).reshape(-1),
+                            (self.batch_size,), replace=False)
+      pixels = self.images[image_index][idx]
+      rays = namedtuple_map(lambda r: r[image_index][idx], self.rays)
+      env_coords = self._coords(precrop)
+    env_rays = self._env_rays(env_coords) if self.patch_size > 0 else None
+    self.train_it += 1
+    return {"pixels": pixels, "rays": rays, "env_rays": env_rays}
+
+  def _tile_batch(self):
+    """Random pixel tiles (samplenerfro_tpu/data/datasets.py:183-243)."""
+    tile, stride = self.tile_size, self.tile_stride
+    n_tiles = self.batch_size // (tile * tile)
+    if n_tiles * tile * tile != self.batch_size:
+      raise ValueError("batch_size must be a multiple of tile_size^2 for "
+                       "tile batching")
+    span = (tile - 1) * stride + 1
+    if span > self.h or span > self.w:
+      raise ValueError(f"tile_size {tile} at stride {stride} exceeds the "
+                       f"{self.h}x{self.w} image")
+    image_index = self.rng.randint(0, self.n_examples, ())
+    coords = self._coords(False)
+    idx_list, img_list = [], []
+    for _ in range(n_tiles):
+      x = self.rng.randint(0, self.w - span + 1)
+      y = self.rng.randint(0, self.h - span + 1)
+      idx_list.append(coords[y:y + span:stride, x:x + span:stride]
+                      .reshape(-1))
+      img_list.append(self.rng.randint(0, self.n_examples, ())
+                      if self.tile_images else image_index)
+    pixels = np.concatenate(
+        [self.images[im][idx] for im, idx in zip(img_list, idx_list)])
+    rays = namedtuple_map(
+        lambda r: np.concatenate(
+            [r[im][idx] for im, idx in zip(img_list, idx_list)]), self.rays)
+    return pixels, rays

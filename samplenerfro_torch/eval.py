@@ -2,9 +2,12 @@
 
     python -m samplenerfro_torch.eval --data_dir=<scene> \
         --config=configs/tpu/<scene> --gin_file=configs/tpu/<scene>.gin \
-        --train_dir=<out> [--params_npz=<weights.npz>] [--device=cuda]
+        --train_dir=<out> [--params_npz=<weights.npz>] [--device=cuda] \
+        [--stage=all] [--<flag>=<value> ...]
 
 Writes <train_dir>/<stage>/test_preds/NNN.png and psnr.txt (mean PSNR).
+Any flag of utils/config.py may be given as --name=value; an `all*` stage
+marches with the so3 head (K2), a radiance stage with K1.
 Weights come from --params_npz (models/convert.py's flat format) or, without
 it, are drawn from --seed. Rendering is deterministic (randomized=False);
 the jittered coarse subsample is drawn once per run from --seed and shared
@@ -28,9 +31,14 @@ from samplenerfro_torch.utils import render as render_lib
 
 
 def make_render_fn(model, jitter):
-  """Chunk renderer for utils/render.render_image: final-level outputs."""
+  """Chunk renderer for utils/render.render_image: final-level outputs.
+
+  Rendering computes the MLPs in fp32 whatever the training dtype, and at
+  annealing alpha 1, as samplenerfro_tpu/train/step.py:make_render_fn does.
+  """
   def render_fn(rays):
-    return model(rays, jitter, randomized=False)[-1]
+    return model(rays, jitter, randomized=False,
+                 mlp_dtype=torch.float32)[-1]
   return render_fn
 
 
@@ -63,16 +71,15 @@ def main(argv=None):
   p.add_argument("--params_npz", default=None)
   p.add_argument("--device", default=None, help="cuda (default) or cpu")
   p.add_argument("--seed", type=int, default=0)
-  p.add_argument("--chunk", type=int, default=None)
-  ns = p.parse_args(argv)
+  ns, rest = p.parse_known_args(argv)
 
   device = resolve_device(ns.device)
-  overrides = {} if ns.chunk is None else {"chunk": ns.chunk}
-  args, cfg, bindings = config_lib.load_args(ns.config, ns.gin_file,
-                                             ns.gin_param, **overrides)
-  rays, images = datasets.load_blender_test(
-      ns.data_dir, args.factor, args.use_pixel_centers, args.white_bkgd,
-      args.skip_frames)
+  args, cfg, bindings = config_lib.load_args(
+      ns.config, ns.gin_file, ns.gin_param,
+      **config_lib.parse_flag_overrides(rest))
+  rays, images = datasets.load_blender(
+      ns.data_dir, "test", args.factor, args.use_pixel_centers,
+      args.white_bkgd, args.skip_frames)
   model = build_model(args, cfg, bindings, ns.data_dir, device, ns.seed,
                       ns.params_npz)
   gen = torch.Generator().manual_seed(ns.seed)

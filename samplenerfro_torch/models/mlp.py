@@ -1,12 +1,16 @@
-"""Radiance MLPs as nn.Linear stacks, fp32.
+"""Radiance MLPs as nn.Linear stacks.
 
 Counterpart of samplenerfro_tpu/models/mlp.py. `layers[i]` is the JAX
 module's `Dense_i`: the trunk, then (NerfMLP) the sigma head, the
 bottleneck, the condition layers and the RGB head, in that order, so the
-weight converter (models/convert.py) maps index to index.
+weight converter (models/convert.py) maps index to index. NerfMLP computes
+in fp32 or, for training with `mlp_dtype=bfloat16`, in bf16 with fp32
+parameters and fp32 outputs, as flax's `Dense(dtype=bfloat16,
+param_dtype=float32)` does (samplenerfro_tpu/models/mlp.py:41-64).
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -44,26 +48,36 @@ class NerfMLP(nn.Module):
     for layer in self.layers:
       _init_linear(layer, generator)
 
-  def forward(self, x, condition=None):
-    """x [B, S, F], condition [B, S, C] -> (raw_rgb [B, S, 3], raw_sigma [B, S, 1])."""
+  def forward(self, x, condition=None, dtype=torch.float32):
+    """x [B, S, F], condition [B, S, C] -> (raw_rgb [B, S, 3], raw_sigma [B, S, 1]).
+
+    `dtype` is the compute type: inputs, weights and biases are cast to it
+    and every layer's output rounds to it; the outputs return as fp32.
+    """
     lead = x.shape[:-1]
-    x = x.reshape(-1, x.shape[-1])
+    x = x.reshape(-1, x.shape[-1]).to(dtype)
+
+    def dense(i, h):
+      layer = self.layers[i]
+      return F.linear(h, layer.weight.to(dtype), layer.bias.to(dtype))
+
     inputs = x
     for i in range(self.net_depth):
-      x = self.net_activation(self.layers[i](x))
+      x = self.net_activation(dense(i, x))
       if i % self.skip_layer == 0 and i > 0:
         x = torch.cat([x, inputs], dim=-1)
-    raw_sigma = self.layers[self.net_depth](x)
+    raw_sigma = dense(self.net_depth, x)
     k = self.net_depth + 1
     if condition is not None:
-      bottleneck = self.layers[k](x)
+      bottleneck = dense(k, x)
       k += 1
-      x = torch.cat([bottleneck, condition.reshape(-1, condition.shape[-1])],
-                    dim=-1)
-      for layer in self.layers[k:-1]:
-        x = self.net_activation(layer(x))
-    raw_rgb = self.layers[-1](x)
-    return (raw_rgb.reshape(*lead, -1), raw_sigma.reshape(*lead, -1))
+      cond = condition.reshape(-1, condition.shape[-1]).to(dtype)
+      x = torch.cat([bottleneck, cond], dim=-1)
+      for i in range(k, len(self.layers) - 1):
+        x = self.net_activation(dense(i, x))
+    raw_rgb = dense(len(self.layers) - 1, x)
+    return (raw_rgb.float().reshape(*lead, -1),
+            raw_sigma.float().reshape(*lead, -1))
 
 
 class MLP(nn.Module):

@@ -1,11 +1,13 @@
 """The refractive NeRF model: curved-path sampling + coarse/fine radiance.
 
-Counterpart of samplenerfro_tpu/models/nerf.py:367-482 (NerfModel.__call__)
-and :513-651 (construct_nerf) for the radiance-stage forward pass. The
-march runs in K1 (ops/march_kernel.py); the MLPs are nn.Linear stacks in
-fp32. Options the JAX model has and this one does not yet (SH colour,
-online sparsity, the proxy-bbox mask, the boundary cut, IPE and the 'all'
-stage) raise NotImplementedError.
+Counterpart of samplenerfro_tpu/models/nerf.py:367-482 (NerfModel.__call__),
+:219-225 (forward_envmap) and :513-651 (construct_nerf) for the radiance
+and 'all' stages. The march runs in K1 (radiance) or in K2 with K3 as its
+backward ('all'; models/path_sampler.py); the MLPs are nn.Linear stacks in
+fp32 or, with `mlp_dtype=bfloat16`, bf16. Options the JAX model has and
+this one does not yet (SH colour, online sparsity, the proxy-bbox mask,
+the boundary cut, IPE, the non-shipped VoxMLP heads) raise
+NotImplementedError.
 """
 
 import numpy as np
@@ -33,12 +35,13 @@ def make_jitter(num_coarse_samples, num_path_samples, generator=None,
   """The jittered 1-of-num_path dense index of each coarse bin.
 
   jitter[c] = c*num_path + U{0..num_path-1}, as models/nerf.py:387-392
-  draws it, but from a torch.Generator.
+  draws it, but from a torch.Generator (drawn on the generator's device).
   """
+  gen_device = generator.device if generator is not None else None
   base = torch.arange(0, num_coarse_samples * num_path_samples,
-                      num_path_samples)
+                      num_path_samples, device=gen_device)
   off = torch.randint(0, num_path_samples, (num_coarse_samples,),
-                      generator=generator)
+                      generator=generator, device=gen_device)
   return (base + off).to(device)
 
 
@@ -52,8 +55,9 @@ class NerfModel(nn.Module):
                num_rgb_channels, num_sigma_channels, white_bkgd,
                min_deg_point, max_deg_point, deg_view, rgb_activation,
                sigma_activation, legacy_posenc_order, rgb_padding=0.001,
-               sigma_bias=-1.0, generator=None):
+               sigma_bias=-1.0, mlp_dtype=torch.float32, generator=None):
     super().__init__()
+    self.mlp_dtype = mlp_dtype
     self.num_coarse_samples = num_coarse_samples
     self.num_fine_samples = num_fine_samples
     self.num_path_samples = num_path_samples
@@ -85,7 +89,7 @@ class NerfModel(nn.Module):
         num_out_channels=num_rgb_channels, generator=generator)
     self.path_sampler = ps_module.PathSampler(
         spec, grid_data, near, far, num_coarse_samples * num_path_samples,
-        stage)
+        stage, generator=generator)
 
   def _encode_dirs(self, dirs):
     return math_ops.pos_enc(dirs, 0, self.deg_view, self.legacy_posenc_order)
@@ -94,12 +98,19 @@ class NerfModel(nn.Module):
     return math_ops.pos_enc(pts, self.min_deg_point, self.max_deg_point,
                             self.legacy_posenc_order)
 
-  def _decode(self, mlp, samples_enc, viewdirs_enc, randomized, generator):
+  def forward_envmap(self, viewdirs):
+    """Background colour of [N, 3] directions (models/nerf.py:219-225)."""
+    raw_bkgd = self.bkgd_mlp(self._encode_dirs(viewdirs)[:, None])[:, 0]
+    bkgd = self.rgb_activation(raw_bkgd)
+    return bkgd * (1 + 2 * self.rgb_padding) - self.rgb_padding
+
+  def _decode(self, mlp, samples_enc, viewdirs_enc, randomized, generator,
+              dtype):
     """MLP eval + noise + activations -> (rgb, sigma)."""
     if self.use_viewdirs:
-      raw_rgb, raw_sigma = mlp(samples_enc, viewdirs_enc)
+      raw_rgb, raw_sigma = mlp(samples_enc, viewdirs_enc, dtype=dtype)
     else:
-      raw_rgb, raw_sigma = mlp(samples_enc)
+      raw_rgb, raw_sigma = mlp(samples_enc, dtype=dtype)
     raw_sigma = render_ops.add_gaussian_noise(raw_sigma, self.noise_std,
                                               randomized, generator)
     rgb = self.rgb_activation(raw_rgb)
@@ -107,7 +118,8 @@ class NerfModel(nn.Module):
     sigma = self.sigma_activation(raw_sigma + self.sigma_bias)
     return rgb, sigma
 
-  def forward(self, rays, jitter, randomized=False, generator=None):
+  def forward(self, rays, jitter, randomized=False, generator=None,
+              annealed_alpha=1.0, mlp_dtype=None):
     """Render a batch of rays.
 
     Args:
@@ -116,14 +128,23 @@ class NerfModel(nn.Module):
         (make_jitter).
       randomized: stratified fine sampling and density noise.
       generator: torch.Generator on the model's device for that noise.
+      annealed_alpha: PE annealing progress of the so3 head ('all' stage).
+      mlp_dtype: the radiance MLPs' compute type; None is the model's.
 
     Returns:
       ret: list of per-level tuples (comp_rgb [B, 3], distance [B],
       acc [B], trans [B, 1], trans_rgb_bkgd [B, 3]), coarse then fine.
     """
+    dtype = self.mlp_dtype if mlp_dtype is None else mlp_dtype
     ray_pos, ray_dir, ray_dist, _, _, sub = self.path_sampler(
-        rays.origins, rays.viewdirs, jitter)
-    ray_pos_c, ray_dir_c, ray_dist_c = sub
+        rays.origins, rays.viewdirs, jitter, annealed_alpha)
+    if sub is not None:
+      ray_pos_c, ray_dir_c, ray_dist_c = sub
+    else:
+      jitter = jitter.to(device=ray_pos.device, dtype=torch.int64)
+      ray_pos_c, ray_dir_c, ray_dist_c = (ray_pos[:, jitter],
+                                          ray_dir[:, jitter],
+                                          ray_dist[:, jitter])
 
     samples_enc = self._encode_points(ray_pos_c)
     viewdirs_enc = self._encode_dirs(ray_dir_c)
@@ -134,7 +155,7 @@ class NerfModel(nn.Module):
     bkgd = bkgd * (1 + 2 * self.rgb_padding) - self.rgb_padding
 
     rgb, sigma = self._decode(self.coarse_mlp, samples_enc, viewdirs_enc,
-                              randomized, generator)
+                              randomized, generator, dtype)
     comp_rgb, disp, acc, weights, _, trans, trans_rgb_bkgd = (
         render_ops.volumetric_rendering(rgb, sigma, ray_dist_c, ray_dir_c,
                                         self.white_bkgd, bkgd))
@@ -149,7 +170,7 @@ class NerfModel(nn.Module):
       samples_enc = self._encode_points(ray_pos_c)
       viewdirs_enc = self._encode_dirs(ray_dir_c)
       rgb, sigma = self._decode(self.fine_mlp, samples_enc, viewdirs_enc,
-                                randomized, generator)
+                                randomized, generator, dtype)
       comp_rgb, disp, acc, _, _, trans, trans_rgb_bkgd = (
           render_ops.volumetric_rendering(rgb, sigma, ray_dist_c, ray_dir_c,
                                           self.white_bkgd, bkgd))
@@ -173,7 +194,7 @@ def _check_activations(rgb_activation, sigma_activation, names):
 
 def construct_nerf(args, ndim, nmin, nmax, grid, gin_overrides=None,
                    device=None, seed=0):
-  """Build the radiance-stage NerfModel.
+  """Build the NerfModel of args.stage.
 
   Args:
     args: flags namespace (utils/config.py).
@@ -200,8 +221,17 @@ def construct_nerf(args, ndim, nmin, nmax, grid, gin_overrides=None,
   for what, on in unsupported.items():
     if on:
       raise NotImplementedError(f"{what} is not ported yet")
-  if g.get("VoxMLP.interp_method", "linear3") != "linear3":
-    raise NotImplementedError(g["VoxMLP.interp_method"])
+  shipped_head = {"VoxMLP.interp_method": "linear3", "VoxMLP.annealed": True,
+                  "VoxMLP.use_residual": True,
+                  "VoxMLP.use_direct_output": True,
+                  "VoxMLP.normalized": False}
+  for key, want in shipped_head.items():
+    if g.get(key, want) != want:
+      raise NotImplementedError(f"{key} = {g[key]!r} is not ported yet")
+  mlp_dtype = getattr(args, "mlp_dtype", "float32")
+  if mlp_dtype not in ("float32", "bfloat16"):
+    raise ValueError(f"mlp_dtype must be float32 or bfloat16, got "
+                     f"{mlp_dtype!r}")
 
   net_activation = activation(args.net_activation)
   rgb_activation = activation(args.rgb_activation)
@@ -233,5 +263,6 @@ def construct_nerf(args, ndim, nmin, nmax, grid, gin_overrides=None,
       white_bkgd=args.white_bkgd, min_deg_point=args.min_deg_point,
       max_deg_point=args.max_deg_point, deg_view=args.deg_view,
       rgb_activation=rgb_activation, sigma_activation=sigma_activation,
-      legacy_posenc_order=args.legacy_posenc_order, generator=generator)
+      legacy_posenc_order=args.legacy_posenc_order,
+      mlp_dtype=getattr(torch, mlp_dtype), generator=generator)
   return model.to(device).eval()

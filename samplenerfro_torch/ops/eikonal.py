@@ -1,9 +1,10 @@
 """Eikonal curved-ray marching through a voxelized IOR field.
 
-Counterpart of samplenerfro_tpu/ops/eikonal.py:54-107 (radiance stage:
-the grid gradient bends the ray, no learned refinement). A Python loop
-over steps; it is the plain version of the CUDA march kernel
-(ops/march_kernel.py).
+Counterpart of samplenerfro_tpu/ops/eikonal.py:22-107: the grid gradient
+bends the ray and, in the 'all' stage, a learned so3 rotation refines it.
+A Python loop over steps, differentiable by autograd; it is the plain
+version of the CUDA march kernels (ops/march_kernel.py) and of the
+reverse sweep (ops/eikonal_vjp.py).
 """
 
 import torch
@@ -12,8 +13,24 @@ from samplenerfro_torch.ops import grid as grid_ops
 from samplenerfro_torch.ops import math as math_ops
 
 
+def rodrigues_rotate(raw_out, condition):
+  """Rotate `condition` by the axis-angle vector `raw_out`.
+
+  theta = |raw_out|, axis e = raw_out / theta; returns
+  |condition| * R(e, theta) condition_hat with the norms floored at 1e-3
+  (samplenerfro_tpu/ops/eikonal.py:22-35).
+  """
+  theta = math_ops.safe_l2_norm(raw_out)
+  e = raw_out / theta
+  a = math_ops.safe_l2_norm(condition)
+  v = condition / a
+  cos_t = torch.cos(theta)
+  return a * (cos_t * v + torch.sin(theta) * torch.cross(e, v, dim=-1)
+              + (1 - cos_t) * (e * v).sum(dim=-1, keepdim=True) * e)
+
+
 def march(spec, data, origins, directions, near, step_size, num_samples,
-          use_pred_grad=False):
+          pred_grad_fn=None, use_pred_grad=False, normalize_dirs=True):
   """March curved eikonal paths for a batch of rays.
 
   Args:
@@ -24,16 +41,19 @@ def march(spec, data, origins, directions, near, step_size, num_samples,
     near: distance to start marching at.
     step_size: h = (far - near) / (num_samples - 1).
     num_samples: S, number of path vertices.
-    use_pred_grad: the 'all' stage's so3-refined gradient; not ported yet.
+    pred_grad_fn: (pos [batch, 3], grid grad [batch, 3]) -> refined
+      gradient [batch, 3]; required when use_pred_grad.
+    use_pred_grad: the 'all' stage: step with the refined gradient where
+      |grid grad| > 1e-3 (samplenerfro_tpu/ops/eikonal.py:89-94).
+    normalize_dirs: emit unit directions; False emits them raw.
 
   Returns:
-    (pos [batch, S, 3], unit dirs [batch, S, 3], arclength [batch, S],
+    (pos [batch, S, 3], dirs [batch, S, 3], arclength [batch, S],
      n [batch, S, 1], grad n [batch, S, 3]); each vertex is the state
     before that step's Euler update.
   """
-  if use_pred_grad:
-    raise NotImplementedError(
-        "the so3-refined march of the 'all' stage is not ported yet")
+  if use_pred_grad and pred_grad_fn is None:
+    raise ValueError("use_pred_grad needs a pred_grad_fn")
   rp = origins + near * directions
   rd = directions
   rt = torch.full(origins.shape[:-1], near, dtype=origins.dtype,
@@ -46,10 +66,15 @@ def march(spec, data, origins, directions, near, step_size, num_samples,
     interp = grid_ops.trilinear(spec, data, rp)
     n = interp[..., :1]
     g = interp[..., 1:]
+    grad = g
+    if use_pred_grad:
+      active = torch.linalg.norm(g, dim=-1, keepdim=True) > 1e-3
+      grad = torch.where(active, pred_grad_fn(rp, g), g)
     next_rp = rp + h / n * rd
-    next_rd = rd + step_size * g
+    next_rd = rd + step_size * grad
     next_rt = rt + torch.sqrt(((rp - next_rp)**2).sum(dim=-1))
-    outs.append((rp, math_ops.safe_l2_normalize(rd), rt, n, g))
+    outs.append((rp, math_ops.safe_l2_normalize(rd) if normalize_dirs else rd,
+                 rt, n, g))
     rp, rd, rt = next_rp, next_rd, next_rt
   pos, dirs, dist, n, g = (torch.stack(cols, dim=1) for cols in zip(*outs))
   return pos, dirs, dist, n, g

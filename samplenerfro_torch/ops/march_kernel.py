@@ -1,14 +1,18 @@
-"""K1, the lean eikonal march: CUDA kernel wrapper and its plain version.
+"""The forward eikonal march kernels: wrappers and their plain versions.
 
-Replaces samplenerfro_tpu/ops/pallas/march_kernel.py:_march_kernel in lean
-mode (march_tiled_pallas_lean). The kernel is csrc/march_lean.cu; its
-source comment says what bounds it on the card.
+K1, the lean march (csrc/march_lean.cu), replaces
+samplenerfro_tpu/ops/pallas/march_kernel.py:_march_kernel in lean mode
+(march_tiled_pallas_lean): the radiance stage and eval.
+K2, the so3-refined march (csrc/march_so3.cu), replaces the same kernel in
+full-emit mode with the so3 head (march_tiled_pallas(so3_params=...)): the
+'all' stage's forward. Each source comment says what bounds it on the
+card.
 
-`march_lean` launches the kernel for CUDA tensors and uses
-`march_lean_reference` only for CPU tensors. Unlike the TPU kernel it
-marches straight out of the grid in device memory, so it takes no
-window, refetch, interpolation-precision or skip settings and reports no
-out-of-window count.
+`march_lean` and `march_full` launch their kernel for CUDA tensors and use
+`march_lean_reference` / `march_full_reference` only for CPU tensors.
+Unlike the TPU kernel they march straight out of the grid in device
+memory, so they take no window, refetch, interpolation-precision or skip
+settings and report no out-of-window count.
 """
 
 import ctypes
@@ -18,6 +22,7 @@ import torch
 from samplenerfro_torch.ops import cuda_build
 from samplenerfro_torch.ops import eikonal as eik_ops
 from samplenerfro_torch.ops import math as math_ops
+from samplenerfro_torch.ops import mlp as mlp_ops
 
 
 def march_lean_reference(spec, data, origins, directions, near, step_size,
@@ -29,23 +34,28 @@ def march_lean_reference(spec, data, origins, directions, near, step_size,
   return pos, dirs, dist, pos[:, jitter], dirs[:, jitter], dist[:, jitter]
 
 
-def _check_inputs(spec, data, origins, directions, num_samples, jitter):
+def check_march_inputs(who, spec, data, origins, directions):
+  """Raise ValueError unless the march kernels can take these tensors."""
   dev = origins.device
   nvox = spec.ndim[0] * spec.ndim[1] * spec.ndim[2]
   for name, t, shape in (("origins", origins, (origins.shape[0], 3)),
                          ("directions", directions, (origins.shape[0], 3)),
                          ("data", data, (nvox, 4))):
     if t.device != dev:
-      raise ValueError(f"march_lean: {name} is on {t.device}, origins on {dev}")
+      raise ValueError(f"{who}: {name} is on {t.device}, origins on {dev}")
     if t.dtype != torch.float32:
-      raise ValueError(f"march_lean: {name} must be float32, got {t.dtype}")
+      raise ValueError(f"{who}: {name} must be float32, got {t.dtype}")
     if tuple(t.shape) != shape:
-      raise ValueError(f"march_lean: {name} has shape {tuple(t.shape)}, "
+      raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
                        f"expected {shape}")
     if not t.is_contiguous():
-      raise ValueError(f"march_lean: {name} must be contiguous")
+      raise ValueError(f"{who}: {name} must be contiguous")
   if data.data_ptr() % 16:
-    raise ValueError("march_lean: data must be 16-byte aligned (float4 voxels)")
+    raise ValueError(f"{who}: data must be 16-byte aligned (float4 voxels)")
+
+
+def _check_inputs(spec, data, origins, directions, num_samples, jitter):
+  check_march_inputs("march_lean", spec, data, origins, directions)
   if jitter.dim() != 1 or jitter.dtype not in (torch.int32, torch.int64):
     raise ValueError("march_lean: jitter must be a 1-D integer tensor")
   nc = jitter.shape[0]
@@ -113,5 +123,137 @@ def _library():
   if fn.restype is not ctypes.c_int or not fn.argtypes:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [vp] * 6 + [ci] * 6 + [cf] * 8 + [vp]
+    fn.restype = ci
+  return lib
+
+
+def so3_window(alpha, max_deg):
+  """The annealed PE's [max_deg] window weights at annealing alpha.
+
+  The path sampler embeds with alpha * max_deg
+  (samplenerfro_tpu/models/path_sampler.py:_embed); this is the window
+  ops/math.annealed_pos_enc applies, differentiable in alpha.
+  """
+  return math_ops.cosine_easing_window(0, max_deg - 1, max_deg,
+                                       alpha * max_deg)
+
+
+def so3_refine_fn(so3_params, alpha, max_deg):
+  """(p, g) -> refined g of the shipped so3 head (annealed PE from degree
+  0, skip-MLP, Rodrigues residual), as the plain march calls it."""
+  def refine(p, g):
+    x = math_ops.annealed_pos_enc(p, 0, max_deg, alpha * max_deg)
+    return eik_ops.rodrigues_rotate(mlp_ops.apply_params(so3_params, x), g)
+  return refine
+
+
+def pack_so3(so3_params):
+  """Flat input-major weight pack K2 and K3 read: W0t b0 ... Woutt bout."""
+  parts = []
+  for i in range(0, len(so3_params), 2):
+    parts += [so3_params[i].detach().t().reshape(-1),
+              so3_params[i + 1].detach().reshape(-1)]
+  return torch.cat(parts).contiguous()
+
+
+def so3_width(so3_params, max_deg):
+  """Width of the so3 MLP; raises unless it is the shape K2 supports."""
+  if len(so3_params) != 10:
+    raise ValueError("so3 head must have 4 hidden layers and an output "
+                     f"layer, got {len(so3_params) // 2} layers")
+  in_dim, width = 6 * max_deg, so3_params[0].shape[0]
+  shapes = [(width, in_dim), (width,), (width, width), (width,),
+            (width, width), (width,), (width, width + in_dim), (width,),
+            (3, width), (3,)]
+  for i, (p, want) in enumerate(zip(so3_params, shapes)):
+    if tuple(p.shape) != want or p.dtype != torch.float32:
+      raise ValueError(f"so3 param {i}: {tuple(p.shape)} {p.dtype}, "
+                       f"expected {want} float32")
+  if width > 128 or max_deg > 10 or max_deg < 1:
+    raise ValueError(f"K2 takes width <= 128 and 1 <= max_deg <= 10, got "
+                     f"{width} and {max_deg}")
+  return width
+
+
+def march_full_reference(spec, data, origins, directions, near, step_size,
+                         num_samples, so3_params, alpha, max_deg=10):
+  """Plain PyTorch version of K2: ops/eikonal.march with the so3 head.
+
+  Returns the [B, S, 11] trajectory (pos, raw dir, arclength, n, grad n).
+  """
+  out = eik_ops.march(spec, data, origins, directions, near, step_size,
+                      num_samples,
+                      pred_grad_fn=so3_refine_fn(so3_params, alpha, max_deg),
+                      use_pred_grad=True, normalize_dirs=False)
+  pos, dirs, dist, n, g = out
+  return torch.cat([pos, dirs, dist[..., None], n, g], dim=-1)
+
+
+def march_full(spec, data, origins, directions, near, step_size, num_samples,
+               so3_params, alpha, max_deg=10):
+  """The 'all'-stage forward march with the so3-refined gradient (K2).
+
+  Args:
+    spec, data, origins, directions, near, step_size, num_samples: as
+      march_lean.
+    so3_params: the so3 MLP's [W_0, b_0, ..., W_out, b_out]
+      (ops/mlp.So3MLP.params()), float32 on the device of `origins`.
+    alpha: annealing progress (float or 0-d tensor); the PE window runs
+      at alpha * max_deg.
+    max_deg: PE degrees (the MLP takes 6 * max_deg inputs).
+
+  Returns:
+    [B, S, 11] float32 trajectory: pos 0:3, raw dir 3:6, arclength 6,
+    n 7, grad n 8:11, each the state before that step's update.
+  """
+  dev = origins.device
+  if dev.type == "cpu":
+    return march_full_reference(spec, data, origins, directions, near,
+                                step_size, num_samples, so3_params, alpha,
+                                max_deg)
+  if dev.type != "cuda":
+    raise ValueError(f"march_full runs on CUDA or CPU tensors, not {dev}")
+  check_march_inputs("march_full", spec, data, origins, directions)
+  width = so3_width(so3_params, max_deg)
+  for p in so3_params:
+    if p.device != dev:
+      raise ValueError(f"march_full: so3 params on {p.device}, rays on {dev}")
+  lib = _so3_library()
+  batch = origins.shape[0]
+  wpack = pack_so3(so3_params)
+  window = so3_window(torch.as_tensor(alpha, dtype=torch.float32,
+                                      device=dev), max_deg).detach()
+  window = window.contiguous()
+  traj = torch.empty((batch, num_samples, 11), dtype=torch.float32,
+                     device=dev)
+  with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.march_so3_launch(
+        origins.data_ptr(), directions.data_ptr(), data.data_ptr(),
+        wpack.data_ptr(), window.data_ptr(), traj.data_ptr(), batch,
+        num_samples, max_deg, width, *spec.ndim, near, step_size,
+        *spec.nmin, *spec.ndelta, stream)
+  if err != 0:
+    raise RuntimeError(f"march_full: kernel launch failed with CUDA error "
+                       f"{err}")
+  march_full.launches += 1
+  return traj
+
+
+march_full.launches = 0
+
+
+def split_trajectory(traj):
+  """[B, S, 11] -> (pos, raw dirs, dist, n, grad n) views."""
+  return (traj[..., 0:3], traj[..., 3:6], traj[..., 6], traj[..., 7:8],
+          traj[..., 8:11])
+
+
+def _so3_library():
+  lib = cuda_build.load("march_so3")
+  fn = lib.march_so3_launch
+  if fn.restype is not ctypes.c_int or not fn.argtypes:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [vp] * 6 + [ci] * 7 + [cf] * 8 + [vp]
     fn.restype = ci
   return lib

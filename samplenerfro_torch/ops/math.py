@@ -1,10 +1,11 @@
 """Safe math helpers and positional encoding.
 
-Counterpart of samplenerfro_tpu/ops/math.py:16-69.
+Counterpart of samplenerfro_tpu/ops/math.py:16-106 and 133-150.
 """
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -40,3 +41,61 @@ def pos_enc(x, min_deg, max_deg, legacy_posenc_order=False, amp=1.0):
     xb = (x[..., None, :] * scales[:, None]).reshape(lead + [-1])
     four_feat = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
   return torch.cat([x, amp * four_feat], dim=-1)
+
+
+def cosine_easing_window(min_freq_log2, max_freq_log2, num_bands, alpha):
+  """Nerfies frequency-annealing window (samplenerfro_tpu/ops/math.py:82-88).
+
+  alpha may be a Python float or a 0-d tensor; the result is a [num_bands]
+  float32 tensor on alpha's device, differentiable in alpha.
+  """
+  if max_freq_log2 is None:
+    max_freq_log2 = num_bands - 1.0
+  alpha = torch.as_tensor(alpha, dtype=torch.float32)
+  bands = torch.linspace(min_freq_log2, max_freq_log2, num_bands,
+                         dtype=torch.float32, device=alpha.device)
+  x = torch.clamp(alpha - bands, 0.0, 1.0)
+  return 0.5 * (1 + torch.cos(math.pi * x + math.pi))
+
+
+def annealed_pos_enc(x, min_deg, max_deg, alpha, amp=1.0):
+  """Cosine-annealed positional encoding; does not prepend x.
+
+  Per degree d the features are [sin(x*2^d)*w_d, sin(x*2^d + pi/2)*w_d]
+  (samplenerfro_tpu/ops/math.py:91-106). The second half is
+  sin(xb + pi/2), not cos(xb): at arguments of up to 1.5*2^9 rad the two
+  differ by ulps, which is enough to flip the so3 MLP's ReLU masks.
+  """
+  if min_deg == max_deg:
+    return x
+  scales = torch.tensor([2.0**i for i in range(min_deg, max_deg)],
+                        dtype=x.dtype, device=x.device)
+  xb = x[..., None, :] * scales[:, None]
+  window = cosine_easing_window(min_deg, max_deg - 1, max_deg - min_deg,
+                                alpha).to(x.device)[:, None]
+  four_feat = torch.cat([torch.sin(xb) * window,
+                         torch.sin(xb + 0.5 * math.pi) * window], dim=-1)
+  return amp * four_feat.reshape(list(x.shape[:-1]) + [-1])
+
+
+def learning_rate_decay(step, lr_init, lr_final, max_steps, lr_delay_steps=0,
+                        lr_delay_mult=1, lr_start_steps=0):
+  """Log-lerp decay with warm-up and optional delayed start, as a float.
+
+  samplenerfro_tpu/ops/math.py:133-150, evaluated in float32 on the host
+  (the JAX version computes in float32 under jit).
+  """
+  f32 = np.float32
+  step = f32(step)
+  if lr_delay_steps > 0:
+    delay_rate = f32(lr_delay_mult) + (f32(1) - f32(lr_delay_mult)) * np.sin(
+        f32(0.5 * np.pi) * np.clip(step / f32(lr_delay_steps), f32(0),
+                                   f32(1)))
+  else:
+    delay_rate = f32(1.0)
+  start_rate = np.clip(step - f32(lr_start_steps), f32(0), f32(1))
+  t = np.clip(np.maximum(step - f32(lr_start_steps), f32(0))
+              / f32(max_steps - lr_start_steps), f32(0), f32(1))
+  log_lerp = np.exp(np.log(f32(lr_init)) * (f32(1) - t)
+                    + np.log(f32(lr_final)) * t)
+  return float(f32(start_rate * delay_rate * log_lerp))

@@ -5,12 +5,11 @@ and utils/gin_lite.py: the same flag names and defaults, the
 `configs/**/*.yaml` overlay (flat `key: scalar` lines, read here without a
 YAML package) and the `Class.param = literal` gin subset.
 
-Flags the port reads and ignores (IGNORED_FLAGS): they tune the TPU
-kernels' VMEM windows, interpolation precision, free-space skip, tiling,
-dispatch grouping and training-time MLP dtype. The Hopper march kernel
-gathers straight from the grid in device memory, interpolates in fp32 and
-renders in fp32, so none of them applies; the render keeps a fixed
-16x16 pixel-tile order (utils/render.py).
+Flags the port reads and ignores are IGNORED_FLAGS, each with its reason:
+they tune the TPU kernels' VMEM windows, interpolation precision,
+free-space skip, marcher choice and dispatch grouping. The Hopper march
+kernels gather straight from the grid in device memory and interpolate in
+fp32, so none of them applies.
 """
 
 import ast
@@ -53,12 +52,30 @@ FLAG_DEFAULTS = {
     "mlp_remat": False, "march_oow_action": "fallback",
 }
 
-IGNORED_FLAGS = (
-    "march_mode", "march_emit", "march_window", "march_refetch",
-    "march_interp", "march_interp_all", "march_skip", "tile_size",
-    "render_chunks_per_dispatch", "mlp_dtype", "matmul_precision",
-    "scan_unroll", "march_oow_action",
-)
+IGNORED_FLAGS = {
+    # The CUDA marches (K1-K3) gather from the whole grid in device memory:
+    # there is no VMEM window to size, refetch, calibrate or police, and no
+    # choice between the scan, tiled and fused marchers to make.
+    "march_mode": "one CUDA march per stage",
+    "march_emit": "K1 always emits lean in radiance, K2 the full path in all",
+    "march_window": "no grid window",
+    "march_refetch": "no grid window",
+    "march_oow_action": "no grid window, so nothing is ever clamped",
+    "march_skip": "no free-space skip",
+    "scan_unroll": "no lax.scan",
+    # The march interpolates in fp32 (ROADMAP.md Queue 3: the interp and
+    # reverse-sweep precision knobs stay off until measured on the card).
+    "march_interp": "fp32 interpolation",
+    "march_interp_all": "fp32 interpolation",
+    "march_bwd_dtype": "K3 runs in fp32; the bf16 sweep is not honoured",
+    "march_bwd_impl": "K3 is the one reverse sweep",
+    "matmul_precision": "fp32 products with TF32 off",
+    # Dispatch amortisation of a remote TPU: PyTorch runs eagerly.
+    "steps_per_dispatch": "one step per Python call",
+    "render_chunks_per_dispatch": "one chunk per Python call",
+}
+# tile_size sizes the TPU march blocks too; the port reads it only for
+# `batching: tile` and renders in fixed 16x16 pixel tiles (utils/render.py).
 
 
 @dataclasses.dataclass
@@ -96,7 +113,7 @@ def _strip_comment(line):
   return "".join(out).strip()
 
 
-def _yaml_scalar(text):
+def yaml_scalar(text):
   if text in ("true", "True", "TRUE"):
     return True
   if text in ("false", "False", "FALSE"):
@@ -124,7 +141,7 @@ def read_flat_yaml(pth):
       key, sep, value = body.partition(":")
       if not sep or not key.strip() or line[:1].isspace():
         raise ValueError(f"{pth}:{lineno}: not a flat `key: value` line")
-      out[key.strip()] = _yaml_scalar(value.strip())
+      out[key.strip()] = yaml_scalar(value.strip())
   return out
 
 
@@ -156,6 +173,26 @@ def parse_gin(files, bindings=None):
     kv = parse_gin_line(binding)
     if kv is not None:
       out[kv[0]] = kv[1]
+  return out
+
+
+def parse_flag_overrides(items):
+  """['--name=value', '--flag', '--noflag'] -> {name: value}, as absl
+  parses a command line's flags; every name must be a known flag."""
+  out = {}
+  for item in items:
+    if not item.startswith("--"):
+      raise ValueError(f"unexpected argument {item!r}")
+    name, sep, value = item[2:].partition("=")
+    if sep:
+      out[name] = yaml_scalar(value)
+    elif name.startswith("no") and name[2:] in FLAG_DEFAULTS:
+      out[name[2:]] = False
+    else:
+      out[name] = True
+  unknown = sorted(set(out) - set(FLAG_DEFAULTS))
+  if unknown:
+    raise ValueError(f"unknown flags {unknown}")
   return out
 
 

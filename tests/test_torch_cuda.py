@@ -14,8 +14,11 @@ import torch
 
 from samplenerfro_torch.data.rays import Rays
 from samplenerfro_torch.models import nerf
+from samplenerfro_torch.ops import eikonal_vjp
 from samplenerfro_torch.ops import grid as grid_ops
 from samplenerfro_torch.ops import march_kernel
+from samplenerfro_torch.ops import math as math_ops
+from samplenerfro_torch.ops import mlp as mlp_ops
 from samplenerfro_torch.utils import config as config_lib
 from samplenerfro_torch.utils import grid_io
 
@@ -24,6 +27,11 @@ from samplenerfro_torch.utils import grid_io
 ATOL = 1e-5
 S, NUM_PATH, NEAR, FAR = 32, 4, 2.0, 6.0
 H = (FAR - NEAR) / (S - 1)
+# The so3 march: K2 sums the MLP products in its own order, so the refined
+# gradient differs from cuBLAS's by ~1e-7 a step; over 32 steps that stays
+# well under the CPU tests' 1e-5.
+SO3_ATOL = 1e-5
+ALPHA = 0.7
 
 
 @pytest.fixture
@@ -81,6 +89,133 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
       march_kernel.march_lean(spec, args["data"], args["o"], args["d"], NEAR, H,
                               S, jitter)
   assert march_kernel.march_lean.launches == before
+
+
+def _so3_params(device, max_deg=10, width=128, std=1e-2, seed=0):
+  """Seeded so3 head weights; std 1e-2 so the head visibly bends paths."""
+  gen = torch.Generator().manual_seed(seed)
+  head = mlp_ops.So3MLP(6 * max_deg, net_width=width, output_init_std=std,
+                        generator=gen)
+  return [p.detach().to(device) for p in head.params()]
+
+
+def _allstage_inputs(device, nrays, seed=1):
+  spec, data, o, d, _ = _march_inputs(nrays, seed=seed)
+  data, o, d = [torch.from_numpy(a).to(device) for a in (data, o, d)]
+  return spec, data, o, d, _so3_params(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrays", [256, 100])
+def test_cuda_so3_march_matches_plain_version(cuda_device, nrays):
+  spec, data, o, d, so3 = _allstage_inputs(cuda_device, nrays)
+  before = march_kernel.march_full.launches
+  got = march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA)
+  torch.cuda.synchronize()
+  assert march_kernel.march_full.launches == before + 1
+  want = march_kernel.march_full_reference(spec, data, o, d, NEAR, H, S, so3,
+                                           ALPHA)
+  assert got.shape == (nrays, S, 11) and got.device.type == "cuda"
+  # The so3 products are summed in another order than cuBLAS sums them.
+  torch.testing.assert_close(got, want, atol=SO3_ATOL, rtol=0)
+  plain = march_kernel.march_lean_reference(spec, data, o, d, NEAR, H, S,
+                                            torch.arange(0, S, NUM_PATH))
+  assert float((plain[0] - got[..., 0:3]).abs().max()) > 10 * SO3_ATOL
+
+
+def _sweep(spec, data, o, d, so3, seed=5):
+  """K3's inputs: the plain march's trajectory, which march_bwd_reference
+  replays exactly, so K3 and its plain version sweep the same path; and
+  the cotangent of a seeded random linear loss."""
+  cfg = eikonal_vjp.MarchConfig(spec, NEAR, H, S, 10)
+  traj = march_kernel.march_full_reference(spec, data, o, d, NEAR, H, S, so3,
+                                           ALPHA)
+  gen = torch.Generator().manual_seed(seed)
+  dtraj = torch.randn(traj.shape, generator=gen).to(traj.device)
+  return cfg, traj, dtraj
+
+
+def _min_preactivation(traj, so3):
+  """Smallest |pre-activation| of the head's hidden layers over the active
+  ray-steps of a trajectory, in float64."""
+  active = traj[..., 8:11].norm(dim=-1) > 1e-3
+  x = math_ops.annealed_pos_enc(traj[..., 0:3][active].double(), 0, 10,
+                                ALPHA * 10)
+  params = [p.double() for p in so3]
+  h, smallest = x, float("inf")
+  for i in range(4):
+    z = torch.nn.functional.linear(h, params[2 * i], params[2 * i + 1])
+    smallest = min(smallest, float(z.abs().min()))
+    h = torch.relu(z)
+    if i == 2:
+      h = torch.cat([h, x], dim=-1)
+  return smallest
+
+
+def _assert_grads(got, want, what):
+  scale = max(float(want.abs().max()), 1e-3)
+  torch.testing.assert_close(got, want, atol=2e-4 * scale, rtol=2e-3,
+                             msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrays", [256, 100])
+def test_cuda_march_bwd_matches_plain_version(cuda_device, nrays):
+  spec, data, o, d, so3 = _allstage_inputs(cuda_device, nrays, seed=2)
+  cfg, traj, dtraj = _sweep(spec, data, o, d, so3)
+  # K3 and cuBLAS sum the head's products in different orders, ~1e-7
+  # apart; a pre-activation closer to 0 than that may pass ReLU on one
+  # side only, and with ~1.3k active ray-steps that one flip moves a
+  # weight gradient past the tolerance (seed 1's 100 rays have one at
+  # 5e-9). These rays have none.
+  assert _min_preactivation(traj, so3) > 1e-7
+  before = eikonal_vjp.march_bwd.launches
+  got = eikonal_vjp.march_bwd(cfg, data, o, d, so3, ALPHA, traj, dtraj)
+  torch.cuda.synchronize()
+  assert eikonal_vjp.march_bwd.launches == before + 1
+  want = eikonal_vjp.march_bwd_reference(cfg, data, o, d, so3, ALPHA, dtraj)
+  for name, g, w in zip(("origins", "directions", "alpha"), got[:3],
+                        want[:3]):
+    _assert_grads(g, w, name)
+  for i, (g, w) in enumerate(zip(got[3], want[3])):
+    assert g.shape == w.shape
+    _assert_grads(g, w, f"so3 param {i}")
+  assert float(got[3][-2].abs().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_march_bwd_is_deterministic(cuda_device):
+  spec, data, o, d, so3 = _allstage_inputs(cuda_device, 256)
+  cfg, traj, dtraj = _sweep(spec, data, o, d, so3)
+  a = eikonal_vjp.march_bwd(cfg, data, o, d, so3, ALPHA, traj, dtraj)
+  b = eikonal_vjp.march_bwd(cfg, data, o, d, so3, ALPHA, traj, dtraj)
+  for x, y in zip(a[:3] + tuple(a[3]), b[:3] + tuple(b[3])):
+    assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_allstage_wrappers_reject_bad_inputs(cuda_device):
+  spec, data, o, d, so3 = _allstage_inputs(cuda_device, 8)
+  before = (march_kernel.march_full.launches, eikonal_vjp.march_bwd.launches)
+  for bad in (dict(o=o.double()), dict(so3=so3[:-2]),
+              dict(so3=[p.double() for p in so3]),
+              dict(so3=[p.cpu() for p in so3])):
+    args = dict(o=o, so3=so3)
+    args.update(bad)
+    with pytest.raises(ValueError):
+      march_kernel.march_full(spec, data, args["o"], d, NEAR, H, S,
+                              args["so3"], ALPHA)
+  cfg, traj, dtraj = _sweep(spec, data, o, d, so3)
+  march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA)
+  for bad in (dict(traj=traj[:, :-1]), dict(dtraj=dtraj.double()),
+              dict(dtraj=dtraj.cpu())):
+    args = dict(traj=traj, dtraj=dtraj)
+    args.update(bad)
+    with pytest.raises(ValueError):
+      eikonal_vjp.march_bwd(cfg, data, o, d, so3, ALPHA, args["traj"],
+                            args["dtraj"])
+  assert (march_kernel.march_full.launches,
+          eikonal_vjp.march_bwd.launches) == (before[0] + 1, before[1])
 
 
 @pytest.mark.cuda

@@ -71,7 +71,7 @@ def test_blender_test_split_matches_jax(scene, factor, white):
   args = helpers.tiny_args(data_dir=scene, factor=factor, white_bkgd=white,
                            use_pixel_centers=True, bg_patch_size=0)
   ds = j_datasets.Blender("test", args)
-  rays, images = t_datasets.load_blender_test(scene, factor, True, white)
+  rays, images = t_datasets.load_blender(scene, "test", factor, True, white)
   assert images.shape == ds.images.shape
   # cv2.INTER_AREA averages each 2x2 block in its own summation order.
   np.testing.assert_allclose(images, ds.images, atol=1e-6)
@@ -139,7 +139,7 @@ def test_eval_chunks_agree_with_one_batch(scene, tmp_path):
   cfg = fixtures.write_tiny_config(str(tmp_path / "cfg"))
   args, gcfg, bindings = t_config.load_args(cfg, [cfg + ".gin"])
   model = t_eval.build_model(args, gcfg, bindings, scene, "cpu", seed=0)
-  rays, _ = t_datasets.load_blender_test(scene, args.factor, True, False)
+  rays, _ = t_datasets.load_blender(scene, "test", args.factor, True, False)
   view = t_rays.Rays(*[r[0] for r in rays])
   jitter = torch.tensor([0, 3, 4, 6, 9, 11, 12, 15])
   fn = t_eval.make_render_fn(model, jitter)

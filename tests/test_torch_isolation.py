@@ -42,7 +42,10 @@ def _imported_modules(tree):
 
 def test_port_files_found():
   assert "chip_smoke.py" in FILES
-  assert "samplenerfro_torch/ops/march_kernel.py" in FILES
+  for rel in ("ops/march_kernel.py", "ops/eikonal_vjp.py", "ops/mlp.py",
+              "train/step.py", "train/checkpoints.py", "train/loop.py",
+              "train/__main__.py"):
+    assert f"samplenerfro_torch/{rel}" in FILES
 
 
 @pytest.mark.parametrize("rel", FILES)

@@ -97,16 +97,15 @@ def test_weights_round_trip_through_npz(tmp_path):
                             seed=1)
   b = t_nerf.construct_nerf(args, ndim, nmin, nmax, values, device="cpu",
                             seed=2)
-  tree = {}
-  for key, v in a.state_dict().items():
-    if key == "path_sampler.grid":
-      continue
-    mod, _, i, kind = key.split(".")
-    layer = tree.setdefault(mod, {}).setdefault(f"Dense_{i}", {})
-    layer["kernel" if kind == "weight" else "bias"] = (
-        v.numpy().T if kind == "weight" else v.numpy())
+  tree = convert.params_to_flax(a)
+  assert sorted(tree["path_sampler"]["so3_mlp"]) == [
+      "Dense_0", "Dense_1", "Dense_2", "Dense_3", "Dense_out"]
+  assert tree["path_sampler"]["so3_mlp"]["Dense_3"]["kernel"].shape == (
+      188, 128)
   np.savez(tmp_path / "w.npz", **convert.flatten({"params": tree}))
   convert.load_into(b, convert.params_from_npz(tmp_path / "w.npz"))
+  keys = [k for k in a.state_dict() if k != "path_sampler.grid"]
+  assert any(k.startswith("path_sampler.so3_mlp.") for k in keys)
   for (ka, va), (kb, vb) in zip(a.state_dict().items(),
                                 b.state_dict().items()):
     assert ka == kb and torch.equal(va, vb), ka
@@ -127,15 +126,17 @@ def test_seeded_weights_are_deterministic():
 def test_unported_options_raise():
   values, ndim, nmin, nmax = grid_io.synthetic_blob_grid(8, 1.5, 0.33)
   for override in ({"use_online_sparsity": True}, {"sh_deg": 2},
-                   {"stage": "all"}, {"mlp_kernel": "pallas"}):
+                   {"stage": "all", "use_online_sparsity": True},
+                   {"mlp_kernel": "pallas"}):
     args = _args("scan")
     for k, v in override.items():
       setattr(args, k, v)
     with pytest.raises(NotImplementedError):
       t_nerf.construct_nerf(args, ndim, nmin, nmax, values, device="cpu")
-  with pytest.raises(NotImplementedError):
-    t_nerf.construct_nerf(_args("scan"), ndim, nmin, nmax, values,
-                          {"NerfModel.use_ipe": True}, device="cpu")
+  for binding in ({"NerfModel.use_ipe": True}, {"VoxMLP.normalized": True}):
+    with pytest.raises(NotImplementedError):
+      t_nerf.construct_nerf(_args("scan"), ndim, nmin, nmax, values, binding,
+                            device="cpu")
 
 
 def test_make_jitter_bins():
