@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py [--seed N] [--profile]
 
---profile adds torch.profiler tables: one render chunk, one radiance and
-one 'all' train step.
+--profile adds torch.profiler tables: one render chunk and one radiance
+train step with the nn.Linear MLPs and again with the fused MLP (K4/K5),
+and one 'all' train step.
 
 Phases, each of which must pass or the script exits non-zero:
   1. device: a CUDA card is required; prints its name and power limit.
   2. build: compiles every kernel under samplenerfro_torch/ops/csrc, one
-     nvcc per source, all started together.
+     nvcc per source, all started together. P1 (x + 1) must then come back
+     exact; P2 (sinf at argument scales 1 to 2048) within 1e-6 of float64.
   3. model: the ship configuration (configs/tpu/ship_*.yaml + .gin) at full
      width with weights drawn from --seed, on a synthetic 512^3 IOR blob
      grid prefiltered 9/3 on the card.
@@ -16,20 +18,32 @@ Phases, each of which must pass or the script exits non-zero:
      the shapes its path gives it, timed beside its bound: K1 at the
      render's first 8192-ray chunk; K2 (so3 march) and K3 (its reverse
      sweep) at a 1024-ray training batch, with so3 weights drawn from
-     --seed at output std 1e-2 so that the head bends the paths.
+     --seed at output std 1e-2 so that the head bends the paths. K4 (the
+     fused NerfMLP forward) in fp32, fed with features and with raw samples
+     (pe), at the render's first chunk's fine call, and in bf16 at a
+     training batch's fine call; K5 (its parameter backward) in bf16 and
+     fp32 at that call, twice, bit for bit. Each beside the time of the
+     port's nn.Linear stack for the same work (unfused).
   5. render path: one 256x256 view rendered through samplenerfro_torch.eval's
      render function (8 chunks of 8192 rays); K1 must have been launched
-     once per chunk.
+     once per chunk. Then the same view with --mlp_kernel=pallas and
+     pallas_pe: K4 twice per chunk, K5 never, colours and opacity within
+     1e-4 of the nn.Linear render.
   6. train path: radiance steps, then 'all' steps, through
      samplenerfro_torch.train.step.train_step (what `python -m
      samplenerfro_torch.train` calls) on a repeated synthetic 1024-ray
      batch with a 128x128 env-ray patch, bf16 MLPs, as a run resumed at
      step 80000 takes them. Losses and gradients must be finite, the
      radiance loss must fall, the so3 gradients must be non-zero, and K1
-     must run once per radiance step, K2 and K3 once per 'all' step.
+     must run once per radiance step, K2 and K3 once per 'all' step. Then
+     radiance steps with --mlp_kernel=pallas (bf16): K4 and K5 twice a
+     step, the loss falling; and 'all' steps with the flag set, which must
+     launch neither (the 'all' stage keeps nn.Linear).
   7. CPU cross-checks: 256 rays of the view rendered on the CPU (the plain
      march) against the card; one 'all' step's loss and so3 gradients on
-     128 rays, fp32 MLPs, on the CPU (plain K2 and K3) against the card.
+     128 rays, fp32 MLPs, on the CPU (plain K2 and K3) against the card;
+     one fused radiance step's loss and MLP gradients on 128 rays, fp32,
+     on the CPU (plain K1, K4, K5) against the card.
 The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
@@ -51,20 +65,28 @@ from samplenerfro_torch.ops import cuda_build
 from samplenerfro_torch.ops import eikonal_vjp
 from samplenerfro_torch.ops import grid as grid_ops
 from samplenerfro_torch.ops import march_kernel
+from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mlp as mlp_ops
+from samplenerfro_torch.ops import mlp_kernel
+from samplenerfro_torch.ops import render as render_ops
 from samplenerfro_torch.train import step as step_lib
 from samplenerfro_torch.train.loop import annealed_alpha
 from samplenerfro_torch.train.loop import batch_to_device
 from samplenerfro_torch.utils import config as config_lib
 from samplenerfro_torch.utils import grid_io
+from samplenerfro_torch.utils import probes
 from samplenerfro_torch.utils import render as render_lib
 
 SHIP = "configs/tpu/ship_skydome-bkgd_no-partial-reflect_cycles"
+MARCH_KERNEL = "samplenerfro_tpu/ops/pallas/march_kernel.py:248"
+MLP_KERNEL = "samplenerfro_tpu/ops/pallas/mlp_kernel.py"
 GRID_N = 512
 RES = 256
 CAMERA_ANGLE_X = 0.6911112070083618  # the Blender scenes' field of view
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                   # H100 SXM fp32 outside tensor cores
+BF16_TC_FLOPS = 989e12               # H100 SXM dense bf16 tensor cores,
+                                     # NVIDIA data sheet
 # K1 (fp32, FMA contraction off in both versions) against its plain
 # version over 768 Euler steps: the only differences left are the order
 # of the 3-term sums, a few ulp that the march carries forward.
@@ -87,11 +109,29 @@ SO3_STD = 1e-2     # so3 output init for the kernel phases (ship: 1e-5)
 SO3_ALPHA = 0.7    # annealing progress for the kernel phases
 TRAIN_FROM = 80000  # the train path's steps continue a run at this step
 N_RADIANCE, N_ALL = 12, 4
+N_ALL_FUSED = 2  # 'all' steps with --mlp_kernel=pallas, which keep nn.Linear
 XCHECK_RAYS = 128
 # One 'all' step, card against CPU, fp32 MLPs, not randomized: the loss to
 # 1e-4 relative (K1's and K2's ulps moved through the MLPs), the so3
 # gradients at the K3 tolerance.
 XCHECK_LOSS_RTOL = 1e-4
+# P2: CUDA documents sinf at 2 ulp, <= 1e-6 of a value in [-1, 1] at these
+# arguments.
+P2_ATOL = 1e-6
+# K4 against its plain version. fp32: both sum fp32 products, in other
+# orders (cuBLAS without TF32 for the plain version). bf16: the products
+# are exact on both sides; a sum in another order can round a
+# pre-activation to the other bf16 neighbour, which later layers carry (up
+# to 1.3e-3 in one row, 6.6e-6 in the mean: tests/test_torch_mlp_kernel.py).
+K4_FP32_ATOL = 1e-5
+K4_BF16_MAX, K4_BF16_MEAN = 4e-3, 3e-5
+# K5 against its plain version, per tensor: fp32 at the K3 form
+# |got - want| <= 2e-4 * max|want| + 2e-3 * |want| (summation order, and
+# in the card-vs-CPU check the march's ulps carried through the encoding);
+# bf16 at 2e-3 * max|want| (an ulp-rounded cotangent or a ReLU mask at 0
+# moves one row's contribution).
+K5_ATOL_SCALE, K5_RTOL = 2e-4, 2e-3
+K5_BF16_SCALE = 2e-3
 
 
 def log(msg):
@@ -204,21 +244,24 @@ def so3_flops(so3):
   return 2 * weights + 6 * SO3_MAX_DEG + 60
 
 
-def report_row(name, replaces, err, ms, plain_ms, bound_ms, bound_by):
+def report_row(name, replaces, err, ms, plain_ms, bound_ms, bound_by,
+               source=None, **extra):
   """One kernel's entry of the report line; `launches` is filled from its
-  path's run. No single PyTorch call computes a march or its reverse
-  sweep, so there is no library time."""
+  path's run. No single PyTorch call computes a march, its reverse sweep,
+  the fused NerfMLP or its weight gradients, so there is no library time
+  (the MLP rows carry `unfused_ms`, the port's own nn.Linear stack, as
+  their yardstick instead)."""
   return {"name": name, "route": "cuda",
-          "source": f"samplenerfro_torch/ops/csrc/{name}.cu",
-          "replaces": f"samplenerfro_tpu/ops/pallas/{replaces}",
+          "source": source or f"samplenerfro_torch/ops/csrc/{name}.cu",
+          "replaces": replaces,
           "launches": None, "max_abs_err": err, "ms": ms,
           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-          "library_ms": None}
+          "library_ms": None, **extra}
 
 
-def bound(nbytes, flops):
-  """(bound ms, what bounds it) at the card's HBM and fp32 peaks."""
-  t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOPS
+def bound(nbytes, flops, peak=FP32_FLOPS):
+  """(bound ms, what bounds it) at the card's HBM rate and `peak`."""
+  t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
   return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                "operations")
 
@@ -252,8 +295,8 @@ def kernel_phase(model, chunk_rays, jitter):
   log(f"  K1 march_lean: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
       f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB incl. "
       f"{distinct} distinct voxels; {flops / 1e9:.3f} GFLOP)")
-  return report_row("march_lean", "march_kernel.py:248", err, ms, plain_ms,
-                    bound_ms, bound_by)
+  return report_row("march_lean", MARCH_KERNEL, err, ms, plain_ms, bound_ms,
+                    bound_by)
 
 
 def main_path_phase(model, view, jitter, chunk, device, profile=False):
@@ -286,7 +329,48 @@ def main_path_phase(model, view, jitter, chunk, device, profile=False):
       f"range [{dist.min():.4f}, {dist.max():.4f}]")
   if profile:
     profile_chunk(render_fn, view, chunk, device)
-  return rgb, acc, launches
+  return rgb, acc, launches, n / secs
+
+
+def fused_render_phase(model, view, jitter, chunk, device, rgb_ref, acc_ref,
+                       xla_rate, profile=False):
+  """The view again with --mlp_kernel=pallas and pallas_pe; returns the K4
+  launches of each render."""
+  render_fn = make_render_fn(model, jitter)
+  n_chunks = -(-RES * RES // chunk)
+  counts, saved = {}, model.mlp_kernel
+  try:
+    for name in ("pallas", "pallas_pe"):
+      model.mlp_kernel = name
+      render_lib.render_image(render_fn, view, False, chunk=chunk,
+                              device=device)
+      torch.cuda.synchronize()
+      mlp_kernel.mlp_fwd.launches = mlp_kernel.mlp_bwd.launches = 0
+      t0 = time.time()
+      rgb, dist, acc = render_lib.render_image(render_fn, view, False,
+                                               chunk=chunk, device=device)
+      torch.cuda.synchronize()
+      secs = time.time() - t0
+      k4, k5 = mlp_kernel.mlp_fwd.launches, mlp_kernel.mlp_bwd.launches
+      e_rgb = float(np.abs(rgb - rgb_ref).max())
+      e_acc = float(np.abs(acc - acc_ref).max())
+      log(f"fused render path (--mlp_kernel={name}): {secs:.3f} s, "
+          f"{RES * RES / secs:.1f} rays/s (nn.Linear: {xla_rate:.1f}), "
+          f"K4 launches {k4}, K5 {k5}; against the nn.Linear render max abs "
+          f"err rgb {e_rgb:.3e}, acc {e_acc:.3e} (tolerance {XCHECK_ATOL})")
+      if not all(np.all(np.isfinite(x)) for x in (rgb, dist, acc)):
+        raise SystemExit(f"fused render ({name}): non-finite output")
+      if (k4, k5) != (2 * n_chunks, 0):
+        raise SystemExit(f"fused render ({name}): K4/K5 launched {k4}/{k5} "
+                         f"times for {n_chunks} chunks")
+      if not (e_rgb <= XCHECK_ATOL and e_acc <= XCHECK_ATOL):
+        raise SystemExit(f"fused render ({name}) disagrees with nn.Linear")
+      counts[name] = k4
+      if profile and name == "pallas":
+        profile_chunk(render_fn, view, chunk, device)
+  finally:
+    model.mlp_kernel = saved
+  return counts
 
 
 def profile_chunk(render_fn, view, chunk, device):
@@ -425,10 +509,184 @@ def so3_kernel_phases(model, batch, seed):
   log(f"  K3 march_bwd: {ms3:.4f} ms, plain {plain3:.3f} ms, bound "
       f"{bound3:.4f} ms by {by3} ({flops3 / 1e9:.3f} GFLOP, "
       f"{bytes3 / 1e6:.1f} MB)")
-  return (report_row("march_so3", "march_kernel.py:248", err2, ms2, plain2,
-                     bound2, by2),
-          report_row("march_bwd", "march_bwd_kernel.py:168", err3, ms3,
-                     plain3, bound3, by3))
+  return (report_row("march_so3", MARCH_KERNEL, err2, ms2, plain2, bound2,
+                     by2),
+          report_row("march_bwd",
+                     "samplenerfro_tpu/ops/pallas/march_bwd_kernel.py:168",
+                     err3, ms3, plain3, bound3, by3))
+
+
+def probe_phase(device):
+  """P1 right after the build, then P2; returns their report rows."""
+  x = probes.probe_inputs((8, 128)).to(device)
+  probes.add_one.launches = probes.sin.launches = 0
+  t0 = time.time()
+  y = probes.add_one(x)
+  torch.cuda.synchronize()
+  secs = time.time() - t0
+  if not torch.equal(y, x + 1):
+    raise SystemExit("P1: x + 1 came back wrong")
+  launches1 = probes.add_one.launches
+  ms1 = cuda_ms(lambda: probes.add_one(x))
+  plain1 = cuda_ms(lambda: x + 1)
+  log(f"P1 probe_add_one: exact, first launch {secs * 1e3:.3f} ms, "
+      f"{ms1:.4f} ms, plain {plain1:.4f} ms")
+  errs = probes.sin_errors(device)
+  for scale, e64, elib in errs:
+    log(f"P2 sinf at scale {scale:g}: max abs err {e64:.3e} against float64, "
+        f"{elib:.3e} against torch.sin on the card")
+  worst = max(e for _, e, _ in errs)
+  if worst > P2_ATOL:
+    raise SystemExit(f"P2: sinf off by {worst} > {P2_ATOL}")
+  launches2 = probes.sin.launches
+  xs = (probes.probe_inputs((8, 256)) * 2048.0).to(device)
+  ms2 = cuda_ms(lambda: probes.sin(xs))
+  plain2 = cuda_ms(lambda: torch.sin(xs))
+  rows = []
+  for name, replaces, launches, err, ms, plain, n in (
+      ("probe_add_one", "samplenerfro_tpu/utils/mosaic_probe.py:39",
+       launches1, 0.0, ms1, plain1, 8 * 128),
+      ("probe_sin", "scripts/debug/dbg_sin.py:16", launches2, worst, ms2,
+       plain2, 8 * 256)):
+    # Least work: the block read once and written once; a sine is ~20
+    # operations.
+    bound_ms, by = bound(8 * n, 20 * n)
+    row = report_row(name, replaces, err, ms, plain, bound_ms, by,
+                     source="samplenerfro_torch/ops/csrc/probes.cu")
+    row["launches"] = launches
+    rows.append(row)
+  return rows
+
+
+def capture_mlp_inputs(model, rays, jitter, mlp_kernel_name):
+  """The (x, cond) each fused MLP call of one forward of `model` gets with
+  --mlp_kernel=mlp_kernel_name, coarse then fine."""
+  calls, original = [], mlp_kernel.fused_nerf_mlp
+
+  def capture(mlp, x, cond, **kwargs):
+    calls.append((x.contiguous(), cond.contiguous()))
+    return original(mlp, x, cond, **kwargs)
+
+  saved, model.mlp_kernel = model.mlp_kernel, mlp_kernel_name
+  mlp_kernel.fused_nerf_mlp = capture
+  try:
+    with torch.no_grad():
+      model(rays, jitter, randomized=False, mlp_dtype=torch.float32)
+  finally:
+    mlp_kernel.fused_nerf_mlp = original
+    model.mlp_kernel = saved
+  return calls
+
+
+def mlp_bound(spec, rows, dtype, backward=False):
+  """(bound ms, by, TFLOP): 2 operations a multiply-add of every layer at
+  the true widths (3x for K5: recompute, dW, dh), at the fp32 or the bf16
+  tensor-core peak; inputs and outputs (the MLP's weights, K5's
+  cotangent and gradients) moved once."""
+  macs = sum(k * n for k, n in mlp_kernel.layer_dims(spec))
+  flops = (6 if backward else 2) * macs * rows
+  per_row = 4 * (6 if spec.pe is not None else spec.feat + spec.cond)
+  per_row += 4 * (spec.num_rgb + spec.num_sigma)
+  weight_bytes = 4 if dtype == torch.float32 else 2
+  nbytes = per_row * rows + (weight_bytes + (4 if backward else 0)) * macs
+  peak = FP32_FLOPS if dtype == torch.float32 else BF16_TC_FLOPS
+  bound_ms, by = bound(nbytes, flops, peak)
+  return bound_ms, by, flops / 1e12
+
+
+def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
+  """K4 and K5 against their plain versions on the card at the fine calls
+  of the render's first chunk and of a training batch, timed beside their
+  bounds and the nn.Linear stack (unfused)."""
+  mlp = model.fine_mlp
+  params = [p.detach() for p in mlp_kernel.mlp_params(mlp)]
+  pe = (model.max_deg_point, model.deg_view)
+  render_raw = capture_mlp_inputs(model, chunk_rays, jitter, "pallas_pe")[1]
+  train_raw = capture_mlp_inputs(model, batch_rays, jitter, "pallas_pe")[1]
+  encode = lambda raw: (math_ops.pe_cols(raw[0], pe[0]).contiguous(),
+                        math_ops.pe_cols(raw[1], pe[1]).contiguous())
+  rows = []
+  for what, raw, dtype, fed in (
+      ("fp32 render fine call", render_raw, torch.float32, True),
+      ("fp32 pe render fine call", render_raw, torch.float32, False),
+      ("bf16 train fine call", train_raw, torch.bfloat16, True)):
+    x, c = encode(raw) if fed else raw
+    spec = mlp_kernel.mlp_spec(mlp, None if fed else pe)
+    got = torch.cat(mlp_kernel.mlp_fwd(spec, params, x, c, dtype), -1)
+    torch.cuda.synchronize()
+    want = torch.cat(mlp_kernel.fused_nerf_mlp_reference(spec, params, x, c,
+                                                         dtype), -1)
+    err = (got - want).abs()
+    e_max, e_mean = float(err.max()), float(err.mean())
+    del got, want, err
+    ok = (e_max <= K4_FP32_ATOL if dtype == torch.float32 else
+          e_max <= K4_BF16_MAX and e_mean <= K4_BF16_MEAN)
+    log(f"  K4 {what} ({x.shape[0]} rows): max abs err {e_max:.3e}, mean "
+        f"{e_mean:.3e}")
+    if not (ok and np.isfinite(e_max)):
+      raise SystemExit(f"K4 {what} disagrees with its plain version")
+    ms = cuda_ms(lambda: mlp_kernel.mlp_fwd(spec, params, x, c, dtype))
+    plain = cuda_ms(lambda: mlp_kernel.fused_nerf_mlp_reference(
+        spec, params, x, c, dtype), 3)
+    with torch.no_grad():
+      if fed:
+        unfused = cuda_ms(lambda: mlp(x, c, dtype=dtype))
+      else:
+        unfused = cuda_ms(lambda: mlp(*encode(raw), dtype=dtype))
+    bound_ms, by, tflop = mlp_bound(spec, x.shape[0], dtype)
+    log(f"  K4 mlp_fwd {what}: {ms:.4f} ms, plain {plain:.3f} ms, unfused "
+        f"(nn.Linear) {unfused:.3f} ms, bound {bound_ms:.4f} ms by {by} "
+        f"({tflop:.3f} TFLOP)")
+    rows.append(report_row("mlp_fwd", MLP_KERNEL + ":219", e_max, ms, plain,
+                           bound_ms, by, case=what, unfused_ms=unfused))
+
+  x, c = encode(train_raw)
+  spec = mlp_kernel.mlp_spec(mlp)
+  gen = torch.Generator().manual_seed(seed + 2)
+  n = x.shape[0]
+  drgb = (1e-3 * torch.randn((n, 3), generator=gen)).to(x.device)
+  dsigma = (1e-3 * torch.randn((n, 1), generator=gen)).to(x.device)
+  for what, dtype in (("bf16 train fine call", torch.bfloat16),
+                      ("fp32 train fine call", torch.float32)):
+    args = (spec, params, x, c, drgb, dsigma, dtype)
+    got = mlp_kernel.mlp_bwd(*args)
+    torch.cuda.synchronize()
+    want = mlp_kernel.fused_nerf_mlp_bwd_reference(*args)
+    worst, err = 0.0, 0.0
+    for g, w in zip(got, want):
+      scale = float(w.abs().max())
+      tol = (K5_BF16_SCALE * scale if dtype == torch.bfloat16 else
+             K5_ATOL_SCALE * scale + K5_RTOL * w.abs())
+      if scale > 0:
+        worst = max(worst, float(((g - w).abs() / tol).max()))
+      err = max(err, float((g - w).abs().max()))
+      if not bool(torch.isfinite(g).all()):
+        raise SystemExit(f"K5 {what}: non-finite gradient")
+    log(f"  K5 {what}: every tensor within {worst:.3f} of its tolerance, "
+        f"max abs err {err:.3e}")
+    if worst > 1.0:
+      raise SystemExit(f"K5 {what} disagrees with its plain version")
+    again = mlp_kernel.mlp_bwd(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+      raise SystemExit(f"K5 {what} is not deterministic: two runs differ")
+    del got, want, again
+    ms = cuda_ms(lambda: mlp_kernel.mlp_bwd(*args))
+    plain = cuda_ms(lambda: mlp_kernel.fused_nerf_mlp_bwd_reference(*args),
+                    3)
+
+    def linear_backward():
+      out = mlp(x, c, dtype=dtype)
+      torch.autograd.grad(out, list(mlp.parameters()), (drgb, dsigma))
+
+    unfused = cuda_ms(linear_backward)
+    bound_ms, by, tflop = mlp_bound(spec, n, dtype, backward=True)
+    log(f"  K5 mlp_bwd {what}: {ms:.4f} ms, plain {plain:.3f} ms, unfused "
+        f"(nn.Linear forward + autograd to the weights) {unfused:.3f} ms, "
+        f"bound {bound_ms:.4f} ms by {by} ({tflop:.3f} TFLOP); two runs "
+        f"agree bit for bit")
+    rows.append(report_row("mlp_bwd", MLP_KERNEL + ":246", err, ms, plain,
+                           bound_ms, by, case=what, unfused_ms=unfused))
+  return rows
 
 
 def _grads_finite(model):
@@ -524,7 +782,59 @@ def train_path_phase(args, scene, device, seed, host, profile=False):
   if counts != (N_RADIANCE, N_ALL, N_ALL):
     raise SystemExit(f"train path: launches K1/K2/K3 {counts}, expected "
                      f"{(N_RADIANCE, N_ALL, N_ALL)}")
-  return counts, allm, all_args
+  return counts, allm, all_args, rate_r
+
+
+def fused_train_phase(args, scene, device, seed, host, xla_rate,
+                      profile=False):
+  """Radiance steps with --mlp_kernel=pallas (bf16 MLPs, K4 forward, K5
+  backward), then 'all' steps of a model built with the flag set, which
+  keeps nn.Linear. Returns the K4 and K5 launches of the radiance steps
+  and the radiance model."""
+  ndim, nmin, nmax, grid, bindings = scene
+  gen = torch.Generator(device=device).manual_seed(seed)
+  fargs = argparse.Namespace(**{**vars(args), "stage": "radiance",
+                                "mlp_kernel": "pallas"})
+  rad = nerf.construct_nerf(fargs, ndim, nmin, nmax, grid, bindings,
+                            device=device, seed=seed)
+  torch.cuda.synchronize()
+  mlp_kernel.mlp_fwd.launches = mlp_kernel.mlp_bwd.launches = 0
+  losses, rate, ok, _ = _train_steps(rad, fargs, host, device,
+                                     TRAIN_FROM + 1, N_RADIANCE, gen)
+  counts = (mlp_kernel.mlp_fwd.launches, mlp_kernel.mlp_bwd.launches)
+  b = args.batch_size
+  log(f"fused train path (--mlp_kernel=pallas, {args.mlp_dtype} MLPs): "
+      f"radiance {N_RADIANCE} steps {rate:.3f} steps/s {rate * b:.1f} "
+      f"rays/s (nn.Linear: {xla_rate:.3f} steps/s); launches K4 "
+      f"{counts[0]}, K5 {counts[1]}")
+  log(f"  radiance losses {losses}")
+  if not (ok and np.all(np.isfinite(losses))):
+    raise SystemExit("fused train path: non-finite loss or gradient")
+  if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+    raise SystemExit("fused train path: the radiance loss did not fall")
+  if counts != (2 * N_RADIANCE, 2 * N_RADIANCE):
+    raise SystemExit(f"fused train path: launches K4/K5 {counts}, expected "
+                     f"{(2 * N_RADIANCE, 2 * N_RADIANCE)}")
+  fall = argparse.Namespace(**{**vars(fargs), "stage": "all"})
+  allm = nerf.construct_nerf(fall, ndim, nmin, nmax, grid, bindings,
+                             device=device, seed=seed)
+  convert.load_into(allm, {k: v for k, v in rad.state_dict().items()
+                           if k != "path_sampler.grid"})
+  torch.cuda.synchronize()
+  mlp_kernel.mlp_fwd.launches = mlp_kernel.mlp_bwd.launches = 0
+  losses_a, _, ok_a, _ = _train_steps(allm, fall, host, device,
+                                      TRAIN_FROM + N_RADIANCE + 1,
+                                      N_ALL_FUSED, gen)
+  counts_a = (mlp_kernel.mlp_fwd.launches, mlp_kernel.mlp_bwd.launches)
+  del allm
+  log(f"  'all' with --mlp_kernel=pallas: {N_ALL_FUSED} steps, losses "
+      f"{losses_a}, launches K4 {counts_a[0]}, K5 {counts_a[1]}")
+  if not (ok_a and np.all(np.isfinite(losses_a))) or counts_a != (0, 0):
+    raise SystemExit("fused train path: the 'all' stage must keep nn.Linear")
+  if profile:
+    profile_train_step(rad, fargs, host, device,
+                       TRAIN_FROM + N_RADIANCE + N_ALL, gen)
+  return counts, rad, fargs
 
 
 def allstep_cross_check(model, args, host, device, seed):
@@ -568,6 +878,108 @@ def allstep_cross_check(model, args, host, device, seed):
     raise SystemExit("all-step cpu cross-check failed")
 
 
+def _to_cpu(tree):
+  if isinstance(tree, torch.Tensor):
+    return tree.cpu()
+  if isinstance(tree, tuple):
+    return tuple(_to_cpu(t) for t in tree)
+  return tree
+
+
+def _worst_against(got, want):
+  """Worst |got - want| over the K5 fp32 tolerance across tensors."""
+  worst = 0.0
+  for g, w in zip(got, want):
+    scale = float(w.abs().max())
+    if scale > 0:
+      worst = max(worst, float(((g - w).abs() / (
+          K5_ATOL_SCALE * scale + K5_RTOL * w.abs())).max()))
+  return worst
+
+
+def fused_cross_check(model, args, host, device, seed):
+  """One fused radiance step's loss and coarse/fine MLP gradients on
+  XCHECK_RAYS rays, fp32, not randomized: the card (K4, K5) against the
+  CPU (their plain versions), the CPU step replaying the card's march
+  paths and fine-sample placement.
+
+  Replayed, because K1 and the plain march differ by ulps, and the coarse
+  weights that place the fine samples by the order of the MLP sums; the
+  fine samples' 2^9 encoding turns either into weight-gradient differences
+  of its own. The comparison without the replay is printed for the fused
+  and for the nn.Linear step, which stand alike. Returns K5's launches on
+  the card."""
+  sub = dict(host)
+  sub["rays"] = rays_lib.namedtuple_map(lambda r: r[:XCHECK_RAYS],
+                                        host["rays"])
+  sub["pixels"] = host["pixels"][:XCHECK_RAYS]
+  xargs = argparse.Namespace(**{**vars(args), "randomized": False})
+  model.mlp_dtype = torch.float32
+  jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
+                            torch.Generator().manual_seed(seed))
+  alpha = annealed_alpha(TRAIN_FROM + N_RADIANCE, args)
+  mlps = (model.coarse_mlp, model.fine_mlp)
+  sample_pdf = render_ops.sample_pdf
+
+  def run(dev, kernel, record=None, replay=None):
+    """loss and MLP gradients of one step; record appends the march and
+    sample_pdf outputs, replay returns the recorded ones."""
+    def pdf(*a, **k):
+      if replay is not None:
+        return replay[1]
+      out = sample_pdf(*a, **k)
+      if record is not None:
+        record.append(_to_cpu(out))
+      return out
+
+    def march(module, inputs, out):
+      if replay is not None:
+        return replay[0]
+      if record is not None:
+        record.append(_to_cpu(out))
+      return None
+
+    model.mlp_kernel = kernel
+    handle = model.path_sampler.register_forward_hook(march)
+    render_ops.sample_pdf = pdf
+    try:
+      model.zero_grad(set_to_none=True)
+      total, _ = step_lib.loss_fn(model, batch_to_device(sub, alpha, dev),
+                                  xargs, jitter.to(dev))
+      total.backward()
+    finally:
+      handle.remove()
+      render_ops.sample_pdf = sample_pdf
+    grads = [p.grad.detach().cpu().clone() for m in mlps
+             for p in m.parameters()]
+    return float(total.detach()), grads
+
+  recorded = []
+  mlp_kernel.mlp_bwd.launches = 0
+  loss_gpu, g_gpu = run(device, "pallas", record=recorded)
+  launches = mlp_kernel.mlp_bwd.launches
+  _, g_gpu_linear = run(device, "xla")
+  model.to("cpu")
+  t0 = time.time()
+  loss_cpu, g_cpu = run(torch.device("cpu"), "pallas", replay=recorded)
+  secs = time.time() - t0
+  rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+  worst = _worst_against(g_gpu, g_cpu)
+  own_fused = _worst_against(g_gpu, run(torch.device("cpu"), "pallas")[1])
+  own_linear = _worst_against(g_gpu_linear,
+                              run(torch.device("cpu"), "xla")[1])
+  model.mlp_kernel = args.mlp_kernel
+  log(f"fused radiance-step cpu cross-check: {XCHECK_RAYS} rays in "
+      f"{secs:.1f} s, loss {loss_gpu:.8f} vs {loss_cpu:.8f} (rel "
+      f"{rel:.3e}, tolerance {XCHECK_LOSS_RTOL}), MLP grads at {worst:.3f} "
+      f"of the K5 tolerance, K5 launches {launches}; each device placing "
+      f"its own samples: fused step at {own_fused:.3f}, nn.Linear step at "
+      f"{own_linear:.3f} of it")
+  if not (rel <= XCHECK_LOSS_RTOL and worst <= 1.0 and launches == 2):
+    raise SystemExit("fused radiance-step cpu cross-check failed")
+  return launches
+
+
 def main():
   p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   p.add_argument("--seed", type=int, default=0)
@@ -580,6 +992,7 @@ def main():
   card = device_phase()
   device = torch.device("cuda")
   build_phase()
+  probe_rows = probe_phase(device)
   args, model, scene = model_phase(device, ns.seed)
   view = camera_rays(RES)
   jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
@@ -592,23 +1005,36 @@ def main():
       view)
   host = synthetic_batch(args, ns.seed)
   with torch.no_grad():
-    report = [kernel_phase(model, first, jitter)]
-  del first
-  report += so3_kernel_phases(model, host, ns.seed)
+    k1 = kernel_phase(model, first, jitter)
+  k2, k3 = so3_kernel_phases(model, host, ns.seed)
+  batch_rays = batch_to_device(host, 1.0, device)["rays"]
+  k4, k4_pe, k4_bf16, k5_bf16, k5_fp32 = fused_kernel_phases(
+      model, first, batch_rays, jitter, ns.seed)
+  del first, batch_rays
   torch.cuda.empty_cache()
 
-  rgb, acc, launches = main_path_phase(model, view, jitter, args.chunk,
-                                       device, ns.profile)
-  report[0]["launches"] = launches
-  counts, all_model, all_args = train_path_phase(args, scene, device,
-                                                 ns.seed, host, ns.profile)
-  report[1]["launches"], report[2]["launches"] = counts[1], counts[2]
+  rgb, acc, k1["launches"], rate = main_path_phase(model, view, jitter,
+                                                   args.chunk, device,
+                                                   ns.profile)
+  fused = fused_render_phase(model, view, jitter, args.chunk, device, rgb,
+                             acc, rate, ns.profile)
+  k4["launches"], k4_pe["launches"] = fused["pallas"], fused["pallas_pe"]
+  counts, all_model, all_args, rate_r = train_path_phase(
+      args, scene, device, ns.seed, host, ns.profile)
+  k2["launches"], k3["launches"] = counts[1], counts[2]
+  fcounts, fused_model, fused_args = fused_train_phase(
+      args, scene, device, ns.seed, host, rate_r, ns.profile)
+  k4_bf16["launches"], k5_bf16["launches"] = fcounts
   del scene
   torch.cuda.empty_cache()
   allstep_cross_check(all_model, all_args, host, device, ns.seed)
   del all_model
+  k5_fp32["launches"] = fused_cross_check(fused_model, fused_args, host,
+                                          device, ns.seed)
+  del fused_model
   cross_check_phase(model, view, jitter, rgb, acc)
 
+  report = probe_rows + [k1, k2, k3, k4, k4_pe, k4_bf16, k5_bf16, k5_fp32]
   log(f"total: {time.time() - t_start:.1f} s")
   log(f"card: {card}")
   print(json.dumps({"kernels": report}))

@@ -4,7 +4,10 @@ Counterpart of samplenerfro_tpu/models/nerf.py:367-482 (NerfModel.__call__),
 :219-225 (forward_envmap) and :513-651 (construct_nerf) for the radiance
 and 'all' stages. The march runs in K1 (radiance) or in K2 with K3 as its
 backward ('all'; models/path_sampler.py); the MLPs are nn.Linear stacks in
-fp32 or, with `mlp_dtype=bfloat16`, bf16. Options the JAX model has and
+fp32 or, with `mlp_dtype=bfloat16`, bf16. With `mlp_kernel=pallas` or
+`pallas_pe` the coarse and fine NerfMLPs of a non-'all' stage run fused,
+K4 forward and K5 backward (ops/mlp_kernel.py), under the gates of
+samplenerfro_tpu/models/nerf.py:277-306. Options the JAX model has and
 this one does not yet (SH colour, online sparsity, the proxy-bbox mask,
 the boundary cut, IPE, the non-shipped VoxMLP heads) raise
 NotImplementedError.
@@ -19,7 +22,9 @@ from samplenerfro_torch.models import mlp as mlp_modules
 from samplenerfro_torch.models import path_sampler as ps_module
 from samplenerfro_torch.ops import grid as grid_ops
 from samplenerfro_torch.ops import math as math_ops
+from samplenerfro_torch.ops import mlp_kernel as fused_ops
 from samplenerfro_torch.ops import render as render_ops
+from samplenerfro_torch.utils.config import MLP_KERNELS
 
 
 def activation(name):
@@ -55,9 +60,12 @@ class NerfModel(nn.Module):
                num_rgb_channels, num_sigma_channels, white_bkgd,
                min_deg_point, max_deg_point, deg_view, rgb_activation,
                sigma_activation, legacy_posenc_order, rgb_padding=0.001,
-               sigma_bias=-1.0, mlp_dtype=torch.float32, generator=None):
+               sigma_bias=-1.0, mlp_dtype=torch.float32, mlp_kernel="xla",
+               generator=None):
     super().__init__()
+    self.stage = stage
     self.mlp_dtype = mlp_dtype
+    self.mlp_kernel = mlp_kernel
     self.num_coarse_samples = num_coarse_samples
     self.num_fine_samples = num_fine_samples
     self.num_path_samples = num_path_samples
@@ -75,6 +83,9 @@ class NerfModel(nn.Module):
 
     pts_dim = 3 + 6 * (max_deg_point - min_deg_point)
     dir_dim = 3 + 6 * deg_view
+    self.mlp_dims = (pts_dim, dir_dim, net_depth, net_width, skip_layer,
+                     net_depth_condition, net_width_condition,
+                     num_rgb_channels, num_sigma_channels)
     mk_nerf_mlp = lambda: mlp_modules.NerfMLP(
         pts_dim, dir_dim if use_viewdirs else None, net_depth=net_depth,
         net_width=net_width, net_depth_condition=net_depth_condition,
@@ -104,10 +115,47 @@ class NerfModel(nn.Module):
     bkgd = self.rgb_activation(raw_bkgd)
     return bkgd * (1 + 2 * self.rgb_padding) - self.rgb_padding
 
+  def _use_fused_mlp(self):
+    """Whether _decode takes the fused MLP (K4/K5): the gate of
+    samplenerfro_tpu/models/nerf.py:277-289. Its TPU-backend test has no
+    counterpart: on CPU tensors the fused path runs the plain versions."""
+    return (self.mlp_kernel in ("pallas", "pallas_pe") and self.use_viewdirs
+            and not self.stage.startswith("all")
+            and fused_ops.supports(*self.mlp_dims))
+
+  def _fused_pe(self):
+    """(pts_deg, dirs_deg) to encode the raw samples in the kernel, or None
+    (samplenerfro_tpu/models/nerf.py:291-306): only for mlp_kernel
+    pallas_pe with the plain non-legacy encodings from degree 0."""
+    if (self.mlp_kernel == "pallas_pe" and not self.legacy_posenc_order
+        and self.min_deg_point == 0 and self.deg_view > 0
+        and self.max_deg_point > 0):
+      return (self.max_deg_point, self.deg_view)
+    return None
+
   def _decode(self, mlp, samples_enc, viewdirs_enc, randomized, generator,
-              dtype):
-    """MLP eval + noise + activations -> (rgb, sigma)."""
-    if self.use_viewdirs:
+              dtype, raw_pts=None, raw_dirs=None):
+    """MLP eval + noise + activations -> (rgb, sigma).
+
+    raw_pts, raw_dirs: the raw [B, S, 3] samples and their directions, which
+    the fused MLP encodes itself when _fused_pe() is set (samples_enc is
+    then None).
+    """
+    if self._use_fused_mlp():
+      # Gradients reach the MLP's weights only, as in the JAX package: the
+      # radiance stage's samples come from the frozen path sampler.
+      pe = self._fused_pe()
+      lead = raw_pts.shape[:-1]
+      if pe is not None:
+        x_in, c_in = raw_pts.reshape(-1, 3), raw_dirs.reshape(-1, 3)
+      else:
+        x_in = samples_enc.reshape(-1, samples_enc.shape[-1])
+        c_in = viewdirs_enc.reshape(-1, viewdirs_enc.shape[-1])
+      raw_rgb, raw_sigma = fused_ops.fused_nerf_mlp(mlp, x_in, c_in,
+                                                    dtype=dtype, pe=pe)
+      raw_rgb = raw_rgb.reshape(*lead, -1)
+      raw_sigma = raw_sigma.reshape(*lead, -1)
+    elif self.use_viewdirs:
       raw_rgb, raw_sigma = mlp(samples_enc, viewdirs_enc, dtype=dtype)
     else:
       raw_rgb, raw_sigma = mlp(samples_enc, dtype=dtype)
@@ -146,7 +194,10 @@ class NerfModel(nn.Module):
                                           ray_dir[:, jitter],
                                           ray_dist[:, jitter])
 
-    samples_enc = self._encode_points(ray_pos_c)
+    # With the in-kernel encoding the MLP takes the raw samples; the view
+    # encoding still feeds the background MLP.
+    encode = not (self._use_fused_mlp() and self._fused_pe() is not None)
+    samples_enc = self._encode_points(ray_pos_c) if encode else None
     viewdirs_enc = self._encode_dirs(ray_dir_c)
 
     # Background colour from the exit direction of each path.
@@ -155,7 +206,8 @@ class NerfModel(nn.Module):
     bkgd = bkgd * (1 + 2 * self.rgb_padding) - self.rgb_padding
 
     rgb, sigma = self._decode(self.coarse_mlp, samples_enc, viewdirs_enc,
-                              randomized, generator, dtype)
+                              randomized, generator, dtype, ray_pos_c,
+                              ray_dir_c)
     comp_rgb, disp, acc, weights, _, trans, trans_rgb_bkgd = (
         render_ops.volumetric_rendering(rgb, sigma, ray_dist_c, ray_dir_c,
                                         self.white_bkgd, bkgd))
@@ -167,10 +219,11 @@ class NerfModel(nn.Module):
           mid, weights[..., 1:-1], ray_pos, ray_dir, ray_dist, None,
           self.num_fine_samples, randomized, jitter, self.near,
           z_coarse=ray_dist_c, generator=generator)
-      samples_enc = self._encode_points(ray_pos_c)
-      viewdirs_enc = self._encode_dirs(ray_dir_c)
+      samples_enc = self._encode_points(ray_pos_c) if encode else None
+      viewdirs_enc = self._encode_dirs(ray_dir_c) if encode else None
       rgb, sigma = self._decode(self.fine_mlp, samples_enc, viewdirs_enc,
-                                randomized, generator, dtype)
+                                randomized, generator, dtype, ray_pos_c,
+                                ray_dir_c)
       comp_rgb, disp, acc, _, _, trans, trans_rgb_bkgd = (
           render_ops.volumetric_rendering(rgb, sigma, ray_dist_c, ray_dir_c,
                                           self.white_bkgd, bkgd))
@@ -216,11 +269,20 @@ def construct_nerf(args, ndim, nmin, nmax, grid, gin_overrides=None,
       "NerfModel.use_mask_bbox": bool(g.get("NerfModel.use_mask_bbox", False)),
       "NerfModel.bd_cut_dist": g.get("NerfModel.bd_cut_dist") is not None,
       "NerfModel.use_ipe": bool(g.get("NerfModel.use_ipe", False)),
-      "mlp_kernel != xla": getattr(args, "mlp_kernel", "xla") != "xla",
   }
   for what, on in unsupported.items():
     if on:
       raise NotImplementedError(f"{what} is not ported yet")
+  mlp_kernel = getattr(args, "mlp_kernel", "xla")
+  if mlp_kernel not in MLP_KERNELS:
+    raise ValueError(f"mlp_kernel must be one of {MLP_KERNELS}, got "
+                     f"{mlp_kernel!r}")
+  if mlp_kernel != "xla" and args.net_activation != "relu":
+    # The fused kernels, like the JAX package's, hard-code ReLU; the JAX
+    # model would silently compute ReLU for another activation.
+    raise NotImplementedError(f"mlp_kernel={mlp_kernel} computes ReLU; "
+                              f"net_activation={args.net_activation!r} "
+                              "needs mlp_kernel=xla")
   shipped_head = {"VoxMLP.interp_method": "linear3", "VoxMLP.annealed": True,
                   "VoxMLP.use_residual": True,
                   "VoxMLP.use_direct_output": True,
@@ -264,5 +326,6 @@ def construct_nerf(args, ndim, nmin, nmax, grid, gin_overrides=None,
       max_deg_point=args.max_deg_point, deg_view=args.deg_view,
       rgb_activation=rgb_activation, sigma_activation=sigma_activation,
       legacy_posenc_order=args.legacy_posenc_order,
-      mlp_dtype=getattr(torch, mlp_dtype), generator=generator)
+      mlp_dtype=getattr(torch, mlp_dtype), mlp_kernel=mlp_kernel,
+      generator=generator)
   return model.to(device).eval()

@@ -2,14 +2,16 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by nvcc
 for sm_90a into `build/torch_kernels/<name>-<hash>.so` inside the
-checkout, then loaded with ctypes. The hash covers the source and the
-flags, so an edited source rebuilds and an unchanged one is reused. Builds
-happen at first use, never at import.
+checkout, then loaded with ctypes. The hash covers the source, the
+`csrc/*.cuh` headers it includes and the flags, so an edited source or
+header rebuilds and an unchanged one is reused. Builds happen at first
+use, never at import.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,9 +43,17 @@ def nvcc_path():
   return found
 
 
+def _local_headers(src):
+  """The csrc headers a source includes by quoted name, in order."""
+  return [CSRC / m.group(1) for m in re.finditer(
+      r'^#include "([^"]+)"', src.read_text(), flags=re.MULTILINE)]
+
+
 def _target(name):
   src = CSRC / f"{name}.cu"
-  digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+  content = src.read_bytes() + b"".join(h.read_bytes()
+                                        for h in _local_headers(src))
+  digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode())
   return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

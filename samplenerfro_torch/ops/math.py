@@ -1,6 +1,7 @@
 """Safe math helpers and positional encoding.
 
-Counterpart of samplenerfro_tpu/ops/math.py:16-106 and 133-150.
+Counterpart of samplenerfro_tpu/ops/math.py:16-106 and 133-150, and of
+the fused MLP's encoding (pe_cols).
 """
 
 import math
@@ -41,6 +42,15 @@ def pos_enc(x, min_deg, max_deg, legacy_posenc_order=False, amp=1.0):
     xb = (x[..., None, :] * scales[:, None]).reshape(lead + [-1])
     four_feat = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
   return torch.cat([x, amp * four_feat], dim=-1)
+
+
+def pe_cols(p, deg):
+  """The fused MLP's in-kernel encoding of [..., 3] (K4/K5 with pe):
+  [p, sin(xb), sin(xb + pi/2)], xb degree-major and xyz-minor at scales
+  2^0 .. 2^(deg-1), the layout of
+  samplenerfro_tpu/ops/pallas/mlp_kernel.py:_pe_cols. That is the
+  non-legacy pos_enc from degree 0, bit for bit."""
+  return pos_enc(p, 0, deg)
 
 
 def cosine_easing_window(min_freq_log2, max_freq_log2, num_bands, alpha):

@@ -1,0 +1,399 @@
+"""The fused NerfMLP kernels: wrappers, plain versions, autograd Function.
+
+K4, the forward (csrc/mlp_fwd.cu), replaces
+samplenerfro_tpu/ops/pallas/mlp_kernel.py:_fwd_kernel; K5, the parameter
+backward (csrc/mlp_bwd.cu), replaces its _bwd_kernel. Both run the whole
+NerfMLP (trunk with the input skip, sigma head, bottleneck, condition
+layer, rgb head) at the TPU kernel's rounding points (`_forward_tile`):
+every product accumulates in fp32 and adds an fp32 bias, ReLU runs in
+fp32, each activation is then stored in the compute type, the sigma column
+and the rgb head stay fp32, and the bottleneck is rounded to the compute
+type before it meets the condition. ReLU is hard-coded, whatever the
+model's net_activation (the JAX kernel does the same; construct_nerf
+refuses another activation with the fused path).
+
+`fused_nerf_mlp` is the entry point the model calls. Its autograd Function
+returns gradients for the MLP's weights only: the radiance stage's inputs
+come from the frozen path sampler, and an input that requires grad raises.
+`mlp_fwd` and `mlp_bwd` launch K4 and K5 for CUDA tensors and use the plain
+versions only for CPU tensors. The JAX kernel's 128-lane padding of the
+features and heads is a TPU layout and is not carried over.
+"""
+
+import collections
+import contextlib
+import ctypes
+import math
+
+import torch
+
+from samplenerfro_torch.ops import cuda_build
+from samplenerfro_torch.ops import math as math_ops
+
+MAX_WIDTH = 256  # widest layer the CUDA kernels' shared memory holds
+ROWS = 64        # rows of a kernel tile (csrc/mlp_common.cuh:kRows)
+
+# The static geometry of a fused MLP: trunk depth and width, skip period,
+# feature and condition widths, condition layer width, rgb and sigma
+# channels, and pe = None (features given) or (pts_deg, dirs_deg) (raw
+# [N, 3] points and view directions, encoded in the kernel).
+MlpSpec = collections.namedtuple(
+    "MlpSpec", ("depth", "width", "skip", "feat", "cond", "cond_width",
+                "num_rgb", "num_sigma", "pe"))
+
+
+def supports(feature_dim, cond_dim, net_depth, net_width, skip_layer,
+             net_depth_condition, cond_width, num_rgb, num_sigma, pe=None):
+  """Whether the fused kernels implement this NerfMLP configuration.
+
+  The same answers as samplenerfro_tpu/ops/pallas/mlp_kernel.py:102-117.
+  """
+  if pe is not None and (feature_dim != 3 + 6 * pe[0]
+                         or cond_dim != 3 + 6 * pe[1]):
+    return False
+  return (net_depth_condition == 1
+          and net_width % 128 == 0 and cond_width % 128 == 0
+          and num_rgb <= 8 - num_sigma and num_sigma >= 1
+          and feature_dim <= 128 and cond_dim <= 128
+          and net_depth >= 2
+          and (net_depth - 1) % skip_layer != 0)
+
+
+def skip_after(spec, i):
+  """Whether trunk layer i's output gets the input features appended."""
+  return i > 0 and i % spec.skip == 0
+
+
+def layer_dims(spec):
+  """[(inputs, outputs)] of the layers in nn.Linear order: trunk, sigma,
+  bottleneck, condition, rgb."""
+  dims = []
+  for i in range(spec.depth):
+    k = (spec.feat if i == 0 else
+         spec.width + spec.feat if skip_after(spec, i - 1) else spec.width)
+    dims.append((k, spec.width))
+  return dims + [(spec.width, spec.num_sigma), (spec.width, spec.width),
+                 (spec.width + spec.cond, spec.cond_width),
+                 (spec.cond_width, spec.num_rgb)]
+
+
+def mlp_spec(mlp, pe=None):
+  """The MlpSpec of a port NerfMLP (models/mlp.py) with one condition
+  layer; pe as in MlpSpec."""
+  depth = mlp.net_depth
+  layers = mlp.layers
+  if not mlp.has_condition or len(layers) != depth + 4:
+    raise ValueError("the fused MLP needs a NerfMLP with a view condition "
+                     "and one condition layer")
+  width = layers[0].out_features
+  spec = MlpSpec(depth, width, mlp.skip_layer, layers[0].in_features,
+                 layers[depth + 2].in_features - width,
+                 layers[depth + 2].out_features,
+                 layers[depth + 3].out_features,
+                 layers[depth].out_features, pe)
+  if pe is not None and (spec.feat, spec.cond) != (3 + 6 * pe[0],
+                                                   3 + 6 * pe[1]):
+    raise ValueError(f"pe degrees {pe} do not give the MLP's input widths "
+                     f"{spec.feat} and {spec.cond}")
+  return spec
+
+
+def mlp_params(mlp):
+  """A NerfMLP's flat parameter list [W_0, b_0, W_1, b_1, ...]."""
+  return [p for layer in mlp.layers for p in (layer.weight, layer.bias)]
+
+
+def pack_params(params, dtype):
+  """The kernels' operands from the flat [W_0, b_0, ...] (nn.Linear, W
+  [out, in]).
+
+  Returns (wkn, wnk, bias): every weight input-major ([in, out], the JAX
+  kernel's layout) and output-major ([out, in], K5's transposed products),
+  each concatenated in layer order in the compute type, and the biases
+  concatenated in fp32.
+  """
+  weights = [w.detach() for w in params[0::2]]
+  wkn = torch.cat([w.t().reshape(-1) for w in weights]).to(dtype)
+  wnk = torch.cat([w.reshape(-1) for w in weights]).to(dtype)
+  bias = torch.cat([b.detach().reshape(-1) for b in params[1::2]]).float()
+  return wkn.contiguous(), wnk.contiguous(), bias.contiguous()
+
+
+def unpack_grads(spec, flat):
+  """K5's flat fp32 gradients (input-major weights, then biases) -> the
+  flat [dW_0, db_0, ...] in nn.Linear's layout."""
+  dims = layer_dims(spec)
+  nweights = sum(k * n for k, n in dims)
+  grads, w_off, b_off = [], 0, nweights
+  for k, n in dims:
+    grads.append(flat[w_off:w_off + k * n].reshape(k, n).t().contiguous())
+    grads.append(flat[b_off:b_off + n].clone())
+    w_off += k * n
+    b_off += n
+  return grads
+
+
+@contextlib.contextmanager
+def _full_fp32():
+  """fp32 matrix products without TF32 on the card, as the plain versions
+  are defined (PyTorch's default; set and restored here)."""
+  saved = torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cuda.matmul.allow_tf32 = False
+  try:
+    yield
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _rnd(t, dtype):
+  """Round fp32 values to the compute type and back: exact bf16 operands,
+  whose products fp32 then holds exactly."""
+  return t if dtype == torch.float32 else t.to(dtype).float()
+
+
+def _featurize(spec, x, cond, dtype):
+  """The kernels' inputs, in fp32 holding compute-type values: x and cond
+  as given, or (pe) their encodings (ops/math.pe_cols)."""
+  if spec.pe is not None:
+    x = math_ops.pe_cols(x, spec.pe[0])
+    cond = math_ops.pe_cols(cond, spec.pe[1])
+  return _rnd(x.float(), dtype), _rnd(cond.float(), dtype)
+
+
+def _forward(spec, params, x0, cond, dtype):
+  """_forward_tile on all rows: (weights [in, out], layer inputs, stored
+  activations, trunk output, [bottleneck, cond], condition activation,
+  sigma, rgb)."""
+  w = [_rnd(p.float(), dtype).t() for p in params[0::2]]
+  b = [p.float() for p in params[1::2]]
+  d = spec.depth
+  augs, acts, h = [], [], x0
+  for i in range(d):
+    augs.append(h)
+    a = _rnd(torch.relu(h @ w[i] + b[i]), dtype)
+    acts.append(a)
+    h = torch.cat([a, x0], dim=-1) if skip_after(spec, i) else a
+  sigma = h @ w[d] + b[d]
+  bn = _rnd(h @ w[d + 1] + b[d + 1], dtype)
+  xcat = torch.cat([bn, cond], dim=-1)
+  a_c = _rnd(torch.relu(xcat @ w[d + 2] + b[d + 2]), dtype)
+  rgb = a_c @ w[d + 3] + b[d + 3]
+  return w, augs, acts, h, xcat, a_c, sigma, rgb
+
+
+def fused_nerf_mlp_reference(spec, params, x, cond, dtype):
+  """Plain PyTorch version of K4: (raw rgb [N, num_rgb], sigma
+  [N, num_sigma]), fp32.
+
+  bf16 is emulated by rounding operands to bf16 and multiplying in fp32
+  with TF32 off, so the products are exact and only the order of the sums
+  differs from the kernel. Differentiable in params (torch autograd).
+  """
+  with _full_fp32():
+    x0, c = _featurize(spec, x, cond, dtype)
+    out = _forward(spec, params, x0, c, dtype)
+  return out[7], out[6]
+
+
+def fused_nerf_mlp_bwd_reference(spec, params, x, cond, drgb, dsigma, dtype):
+  """Plain PyTorch version of K5: the recompute and backward of
+  samplenerfro_tpu/ops/pallas/mlp_kernel.py:268-317.
+
+  Returns the flat fp32 [dW_0, db_0, ...] in nn.Linear's layout. ReLU masks
+  come from the stored activations; each pre-activation cotangent is
+  rounded to the compute type before its products, and each bias gradient
+  sums the unrounded cotangent.
+  """
+  rnd = lambda t: _rnd(t, dtype)
+  d, width = spec.depth, spec.width
+  gw, gb = [None] * (d + 4), [None] * (d + 4)
+  with torch.no_grad(), _full_fp32():
+    x0, c = _featurize(spec, x, cond, dtype)
+    w, augs, acts, h, xcat, a_c, _, _ = _forward(spec, params, x0, c, dtype)
+    drgb, dsigma = drgb.float(), dsigma.float()
+    drgb16 = rnd(drgb)
+    gw[d + 3], gb[d + 3] = a_c.t() @ drgb16, drgb.sum(0)
+    da_c = (drgb16 @ w[d + 3].t()) * (a_c > 0)
+    da_c16 = rnd(da_c)
+    gw[d + 2], gb[d + 2] = xcat.t() @ da_c16, da_c.sum(0)
+    dbn = (da_c16 @ w[d + 2].t())[:, :width]
+    dheads = torch.cat([dsigma, dbn], dim=-1)
+    dheads16 = rnd(dheads)
+    dw_heads = h.t() @ dheads16
+    gw[d], gb[d] = dw_heads[:, :spec.num_sigma], dsigma.sum(0)
+    gw[d + 1], gb[d + 1] = dw_heads[:, spec.num_sigma:], dbn.sum(0)
+    dh = dheads16 @ torch.cat([w[d], w[d + 1]], dim=-1).t()
+    for i in range(d - 1, -1, -1):
+      dpre = dh * (acts[i] > 0)
+      dpre16 = rnd(dpre)
+      gw[i], gb[i] = augs[i].t() @ dpre16, dpre.sum(0)
+      if i > 0:
+        dh = (dpre16 @ w[i].t())[:, :width]
+  return [g for pair in zip(gw, gb) for g in (pair[0].t().contiguous(),
+                                              pair[1])]
+
+
+def _check(spec, x, cond, params, who):
+  """Raise ValueError unless the kernels take these tensors."""
+  dev = x.device
+  rows = x.shape[0]
+  fx, fc = (3, 3) if spec.pe is not None else (spec.feat, spec.cond)
+  for name, t, shape in (("x", x, (rows, fx)), ("cond", cond, (rows, fc))):
+    if t.device != dev or t.dtype != torch.float32:
+      raise ValueError(f"{who}: {name} must be float32 on {dev}, got "
+                       f"{t.dtype} on {t.device}")
+    if tuple(t.shape) != shape or not t.is_contiguous():
+      raise ValueError(f"{who}: {name} must be contiguous {shape}, got "
+                       f"{tuple(t.shape)}")
+  for (k, n), w, b in zip(layer_dims(spec), params[0::2], params[1::2]):
+    if tuple(w.shape) != (n, k) or tuple(b.shape) != (n,):
+      raise ValueError(f"{who}: a layer is {tuple(w.shape)}, expected "
+                       f"{(n, k)}")
+    if w.device != dev or b.device != dev:
+      raise ValueError(f"{who}: weights on {w.device}, inputs on {dev}")
+  if max(spec.width, spec.cond_width) > MAX_WIDTH:
+    raise ValueError(f"{who}: the CUDA kernels take layer widths up to "
+                     f"{MAX_WIDTH}, got {spec.width} and {spec.cond_width}")
+
+
+def _spec_args(spec, dtype):
+  nweights = sum(k * n for k, n in layer_dims(spec))
+  return (int(dtype == torch.bfloat16), spec.depth, spec.width, spec.skip,
+          spec.feat, spec.cond, spec.cond_width, spec.num_rgb,
+          spec.num_sigma, int(spec.pe is not None), nweights)
+
+
+def _dtype_of(dtype):
+  if dtype not in (torch.float32, torch.bfloat16):
+    raise ValueError(f"the fused MLP computes in float32 or bfloat16, not "
+                     f"{dtype}")
+  return dtype
+
+
+def mlp_fwd(spec, params, x, cond, dtype):
+  """K4: (raw rgb [N, num_rgb], sigma [N, num_sigma]) in fp32.
+
+  Args:
+    spec: MlpSpec.
+    params: the NerfMLP's flat [W_0, b_0, ...] (mlp_params).
+    x: [N, feat] features, or [N, 3] raw points when spec.pe is set.
+    cond: [N, cond] view encodings, or [N, 3] raw view directions.
+    dtype: compute type, torch.float32 or torch.bfloat16.
+  """
+  dtype = _dtype_of(dtype)
+  dev = x.device
+  if dev.type == "cpu":
+    return fused_nerf_mlp_reference(spec, params, x, cond, dtype)
+  if dev.type != "cuda":
+    raise ValueError(f"mlp_fwd runs on CUDA or CPU tensors, not {dev}")
+  _check(spec, x, cond, params, "mlp_fwd")
+  wkn, _, bias = pack_params(params, dtype)
+  rows, out_dim = x.shape[0], spec.num_rgb + spec.num_sigma
+  out = torch.empty((rows, out_dim), dtype=torch.float32, device=dev)
+  lib = _library("mlp_fwd")
+  with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.mlp_fwd_launch(x.data_ptr(), cond.data_ptr(), wkn.data_ptr(),
+                             bias.data_ptr(), out.data_ptr(), rows,
+                             *_spec_args(spec, dtype), stream)
+  if err != 0:
+    raise RuntimeError(f"mlp_fwd: kernel launch failed with CUDA error "
+                       f"{err}")
+  mlp_fwd.launches += 1
+  return out[:, :spec.num_rgb], out[:, spec.num_rgb:]
+
+
+mlp_fwd.launches = 0
+
+
+def mlp_bwd(spec, params, x, cond, drgb, dsigma, dtype):
+  """K5: the flat fp32 [dW_0, db_0, ...] (nn.Linear layout) from the
+  cotangents of mlp_fwd's outputs; arguments as mlp_fwd."""
+  dtype = _dtype_of(dtype)
+  dev = x.device
+  if dev.type == "cpu":
+    return fused_nerf_mlp_bwd_reference(spec, params, x, cond, drgb, dsigma,
+                                        dtype)
+  if dev.type != "cuda":
+    raise ValueError(f"mlp_bwd runs on CUDA or CPU tensors, not {dev}")
+  _check(spec, x, cond, params, "mlp_bwd")
+  rows = x.shape[0]
+  dout = torch.cat([drgb, dsigma], dim=-1).float().contiguous()
+  if tuple(dout.shape) != (rows, spec.num_rgb + spec.num_sigma):
+    raise ValueError(f"mlp_bwd: cotangents of shape {tuple(drgb.shape)} "
+                     f"and {tuple(dsigma.shape)} do not fit {rows} rows")
+  wkn, wnk, bias = pack_params(params, dtype)
+  blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count,
+               max(1, math.ceil(rows / ROWS)))
+  slab = ((spec.depth + 1) * spec.width + spec.cond_width) * ROWS
+  count = wkn.numel() + bias.numel()
+  scratch = torch.empty((blocks, slab), dtype=dtype, device=dev)
+  partial = torch.zeros((blocks, count), dtype=torch.float32, device=dev)
+  grads = torch.empty((count,), dtype=torch.float32, device=dev)
+  lib = _library("mlp_bwd")
+  with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.mlp_bwd_launch(
+        x.data_ptr(), cond.data_ptr(), dout.data_ptr(), wkn.data_ptr(),
+        wnk.data_ptr(), bias.data_ptr(), scratch.data_ptr(),
+        partial.data_ptr(), grads.data_ptr(), rows, blocks,
+        *_spec_args(spec, dtype), stream)
+  if err != 0:
+    raise RuntimeError(f"mlp_bwd: kernel launch failed with CUDA error "
+                       f"{err}")
+  mlp_bwd.launches += 1
+  return unpack_grads(spec, grads)
+
+
+mlp_bwd.launches = 0
+
+
+class FusedNerfMLP(torch.autograd.Function):
+  """K4 forward, K5 backward; gradients for the weights only."""
+
+  @staticmethod
+  def forward(ctx, spec, dtype, x, cond, *params):
+    if x.requires_grad or cond.requires_grad:
+      raise ValueError("the fused MLP gives no input gradients: its inputs "
+                       "must not require grad (the radiance stage's come "
+                       "from the frozen path sampler)")
+    ctx.spec, ctx.dtype = spec, dtype
+    ctx.save_for_backward(x, cond, *params)
+    return mlp_fwd(spec, list(params), x, cond, dtype)
+
+  @staticmethod
+  def backward(ctx, drgb, dsigma):
+    x, cond, *params = ctx.saved_tensors
+    grads = mlp_bwd(ctx.spec, params, x, cond, drgb, dsigma, ctx.dtype)
+    return (None, None, None, None, *grads)
+
+
+def fused_nerf_mlp(mlp, x, cond, *, dtype, pe=None):
+  """The fused NerfMLP apply: (raw rgb [N, num_rgb], sigma [N, num_sigma]).
+
+  Args:
+    mlp: a port NerfMLP (models/mlp.py) with a view condition.
+    x: [N, feat] point features, or with pe [N, 3] raw points.
+    cond: [N, cond] view encodings, or with pe [N, 3] raw view directions.
+    dtype: compute type, torch.float32 or torch.bfloat16.
+    pe: None, or (pts_deg, dirs_deg) to encode the raw inputs in the
+      kernel with the non-legacy positional encoding.
+
+  Differentiable in the MLP's parameters only (K5); x and cond must not
+  require grad.
+  """
+  spec = mlp_spec(mlp, pe)
+  return FusedNerfMLP.apply(spec, dtype, x.contiguous(), cond.contiguous(),
+                            *mlp_params(mlp))
+
+
+def _library(name):
+  lib = cuda_build.load(name)
+  fn = getattr(lib, f"{name}_launch")
+  if fn.restype is not ctypes.c_int or not fn.argtypes:
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    pointers = 5 if name == "mlp_fwd" else 9
+    ints = 1 if name == "mlp_fwd" else 2
+    fn.argtypes = [vp] * pointers + [ci] * (ints + 10) + [cl, vp]
+    fn.restype = ci
+  return lib

@@ -73,7 +73,13 @@ IGNORED_FLAGS = {
     # Dispatch amortisation of a remote TPU: PyTorch runs eagerly.
     "steps_per_dispatch": "one step per Python call",
     "render_chunks_per_dispatch": "one chunk per Python call",
+    # Rematerialisation of the MLPs under jax.checkpoint: autograd keeps
+    # the nn.Linear activations, and K5 recomputes its own.
+    "mlp_remat": "autograd keeps the activations; K5 recomputes its own",
 }
+# The radiance MLPs' implementations (models/nerf.py): nn.Linear, or the
+# fused K4/K5 with features given or encoded in the kernel.
+MLP_KERNELS = ("xla", "pallas", "pallas_pe")
 # tile_size sizes the TPU march blocks too; the port reads it only for
 # `batching: tile` and renders in fixed 16x16 pixel tiles (utils/render.py).
 
@@ -220,6 +226,9 @@ def load_args(config=None, gin_files=None, gin_params=None, **overrides):
   if unknown:
     raise ValueError(f"unknown flags {unknown}")
   values.update(overrides)
+  if values["mlp_kernel"] not in MLP_KERNELS:
+    raise ValueError(f"mlp_kernel must be one of {MLP_KERNELS}, got "
+                     f"{values['mlp_kernel']!r}")
   values["config"] = config
   values["gin_file"] = list(gin_files or [])
   bindings = parse_gin(gin_files, gin_params)

@@ -239,3 +239,133 @@ def test_cuda_render_matches_cpu(cuda_device):
   for g_level, w_level in zip(*outs):
     for g, w in zip(g_level, w_level):
       torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def _mlp_case(device, n, pe, seed=0, depth=4, width=128, skip=2):
+  """A seeded NerfMLP (biases drawn too, so every bias path is exercised)
+  and inputs on `device`: raw points/directions with pe, else features."""
+  from samplenerfro_torch.models import mlp as mlp_modules
+  from samplenerfro_torch.ops import mlp_kernel
+  gen = torch.Generator().manual_seed(seed)
+  mlp = mlp_modules.NerfMLP(63, 27, net_depth=depth, net_width=width,
+                            skip_layer=skip, generator=gen)
+  with torch.no_grad():
+    for layer in mlp.layers:
+      layer.bias.normal_(0.0, 0.1, generator=gen)
+  rng = np.random.RandomState(seed)
+  pts = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+  dirs = rng.randn(n, 3).astype(np.float32)
+  dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+  x, c = torch.from_numpy(pts), torch.from_numpy(dirs)
+  if pe is None:
+    x, c = math_ops.pe_cols(x, 10), math_ops.pe_cols(c, 4)
+  spec = mlp_kernel.mlp_spec(mlp, pe)
+  params = [p.detach().to(device) for p in mlp_kernel.mlp_params(mlp)]
+  return spec, params, x.to(device).contiguous(), c.to(device).contiguous()
+
+
+# K4 against its plain version on the card. fp32: both sum fp32 products
+# in different orders (the plain version through cuBLAS without TF32), a
+# few ulp apart. bf16: the products are exact on both sides, but a sum in
+# another order can land a pre-activation on the other side of a bf16
+# rounding boundary, one bf16 ulp (2^-8 relative) that later layers carry.
+# The CPU tests measure such a flip at up to 1.3e-3 in one row's raw
+# outputs and 6.6e-6 in the mean (tests/test_torch_mlp_kernel.py); the same
+# holds here.
+K4_FP32_ATOL = 1e-5
+K4_BF16_MAX, K4_BF16_MEAN = 4e-3, 3e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pe,n", [
+    (torch.float32, None, 256), (torch.float32, None, 70),
+    (torch.float32, (10, 4), 130), (torch.bfloat16, None, 200),
+    (torch.bfloat16, (10, 4), 64)])
+def test_cuda_fused_mlp_forward_matches_plain_version(cuda_device, dtype, pe,
+                                                      n):
+  from samplenerfro_torch.ops import mlp_kernel
+  spec, params, x, c = _mlp_case(cuda_device, n, pe)
+  before = mlp_kernel.mlp_fwd.launches
+  rgb, sigma = mlp_kernel.mlp_fwd(spec, params, x, c, dtype)
+  torch.cuda.synchronize()
+  assert mlp_kernel.mlp_fwd.launches == before + 1
+  want = torch.cat(mlp_kernel.fused_nerf_mlp_reference(spec, params, x, c,
+                                                       dtype), -1)
+  got = torch.cat([rgb, sigma], -1)
+  assert got.shape == (n, 4) and got.dtype == torch.float32
+  err = (got - want).abs()
+  if dtype == torch.float32:
+    assert float(err.max()) <= K4_FP32_ATOL
+  else:
+    assert float(err.max()) <= K4_BF16_MAX
+    assert float(err.mean()) <= K4_BF16_MEAN
+
+
+def _assert_mlp_grads(got, want, frac):
+  for i, (g, w) in enumerate(zip(got, want)):
+    assert g.shape == w.shape
+    scale = max(float(w.abs().max()), 1e-6)
+    err = float((g - w).abs().max())
+    assert err <= frac * scale, f"param {i}: {err} > {frac} * {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pe,n", [
+    (torch.float32, None, 300), (torch.float32, (10, 4), 70),
+    (torch.bfloat16, None, 256)])
+def test_cuda_fused_mlp_backward_matches_plain_version(cuda_device, dtype,
+                                                       pe, n):
+  """K5 against its plain version, per tensor at a fraction of its scale:
+  1e-4 in fp32 (summation order only), 2e-2 in bf16 (a pre-activation
+  rounded to the other bf16 neighbour moves its row's contributions by an
+  ulp, and a ReLU mask near 0 may flip)."""
+  from samplenerfro_torch.ops import mlp_kernel
+  spec, params, x, c = _mlp_case(cuda_device, n, pe, seed=3)
+  gen = torch.Generator().manual_seed(4)
+  drgb = torch.randn((n, 3), generator=gen).to(cuda_device)
+  dsigma = torch.randn((n, 1), generator=gen).to(cuda_device)
+  before = mlp_kernel.mlp_bwd.launches
+  got = mlp_kernel.mlp_bwd(spec, params, x, c, drgb, dsigma, dtype)
+  torch.cuda.synchronize()
+  assert mlp_kernel.mlp_bwd.launches == before + 1
+  want = mlp_kernel.fused_nerf_mlp_bwd_reference(spec, params, x, c, drgb,
+                                                 dsigma, dtype)
+  _assert_mlp_grads(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+  again = mlp_kernel.mlp_bwd(spec, params, x, c, drgb, dsigma, dtype)
+  assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_mlp_autograd_and_ship_width(cuda_device):
+  """Through the autograd Function at the ship's 8x256 width: one K4 and
+  one K5 launch, gradients for the weights only."""
+  from samplenerfro_torch.ops import mlp_kernel
+  spec, params, x, c = _mlp_case(cuda_device, 100, (10, 4), depth=8,
+                                 width=256, skip=4)
+  params = [p.requires_grad_() for p in params]
+  before = (mlp_kernel.mlp_fwd.launches, mlp_kernel.mlp_bwd.launches)
+  rgb, sigma = mlp_kernel.FusedNerfMLP.apply(spec, torch.float32, x, c,
+                                             *params)
+  (rgb.square().sum() + sigma.sum()).backward()
+  assert (mlp_kernel.mlp_fwd.launches,
+          mlp_kernel.mlp_bwd.launches) == (before[0] + 1, before[1] + 1)
+  ref = [p.detach().clone().requires_grad_() for p in params]
+  r_rgb, r_sigma = mlp_kernel.fused_nerf_mlp_reference(spec, ref, x, c,
+                                                       torch.float32)
+  (r_rgb.square().sum() + r_sigma.sum()).backward()
+  _assert_mlp_grads([p.grad for p in params], [p.grad for p in ref], 1e-4)
+  with pytest.raises(ValueError, match="require grad"):
+    mlp_kernel.FusedNerfMLP.apply(spec, torch.float32,
+                                  x.clone().requires_grad_(), c, *params)
+
+
+@pytest.mark.cuda
+def test_cuda_probes(cuda_device):
+  from samplenerfro_torch.utils import probes
+  x = probes.probe_inputs((8, 128)).to(cuda_device)
+  assert torch.equal(probes.add_one(x), x + 1)
+  for scale, err64, err_lib in probes.sin_errors(cuda_device):
+    # CUDA documents sinf at 2 ulp: at |x| <= 8192 that is <= 1e-6 of a
+    # value in [-1, 1].
+    assert err64 <= 1e-6, (scale, err64)
+    assert err_lib <= 1e-6, (scale, err_lib)

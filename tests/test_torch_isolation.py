@@ -44,7 +44,7 @@ def test_port_files_found():
   assert "chip_smoke.py" in FILES
   for rel in ("ops/march_kernel.py", "ops/eikonal_vjp.py", "ops/mlp.py",
               "train/step.py", "train/checkpoints.py", "train/loop.py",
-              "train/__main__.py"):
+              "train/__main__.py", "ops/mlp_kernel.py", "utils/probes.py"):
     assert f"samplenerfro_torch/{rel}" in FILES
 
 

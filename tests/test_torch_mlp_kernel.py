@@ -1,0 +1,247 @@
+"""The fused NerfMLP's plain versions (K4/K5) against the JAX package's.
+
+The same numpy-seeded inputs and the same weights (a flax NerfMLP's
+params, biases redrawn from numpy so that every bias path is exercised,
+carried by models/convert.params_from_flax) go through the JAX
+`fused_nerf_mlp` in interpret mode (as tests/test_mlp_kernel.py runs it on
+the CPU) and through the port's `fused_nerf_mlp_reference` (K4's plain
+version) and `FusedNerfMLP` (whose backward on CPU tensors is K5's plain
+version). Most cases use a small supported spec (depth 4, width 128, skip
+2, condition width 128); one runs the ship's 8x256 trunk.
+
+Tolerances:
+- fp32 forward 1e-5 abs/rel: both sum fp32 products, in other orders.
+- bf16 forward: both multiply bf16 operands exactly in fp32, so only the
+  order of the fp32 sums differs, and that moves a pre-activation across a
+  bf16 rounding boundary only where the two sums differ, which is rare: a
+  bf16 product has 16 significant bits, so most partial sums are exact. In
+  pe mode XLA's and torch's sin also differ by an ulp now and then, which
+  can round an encoded feature to the other bf16 neighbour. Measured over
+  four seeds of these shapes: max 1.3e-3 (one row, one activation a bf16
+  ulp apart), mean 6.6e-6; both encodings agree alike. Held at max 4e-3
+  and mean 3e-5, while the fp32 kernel stands at a mean of >= 1.3e-3 from
+  the bf16 one, so a wrong rounding point shows.
+- fp32 gradients atol = rtol = 5e-4, the JAX test's own tolerance
+  (tests/test_mlp_kernel.py:74-78). bf16 gradients per tensor at 1e-3 of
+  its scale: measured 2.4e-5, 4.4e-6 and 1.5e-7 of scale over three seeds
+  (a flipped activation or ReLU mask moves one row's contribution).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import random
+
+from samplenerfro_torch.models import convert
+from samplenerfro_torch.models import mlp as t_mlp
+from samplenerfro_torch.ops import math as t_math
+from samplenerfro_torch.ops import mlp_kernel
+from samplenerfro_tpu.models import mlp as j_mlp
+from samplenerfro_tpu.ops import math as j_math
+from samplenerfro_tpu.ops.pallas import mlp_kernel as j_kernel
+
+PTS_DEG, DIRS_DEG = 10, 4
+FEAT, COND = 3 + 6 * PTS_DEG, 3 + 6 * DIRS_DEG
+SMALL = dict(depth=4, width=128, skip=2)
+SHIP = dict(depth=8, width=256, skip=4)
+BF16_MAX, BF16_MEAN = 4e-3, 3e-5
+BF16_GRAD_FRAC = 1e-3
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _setup(n, depth, width, skip, seed=0):
+  """(flax params as numpy, port NerfMLP, raw points, raw directions,
+  their JAX encodings) from numpy seeds."""
+  rng = np.random.RandomState(seed)
+  pts = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+  dirs = rng.randn(n, 3).astype(np.float32)
+  dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+  x = np.asarray(j_math.pos_enc(jnp.asarray(pts), 0, PTS_DEG))
+  c = np.asarray(j_math.pos_enc(jnp.asarray(dirs), 0, DIRS_DEG))
+  flax_mlp = j_mlp.NerfMLP(net_depth=depth, net_width=width,
+                           net_depth_condition=1, net_width_condition=128,
+                           skip_layer=skip)
+  params = flax_mlp.init(random.PRNGKey(seed), x[None], c[None])["params"]
+  params = jax.tree_util.tree_map(np.asarray, params)
+  params = {k: {"kernel": v["kernel"],
+                "bias": (0.1 * rng.randn(*v["bias"].shape)).astype(
+                    np.float32)} for k, v in params.items()}
+  port = t_mlp.NerfMLP(FEAT, COND, net_depth=depth, net_width=width,
+                       skip_layer=skip)
+  sd = convert.params_from_flax({"coarse_mlp": params})
+  port.load_state_dict({k[len("coarse_mlp."):]: v for k, v in sd.items()})
+  return params, port, pts, dirs, x, c
+
+
+def _jax_fused(params, x, c, dtype, pe, depth, width, skip):
+  return j_kernel.fused_nerf_mlp(
+      params, jnp.asarray(x), jnp.asarray(c), net_depth=depth,
+      net_width=width, skip_layer=skip, dtype=dtype, block_m=32,
+      interpret=True, pe=pe)
+
+
+def _inputs(pe, pts, dirs, x, c):
+  return (pts, dirs) if pe is not None else (x, c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pe", [None, (PTS_DEG, DIRS_DEG)])
+@pytest.mark.parametrize("n", [64, 70])
+def test_plain_forward_matches_jax(dtype, pe, n):
+  params, port, pts, dirs, x, c = _setup(n, **SMALL)
+  xi, ci = _inputs(pe, pts, dirs, x, c)
+  want = np.concatenate([np.asarray(a) for a in _jax_fused(
+      params, xi, ci, dtype, pe, **SMALL)], axis=-1)
+  spec = mlp_kernel.mlp_spec(port, pe)
+  got = torch.cat(mlp_kernel.fused_nerf_mlp_reference(
+      spec, mlp_kernel.mlp_params(port), torch.from_numpy(xi),
+      torch.from_numpy(ci), DTYPES[dtype]), dim=-1).detach().numpy()
+  assert got.shape == want.shape == (n, 4)
+  if dtype == "float32":
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+  else:
+    err = np.abs(got - want)
+    assert err.max() <= BF16_MAX and err.mean() <= BF16_MEAN, (
+        err.max(), err.mean())
+    # The test sees the dtype: the fp32 kernel is farther off than that.
+    fp32 = np.concatenate([np.asarray(a) for a in _jax_fused(
+        params, xi, ci, "float32", pe, **SMALL)], axis=-1)
+    assert np.abs(fp32 - want).mean() > 10 * BF16_MEAN
+
+
+def test_ship_width_forward_matches_jax():
+  params, port, pts, dirs, x, c = _setup(48, **SHIP, seed=1)
+  pe = (PTS_DEG, DIRS_DEG)
+  want = np.concatenate([np.asarray(a) for a in _jax_fused(
+      params, pts, dirs, "float32", pe, **SHIP)], axis=-1)
+  spec = mlp_kernel.mlp_spec(port, pe)
+  got = torch.cat(mlp_kernel.fused_nerf_mlp_reference(
+      spec, mlp_kernel.mlp_params(port), torch.from_numpy(pts),
+      torch.from_numpy(dirs), torch.float32), dim=-1).detach().numpy()
+  np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _loss_targets(n, seed=3):
+  rng = np.random.RandomState(seed)
+  return (rng.randn(n, 3).astype(np.float32),
+          rng.randn(n, 1).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype,pe", [
+    ("float32", None), ("float32", (PTS_DEG, DIRS_DEG)),
+    ("bfloat16", None)])
+def test_plain_gradients_match_jax(dtype, pe):
+  n = 70
+  params, port, pts, dirs, x, c = _setup(n, **SMALL, seed=2)
+  xi, ci = _inputs(pe, pts, dirs, x, c)
+  tgt, tgt_s = _loss_targets(n)
+
+  def loss(p):
+    rgb, sigma = _jax_fused(p, xi, ci, dtype, pe, **SMALL)
+    return jnp.sum((rgb - tgt)**2) + jnp.sum((sigma - tgt_s)**2)
+
+  j_loss, j_grads = jax.value_and_grad(loss)(params)
+  want = {k: v.numpy() for k, v in convert.params_from_flax(
+      {"coarse_mlp": jax.tree_util.tree_map(np.asarray, j_grads)}).items()}
+
+  before = mlp_kernel.mlp_bwd.launches
+  rgb, sigma = mlp_kernel.fused_nerf_mlp(
+      port, torch.from_numpy(xi), torch.from_numpy(ci), dtype=DTYPES[dtype],
+      pe=pe)
+  t_loss = (((rgb - torch.from_numpy(tgt))**2).sum()
+            + ((sigma - torch.from_numpy(tgt_s))**2).sum())
+  t_loss.backward()
+  # CPU tensors take the plain versions: no kernel launch.
+  assert mlp_kernel.mlp_bwd.launches == before
+  np.testing.assert_allclose(t_loss.item(), float(j_loss), rtol=1e-5)
+  for name, p in port.named_parameters():
+    w = want[f"coarse_mlp.{name}"]
+    if dtype == "float32":
+      np.testing.assert_allclose(p.grad.numpy(), w, atol=5e-4, rtol=5e-4,
+                                 err_msg=name)
+    else:
+      scale = max(float(np.abs(w).max()), 1e-6)
+      assert float(np.abs(p.grad.numpy() - w).max()) <= (
+          BF16_GRAD_FRAC * scale), name
+
+
+@pytest.mark.parametrize("pe", [None, (PTS_DEG, DIRS_DEG)])
+def test_plain_backward_is_autograd_of_plain_forward(pe):
+  """K5's plain version against torch autograd of K4's, fp32."""
+  n = 70
+  _, port, pts, dirs, x, c = _setup(n, **SMALL, seed=4)
+  xi, ci = map(torch.from_numpy, _inputs(pe, pts, dirs, x, c))
+  spec = mlp_kernel.mlp_spec(port, pe)
+  params = mlp_kernel.mlp_params(port)
+  rng = np.random.RandomState(5)
+  drgb = torch.from_numpy(rng.randn(n, 3).astype(np.float32))
+  dsigma = torch.from_numpy(rng.randn(n, 1).astype(np.float32))
+  rgb, sigma = mlp_kernel.fused_nerf_mlp_reference(spec, params, xi, ci,
+                                                   torch.float32)
+  want = torch.autograd.grad([rgb, sigma], params, [drgb, dsigma])
+  got = mlp_kernel.fused_nerf_mlp_bwd_reference(spec, params, xi, ci, drgb,
+                                                dsigma, torch.float32)
+  for g, w in zip(got, want):
+    torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+def test_pack_and_unpack_round_trip():
+  _, port, *_ = _setup(8, **SMALL)
+  spec = mlp_kernel.mlp_spec(port)
+  params = mlp_kernel.mlp_params(port)
+  wkn, wnk, bias = mlp_kernel.pack_params(params, torch.bfloat16)
+  assert wkn.dtype == wnk.dtype == torch.bfloat16
+  assert bias.dtype == torch.float32
+  assert wkn.numel() == sum(k * n for k, n in mlp_kernel.layer_dims(spec))
+  wkn32, _, _ = mlp_kernel.pack_params(params, torch.float32)
+  back = mlp_kernel.unpack_grads(spec, torch.cat([wkn32, bias]))
+  for g, p in zip(back, params):
+    assert torch.equal(g, p.detach())
+
+
+@pytest.mark.parametrize("case", [
+    ((63, 27, 8, 256, 4, 1, 128, 3, 1), None),
+    ((63, 27, 8, 256, 4, 2, 128, 3, 1), None),
+    ((63, 27, 8, 200, 4, 1, 128, 3, 1), None),
+    ((200, 27, 8, 256, 4, 1, 128, 3, 1), None),
+    ((63, 27, 8, 256, 4, 1, 128, 3, 1), (10, 4)),
+    ((63, 27, 8, 256, 4, 1, 128, 3, 1), (9, 4)),
+    ((63, 27, 5, 256, 4, 1, 128, 3, 1), None),
+    ((63, 27, 4, 128, 2, 1, 128, 3, 1), None),
+    ((63, 27, 8, 256, 4, 1, 128, 7, 2), None),
+])
+def test_supports_matches_jax(case):
+  args, pe = case
+  assert mlp_kernel.supports(*args, pe=pe) == j_kernel.supports(*args, pe=pe)
+
+
+def test_inputs_that_require_grad_raise():
+  _, port, pts, dirs, *_ = _setup(8, **SMALL)
+  x = torch.from_numpy(pts).requires_grad_()
+  with pytest.raises(ValueError, match="require grad"):
+    mlp_kernel.fused_nerf_mlp(port, x, torch.from_numpy(dirs),
+                              dtype=torch.float32, pe=(PTS_DEG, DIRS_DEG))
+  with pytest.raises(ValueError, match="pe degrees"):
+    mlp_kernel.fused_nerf_mlp(port, torch.from_numpy(pts),
+                              torch.from_numpy(dirs), dtype=torch.float32,
+                              pe=(9, DIRS_DEG))
+
+
+def test_pe_cols_is_the_kernel_layout():
+  """pe_cols against a column-by-column build of the kernel's layout
+  (csrc/mlp_common.cuh:pe_col) and against pos_enc, bit for bit; against
+  the JAX kernel's _pe_cols to an ulp (XLA's and torch's sin differ)."""
+  p = np.random.RandomState(6).uniform(-6, 6, (512, 3)).astype(np.float32)
+  pt = torch.from_numpy(p)
+  got = t_math.pe_cols(pt, PTS_DEG)
+  cols = [pt[:, j] for j in range(3)]
+  for shift in (0.0, 0.5 * np.pi):
+    for k in range(3 * PTS_DEG):
+      cols.append(torch.sin(pt[:, k % 3] * float(2**(k // 3)) + shift)
+                  if shift else torch.sin(pt[:, k % 3] * float(2**(k // 3))))
+  assert torch.equal(got, torch.stack(cols, dim=-1))
+  assert torch.equal(got, t_math.pos_enc(pt, 0, PTS_DEG))
+  want = np.asarray(j_kernel._pe_cols(jnp.asarray(p), PTS_DEG))
+  np.testing.assert_allclose(got.numpy(), want, atol=1.2e-7, rtol=0)

@@ -126,8 +126,7 @@ def test_seeded_weights_are_deterministic():
 def test_unported_options_raise():
   values, ndim, nmin, nmax = grid_io.synthetic_blob_grid(8, 1.5, 0.33)
   for override in ({"use_online_sparsity": True}, {"sh_deg": 2},
-                   {"stage": "all", "use_online_sparsity": True},
-                   {"mlp_kernel": "pallas"}):
+                   {"stage": "all", "use_online_sparsity": True}):
     args = _args("scan")
     for k, v in override.items():
       setattr(args, k, v)
