@@ -11,6 +11,15 @@ Phases, each of which must pass or the script exits non-zero:
   2. build: compiles every kernel under samplenerfro_torch/ops/csrc, one
      nvcc per source, all started together. P1 (x + 1) must then come back
      exact; P2 (sinf at argument scales 1 to 2048) within 1e-6 of float64.
+     Then the selfcheck: samplenerfro_torch.train.selfcheck.check_march at
+     its defaults (the JAX gate's 128^3 blob, 512 rays of 768 steps, the
+     'all' arm on 256 rays of 192 steps, the so3 head at ship width 4x128);
+     K1, K2 and K3 must each launch, every deviation inside its envelope
+     (forward 2e-3, gradients 5e-3, loss 1e-4 of scale). Then P3 (the so3
+     head's pre-activations summed as K3 sums them) against its plain
+     version (cuBLAS) at the probe's 49,152 points, with the ReLU masks the
+     two set apart, and the probe's own path (samplenerfro_torch.debug.
+     probe_so3_relu.probe), which must launch P3 once.
   3. model: the ship configuration (configs/tpu/ship_*.yaml + .gin) at full
      width with weights drawn from --seed, on a synthetic 512^3 IOR blob
      grid prefiltered 9/3 on the card.
@@ -18,7 +27,8 @@ Phases, each of which must pass or the script exits non-zero:
      the shapes its path gives it, timed beside its bound: K1 at the
      render's first 8192-ray chunk; K2 (so3 march) and K3 (its reverse
      sweep) at a 1024-ray training batch, with so3 weights drawn from
-     --seed at output std 1e-2 so that the head bends the paths. K4 (the
+     --seed at output std 1e-2 so that the head bends the paths; P3 at
+     that batch's active ray-steps, the points K3 recomputes. K4 (the
      fused NerfMLP forward) in fp32, fed with features and with raw samples
      (pe), at the render's first chunk's fine call, and in bf16 at a
      training batch's fine call; K5 (its parameter backward) in bf16 and
@@ -41,7 +51,8 @@ Phases, each of which must pass or the script exits non-zero:
      launch neither (the 'all' stage keeps nn.Linear).
   7. CPU cross-checks: 256 rays of the view rendered on the CPU (the plain
      march) against the card; one 'all' step's loss and so3 gradients on
-     128 rays, fp32 MLPs, on the CPU (plain K2 and K3) against the card;
+     128 rays, fp32 MLPs, on the CPU (plain K2 and K3) against the card,
+     with P3's count of the ReLU masks the two set apart;
      one fused radiance step's loss and MLP gradients on 128 rays, fp32,
      on the CPU (plain K1, K4, K5) against the card.
 The last two lines are the kernel report and {"ok": true, "device": ...}.
@@ -57,6 +68,7 @@ import numpy as np
 import torch
 
 from samplenerfro_torch.data import rays as rays_lib
+from samplenerfro_torch.debug import probe_so3_relu
 from samplenerfro_torch.eval import make_render_fn
 from samplenerfro_torch.models import convert
 from samplenerfro_torch.models import nerf
@@ -69,6 +81,7 @@ from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mlp as mlp_ops
 from samplenerfro_torch.ops import mlp_kernel
 from samplenerfro_torch.ops import render as render_ops
+from samplenerfro_torch.train import selfcheck
 from samplenerfro_torch.train import step as step_lib
 from samplenerfro_torch.train.loop import annealed_alpha
 from samplenerfro_torch.train.loop import batch_to_device
@@ -118,6 +131,9 @@ XCHECK_LOSS_RTOL = 1e-4
 # P2: CUDA documents sinf at 2 ulp, <= 1e-6 of a value in [-1, 1] at these
 # arguments.
 P2_ATOL = 1e-6
+# P3 against its plain version, max abs error over the largest
+# |pre-activation|: both sum the same fp32 products, in other orders.
+P3_ATOL = 1e-5
 # K4 against its plain version. fp32: both sum fp32 products, in other
 # orders (cuBLAS without TF32 for the plain version). bf16: the products
 # are exact on both sides; a sum in another order can round a
@@ -471,6 +487,16 @@ def so3_kernel_phases(model, batch, seed):
   gen = torch.Generator().manual_seed(seed + 1)
   dtraj = torch.randn(traj.shape, generator=gen).to(dev)
   bwd_args = (cfg, ps.grid, o, d, so3, SO3_ALPHA, want, dtraj)
+  swept = want[..., 8:11].norm(dim=-1) > 1e-3
+  p3_case("'all' batch, active ray-steps", want[..., 0:3][swept].contiguous(),
+          so3, SO3_ALPHA)
+  by_step = probes.so3_preacts_by_step(want[..., 0:3], so3, SO3_ALPHA)
+  layers = probes.relu_flips(*zip(*by_step), mask=swept)
+  del by_step, swept
+  log("  P3 'all' batch against the plain version called a step at a time, "
+      "as the plain march calls the head, over the active ray-steps, per "
+      "layer (max abs err, ReLU flips, min |pre-activation|): "
+      f"{[(r['max_dev'], r['flips'], r['min_abs']) for r in layers]}")
   got = eikonal_vjp.march_bwd(*bwd_args)
   torch.cuda.synchronize()
   ref = eikonal_vjp.march_bwd_reference(cfg, ps.grid, o, d, so3, SO3_ALPHA,
@@ -551,11 +577,93 @@ def probe_phase(device):
     # Least work: the block read once and written once; a sine is ~20
     # operations.
     bound_ms, by = bound(8 * n, 20 * n)
+    # The plain version is one PyTorch call (x + 1, torch.sin), so it is
+    # the library yardstick as well.
     row = report_row(name, replaces, err, ms, plain, bound_ms, by,
                      source="samplenerfro_torch/ops/csrc/probes.cu")
-    row["launches"] = launches
+    row["launches"], row["library_ms"] = launches, plain
     rows.append(row)
   return rows
+
+
+def selfcheck_phase():
+  """selfcheck.check_march at its defaults on the card, with K1, K2 and
+  K3's counts zeroed before it and read after."""
+  march_kernel.march_lean.launches = 0
+  march_kernel.march_full.launches = 0
+  eikonal_vjp.march_bwd.launches = 0
+  t0 = time.time()
+  envelopes = {}
+  deviations, not_run = selfcheck.check_march(envelopes=envelopes)
+  counts = (march_kernel.march_lean.launches,
+            march_kernel.march_full.launches, eikonal_vjp.march_bwd.launches)
+  log(f"selfcheck: {time.time() - t0:.1f} s, launches K1 {counts[0]}, K2 "
+      f"{counts[1]}, K3 {counts[2]}")
+  for name, dev in deviations.items():
+    log(f"  {name}: {dev:.3e}, envelope {envelopes[name]:.3e} "
+        f"({dev / envelopes[name]:.3f} of it)")
+  for msg in not_run:
+    log(f"  {msg}")
+  if min(counts) == 0:
+    raise SystemExit(f"selfcheck: launches K1/K2/K3 {counts}, each must be "
+                     f"at least 1")
+
+
+def p3_case(what, pos, so3, alpha):
+  """P3 against its plain version at points `pos` [N, 3], timed, with its
+  bound; returns (max abs err, ms, plain ms, bound ms, bound by)."""
+  got = probes.so3_preacts(pos, so3, alpha)
+  torch.cuda.synchronize()
+  want = probes.so3_preacts_reference(pos, so3, alpha)
+  layers = probes.relu_flips(got, want)
+  scale = max(float(w.abs().max()) for w in want)
+  err = max(r["max_dev"] for r in layers)
+  del got, want
+  for i, r in enumerate(layers, 1):
+    log(f"  P3 {what}, layer {i}: max abs err {r['max_dev']:.3e}, ReLU "
+        f"flips {r['flips']} of {r['elements']}, min |pre-activation| "
+        f"{r['min_abs']:.3e}")
+  if not (np.isfinite(err) and err <= P3_ATOL * scale):
+    raise SystemExit(f"P3 ({what}) disagrees with its plain version: {err} "
+                     f"> {P3_ATOL} * {scale}")
+  ms = cuda_ms(lambda: probes.so3_preacts(pos, so3, alpha))
+  plain = cuda_ms(lambda: probes.so3_preacts_reference(pos, so3, alpha))
+  # Least work: the PE (~20 operations a sine) and the three layers'
+  # multiply-adds (2 operations each); the points and the three layers'
+  # weights read once, the three [N, width] outputs written once.
+  n = pos.shape[0]
+  width, in_dim = so3[0].shape
+  macs = in_dim * width + 2 * width * width
+  weights = macs + 3 * width
+  nbytes = 12 * n + 4 * weights + 12 * n * width
+  bound_ms, by = bound(nbytes, n * (2 * macs + 20 * in_dim))
+  log(f"  P3 so3_preacts {what} ({n} points): {ms:.4f} ms, plain "
+      f"{plain:.4f} ms, bound {bound_ms:.4f} ms by {by} "
+      f"({2 * macs * n / 1e9:.3f} GFLOP of products, {nbytes / 1e6:.1f} "
+      f"MB)")
+  return err, ms, plain, bound_ms, by
+
+
+def p3_phase(device):
+  """P3 against its plain version at the probe's points, then the probe's
+  path with P3's count zeroed; returns P3's report row."""
+  pos = probe_so3_relu.probe_positions(device).reshape(-1, 3)
+  so3 = selfcheck.default_so3_params(device)
+  err, ms, plain, bound_ms, by = p3_case("probe points", pos, so3,
+                                         selfcheck.ALPHA)
+  del pos
+  probes.so3_preacts.launches = 0
+  layers = probe_so3_relu.probe()
+  launches = probes.so3_preacts.launches
+  log(f"P3 probe path (probe_so3_relu.probe): launches {launches}, ReLU "
+      f"flips per layer {[r['flips'] for r in layers]}")
+  if launches != 1:
+    raise SystemExit(f"P3 probe path: {launches} launches, expected 1")
+  row = report_row("so3_preacts", "scripts/debug/probe_so3_relu.py:102",
+                   err, ms, plain, bound_ms, by,
+                   source="samplenerfro_torch/ops/csrc/march_bwd.cu")
+  row["launches"] = launches
+  return row
 
 
 def capture_mlp_inputs(model, rays, jitter, mlp_kernel_name):
@@ -849,33 +957,74 @@ def allstep_cross_check(model, args, host, device, seed):
   jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
                             torch.Generator().manual_seed(seed))
   alpha = annealed_alpha(TRAIN_FROM + N_RADIANCE + N_ALL, args)
+  paths = []
+
+  def record(module, inputs, out):
+    paths.append((out[0].detach(), out[4].detach()))
 
   def run(dev):
     model.zero_grad(set_to_none=True)
-    total, _ = step_lib.loss_fn(model, batch_to_device(sub, alpha, dev),
-                                xargs, jitter.to(dev))
+    handle = model.path_sampler.register_forward_hook(record)
+    try:
+      total, _ = step_lib.loss_fn(model, batch_to_device(sub, alpha, dev),
+                                  xargs, jitter.to(dev))
+    finally:
+      handle.remove()
     total.backward()
     grads = [p.grad.detach().cpu().clone()
              for p in model.path_sampler.so3_mlp.params()]
     return float(total.detach()), grads
 
   loss_gpu, g_gpu = run(device)
+  so3 = [p.detach() for p in model.path_sampler.so3_mlp.params()]
+  card_pre = [x.cpu() for x in probes.so3_preacts(
+      paths[0][0].reshape(-1, 3).contiguous(), so3, alpha)]
   model.to("cpu")
   t0 = time.time()
   loss_cpu, g_cpu = run(torch.device("cpu"))
+  secs = time.time() - t0
   rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-  worst = 0.0
-  for g, w in zip(g_gpu, g_cpu):
-    scale = float(w.abs().max())
-    if scale > 0:
-      worst = max(worst, float(((g - w).abs() / (
-          K3_ATOL_SCALE * scale + K3_RTOL * w.abs())).max()))
-  log(f"all-step cpu cross-check: {XCHECK_RAYS} rays in "
-      f"{time.time() - t0:.1f} s, loss {loss_gpu:.8f} vs {loss_cpu:.8f} "
-      f"(rel {rel:.3e}, tolerance {XCHECK_LOSS_RTOL}), so3 grads at "
-      f"{worst:.3f} of the K3 tolerance")
+  worst = _worst_against(g_gpu, g_cpu, K3_ATOL_SCALE, K3_RTOL)
+  log(f"all-step cpu cross-check: {XCHECK_RAYS} rays in {secs:.1f} s, loss "
+      f"{loss_gpu:.8f} vs {loss_cpu:.8f} (rel {rel:.3e}, tolerance "
+      f"{XCHECK_LOSS_RTOL}), so3 grads at {worst:.3f} of the K3 tolerance")
+  layers, card_pre, flipped = cross_check_flips(
+      paths[0][1].cpu(), card_pre, *paths[1], [p.cpu() for p in so3], alpha)
+  n_flips = sum(r["flips"] for r in layers)
+  log(f"  P3 on those rays, K3's sums at the card's path against the plain "
+      f"version's at the CPU's, per layer (ReLU flips, min |pre-activation| "
+      f"on the CPU) over the ray-steps active on both: "
+      f"{[(r['flips'], r['min_abs']) for r in layers]}")
+  if n_flips:
+    saved = march_kernel.so3_refine_fn
+    march_kernel.so3_refine_fn = probe_so3_relu.replaying_refine_fn(
+        card_pre, flipped)
+    try:
+      _, g_replayed = run(torch.device("cpu"))
+    finally:
+      march_kernel.so3_refine_fn = saved
+    log(f"  the CPU step again with those {n_flips} masks set as on the card:"
+        f" so3 grads at "
+        f"{_worst_against(g_gpu, g_replayed, K3_ATOL_SCALE, K3_RTOL):.3f} of "
+        f"the K3 tolerance")
   if not (rel <= XCHECK_LOSS_RTOL and worst <= 1.0):
     raise SystemExit("all-step cpu cross-check failed")
+
+
+def cross_check_flips(g_card, card_pre, pos_cpu, g_cpu, so3_cpu, alpha):
+  """ReLU masks that the card's 'all' step (K3's sums, P3 at K2's path)
+  and the CPU's (the plain version, called a step at a time on all rays as
+  the plain march calls the head) set apart, per layer 1-3, at the
+  ray-steps active on both. Returns (relu_flips' summary per layer, the
+  card's [B, S, W] pre-activations, the [B, S, W] masks of the flips)."""
+  cpu_pre = [w for _, w in probes.so3_preacts_by_step(pos_cpu, so3_cpu,
+                                                       alpha)]
+  card_pre = [c.reshape(w.shape) for c, w in zip(card_pre, cpu_pre)]
+  active = (g_card.norm(dim=-1) > 1e-3) & (g_cpu.norm(dim=-1) > 1e-3)
+  flipped = [((c > 0) != (w > 0)) & active[..., None]
+             for c, w in zip(card_pre, cpu_pre)]
+  return (probes.relu_flips(card_pre, cpu_pre, mask=active), card_pre,
+          flipped)
 
 
 def _to_cpu(tree):
@@ -886,14 +1035,15 @@ def _to_cpu(tree):
   return tree
 
 
-def _worst_against(got, want):
-  """Worst |got - want| over the K5 fp32 tolerance across tensors."""
+def _worst_against(got, want, atol_scale=K5_ATOL_SCALE, rtol=K5_RTOL):
+  """Worst |got - want| over atol_scale * max|want| + rtol * |want| (the
+  K5 fp32 tolerance unless given) across tensors."""
   worst = 0.0
   for g, w in zip(got, want):
     scale = float(w.abs().max())
     if scale > 0:
       worst = max(worst, float(((g - w).abs() / (
-          K5_ATOL_SCALE * scale + K5_RTOL * w.abs())).max()))
+          atol_scale * scale + rtol * w.abs())).max()))
   return worst
 
 
@@ -993,6 +1143,9 @@ def main():
   device = torch.device("cuda")
   build_phase()
   probe_rows = probe_phase(device)
+  selfcheck_phase()
+  probe_rows.append(p3_phase(device))
+  torch.cuda.empty_cache()
   args, model, scene = model_phase(device, ns.seed)
   view = camera_rays(RES)
   jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,

@@ -51,6 +51,10 @@
 // backward layouts), the parameter pass reads and writes its 260 KB
 // partial once per tile, and the outer products read shared memory for
 // every multiply-add.
+//
+// The file also holds P3 (so3_preacts_launch), which recomputes the head's
+// pre-activations with the sweep's own code so that ReLU masks can be held
+// against another summation order's; see so3_preacts_kernel.
 
 #include <cuda_runtime.h>
 
@@ -679,6 +683,74 @@ __global__ void march_bwd_reduce(const float* partial, int num_blocks,
   out[e] = s;
 }
 
+// P3, the ReLU-flip probe: the so3 head's pre-activations of hidden layers
+// 1-3 at n points, in the sweep's own arithmetic. Replaces the Pallas
+// kernel of samplenerfro_tpu's scripts/debug/probe_so3_relu.py. Each block
+// takes 8 points on 128 threads, encodes them with the sweep's PE
+// expression and runs the sweep's gemv_tile, so every value is bitwise
+// what the sweep recomputes at that point (the parameter pass's gemm_tile
+// sums in the same k order). The ReLU is applied after the pre-activation
+// is written, as gemv_tile's own fmaxf would. Bound by its multiply-adds
+// (60*W + 2*W*W a point), fp32 on CUDA cores.
+struct PreactArgs {
+  const float* pts;     // [n, 3]
+  const float* wfwd;    // forward pack, as the sweep's
+  const float* window;  // [max_deg]
+  float* pre;           // [3, n, width]
+  int n, max_deg, width;
+};
+
+__global__ void __launch_bounds__(kThreads)
+so3_preacts_kernel(const PreactArgs a) {
+  __shared__ float x_s[kRays][kMaxIn];
+  __shared__ float h_s[2][kRays][kThreads];
+  __shared__ float p_s[kRays][3];
+  __shared__ float win_s[kMaxDeg];
+
+  const int tid = threadIdx.x;
+  const int IN = 6 * a.max_deg, W = a.width;
+  // Only the forward pack is read; its offsets are the sweep's.
+  const Net net = make_net(a.wfwd, a.wfwd, IN, W);
+  if (tid < a.max_deg) win_s[tid] = a.window[tid];
+  const long long row0 = (long long)blockIdx.x * kRays;
+  if (tid < 3 * kRays) {
+    const int r = tid / 3, c = tid % 3;
+    p_s[r][c] = row0 + r < a.n ? a.pts[3 * (row0 + r) + c] : 0.0f;
+  }
+  __syncthreads();
+  for (int i = tid; i < kRays * IN; i += kThreads) {
+    const int r = i / IN, f = i % IN;
+    const int deg = f / 6, c = f % 3;
+    const float scale = (float)(1 << deg);
+    const float xb = p_s[r][c] * scale;
+    const float arg = (f % 6) < 3 ? xb : xb + kHalfPi;
+    const float sv = sinf(arg);
+    x_s[r][f] = sv * win_s[deg];
+  }
+  __syncthreads();
+  const float* const w[3] = {net.w0t, net.w1t, net.w2t};
+  const float* const b[3] = {net.b0, net.b1, net.b2};
+  const float* in = &x_s[0][0];
+  int ld_in = kMaxIn, k_in = IN;
+  for (int layer = 0; layer < 3; ++layer) {
+    float* h = &h_s[layer % 2][0][0];
+    gemv_tile(in, ld_in, k_in, nullptr, 0, 0, w[layer], W, b[layer], false,
+              nullptr, 0, nullptr, 0, h, kThreads);
+    __syncthreads();
+    float* out = a.pre + (long long)layer * a.n * W;
+    for (int i = tid; i < kRays * W; i += kThreads) {
+      const int r = i / W, j = i % W;
+      const float v = h[r * kThreads + j];
+      if (row0 + r < a.n) out[(row0 + r) * W + j] = v;
+      h[r * kThreads + j] = fmaxf(v, 0.0f);
+    }
+    __syncthreads();
+    in = h;
+    ld_in = kThreads;
+    k_in = W;
+  }
+}
+
 }  // namespace
 
 extern "C" int march_bwd_launch(
@@ -741,5 +813,25 @@ extern "C" int march_bwd_launch(
 
   march_bwd_reduce<<<(num_params + 255) / 256, 256, 0, stream>>>(
       partial, num_blocks, num_params, grads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int so3_preacts_launch(const float* pts, const float* wfwd,
+                                  const float* window, float* pre, int n,
+                                  int max_deg, int width, void* stream_ptr) {
+  if (n < 0 || width < 1 || width > kThreads || max_deg < 1 ||
+      max_deg > kMaxDeg)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  PreactArgs a;
+  a.pts = pts;
+  a.wfwd = wfwd;
+  a.window = window;
+  a.pre = pre;
+  a.n = n;
+  a.max_deg = max_deg;
+  a.width = width;
+  so3_preacts_kernel<<<(n + kRays - 1) / kRays, kThreads, 0,
+                       static_cast<cudaStream_t>(stream_ptr)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from samplenerfro_torch.data.rays import Rays
+from samplenerfro_torch.debug import probe_so3_relu
 from samplenerfro_torch.models import nerf
 from samplenerfro_torch.ops import eikonal_vjp
 from samplenerfro_torch.ops import grid as grid_ops
@@ -21,6 +22,7 @@ from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mlp as mlp_ops
 from samplenerfro_torch.utils import config as config_lib
 from samplenerfro_torch.utils import grid_io
+from samplenerfro_torch.utils import probes
 
 # fp32 with FMA contraction off on both sides (see ops/cuda_build.py): over
 # 32 steps the two agree to a few ulp; 1e-5 is the CPU tests' tolerance.
@@ -135,21 +137,16 @@ def _sweep(spec, data, o, d, so3, seed=5):
   return cfg, traj, dtraj
 
 
-def _min_preactivation(traj, so3):
-  """Smallest |pre-activation| of the head's hidden layers over the active
-  ray-steps of a trajectory, in float64."""
+def _flips(traj, so3):
+  """P3 (K3's sums) and its plain version (cuBLAS, a step at a time on all
+  rays, as the plain march calls the head) at every ray-step of the
+  trajectory: P3's [B, S, W] pre-activations of layers 1-3, and the masks
+  of the active entries whose ReLU masks the two set apart."""
   active = traj[..., 8:11].norm(dim=-1) > 1e-3
-  x = math_ops.annealed_pos_enc(traj[..., 0:3][active].double(), 0, 10,
-                                ALPHA * 10)
-  params = [p.double() for p in so3]
-  h, smallest = x, float("inf")
-  for i in range(4):
-    z = torch.nn.functional.linear(h, params[2 * i], params[2 * i + 1])
-    smallest = min(smallest, float(z.abs().min()))
-    h = torch.relu(z)
-    if i == 2:
-      h = torch.cat([h, x], dim=-1)
-  return smallest
+  by_step = probes.so3_preacts_by_step(traj[..., 0:3], so3, ALPHA)
+  return ([k3 for k3, _ in by_step],
+          [((k3 > 0) != (plain > 0)) & active[..., None]
+           for k3, plain in by_step])
 
 
 def _assert_grads(got, want, what):
@@ -159,27 +156,37 @@ def _assert_grads(got, want, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nrays", [256, 100])
-def test_cuda_march_bwd_matches_plain_version(cuda_device, nrays):
-  spec, data, o, d, so3 = _allstage_inputs(cuda_device, nrays, seed=2)
+@pytest.mark.parametrize("seed,nrays", [(2, 256), (2, 100), (1, 100)])
+def test_cuda_march_bwd_matches_plain_version(cuda_device, monkeypatch,
+                                              seed, nrays):
+  """K3 against autograd of the plain march, per tensor at the JAX
+  package's reverse-sweep tolerance. K3 and cuBLAS sum the head's products
+  in different orders; a pre-activation within that rounding of 0 passes
+  ReLU on one side only (seed 1's 100 rays have one at 5e-9 in layer 3),
+  and the flipped unit's cotangent at that ray-step then moves its row of
+  the weight gradient and, through the layers below it, theirs: more than
+  the tolerance on ~1.3k active ray-steps. P3 finds the flips; the plain
+  version replays them, and K3 must then meet the tolerance everywhere."""
+  spec, data, o, d, so3 = _allstage_inputs(cuda_device, nrays, seed=seed)
   cfg, traj, dtraj = _sweep(spec, data, o, d, so3)
-  # K3 and cuBLAS sum the head's products in different orders, ~1e-7
-  # apart; a pre-activation closer to 0 than that may pass ReLU on one
-  # side only, and with ~1.3k active ray-steps that one flip moves a
-  # weight gradient past the tolerance (seed 1's 100 rays have one at
-  # 5e-9). These rays have none.
-  assert _min_preactivation(traj, so3) > 1e-7
+  k3_pre, flipped = _flips(traj, so3)
+  n_flips = sum(int(f.sum()) for f in flipped)
+  if (seed, nrays) == (1, 100):
+    assert n_flips > 0, "P3 found no flip"
   before = eikonal_vjp.march_bwd.launches
   got = eikonal_vjp.march_bwd(cfg, data, o, d, so3, ALPHA, traj, dtraj)
   torch.cuda.synchronize()
   assert eikonal_vjp.march_bwd.launches == before + 1
+  if n_flips:
+    monkeypatch.setattr(march_kernel, "so3_refine_fn",
+                        probe_so3_relu.replaying_refine_fn(k3_pre, flipped))
   want = eikonal_vjp.march_bwd_reference(cfg, data, o, d, so3, ALPHA, dtraj)
   for name, g, w in zip(("origins", "directions", "alpha"), got[:3],
                         want[:3]):
     _assert_grads(g, w, name)
   for i, (g, w) in enumerate(zip(got[3], want[3])):
     assert g.shape == w.shape
-    _assert_grads(g, w, f"so3 param {i}")
+    _assert_grads(g, w, f"so3 param {i} ({n_flips} flips replayed)")
   assert float(got[3][-2].abs().sum()) > 0
 
 
@@ -369,3 +376,67 @@ def test_cuda_probes(cuda_device):
     # value in [-1, 1].
     assert err64 <= 1e-6, (scale, err64)
     assert err_lib <= 1e-6, (scale, err_lib)
+
+
+def _p3_case(device, n, width, max_deg, seed):
+  gen = torch.Generator().manual_seed(seed)
+  head = mlp_ops.So3MLP(6 * max_deg, net_width=width, output_init_std=1e-2,
+                        generator=gen)
+  so3 = [p.detach().clone() for p in head.params()]
+  for b in so3[1::2]:
+    b.normal_(0.0, 0.1, generator=gen)
+  pos = torch.rand((n, 3), generator=gen) * 3.0 - 1.5
+  return pos.to(device), [p.to(device) for p in so3]
+
+
+# P3 against its plain version: the same fp32 products summed in other
+# orders (K3's k order against cuBLAS's), a few ulp of the largest
+# pre-activation apart.
+P3_ATOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,width,max_deg,alpha", [
+    (1000, 128, 10, 0.6), (37, 48, 6, 0.45)])
+def test_cuda_so3_preacts_matches_plain_version(cuda_device, n, width,
+                                                max_deg, alpha):
+  pos, so3 = _p3_case(cuda_device, n, width, max_deg, seed=n)
+  before = probes.so3_preacts.launches
+  got = probes.so3_preacts(pos, so3, alpha, max_deg)
+  torch.cuda.synchronize()
+  assert probes.so3_preacts.launches == before + 1
+  want = probes.so3_preacts_reference(pos, so3, alpha, max_deg)
+  scale = max(float(w.abs().max()) for w in want)
+  for g, w in zip(got, want):
+    assert g.shape == (n, width) and g.device.type == "cuda"
+    assert float((g - w).abs().max()) <= P3_ATOL * scale
+  again = probes.so3_preacts(pos, so3, alpha, max_deg)
+  assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_so3_preacts_rejects_bad_inputs(cuda_device):
+  pos, so3 = _p3_case(cuda_device, 16, 128, 10, seed=0)
+  wide_pos, wide = _p3_case(cuda_device, 16, 129, 10, seed=0)
+  before = probes.so3_preacts.launches
+  for args in ((pos.double(), so3, 10), (pos[:, :2], so3, 10),
+               (pos.t().contiguous().t(), so3, 10),
+               (pos, [p.cpu() for p in so3], 10), (pos, so3[:-2], 10),
+               (wide_pos, wide, 10), (pos, so3, 11)):
+    with pytest.raises(ValueError):
+      probes.so3_preacts(args[0], args[1], 0.6, args[2])
+  assert probes.so3_preacts.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_selfcheck_passes(cuda_device):
+  from samplenerfro_torch.train import selfcheck
+  before = (march_kernel.march_lean.launches,
+            march_kernel.march_full.launches, eikonal_vjp.march_bwd.launches)
+  deviations, not_run = selfcheck.check_march()
+  after = (march_kernel.march_lean.launches,
+           march_kernel.march_full.launches, eikonal_vjp.march_bwd.launches)
+  assert all(a > b for a, b in zip(after, before))
+  assert "grad_so3.Dense_0.bias" in deviations
+  assert [m.split(":")[0] for m in not_run] == [
+      name for name, _ in selfcheck.SKIPPED_ARMS]
