@@ -11,6 +11,9 @@ Phases, each of which must pass or the script exits non-zero:
   2. build: compiles every kernel under samplenerfro_torch/ops/csrc, one
      nvcc per source, all started together. P1 (x + 1) must then come back
      exact; P2 (sinf at argument scales 1 to 2048) within 1e-6 of float64.
+     Each is timed with its host call (CUDA events around the Python call)
+     and by device time alone (a CUDA graph of 100 launches), beside x + 1
+     and torch.sin timed the same two ways.
      Then the selfcheck: samplenerfro_torch.train.selfcheck.check_march at
      its defaults (the JAX gate's 128^3 blob, 512 rays of 768 steps, the
      'all' arm on 256 rays of 192 steps, the so3 head at ship width 4x128);
@@ -32,8 +35,13 @@ Phases, each of which must pass or the script exits non-zero:
      fused NerfMLP forward) in fp32, fed with features and with raw samples
      (pe), at the render's first chunk's fine call, and in bf16 at a
      training batch's fine call; K5 (its parameter backward) in bf16 and
-     fp32 at that call, twice, bit for bit. Each beside the time of the
-     port's nn.Linear stack for the same work (unfused).
+     fp32 at that call, twice, bit for bit, after a stage-by-stage
+     comparison of the bf16 K5 with its plain version and of both with a
+     float64 twin (debug/mlp_rounding.stage_report, printed, not a
+     gate). Each timed with its weights packed (as the path packs them once
+     a step) and as a call that packs them, with its TFLOP/s and share of
+     its bound, beside the time of the port's nn.Linear stack for the same
+     work (unfused); K5 with the bytes its partial and scratch move.
   5. render path: one 256x256 view rendered through samplenerfro_torch.eval's
      render function (8 chunks of 8192 rays); K1 must have been launched
      once per chunk. Then the same view with --mlp_kernel=pallas and
@@ -68,6 +76,7 @@ import numpy as np
 import torch
 
 from samplenerfro_torch.data import rays as rays_lib
+from samplenerfro_torch.debug import mlp_rounding
 from samplenerfro_torch.debug import probe_so3_relu
 from samplenerfro_torch.eval import make_render_fn
 from samplenerfro_torch.models import convert
@@ -181,6 +190,33 @@ def cuda_ms(fn, reps=5):
     end.record()
     torch.cuda.synchronize()
     times.append(start.elapsed_time(end))
+  return float(np.median(times))
+
+
+def graph_ms(fn, count=100, reps=3):
+  """Device milliseconds of one fn(): a CUDA graph of `count` calls, so no
+  host time sits between the launches, replayed `reps` times after a
+  warm-up (median)."""
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    fn()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for _ in range(count):
+      fn()
+  graph.replay()
+  torch.cuda.synchronize()
+  times = []
+  for _ in range(reps):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    times.append(start.elapsed_time(end) / count)
   return float(np.median(times))
 
 
@@ -555,8 +591,11 @@ def probe_phase(device):
   launches1 = probes.add_one.launches
   ms1 = cuda_ms(lambda: probes.add_one(x))
   plain1 = cuda_ms(lambda: x + 1)
+  dev1 = graph_ms(lambda: probes.add_one(x))
+  lib1 = graph_ms(lambda: x + 1)
   log(f"P1 probe_add_one: exact, first launch {secs * 1e3:.3f} ms, "
-      f"{ms1:.4f} ms, plain {plain1:.4f} ms")
+      f"{ms1:.4f} ms, plain {plain1:.4f} ms (host call included); device "
+      f"time {dev1:.4f} ms, x + 1 {lib1:.4f} ms")
   errs = probes.sin_errors(device)
   for scale, e64, elib in errs:
     log(f"P2 sinf at scale {scale:g}: max abs err {e64:.3e} against float64, "
@@ -568,19 +607,24 @@ def probe_phase(device):
   xs = (probes.probe_inputs((8, 256)) * 2048.0).to(device)
   ms2 = cuda_ms(lambda: probes.sin(xs))
   plain2 = cuda_ms(lambda: torch.sin(xs))
+  dev2 = graph_ms(lambda: probes.sin(xs))
+  lib2 = graph_ms(lambda: torch.sin(xs))
+  log(f"P2 probe_sin: {ms2:.4f} ms, plain {plain2:.4f} ms (host call "
+      f"included); device time {dev2:.4f} ms, torch.sin {lib2:.4f} ms")
   rows = []
-  for name, replaces, launches, err, ms, plain, n in (
+  for name, replaces, launches, err, ms, plain, n, dev, lib in (
       ("probe_add_one", "samplenerfro_tpu/utils/mosaic_probe.py:39",
-       launches1, 0.0, ms1, plain1, 8 * 128),
+       launches1, 0.0, ms1, plain1, 8 * 128, dev1, lib1),
       ("probe_sin", "scripts/debug/dbg_sin.py:16", launches2, worst, ms2,
-       plain2, 8 * 256)):
+       plain2, 8 * 256, dev2, lib2)):
     # Least work: the block read once and written once; a sine is ~20
     # operations.
     bound_ms, by = bound(8 * n, 20 * n)
     # The plain version is one PyTorch call (x + 1, torch.sin), so it is
     # the library yardstick as well.
     row = report_row(name, replaces, err, ms, plain, bound_ms, by,
-                     source="samplenerfro_torch/ops/csrc/probes.cu")
+                     source="samplenerfro_torch/ops/csrc/probes.cu",
+                     device_ms=dev, library_device_ms=lib)
     row["launches"], row["library_ms"] = launches, plain
     rows.append(row)
   return rows
@@ -702,6 +746,49 @@ def mlp_bound(spec, rows, dtype, backward=False):
   return bound_ms, by, flops / 1e12
 
 
+def k5_traffic(spec, rows, dtype, blocks):
+  """Bytes K5's partial and scratch move in one call (loads and stores the
+  kernel issues, from its layout in csrc/mlp_bwd.cu), and what PR 4's
+  design moved in its partial (read and written once per 64-row tile).
+  Returns (partial, scratch, parent partial)."""
+  tile, sr = mlp_kernel.TILE_ROWS[dtype], mlp_kernel.SUPER_ROWS
+  esize = 2 if dtype == torch.bfloat16 else 4
+  dims = mlp_kernel.layer_dims(spec)
+  count = sum(k * n for k, n in dims) + sum(n for _, n in dims)
+  d, w = spec.depth, spec.width
+  fp = mlp_kernel.feature_cols(spec.feat)
+  cp = mlp_kernel.feature_cols(spec.cond)
+  big = [i for i in range(d + 3) if i != d]  # the layers phase b sums
+  wide = sum(dims[i][0] * dims[i][1] for i in big)
+
+  def input_cols(i):
+    """The stored columns of layer i's input."""
+    if i == d + 1:
+      return w
+    if i == d + 2:
+      return w + cp
+    if i == 0:
+      return fp
+    return w + (fp if mlp_kernel.skip_after(spec, i - 1) else 0)
+
+  # Per processed row, what phase b reads: each layer's input once and its
+  # cotangent once per pass of `tile` input columns; the masks read back.
+  reads = d * w
+  for i in big:
+    cols = input_cols(i)
+    reads += cols + -(-cols // tile) * dims[i][1]
+  partial = scratch = 0
+  bounds = [rows * b // blocks for b in range(blocks + 1)]
+  for lo, hi in zip(bounds, bounds[1:]):
+    for first, st in enumerate(range(lo, hi, sr)):
+      done = -(-(min(st + sr, hi) - st) // tile) * tile
+      partial += 4 * wide * (1 if first == 0 else 2)
+      scratch += esize * done * (mlp_kernel.scratch_row_elems(spec) + reads)
+  partial += 4 * count * (blocks + 1)  # the reduce
+  parent = 8 * count * -(-rows // 64) + 4 * count * (blocks + 1)
+  return partial, scratch, parent
+
+
 def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
   """K4 and K5 against their plain versions on the card at the fine calls
   of the render's first chunk and of a training batch, timed beside their
@@ -733,7 +820,10 @@ def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
         f"{e_mean:.3e}")
     if not (ok and np.isfinite(e_max)):
       raise SystemExit(f"K4 {what} disagrees with its plain version")
-    ms = cuda_ms(lambda: mlp_kernel.mlp_fwd(spec, params, x, c, dtype))
+    pack = mlp_kernel.pack_params(params, dtype)
+    ms = cuda_ms(lambda: mlp_kernel.mlp_fwd(spec, params, x, c, dtype,
+                                            pack=pack))
+    call_ms = cuda_ms(lambda: mlp_kernel.mlp_fwd(spec, params, x, c, dtype))
     plain = cuda_ms(lambda: mlp_kernel.fused_nerf_mlp_reference(
         spec, params, x, c, dtype), 3)
     with torch.no_grad():
@@ -742,11 +832,14 @@ def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
       else:
         unfused = cuda_ms(lambda: mlp(*encode(raw), dtype=dtype))
     bound_ms, by, tflop = mlp_bound(spec, x.shape[0], dtype)
-    log(f"  K4 mlp_fwd {what}: {ms:.4f} ms, plain {plain:.3f} ms, unfused "
-        f"(nn.Linear) {unfused:.3f} ms, bound {bound_ms:.4f} ms by {by} "
-        f"({tflop:.3f} TFLOP)")
+    log(f"  K4 mlp_fwd {what}: {ms:.4f} ms with the weights packed "
+        f"({call_ms:.4f} ms as a call that packs them), "
+        f"{tflop / ms * 1e3:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the "
+        f"bound {bound_ms:.4f} ms by {by} ({tflop:.3f} TFLOP); plain "
+        f"{plain:.3f} ms, unfused (nn.Linear) {unfused:.3f} ms")
     rows.append(report_row("mlp_fwd", MLP_KERNEL + ":219", e_max, ms, plain,
-                           bound_ms, by, case=what, unfused_ms=unfused))
+                           bound_ms, by, case=what, unfused_ms=unfused,
+                           call_ms=call_ms, tflops=tflop / ms * 1e3))
 
   x, c = encode(train_raw)
   spec = mlp_kernel.mlp_spec(mlp)
@@ -754,6 +847,8 @@ def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
   n = x.shape[0]
   drgb = (1e-3 * torch.randn((n, 3), generator=gen)).to(x.device)
   dsigma = (1e-3 * torch.randn((n, 1), generator=gen)).to(x.device)
+  mlp_rounding.stage_report(spec, params, x, c, drgb, dsigma,
+                            K5_BF16_SCALE, log)
   for what, dtype in (("bf16 train fine call", torch.bfloat16),
                       ("fp32 train fine call", torch.float32)):
     args = (spec, params, x, c, drgb, dsigma, dtype)
@@ -778,7 +873,15 @@ def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
       raise SystemExit(f"K5 {what} is not deterministic: two runs differ")
     del got, want, again
-    ms = cuda_ms(lambda: mlp_kernel.mlp_bwd(*args))
+    pack = mlp_kernel.pack_params(params, dtype)
+    ms = cuda_ms(lambda: mlp_kernel.mlp_bwd(*args, pack=pack))
+    call_ms = cuda_ms(lambda: mlp_kernel.mlp_bwd(*args))
+    if dtype == torch.bfloat16:
+      sweep = {r: cuda_ms(lambda: mlp_kernel.mlp_bwd(*args, pack=pack,
+                                                     super_rows=r))
+               for r in (256, 512, 1024, 1536)}
+      log(f"  K5 {what} by super-tile rows: "
+          + ", ".join(f"{r} {t:.4f} ms" for r, t in sweep.items()))
     plain = cuda_ms(lambda: mlp_kernel.fused_nerf_mlp_bwd_reference(*args),
                     3)
 
@@ -788,12 +891,22 @@ def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
 
     unfused = cuda_ms(linear_backward)
     bound_ms, by, tflop = mlp_bound(spec, n, dtype, backward=True)
-    log(f"  K5 mlp_bwd {what}: {ms:.4f} ms, plain {plain:.3f} ms, unfused "
-        f"(nn.Linear forward + autograd to the weights) {unfused:.3f} ms, "
-        f"bound {bound_ms:.4f} ms by {by} ({tflop:.3f} TFLOP); two runs "
-        f"agree bit for bit")
+    blocks = min(torch.cuda.get_device_properties(x.device)
+                 .multi_processor_count, -(-n // mlp_kernel.TILE_ROWS[dtype]))
+    part_b, scratch_b, parent_b = k5_traffic(spec, n, dtype, blocks)
+    log(f"  K5 {what}: {blocks} blocks, super-tiles of "
+        f"{mlp_kernel.SUPER_ROWS} rows; partial {part_b / 1e9:.3f} GB "
+        f"(PR 4's design: {parent_b / 1e9:.3f} GB), scratch "
+        f"{scratch_b / 1e9:.3f} GB per call")
+    log(f"  K5 mlp_bwd {what}: {ms:.4f} ms with the weights packed "
+        f"({call_ms:.4f} ms as a call that packs them), "
+        f"{tflop / ms * 1e3:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the "
+        f"bound {bound_ms:.4f} ms by {by} ({tflop:.3f} TFLOP); plain "
+        f"{plain:.3f} ms, unfused (nn.Linear forward + autograd to the "
+        f"weights) {unfused:.3f} ms; two runs agree bit for bit")
     rows.append(report_row("mlp_bwd", MLP_KERNEL + ":246", err, ms, plain,
-                           bound_ms, by, case=what, unfused_ms=unfused))
+                           bound_ms, by, case=what, unfused_ms=unfused,
+                           call_ms=call_ms, tflops=tflop / ms * 1e3))
   return rows
 
 

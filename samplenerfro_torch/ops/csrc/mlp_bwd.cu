@@ -8,229 +8,452 @@
 // What it computes: the fp32 gradient of every weight and bias of the
 // NerfMLP from the [n, num_rgb + num_sigma] cotangent of K4's output, and
 // no input cotangent (the radiance stage's inputs come from the frozen
-// path sampler). Per row tile, as _bwd_kernel (268-317): recompute the
-// forward (mlp_common.cuh:forward_tile), then walk back through the rgb
-// head, the condition layer, the sigma and bottleneck heads and the trunk;
-// ReLU masks are taken on the stored activations (act > 0), each
-// pre-activation cotangent is rounded to the compute type before its
-// products, each bias gradient is the fp32 sum of the unrounded cotangent,
-// and dW = (layer input)^T (rounded cotangent) sums over the rows in fp32.
-// Rows past n carry a zero cotangent and add nothing.
+// path sampler). As _bwd_kernel (268-317): recompute the forward, then
+// walk back through the rgb head, the condition layer, the sigma and
+// bottleneck heads and the trunk; ReLU masks are taken on the stored
+// activations (act > 0), each pre-activation cotangent is rounded to the
+// compute type before its products, each bias gradient is the fp32 sum of
+// the unrounded cotangent, and dW = (layer input)^T (rounded cotangent)
+// sums over the rows in fp32. Rows past n carry a zero cotangent and add
+// nothing.
 //
 // Two launches, one wrapper call:
 //  1. mlp_bwd_kernel: a fixed grid of G blocks (one per SM at most); block
-//     b takes the tiles b, b + G, ... in order. The tile's inputs, its
-//     cotangent and the two working [64, 256] buffers are in shared memory
-//     (the backward reuses the forward's buffers: dh in fp32 and its
-//     rounded copy). The forward's stored activations, 9 x [64, 256] plus
-//     [64, 128] a tile (590 KB fp32, more than shared memory holds), go to
-//     the block's own slab of a global scratch buffer and are read back
-//     from L1/L2. Each block adds its tiles' dW/db into its own [P] slice
-//     of a [G, P] fp32 partial buffer (P = 595,715 at ship width, 2.4 MB;
-//     313 MB for 132 blocks): every entry is owned by one thread and
-//     updated in a fixed order. No atomics.
+//     b takes the contiguous rows [b n / G, (b + 1) n / G), in super-tiles
+//     of super_rows rows (a multiple of the row tile). For each super-tile:
+//     a. per row tile (128 rows in bf16, 64 in fp32): the forward on
+//        CUDA cores in k order (the plain version's rounding of every
+//        stored activation, see Chain below), then the cotangents, layer
+//        by layer, as products with the output-major weight pack (dZ W^T,
+//        weights streamed through the cp.async ring; tensor cores in
+//        bf16). Bias gradients and the two narrow heads' dW are summed per
+//        tile (in registers, then across lanes and the two row warps in a
+//        fixed order) into the block's partial. Every stored activation,
+//        the inputs and every rounded cotangent go to the block's slab of
+//        a scratch buffer.
+//     b. per layer, dW over the whole super-tile as one product that
+//        contracts over its rows (A^T dZ, tensor cores in bf16, A read
+//        transposed), added into the block's [P] slice of a [G, P] fp32
+//        partial once: the first super-tile stores, later ones add. So the
+//        partial (P = 595,715 at ship width, 2.4 MB) moves once per
+//        super-tile rather than once per row tile.
+//     Every entry is owned by one thread and updated in a fixed order; no
+//     atomics.
 //  2. mlp_bwd_reduce: sums the G partials of each parameter in block
 //     order. Two runs therefore agree bit for bit.
 //
 // What bounds it on the card: operations, about three times K4's (the
-// recompute, the products to dh, the dW outer products): 0.70 TFLOP for
-// the bf16 train batch's fine call (196,608 rows), 0.71 ms on bf16 tensor
-// cores. This version runs every product on CUDA cores (the same
-// register-tiled product as K4) and reads and writes each block's 2.4 MB
-// partial once a tile (4.8 MB for 64 rows), which is its known weakness
-// after the CUDA-core arithmetic (gemm_add overlaps those reads).
+// recompute, the products to dh, the dW products): 0.70 TFLOP for the bf16
+// train batch's fine call (196,608 rows), 0.71 ms on bf16 tensor cores;
+// 10.4 ms in fp32. This kernel runs a third of that work (the recompute)
+// on CUDA cores in bf16 too, to round as the plain version does. Besides
+// the products it moves the scratch slabs (each row's 4,968 stored values
+// written once and read back about twice) and the partials (G x 2.4 MB
+// per super-tile).
 
 #include "mlp_common.cuh"
 
 namespace {
 
-using fused_mlp::kRows;
+using fused_mlp::ASeg;
+using fused_mlp::kOutCols;
 using fused_mlp::kThreads;
-using fused_mlp::kTM;
-using fused_mlp::kTN;
-using fused_mlp::Seg;
-using fused_mlp::Spec;
-using fused_mlp::gemm;
 using fused_mlp::load;
 using fused_mlp::round_to;
+using fused_mlp::Spec;
+using fused_mlp::TileBufs;
 
-// dst[c] += sum over the tile's rows of g[r * ld + c], rows in order.
-__device__ void colsum(const float* g, int ld, int cols, float* dst) {
-  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+// The recompute sums in fp32 on CUDA cores, in k order, as the plain
+// version's forward products do: each stored bf16 activation is rounded
+// from that sum, and any other order rounds some of them to the other bf16
+// neighbour, flips that every later layer, mask and cotangent carries
+// (PERF.md). The cotangents and the weight gradients run on tensor cores
+// in bf16.
+// Trial switch for debug/mlp_rounding.py, 0 in use: 1 runs the bf16
+// recompute on tensor cores as well.
+#ifndef FUSED_MLP_K5_TENSOR_FORWARD
+#define FUSED_MLP_K5_TENSOR_FORWARD 0
+#endif
+template <typename T>
+using Chain = fused_mlp::Policy<
+    T, std::is_same<T, __nv_bfloat16>::value && FUSED_MLP_K5_TENSOR_FORWARD,
+    std::is_same<T, __nv_bfloat16>::value>;
+template <typename T, int N>
+using BwdEngine = typename Chain<T>::template Bwd<N>;
+
+// Where each stored tensor sits in a block's scratch slab, as a count of
+// columns before it: the slab holds, for super_rows rows each, a dense
+// [super_rows][width] section per tensor, section x at super_rows * x.
+struct Sections {
+  long long x0, cond, d16, act, bn, ac, dpre, dbn, dac, row_elems;
+};
+
+__host__ __device__ inline Sections sections(const Spec& s) {
+  Sections q;
+  const long long W = s.width, CW = s.cond_width, D = s.depth;
+  q.x0 = 0;
+  q.cond = q.x0 + s.fp;
+  q.d16 = q.cond + s.cp;
+  q.act = q.d16 + kOutCols;   // D sections of W
+  q.bn = q.act + D * W;
+  q.ac = q.bn + W;
+  q.dpre = q.ac + CW;         // D sections of W
+  q.dbn = q.dpre + D * W;
+  q.dac = q.dbn + W;
+  q.row_elems = q.dac + CW;
+  return q;
+}
+
+// dst[r * width + j] = src[r * ld + j] for the tile's rows, 16 bytes a copy.
+template <typename T>
+__device__ __forceinline__ void copy_rows(const T* src, int ld, int width,
+                                          T* dst) {
+  constexpr int E = fused_mlp::pad<T>();
+  const int cpr = width / E;
+  for (int e = threadIdx.x; e < Chain<T>::kRows * cpr; e += kThreads) {
+    const int r = e / cpr, q = e % cpr;
+    *reinterpret_cast<uint4*>(dst + static_cast<long long>(r) * width +
+                              q * E) =
+        *reinterpret_cast<const uint4*>(src + r * ld + q * E);
+  }
+}
+
+// One cotangent product: v = f(r, c, sum_j A(r, j) W(j, c)) for the tile's
+// rows and n columns (W's rows of the output-major pack, ldw apart);
+// dst = round(v), and pb[c] += the column sums of v.
+template <typename T, typename F>
+__device__ __forceinline__ void cotangent(const ASeg<T>& a, const T* w,
+                                          int ldw, int n,
+                                          const TileBufs<T>& t, T* dst,
+                                          float* colbuf, float* pb, F f) {
+  fused_mlp::with_width(n, [&](auto width) {
+    constexpr int N = decltype(width)::value;
+    BwdEngine<T, N> e;
+    e.zero();
+    fused_mlp::weight_product<Chain<T>, N>(e, a, ASeg<T>{nullptr, 0, 0}, w,
+                                           ldw, t.ring);
+    float cs[BwdEngine<T, N>::kSlots];
+#pragma unroll
+    for (int q = 0; q < BwdEngine<T, N>::kSlots; ++q) cs[q] = 0.0f;
+    e.template each<false>([&](int q, int r, int c, float v0, float v1) {
+      v0 = f(r, c, v0);
+      v1 = f(r, c + 1, v1);
+      fused_mlp::store_pair(dst + r * t.ld_act + c, v0, v1);
+      cs[q] += v0;
+      cs[q + 1] += v1;
+    });
+    BwdEngine<T, N>::colsums(cs, colbuf);
+    __syncthreads();
+    if (threadIdx.x < N) {
+      pb[threadIdx.x] += colbuf[threadIdx.x] + colbuf[256 + threadIdx.x];
+    }
+  });
+}
+
+// e.acc += A^T dZ over rows [0, rows) of a super-tile: A's columns
+// [m0, m0 + tile rows) of [s0 | s1] ([rows][w0] and [rows][w1] sections,
+// zero past w0 + w1), dZ a [rows][N] section.
+template <typename T, int N>
+__device__ __forceinline__ void grad_product(BwdEngine<T, N>& e,
+                                             const T* s0, int w0,
+                                             const T* s1, int w1, int m0,
+                                             const T* dz, int rows, T* ring) {
+  constexpr int KR = Chain<T>::kSlab, MP = BwdEngine<T, N>::kRows;
+  constexpr int E = fused_mlp::pad<T>(), LDA = MP + E, LDZ = N + E;
+  constexpr int STAGE = KR * LDA + KR * LDZ;
+  fused_mlp::pipeline(
+      rows / KR,
+      [&](int sl, int st) {
+        T* sa = ring + st * STAGE;
+        T* sz = sa + KR * LDA;
+        for (int x = threadIdx.x; x < KR * (MP / E); x += kThreads) {
+          const int i = x / (MP / E), q = x % (MP / E), m = m0 + q * E;
+          const long long row = static_cast<long long>(sl) * KR + i;
+          const T* src = nullptr;
+          if (m < w0) {
+            src = s0 + row * w0 + m;
+          } else if (m - w0 < w1) {
+            src = s1 + row * w1 + (m - w0);
+          }
+          fused_mlp::cp_async16(sa + i * LDA + q * E, src ? src : s0,
+                                src ? 16 : 0);
+        }
+        for (int x = threadIdx.x; x < KR * (N / E); x += kThreads) {
+          const int i = x / (N / E), q = x % (N / E);
+          fused_mlp::cp_async16(
+              sz + i * LDZ + q * E,
+              dz + (static_cast<long long>(sl) * KR + i) * N + q * E, 16);
+        }
+      },
+      [&](int, int st) {
+        const T* sa = ring + st * STAGE;
+        const T* sz = sa + KR * LDA;
+#pragma unroll
+        for (int kk = 0; kk < KR; kk += BwdEngine<T, N>::kK) {
+          e.step_t(sa + kk * LDA, LDA, sz + kk * LDZ, LDZ);
+        }
+      });
+}
+
+// dW += A^T dZ for a head of `cols` (<= kOutCols) outputs on the tile:
+// A [rows][k] (ld apart) and dZ (the rounded cotangent's columns, kOutCols
+// apart) in shared memory; a thread a weight, the rows in order.
+template <typename T>
+__device__ __forceinline__ void head_grads(const T* a, int ld, int k,
+                                           const T* dz, int cols, float* dw) {
+  for (int e = threadIdx.x; e < k * cols; e += kThreads) {
+    const int i = e / cols, j = e % cols;
     float acc = 0.0f;
-    for (int r = 0; r < kRows; ++r) acc += g[r * ld + c];
-    dst[c] += acc;
+    for (int r = 0; r < Chain<T>::kRows; ++r) {
+      acc = __fmaf_rn(load(a + r * ld + i), load(dz + r * kOutCols + j), acc);
+    }
+    dw[e] += acc;
   }
 }
 
-// p[r * ld + c] += sum_j X(r, j) Y(j, c) for r < rows, c < cols: gemm's
-// product, added into a block's partial buffer. Each thread reads all its
-// kTM x kTN partial entries before it writes any, so their device-memory
-// latencies overlap (gemm's per-element epilogue would serialise them:
-// the compiler cannot move a load above a store that may alias it).
+// Phase a for one row tile: inputs, forward, cotangents; rows [row0,
+// row0 + tile) of the block, at row srow of the super-tile's sections.
 template <typename T>
-__device__ void gemm_add(int rows, int cols, const Seg<T>& s, float* p,
-                         int ld) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rgroups = (rows + kTM - 1) / kTM;
-  const int cgroups = (cols + 32 * kTN - 1) / (32 * kTN);
-  for (int u = warp; u < rgroups * cgroups; u += kThreads / 32) {
-    const int r0 = (u % rgroups) * kTM;
-    const int c0 = (u / rgroups) * 32 * kTN + lane;
-    float acc[kTM][kTN];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int t = 0; t < kTN; ++t) acc[i][t] = 0.0f;
-    }
-    fused_mlp::accumulate(acc, s, r0, rows, c0, cols);
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int t = 0; t < kTN; ++t) {
-        const int r = r0 + i, c = c0 + 32 * t;
-        if (r < rows && c < cols) {
-          acc[i][t] += p[static_cast<long long>(r) * ld + c];
+__device__ void tile_backward(const Spec& s, const float* x, const float* c,
+                              const float* dout, const T* wkn, const T* wnk,
+                              const float* bias, const TileBufs<T>& t,
+                              float* douts, T* d16, float* colbuf, T* base,
+                              const Sections& sec, int super_rows,
+                              long long row0, long long end, int srow,
+                              float* part) {
+  constexpr int RT = Chain<T>::kRows;
+  const int W = s.width, D = s.depth, CW = s.cond_width;
+  const int R = s.num_rgb, S = s.num_sigma, O = R + S, ld = t.ld_act;
+  float* pbias = part + s.num_weights;
+  auto section = [&](long long col, int width) {
+    return base + super_rows * col + static_cast<long long>(srow) * width;
+  };
+  fused_mlp::load_tile<Chain<T>>(s, x, c, row0, end, t);
+  for (int e = threadIdx.x; e < RT * kOutCols; e += kThreads) {
+    const int r = e / kOutCols, j = e % kOutCols;
+    const float v =
+        j < O && row0 + r < end ? dout[(row0 + r) * O + j] : 0.0f;
+    douts[e] = v;
+    d16[e] = round_to<T>(v);
+  }
+  __syncthreads();
+  copy_rows(t.x0, t.ld_x0, s.fp, section(sec.x0, s.fp));
+  copy_rows(t.cond, t.ld_c, s.cp, section(sec.cond, s.cp));
+  copy_rows(d16, kOutCols, kOutCols, section(sec.d16, kOutCols));
+  fused_mlp::forward_tile<Chain<T>>(
+      s, wkn, bias, t, nullptr, row0, end,
+      [&](int id, const T* buf, int width) {
+        const long long col = id < D ? sec.act + static_cast<long long>(id) * W
+                                     : (id == D ? sec.bn : sec.ac);
+        copy_rows(buf, ld, width, section(col, width));
+        if (id == D - 1) {
+          // The sigma head's dW on the trunk's output, while it is here.
+          head_grads(buf, ld, W, d16 + R, S, part + s.w_off[D]);
         }
+      });
+
+  // Head biases: the fp32 cotangent summed over the tile's rows.
+  if (threadIdx.x < O) {
+    float acc = 0.0f;
+    for (int r = 0; r < RT; ++r) acc += douts[r * kOutCols + threadIdx.x];
+    float* pb = threadIdx.x < R ? pbias + s.b_off[D + 3] + threadIdx.x
+                                : pbias + s.b_off[D] + (threadIdx.x - R);
+    *pb += acc;
+  }
+  // rgb head: dW += a_c^T drgb16; da_c = (drgb16 Wrgb^T) * (a_c > 0), a
+  // thread a column, its bias gradient summed over the rows in order.
+  const T* ac = t.act[(D - 1) & 1];
+  T* dac = t.act[D & 1];
+  head_grads(ac, ld, CW, d16, R, part + s.w_off[D + 3]);
+  if (threadIdx.x < CW) {
+    const int k = threadIdx.x;
+    const T* w = wkn + s.w_off[D + 3] + k * R;
+    float sum = 0.0f;
+    for (int r = 0; r < RT; ++r) {
+      float v = 0.0f;
+      for (int j = 0; j < R; ++j) {
+        v = __fmaf_rn(load(d16 + r * kOutCols + j), load(w + j), v);
       }
+      v *= load(ac + r * ld + k) > 0.0f ? 1.0f : 0.0f;
+      sum += v;
+      dac[r * ld + k] = round_to<T>(v);
     }
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int t = 0; t < kTN; ++t) {
-        const int r = r0 + i, c = c0 + 32 * t;
-        if (r < rows && c < cols) {
-          p[static_cast<long long>(r) * ld + c] = acc[i][t];
-        }
-      }
-    }
+    pbias[s.b_off[D + 2] + k] += sum;
+  }
+  __syncthreads();
+  copy_rows(dac, ld, CW, section(sec.dac, CW));
+
+  // The bottleneck's cotangent: (da_c16 Wc^T) over its first W inputs.
+  T* dbn = t.act[(D - 1) & 1];
+  cotangent(ASeg<T>{dac, ld, CW}, wnk + s.t_off[D + 2], s.kp[D + 2], W, t,
+            dbn, colbuf, pbias + s.b_off[D + 1],
+            [](int, int, float v) { return v; });
+  copy_rows(dbn, ld, W, section(sec.dbn, W));
+
+  // dh = dbn16 Wbn^T + dsigma16 Wsigma^T, masked by the trunk's output.
+  const T* wsig = wnk + s.t_off[D];
+  const int kps = s.kp[D];
+  const T* act_last = section(sec.act + static_cast<long long>(D - 1) * W, W);
+  T* src = t.act[D & 1];
+  cotangent(ASeg<T>{dbn, ld, W}, wnk + s.t_off[D + 1], s.kp[D + 1], W, t, src,
+            colbuf, pbias + s.b_off[D - 1], [&](int r, int col, float v) {
+              for (int j = 0; j < S; ++j) {
+                v = __fmaf_rn(load(d16 + r * kOutCols + R + j),
+                              load(wsig + j * kps + col), v);
+              }
+              return v * (load(act_last + r * W + col) > 0.0f ? 1.0f : 0.0f);
+            });
+  copy_rows(src, ld, W, section(sec.dpre + static_cast<long long>(D - 1) * W,
+                                W));
+
+  // Trunk, last layer first: dh over the previous activation's columns
+  // (the skip input's columns carry no gradient anywhere).
+  T* dst = t.act[(D - 1) & 1];
+  for (int i = D - 1; i >= 1; --i) {
+    const T* act = section(sec.act + static_cast<long long>(i - 1) * W, W);
+    cotangent(ASeg<T>{src, ld, W}, wnk + s.t_off[i], s.kp[i], W, t, dst,
+              colbuf, pbias + s.b_off[i - 1], [&](int r, int col, float v) {
+                return v * (load(act + r * W + col) > 0.0f ? 1.0f : 0.0f);
+              });
+    copy_rows(dst, ld, W,
+              section(sec.dpre + static_cast<long long>(i - 1) * W, W));
+    T* tmp = src;
+    src = dst;
+    dst = tmp;
   }
 }
 
+// Phase b: the dW of every layer but the two heads over the super-tile's
+// first `rows` rows, into the block's partial (stored when first, added
+// after).
 template <typename T>
-__device__ size_t region_bytes(int maxw) {
-  const size_t fwd = 2 * sizeof(T) * kRows * maxw;
-  const size_t bwd = (sizeof(float) + sizeof(T)) * kRows * maxw;
-  return fwd > bwd ? fwd : bwd;
+__device__ void weight_grads(const Spec& s, const T* base,
+                             const Sections& sec, int super_rows, int rows,
+                             float* part, bool first, T* ring) {
+  const int W = s.width, D = s.depth, CW = s.cond_width;
+  auto sect = [&](long long col) { return base + super_rows * col; };
+  __syncthreads();  // the ring overwrites the tile's buffers
+  for (int l = 0; l < D + 3; ++l) {
+    if (l == D) continue;  // the sigma head, summed in tile_backward
+    const T* s0;
+    const T* s1 = nullptr;
+    const T* dz;
+    int w0, k0, w1 = 0, k1 = 0, n;
+    if (l < D) {
+      if (l == 0) {
+        s0 = sect(sec.x0);
+        w0 = s.fp;
+        k0 = s.feat;
+      } else {
+        s0 = sect(sec.act + static_cast<long long>(l - 1) * W);
+        w0 = k0 = W;
+        if (fused_mlp::skip_after(s, l - 1)) {
+          s1 = sect(sec.x0);
+          w1 = s.fp;
+          k1 = s.feat;
+        }
+      }
+      dz = sect(sec.dpre + static_cast<long long>(l) * W);
+      n = W;
+    } else if (l == D + 1) {
+      s0 = sect(sec.act + static_cast<long long>(D - 1) * W);
+      w0 = k0 = W;
+      dz = sect(sec.dbn);
+      n = W;
+    } else {
+      s0 = sect(sec.bn);
+      w0 = k0 = W;
+      s1 = sect(sec.cond);
+      w1 = s.cp;
+      k1 = s.cond;
+      dz = sect(sec.dac);
+      n = CW;
+    }
+    float* p = part + s.w_off[l];
+    fused_mlp::with_width(n, [&](auto width) {
+      constexpr int N = decltype(width)::value;
+      for (int m0 = 0; m0 < w0 + w1; m0 += BwdEngine<T, N>::kRows) {
+        BwdEngine<T, N> e;
+        e.zero();
+        grad_product<T, N>(e, s0, w0, s1, w1, m0, dz, rows, ring);
+        e.template each<true>([&](int, int r, int c, float v0, float v1) {
+          const int m = m0 + r;
+          int row;
+          if (m < w0) {
+            if (m >= k0) return;
+            row = m;
+          } else {
+            if (m - w0 >= k1) return;
+            row = k0 + (m - w0);
+          }
+          float* q = p + static_cast<long long>(row) * N + c;
+          if (first) {
+            q[0] = v0;
+            q[1] = v1;
+          } else {
+            q[0] += v0;
+            q[1] += v1;
+          }
+        });
+      }
+    });
+  }
+
+  __syncthreads();
+}
+
+template <typename T>
+__host__ __device__ inline size_t smem_bytes(const Spec& s) {
+  return fused_mlp::tile_bytes<Chain<T>>(s) +
+         (sizeof(float) + sizeof(T)) * Chain<T>::kRows * kOutCols +
+         sizeof(float) * 2 * 256;
+}
+
+// Shared memory of weight_grads' ring, which reuses the tile's buffers.
+template <typename T>
+__host__ __device__ inline size_t grad_ring_bytes(const Spec& s) {
+  constexpr int E = fused_mlp::pad<T>();
+  const int maxw = s.width > s.cond_width ? s.width : s.cond_width;
+  return sizeof(T) * fused_mlp::kStages * Chain<T>::kSlab *
+         (Chain<T>::kRows + E + maxw + E);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     mlp_bwd_kernel(Spec s, const float* x, const float* c, const float* dout,
                    const T* wkn, const T* wnk, const float* bias, T* scratch,
-                   float* partial, int n) {
+                   float* partial, long long n, int super_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int W = s.width, F = s.feat, C = s.cond, D = s.depth;
-  const int CW = s.cond_width, R = s.num_rgb, S = s.num_sigma, O = R + S;
-  const int maxw = W > CW ? W : CW;
-  // The forward's two activation buffers and the backward's dh (fp32) and
-  // its rounded copy share one region.
-  T* buf0 = reinterpret_cast<T*>(smem);
-  T* buf1 = buf0 + kRows * maxw;
-  float* g32 = reinterpret_cast<float*>(smem);
-  T* g16 = reinterpret_cast<T*>(smem + sizeof(float) * kRows * maxw);
-  float* douts = reinterpret_cast<float*>(smem + region_bytes<T>(maxw));
-  T* d16 = reinterpret_cast<T*>(douts + kRows * O);
-  T* x0s = d16 + kRows * O;
-  T* conds = x0s + kRows * F;
+  constexpr int RT = Chain<T>::kRows;
+  const TileBufs<T> t = fused_mlp::tile_bufs<Chain<T>>(s, smem);
+  float* douts =
+      reinterpret_cast<float*>(smem + fused_mlp::tile_bytes<Chain<T>>(s));
+  T* d16 = reinterpret_cast<T*>(douts + RT * kOutCols);
+  float* colbuf = reinterpret_cast<float*>(d16 + RT * kOutCols);
 
-  const long long slab = static_cast<long long>(D + 1) * kRows * W +
-                         static_cast<long long>(kRows) * CW;
-  T* save = scratch + blockIdx.x * slab;
-  float* part = partial + blockIdx.x * (s.num_weights + s.num_biases);
+  const Sections sec = sections(s);
+  const long long G = gridDim.x, b = blockIdx.x;
+  const long long begin = n * b / G, end = n * (b + 1) / G;
+  T* base = scratch + b * super_rows * sec.row_elems;
+  float* part = partial + b * (s.num_weights + s.num_biases);
   float* pbias = part + s.num_weights;
-  const T* hv = save + static_cast<long long>(D - 1) * kRows * W;
-  const T* bnv = save + static_cast<long long>(D) * kRows * W;
-  const T* acv = save + static_cast<long long>(D + 1) * kRows * W;
-  const int lsig = D, lbn = D + 1, lc = D + 2, lrgb = D + 3;
-  const Seg<T> none = {nullptr, 0, 0, nullptr, 0, 0};
-  const int tiles = (n + kRows - 1) / kRows;
-
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int row0 = tile * kRows;
-    fused_mlp::load_tile(s, x, c, row0, n, x0s, conds);
-    for (int e = threadIdx.x; e < kRows * O; e += blockDim.x) {
-      const long long row = row0 + e / O;
-      const float v = row < n ? dout[row * O + e % O] : 0.0f;
-      douts[e] = v;
-      d16[e] = round_to<T>(v);
+  // The biases and the two narrow heads' weights are summed tile by tile.
+  for (int e = threadIdx.x; e < s.num_biases; e += kThreads) pbias[e] = 0.0f;
+  for (int e = threadIdx.x; e < s.k[s.depth] * s.n[s.depth]; e += kThreads)
+    part[s.w_off[s.depth] + e] = 0.0f;
+  for (int e = threadIdx.x; e < s.k[s.depth + 3] * s.n[s.depth + 3];
+       e += kThreads)
+    part[s.w_off[s.depth + 3] + e] = 0.0f;
+  bool first = true;
+  for (long long st0 = begin; st0 < end; st0 += super_rows) {
+    const long long st_end = st0 + super_rows < end ? st0 + super_rows : end;
+    int rows = 0;
+    for (long long row0 = st0; row0 < st_end; row0 += RT, rows += RT) {
+      tile_backward<T>(s, x, c, dout, wkn, wnk, bias, t, douts, d16, colbuf,
+                       base, sec, super_rows, row0, end, rows, part);
     }
-    __syncthreads();
-    fused_mlp::forward_tile<T>(s, wkn, bias, x0s, conds, buf0, buf1, save,
-                               nullptr, row0, n);
-
-    // rgb head: dW += a_c^T drgb16, db += sum drgb;
-    // da_c = (drgb16 Wrgb^T) * (a_c > 0).
-    gemm_add(CW, R, Seg<T>{acv, 1, CW, d16, O, kRows}, part + s.w_off[lrgb],
-             R);
-    colsum(douts, O, R, pbias + s.b_off[lrgb]);
-    gemm(kRows, CW, Seg<T>{d16, O, 1, wnk + s.w_off[lrgb], CW, R}, none,
-         [&](int r, int k, float v) {
-           v *= load(acv + r * CW + k) > 0.0f ? 1.0f : 0.0f;
-           g32[r * CW + k] = v;
-           g16[r * CW + k] = round_to<T>(v);
-         });
-    __syncthreads();
-
-    // Condition layer: db += sum da_c; dW += [bottleneck, cond]^T da_c16.
-    colsum(g32, CW, CW, pbias + s.b_off[lc]);
-    gemm_add(W, CW, Seg<T>{bnv, 1, W, g16, CW, kRows}, part + s.w_off[lc],
-             CW);
-    gemm_add(C, CW, Seg<T>{conds, 1, C, g16, CW, kRows},
-             part + s.w_off[lc] + static_cast<long long>(W) * CW, CW);
-    __syncthreads();
-    // The bottleneck's cotangent: (da_c16 Wc^T) over its first W inputs.
-    gemm(kRows, W, Seg<T>{g16, CW, 1, wnk + s.w_off[lc], W + C, CW}, none,
-         [&](int r, int k, float v) { g32[r * W + k] = v; });
-    __syncthreads();
-    for (int e = threadIdx.x; e < kRows * W; e += blockDim.x) {
-      g16[e] = round_to<T>(g32[e]);
-    }
-    __syncthreads();
-
-    // Sigma and bottleneck heads on the trunk output h.
-    gemm_add(W, S, Seg<T>{hv, 1, W, d16 + R, O, kRows}, part + s.w_off[lsig],
-             S);
-    colsum(douts + R, O, S, pbias + s.b_off[lsig]);
-    gemm_add(W, W, Seg<T>{hv, 1, W, g16, W, kRows}, part + s.w_off[lbn], W);
-    colsum(g32, W, W, pbias + s.b_off[lbn]);
-    __syncthreads();
-    // dh = dbn16 Wbn^T + dsigma16 Wsigma^T.
-    gemm(kRows, W, Seg<T>{g16, W, 1, wnk + s.w_off[lbn], W, W},
-         Seg<T>{d16 + R, O, 1, wnk + s.w_off[lsig], W, S},
-         [&](int r, int k, float v) { g32[r * W + k] = v; });
-    __syncthreads();
-
-    // Trunk, last layer first.
-    for (int i = D - 1; i >= 0; --i) {
-      const T* act = save + static_cast<long long>(i) * kRows * W;
-      for (int e = threadIdx.x; e < kRows * W; e += blockDim.x) {
-        const float v = g32[e] * (load(act + e) > 0.0f ? 1.0f : 0.0f);
-        g32[e] = v;
-        g16[e] = round_to<T>(v);
-      }
-      __syncthreads();
-      colsum(g32, W, W, pbias + s.b_off[i]);
-      float* pw = part + s.w_off[i];
-      if (i == 0) {
-        gemm_add(F, W, Seg<T>{x0s, 1, F, g16, W, kRows}, pw, W);
-      } else {
-        const T* prev = save + static_cast<long long>(i - 1) * kRows * W;
-        gemm_add(W, W, Seg<T>{prev, 1, W, g16, W, kRows}, pw, W);
-        if (fused_mlp::skip_after(s, i - 1)) {
-          gemm_add(F, W, Seg<T>{x0s, 1, F, g16, W, kRows},
-                   pw + static_cast<long long>(W) * W, W);
-        }
-      }
-      __syncthreads();
-      if (i > 0) {
-        // dh over the previous activation's columns (the skip input's
-        // columns carry no gradient anywhere).
-        gemm(kRows, W, Seg<T>{g16, W, 1, wnk + s.w_off[i], s.k[i], W}, none,
-             [&](int r, int k, float v) { g32[r * W + k] = v; });
-        __syncthreads();
-      }
-    }
+    weight_grads<T>(s, base, sec, super_rows, rows, part, first, t.act[0]);
+    first = false;
   }
 }
 
@@ -247,22 +470,20 @@ __global__ void mlp_bwd_reduce(const float* partial, int blocks,
 template <typename T>
 int launch(const Spec& s, const float* x, const float* c, const float* dout,
            const void* wkn, const void* wnk, const float* bias,
-           void* scratch, float* partial, float* grads, int n, int blocks,
-           cudaStream_t stream) {
-  const int maxw = s.width > s.cond_width ? s.width : s.cond_width;
-  const int O = s.num_rgb + s.num_sigma;
-  const size_t fwd = 2 * sizeof(T) * kRows * maxw;
-  const size_t bwd = (sizeof(float) + sizeof(T)) * kRows * maxw;
-  const size_t smem = (fwd > bwd ? fwd : bwd) +
-                      (sizeof(float) + sizeof(T)) * kRows * O +
-                      sizeof(T) * kRows * (s.feat + s.cond);
+           void* scratch, float* partial, float* grads, long long n,
+           int blocks, int super_rows, cudaStream_t stream) {
+  if (super_rows <= 0 || super_rows % Chain<T>::kRows != 0 ||
+      Chain<T>::kRows % Chain<T>::kSlab != 0 ||
+      grad_ring_bytes<T>(s) > fused_mlp::tile_bytes<Chain<T>>(s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes<T>(s);
   cudaError_t err = cudaFuncSetAttribute(
       mlp_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   mlp_bwd_kernel<T><<<blocks, kThreads, smem, stream>>>(
       s, x, c, dout, static_cast<const T*>(wkn), static_cast<const T*>(wnk),
-      bias, static_cast<T*>(scratch), partial, n);
+      bias, static_cast<T*>(scratch), partial, n, super_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long count = s.num_weights + s.num_biases;
@@ -274,27 +495,31 @@ int launch(const Spec& s, const float* x, const float* c, const float* dout,
 }  // namespace
 
 // x, c, wkn, bias: as mlp_fwd_launch; dout: [n, num_rgb + num_sigma] fp32
-// cotangent of K4's output; wnk: the output-major weight pack; scratch:
-// blocks x the activation slab in the compute type; partial:
-// [blocks, num_weights + num_biases] fp32, zeroed; grads: the same count,
-// weight gradients in the input-major pack's order, then the biases'.
-// Returns a cudaError_t.
+// cotangent of K4's output; wnk: the output-major weight pack (rows padded,
+// see mlp_common.cuh:Spec); scratch: blocks x super_rows x the row's stored
+// values (Sections) in the compute type; partial: [blocks, num_weights +
+// num_biases] fp32 (written by the kernel); grads: the same count, weight
+// gradients in the input-major pack's order, then the biases'. Every block
+// must get at least one row (blocks <= n). Returns a cudaError_t.
 extern "C" int mlp_bwd_launch(const float* x, const float* c,
                               const float* dout, const void* wkn,
                               const void* wnk, const float* bias,
                               void* scratch, float* partial, float* grads,
-                              int n, int blocks, int bf16, int depth,
-                              int width, int skip, int feat, int cond,
-                              int cond_width, int num_rgb, int num_sigma,
-                              int pe, long long num_weights, void* stream) {
+                              long long n, int blocks, int super_rows,
+                              int bf16, int depth, int width, int skip,
+                              int feat, int cond, int cond_width, int num_rgb,
+                              int num_sigma, int pe, long long num_weights,
+                              long long num_wnk, void* stream) {
   Spec s;
   if (!fused_mlp::make_spec(&s, depth, width, skip, feat, cond, cond_width,
                             num_rgb, num_sigma, pe) ||
-      s.num_weights != num_weights || blocks <= 0)
+      s.num_weights != num_weights || s.num_wnk != num_wnk || blocks <= 0 ||
+      blocks > n)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<__nv_bfloat16>(s, x, c, dout, wkn, wnk, bias, scratch,
-                                      partial, grads, n, blocks, st)
+                                      partial, grads, n, blocks, super_rows,
+                                      st)
               : launch<float>(s, x, c, dout, wkn, wnk, bias, scratch, partial,
-                              grads, n, blocks, st);
+                              grads, n, blocks, super_rows, st);
 }

@@ -1,40 +1,88 @@
 // Shared by K4 (mlp_fwd.cu) and K5 (mlp_bwd.cu): the fused NerfMLP's
-// geometry, the per-tile input featurization, a register-tiled product on
-// CUDA cores, and the forward of one row tile at the rounding points of
+// geometry, the per-tile input featurization, the two product engines and
+// the forward of one row tile at the rounding points of
 // samplenerfro_tpu/ops/pallas/mlp_kernel.py:_forward_tile (195-216).
 //
 // T is the compute type, float or __nv_bfloat16. Weights and stored
-// activations are T; every product accumulates in fp32 with fmaf, every
-// bias is fp32 and added after the product, ReLU runs in fp32 and its
-// result is then rounded to T (round to nearest even). A bf16 product is
-// exact in fp32, so in bf16 the kernels differ from their plain versions
-// (bf16 operands multiplied in fp32) only in the order of the sums.
+// activations are T; every product sums in fp32, every bias is fp32 and
+// added after the product, ReLU runs in fp32 and its result is then
+// rounded to T (round to nearest even). A bf16 product is exact in fp32,
+// so in bf16 the kernels differ from their plain versions (bf16 operands
+// multiplied in fp32) only in the order of the sums and, on tensor cores,
+// in how each k16 step's sum is rounded.
+//
+// The engines. A product is out[rows][N] = sum_j A(r, j) B(j, c) with A in
+// shared memory and B streamed from device memory in k-slabs (kSlab rows
+// x N columns) through a ring of kStages shared-memory buffers filled by
+// cp.async: slab s + 2 is in flight while slab s is multiplied, and one
+// fetch feeds all 8 warps of the block. N is 128 or 256; 8 warps split the
+// output 2 (rows) x 4 (columns). Every shared-memory row is padded by 16
+// bytes, so that consecutive rows start on different banks.
+//  - Mma (bf16 on tensor cores): 128 rows; a warp owns 64 rows x N/4
+//    columns as m16n8 fp32 accumulators; operands come through ldmatrix
+//    (.trans for a [k][n] operand); each mma.sync m16n8k16 step starts from
+//    zero and is added to the accumulators in fp32 (add_mma).
+//  - Simt (fp32 on CUDA cores, of fp32 or bf16 operands): 64 rows; a lane
+//    owns 8 rows x N/32 columns, reads A 4 k at a time along its rows and B
+//    4 columns at a time (16 or 8 bytes), so each operand read feeds 8 or
+//    more fmaf. Each output is summed by one thread in k order, the order
+//    of the plain version's products.
+// A Policy picks the engine of each kernel's forward and backward products
+// (K4: tensor cores in bf16; K5: the forward on CUDA cores, its cotangents
+// and weight gradients on tensor cores in bf16). K5's weight gradients
+// (A^T dZ, contracting over the rows of a super-tile) read A transposed.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "mlp_ptx.cuh"
+
+// Trial switch for debug/mlp_rounding.py, 0 in use: 1 keeps each tensor-
+// core product's running sum inside the tensor core (add_mma).
+#ifndef FUSED_MLP_MMA_RUNNING_SUM
+#define FUSED_MLP_MMA_RUNNING_SUM 0
+#endif
+
 namespace fused_mlp {
 
-constexpr int kRows = 64;      // rows of a tile
+using bf16 = __nv_bfloat16;
+
 constexpr int kThreads = 256;  // 8 warps a block
-constexpr int kTM = 8;         // rows of a warp's register tile
-constexpr int kTN = 8;         // columns of a lane's register tile, 32 apart
+constexpr int kStages = 3;     // ring buffers of k-slabs
 constexpr int kMaxLayers = 24;
+constexpr int kInPad = 32;     // feature and condition widths padded to this
+constexpr int kOutCols = 8;    // the cotangent's columns, padded
 constexpr float kHalfPi = 1.57079632679489661923f;
+
+// Elements of T in the 16 bytes that pad every shared-memory row.
+template <typename T>
+__host__ __device__ constexpr int pad() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
+__host__ __device__ inline int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
 
 // The layers in nn.Linear order: trunk 0..depth-1, sigma head depth,
 // bottleneck depth+1, condition layer depth+2, rgb head depth+3. Layer l
-// maps k[l] inputs to n[l] outputs; its weights sit at w_off[l] of a pack,
-// [k][n] in the input-major pack (wkn) and [n][k] in the output-major one
-// (wnk), its bias at b_off[l] of the fp32 bias pack.
+// maps k[l] inputs to n[l] outputs; its weights sit at w_off[l] of the
+// input-major pack (wkn, [k][n]) and at t_off[l] of the output-major pack
+// (wnk, [n][kp], each row padded to kp[l] = k[l] rounded up to 16 with
+// zeros so that every row starts on 16 bytes), its bias at b_off[l] of the
+// fp32 bias pack. fp and cp are the feature and condition widths padded to
+// kInPad.
 struct Spec {
   int depth, width, skip, feat, cond, cond_width, num_rgb, num_sigma, pe;
-  int k[kMaxLayers], n[kMaxLayers];
-  long long w_off[kMaxLayers];
+  int fp, cp;
+  int k[kMaxLayers], n[kMaxLayers], kp[kMaxLayers];
+  long long w_off[kMaxLayers], t_off[kMaxLayers];
   int b_off[kMaxLayers];
-  long long num_weights;
+  long long num_weights, num_wnk;
   int num_biases;
 };
 
@@ -48,10 +96,12 @@ __host__ __device__ inline bool skip_after(const Spec& s, int i) {
 inline bool make_spec(Spec* s, int depth, int width, int skip, int feat,
                       int cond, int cond_width, int num_rgb, int num_sigma,
                       int pe) {
-  if (depth < 2 || depth + 4 > kMaxLayers || skip < 1 || width < 1 ||
-      width > 256 || cond_width < 1 || cond_width > 256 || feat < 1 ||
-      feat > 128 || cond < 1 || cond > 128 || num_rgb < 1 ||
-      num_sigma < 1 || num_rgb + num_sigma > 8)
+  const bool wide_ok = (width == 128 || width == 256) &&
+                       (cond_width == 128 || cond_width == 256);
+  if (depth < 2 || depth + 4 > kMaxLayers || skip < 1 || !wide_ok ||
+      feat < 1 || cond < 1 ||
+      round_up(feat, kInPad) + round_up(cond, kInPad) > 128 ||
+      num_rgb < 1 || num_sigma < 1 || num_rgb + num_sigma > kOutCols)
     return false;
   s->depth = depth;
   s->width = width;
@@ -62,6 +112,8 @@ inline bool make_spec(Spec* s, int depth, int width, int skip, int feat,
   s->num_rgb = num_rgb;
   s->num_sigma = num_sigma;
   s->pe = pe;
+  s->fp = round_up(feat, kInPad);
+  s->cp = round_up(cond, kInPad);
   if (skip_after(*s, depth - 1)) return false;  // the heads see width inputs
   for (int i = 0; i < depth; ++i) {
     s->k[i] = i == 0 ? feat : (skip_after(*s, i - 1) ? width + feat : width);
@@ -71,21 +123,25 @@ inline bool make_spec(Spec* s, int depth, int width, int skip, int feat,
   s->k[depth + 1] = width;         s->n[depth + 1] = width;
   s->k[depth + 2] = width + cond;  s->n[depth + 2] = cond_width;
   s->k[depth + 3] = cond_width;    s->n[depth + 3] = num_rgb;
-  long long w = 0;
+  long long w = 0, t = 0;
   int b = 0;
   for (int l = 0; l < depth + 4; ++l) {
+    s->kp[l] = round_up(s->k[l], 16);
     s->w_off[l] = w;
+    s->t_off[l] = t;
     s->b_off[l] = b;
     w += static_cast<long long>(s->k[l]) * s->n[l];
+    t += static_cast<long long>(s->kp[l]) * s->n[l];
     b += s->n[l];
   }
   s->num_weights = w;
+  s->num_wnk = t;
   s->num_biases = b;
   return true;
 }
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+__device__ __forceinline__ float load(const bf16* p) {
   return __bfloat162float(*p);
 }
 
@@ -94,78 +150,363 @@ __device__ __forceinline__ T round_to(float v);
 template <>
 __device__ __forceinline__ float round_to<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 round_to<__nv_bfloat16>(float v) {
+__device__ __forceinline__ bf16 round_to<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// One contraction segment of a product: X(r, j) = x[r * xr + j * xj],
-// Y(j, c) = y[j * ly + c], for j < len.
-template <typename T>
-struct Seg {
-  const T* x;
-  int xr, xj;
-  const T* y;
-  int ly, len;
+// p[0], p[1] = v0, v1 rounded to T.
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float v0, float v1) {
+  __nv_bfloat162 v;
+  v.x = __float2bfloat16_rn(v0);
+  v.y = __float2bfloat16_rn(v1);
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+
+__device__ __forceinline__ float lane_sum(float v, int from) {
+  for (int m = from; m < 32; m <<= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// ---------------------------------------------------------------- engines
+
+// d += one k16 step's product, summed by the tensor core from zero and
+// added in fp32 (round to nearest): the tensor core aligns its addends to
+// the largest and drops the bits below, so a running sum kept inside it
+// would lose more than fp32 sums of the same products do.
+__device__ __forceinline__ void add_mma(float (&d)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+#if FUSED_MLP_MMA_RUNNING_SUM
+  mma_bf16(d, a, b0, b1);
+#else
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_bf16(t, a, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+#endif
+}
+
+// bf16 on tensor cores: 128 output rows (2 warps of 64), N columns (4 warps
+// of N/4).
+template <int N>
+struct Mma {
+  static constexpr int kRows = 128;   // output rows of the block
+  static constexpr int kK = 16;       // k of one step
+  static constexpr int kNT = N / 32;  // n8 tiles of a warp
+  static constexpr int kSlots = 2 * kNT;
+  float acc[4][kNT][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+  }
+
+  __device__ __forceinline__ void mul(const unsigned (&af)[4][4],
+                                      const bf16* b, int ldb) {
+    const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) & 3;
+    const bf16* bp = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldb +
+                     wn * (N / 4) + (lane >> 4) * 8;
+#pragma unroll
+    for (int np = 0; np < kNT / 2; ++np) {
+      unsigned bf[4];
+      ldsm_x4_t(bf, bp + np * 16);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        add_mma(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+        add_mma(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+      }
+    }
+  }
+
+  // One k16 step: A [m][k] at a (its k column), B [k][n] at b (its k row).
+  __device__ __forceinline__ void step(const bf16* a, int lda, const bf16* b,
+                                       int ldb) {
+    const int lane = threadIdx.x & 31, wm = threadIdx.x >> 7;
+    unsigned af[4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      ldsm_x4(af[mt],
+              a + (wm * 64 + mt * 16 + (lane & 15)) * lda + (lane >> 4) * 8);
+    }
+    mul(af, b, ldb);
+  }
+
+  // As step with A stored transposed, [k][m].
+  __device__ __forceinline__ void step_t(const bf16* a, int lda,
+                                         const bf16* b, int ldb) {
+    const int lane = threadIdx.x & 31, wm = threadIdx.x >> 7;
+    unsigned af[4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      ldsm_x4_t(af[mt], a + ((lane & 7) + ((lane >> 4) << 3)) * lda +
+                            wm * 64 + mt * 16 + ((lane >> 3) & 1) * 8);
+    }
+    mul(af, b, ldb);
+  }
+
+  // f(slot, row, column, v(row, column), v(row, column + 1)) for every
+  // pair of outputs this thread holds; slot numbers the thread's columns.
+  template <bool kTransposed, typename F>
+  __device__ __forceinline__ void each(F f) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          f(2 * nt, wm * 64 + mt * 16 + g + 8 * h,
+            wn * (N / 4) + nt * 8 + 2 * t, acc[mt][nt][2 * h],
+            acc[mt][nt][2 * h + 1]);
+  }
+
+  // cs[slot] summed over the warp's rows, into colbuf[wm][column].
+  __device__ __forceinline__ static void colsums(float (&cs)[kSlots],
+                                                 float* colbuf) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int wm = warp >> 2, wn = warp & 3, t = lane & 3;
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const float v = lane_sum(cs[q], 4);
+      if (lane < 4) {
+        colbuf[wm * 256 + wn * (N / 4) + (q >> 1) * 8 + 2 * t + (q & 1)] = v;
+      }
+    }
+  }
 };
 
-template <typename T>
-__device__ __forceinline__ void accumulate(float (&acc)[kTM][kTN],
-                                           const Seg<T>& s, int r0, int rows,
-                                           int c0, int cols) {
-  for (int j = 0; j < s.len; ++j) {
-    float xv[kTM], yv[kTN];
+// Four consecutive values as fp32: one 16-byte load of float, one 8-byte
+// load of bf16 (a bf16 is the high half of its fp32).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// fp32 sums on CUDA cores of S operands (float, or bf16 widened exactly):
+// 64 output rows (2 warps of 32), N columns (4 warps of N/4); lane (rg, cg)
+// = (lane / 8, lane % 8) owns rows rg + 4i (rg * 8 + i with A transposed)
+// and columns cg * 4 + 32 j + 0..3 of its warp's span.
+template <int N, typename S>
+struct Simt {
+  static constexpr int kRows = 64;
+  static constexpr int kK = 4;
+  static constexpr int kTN = N / 32;
+  static constexpr int kSlots = kTN;
+  float acc[8][kTN];
+
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int r = r0 + i;
-      xv[i] = r < rows ? load(s.x + r * s.xr + j * s.xj) : 0.0f;
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+  }
+
+  __device__ __forceinline__ void mul(const float (&av)[8][4], const S* b,
+                                      int ldb) {
+    const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) & 3;
+    const S* bp = b + wn * (N / 4) + (lane & 7) * 4;
+    float bv[4][kTN];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < kTN / 4; ++j) {
+        const float4 v = load4(bp + kk * ldb + 32 * j);
+        bv[kk][4 * j] = v.x;
+        bv[kk][4 * j + 1] = v.y;
+        bv[kk][4 * j + 2] = v.z;
+        bv[kk][4 * j + 3] = v.w;
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j)
+          acc[i][j] = __fmaf_rn(av[i][kk], bv[kk][j], acc[i][j]);
+  }
+
+  // Four k: A [m][k] at a (its first k column), B [k][n] at b.
+  __device__ __forceinline__ void step(const S* a, int lda, const S* b,
+                                       int ldb) {
+    const int lane = threadIdx.x & 31, wm = threadIdx.x >> 7;
+    const S* ap = a + (wm * 32 + (lane >> 3)) * lda;
+    float av[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 v = load4(ap + 4 * i * lda);
+      av[i][0] = v.x;
+      av[i][1] = v.y;
+      av[i][2] = v.z;
+      av[i][3] = v.w;
     }
+    mul(av, b, ldb);
+  }
+
+  // As step with A stored transposed, [k][m].
+  __device__ __forceinline__ void step_t(const S* a, int lda, const S* b,
+                                         int ldb) {
+    const int lane = threadIdx.x & 31, wm = threadIdx.x >> 7;
+    const S* ap = a + wm * 32 + (lane >> 3) * 8;
+    float av[8][4];
 #pragma unroll
-    for (int t = 0; t < kTN; ++t) {
-      const int c = c0 + 32 * t;
-      yv[t] = c < cols ? load(s.y + j * s.ly + c) : 0.0f;
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 lo = load4(ap + kk * lda);
+      const float4 hi = load4(ap + kk * lda + 4);
+      av[0][kk] = lo.x;
+      av[1][kk] = lo.y;
+      av[2][kk] = lo.z;
+      av[3][kk] = lo.w;
+      av[4][kk] = hi.x;
+      av[5][kk] = hi.y;
+      av[6][kk] = hi.z;
+      av[7][kk] = hi.w;
     }
+    mul(av, b, ldb);
+  }
+
+  template <bool kTransposed, typename F>
+  __device__ __forceinline__ void each(F f) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int wm = warp >> 2, wn = warp & 3, rg = lane >> 3, cg = lane & 7;
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int t = 0; t < kTN; ++t) {
-        acc[i][t] = __fmaf_rn(xv[i], yv[t], acc[i][t]);
+      for (int j = 0; j < kTN; j += 2)
+        f(j, wm * 32 + (kTransposed ? rg * 8 + i : rg + 4 * i),
+          wn * (N / 4) + (j >> 2) * 32 + cg * 4 + (j & 3), acc[i][j],
+          acc[i][j + 1]);
+  }
+
+  __device__ __forceinline__ static void colsums(float (&cs)[kSlots],
+                                                 float* colbuf) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int wm = warp >> 2, wn = warp & 3, cg = lane & 7;
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const float v = lane_sum(cs[q], 8);
+      if (lane < 8) {
+        colbuf[wm * 256 + wn * (N / 4) + (q >> 2) * 32 + cg * 4 + (q & 3)] =
+            v;
       }
     }
+  }
+};
+
+// How a kernel runs its products on T operands, on tensor cores (bf16
+// only) or in fp32 on CUDA cores: Fwd for the forward's layers, Bwd for
+// K5's cotangents and weight gradients; the rows of a tile (a CUDA-core
+// product of 64 rows runs once per 64 rows of a 128-row tile) and the
+// k-rows of a weight slab.
+template <typename T, bool kTensorFwd, bool kTensorBwd = kTensorFwd>
+struct Policy {
+  static_assert(std::is_same<T, bf16>::value || !(kTensorFwd || kTensorBwd),
+                "tensor-core products take bf16");
+  using Elem = T;
+  static constexpr int kRows = kTensorFwd || kTensorBwd ? 128 : 64;
+  static constexpr int kSlab = sizeof(T) == 4 ? 16 : 32;
+  template <int N>
+  using Fwd = std::conditional_t<kTensorFwd, Mma<N>, Simt<N, T>>;
+  template <int N>
+  using Bwd = std::conditional_t<kTensorBwd, Mma<N>, Simt<N, T>>;
+};
+
+// f(std::integral_constant<int, n>) for n = 128 or 256.
+template <typename F>
+__device__ __forceinline__ void with_width(int n, F f) {
+  if (n == 256) {
+    f(std::integral_constant<int, 256>{});
+  } else {
+    f(std::integral_constant<int, 128>{});
   }
 }
 
-// epi(r, c, sum over both segments of sum_j X(r, j) Y(j, c)) for every
-// r < rows, c < cols. A warp owns kTM rows and 32 * kTN columns at a time:
-// row r0 + i, column c0 + 32 t with lanes on neighbouring columns, so the
-// Y loads of a warp coalesce and its X loads are broadcasts. Each output
-// is summed by one thread in a fixed order.
-template <typename T, typename Epi>
-__device__ void gemm(int rows, int cols, const Seg<T>& s0, const Seg<T>& s1,
-                     Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rgroups = (rows + kTM - 1) / kTM;
-  const int cgroups = (cols + 32 * kTN - 1) / (32 * kTN);
-  for (int u = warp; u < rgroups * cgroups; u += kThreads / 32) {
-    const int r0 = (u % rgroups) * kTM;
-    const int c0 = (u / rgroups) * 32 * kTN + lane;
-    float acc[kTM][kTN];
+// The k-slab pipeline: load(slab, stage) issues the cp.async copies of a
+// slab, step(slab, stage) multiplies one. kStages - 1 slabs are in flight
+// ahead of the one multiplied. Ends with the ring free and every thread
+// past a barrier.
+template <typename Load, typename Step>
+__device__ __forceinline__ void pipeline(int count, Load load, Step step) {
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int t = 0; t < kTN; ++t) acc[i][t] = 0.0f;
-    }
-    accumulate(acc, s0, r0, rows, c0, cols);
-    accumulate(acc, s1, r0, rows, c0, cols);
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int t = 0; t < kTN; ++t) {
-        const int r = r0 + i, c = c0 + 32 * t;
-        if (r < rows && c < cols) epi(r, c, acc[i][t]);
-      }
-    }
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < count) load(s, s);
+    cp_async_commit();
   }
+  for (int s = 0; s < count; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int next = s + kStages - 1;
+    if (next < count) load(next, next % kStages);
+    cp_async_commit();
+    step(s, s % kStages);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 }
+
+// One operand segment in shared memory: A(r, j) = a[r * ld + j], j < k;
+// columns up to k rounded to the slab are readable and zero past k.
+template <typename T>
+struct ASeg {
+  const T* a;
+  int ld, k;
+};
+
+// e.acc += [A0 | A1] x B, B's rows [0, s0.k + s1.k) being rows of a
+// [*][ldw] matrix at w in device memory (A1's rows follow A0's), its
+// columns [0, N).
+template <typename P, int N, typename Eng, typename T = typename P::Elem>
+__device__ __forceinline__ void weight_product(Eng& e, const ASeg<T>& s0,
+                                               const ASeg<T>& s1, const T* w,
+                                               int ldw, T* ring) {
+  constexpr int KS = P::kSlab, E = pad<T>(), LDR = N + E, CPR = N / E;
+  const int n0 = (s0.k + KS - 1) / KS, n1 = (s1.k + KS - 1) / KS;
+  pipeline(
+      n0 + n1,
+      [&](int sl, int st) {
+        T* stage = ring + st * KS * LDR;
+        for (int x = threadIdx.x; x < KS * CPR; x += kThreads) {
+          const int i = x / CPR, q = x % CPR;
+          int row;
+          bool ok;
+          if (sl < n0) {
+            row = sl * KS + i;
+            ok = row < s0.k;
+          } else {
+            const int j = (sl - n0) * KS + i;
+            row = s0.k + j;
+            ok = j < s1.k;
+          }
+          cp_async16(stage + i * LDR + q * E,
+                     ok ? w + static_cast<long long>(row) * ldw + q * E : w,
+                     ok ? 16 : 0);
+        }
+      },
+      [&](int sl, int st) {
+        const bool first = sl < n0;
+        const ASeg<T>& sg = first ? s0 : s1;
+        const T* a = sg.a + (first ? sl : sl - n0) * KS;
+        const T* stage = ring + st * KS * LDR;
+#pragma unroll
+        for (int kk = 0; kk < KS; kk += Eng::kK) {
+          e.step(a + kk, sg.ld, stage + kk * LDR, LDR);
+        }
+      });
+}
+
+// ------------------------------------------------------------ the forward
 
 // Column j of the non-legacy positional encoding of a 3-vector p at
 // degrees 0..deg-1 (ops/math.pe_cols): [p, sin(xb), sin(xb + pi/2)] with
@@ -181,128 +522,171 @@ __device__ __forceinline__ float pe_col(const float* p, int deg, int j) {
   return shifted ? sinf(xb + kHalfPi) : sinf(xb);
 }
 
-// The tile's inputs in T: features and condition as given, or (pe) the
-// encodings of raw [n, 3] points and directions. Rows past n are zero.
+// A tile's shared-memory buffers: two activation buffers that alternate
+// between a layer's input and output ([rows][ld_act]), the inputs
+// ([rows][ld_x0], [rows][ld_c], zero past feat and cond) and the ring.
 template <typename T>
+struct TileBufs {
+  T* act[2];
+  T* x0;
+  T* cond;
+  T* ring;
+  int ld_act, ld_x0, ld_c;
+};
+
+// Shared memory of the forward's buffers, in bytes, and their placement
+// from base.
+template <typename Pol, typename T = typename Pol::Elem>
+__host__ __device__ inline size_t tile_bytes(const Spec& s) {
+  constexpr int R = Pol::kRows, P = pad<T>(), KS = Pol::kSlab;
+  const int maxw = s.width > s.cond_width ? s.width : s.cond_width;
+  return sizeof(T) * (static_cast<size_t>(2) * R * (maxw + P) +
+                      static_cast<size_t>(R) * (s.fp + P + s.cp + P) +
+                      static_cast<size_t>(kStages) * KS * (maxw + P));
+}
+
+template <typename Pol, typename T = typename Pol::Elem>
+__device__ inline TileBufs<T> tile_bufs(const Spec& s, unsigned char* base) {
+  constexpr int R = Pol::kRows, P = pad<T>();
+  const int maxw = s.width > s.cond_width ? s.width : s.cond_width;
+  TileBufs<T> t;
+  t.ld_act = maxw + P;
+  t.ld_x0 = s.fp + P;
+  t.ld_c = s.cp + P;
+  t.act[0] = reinterpret_cast<T*>(base);
+  t.act[1] = t.act[0] + R * t.ld_act;
+  t.x0 = t.act[1] + R * t.ld_act;
+  t.cond = t.x0 + R * t.ld_x0;
+  t.ring = t.cond + R * t.ld_c;
+  return t;
+}
+
+// The tile's inputs in T: features and condition as given, or (pe) the
+// encodings of raw [n, 3] points and directions. Rows at or past end, and
+// columns past feat / cond up to fp / cp, are zero.
+template <typename P, typename T = typename P::Elem>
 __device__ void load_tile(const Spec& s, const float* x, const float* c,
-                          int row0, int n, T* x0s, T* conds) {
+                          long long row0, long long end,
+                          const TileBufs<T>& t) {
+  constexpr int R = P::kRows;
   const int pts_deg = (s.feat - 3) / 6, dirs_deg = (s.cond - 3) / 6;
-  for (int e = threadIdx.x; e < kRows * s.feat; e += blockDim.x) {
-    const int r = e / s.feat, j = e % s.feat;
+  for (int e = threadIdx.x; e < R * s.fp; e += kThreads) {
+    const int r = e / s.fp, j = e % s.fp;
     const long long row = row0 + r;
     float v = 0.0f;
-    if (row < n) {
+    if (row < end && j < s.feat) {
       v = s.pe ? pe_col(x + 3 * row, pts_deg, j) : x[row * s.feat + j];
     }
-    x0s[e] = round_to<T>(v);
+    t.x0[r * t.ld_x0 + j] = round_to<T>(v);
   }
-  for (int e = threadIdx.x; e < kRows * s.cond; e += blockDim.x) {
-    const int r = e / s.cond, j = e % s.cond;
+  for (int e = threadIdx.x; e < R * s.cp; e += kThreads) {
+    const int r = e / s.cp, j = e % s.cp;
     const long long row = row0 + r;
     float v = 0.0f;
-    if (row < n) {
+    if (row < end && j < s.cond) {
       v = s.pe ? pe_col(c + 3 * row, dirs_deg, j) : c[row * s.cond + j];
     }
-    conds[e] = round_to<T>(v);
+    t.cond[r * t.ld_c + j] = round_to<T>(v);
   }
 }
 
-// The tile through the whole MLP (inputs already in x0s/conds).
-//   buf0, buf1: [kRows][max(width, cond_width)] ping-pong activations.
-//   save (K5, or null): the stored activations, trunk layer i at
-//     i * kRows * width, the bottleneck at depth * kRows * width, the
-//     condition layer ([kRows][cond_width]) at (depth + 1) * kRows * width.
-//   out (K4, or null): [n][num_rgb + num_sigma] fp32, raw rgb then sigma.
-// Ends with a barrier: buf0/buf1 are free again on return.
-template <typename T>
-__device__ void forward_tile(const Spec& s, const T* wkn, const float* bias,
-                             const T* x0s, const T* conds, T* buf0, T* buf1,
-                             T* save, float* out, int row0, int n) {
-  const int W = s.width, F = s.feat, C = s.cond, D = s.depth;
-  const int CW = s.cond_width, R = s.num_rgb, S = s.num_sigma, O = R + S;
-  const Seg<T> none = {nullptr, 0, 0, nullptr, 0, 0};
-  T* bufs[2] = {buf0, buf1};
-  for (int i = 0; i < D; ++i) {
-    const T* w = wkn + s.w_off[i];
-    const float* b = bias + s.b_off[i];
-    T* o = bufs[i & 1];
-    T* keep = save ? save + static_cast<long long>(i) * kRows * W : nullptr;
-    Seg<T> s0 = {x0s, F, 1, w, W, F}, s1 = none;
-    if (i > 0) {
-      s0 = Seg<T>{bufs[(i - 1) & 1], W, 1, w, W, W};
-      if (skip_after(s, i - 1)) {
-        s1 = Seg<T>{x0s, F, 1, w + static_cast<long long>(W) * W, W, F};
-      }
+// One layer of the forward: o = round(act(sum + bias)), act ReLU or none.
+template <typename P, typename T = typename P::Elem>
+__device__ __forceinline__ void dense(const ASeg<T>& s0, const ASeg<T>& s1,
+                                      const T* w, int n, const float* b,
+                                      bool relu, T* o, int ldo, T* ring) {
+  with_width(n, [&](auto width) {
+    constexpr int N = decltype(width)::value;
+    using E = typename P::template Fwd<N>;
+    for (int h = 0; h < P::kRows / E::kRows; ++h) {
+      const int r0 = h * E::kRows;
+      E e;
+      e.zero();
+      weight_product<P, N>(e, ASeg<T>{s0.a + r0 * s0.ld, s0.ld, s0.k},
+                           ASeg<T>{s1.a + r0 * s1.ld, s1.ld, s1.k}, w, N,
+                           ring);
+      e.template each<false>([&](int, int r, int c, float v0, float v1) {
+        v0 += b[c];
+        v1 += b[c + 1];
+        if (relu) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
+        }
+        store_pair(o + (r0 + r) * ldo + c, v0, v1);
+      });
     }
-    gemm(kRows, W, s0, s1, [&](int r, int c, float acc) {
-      const T a = round_to<T>(fmaxf(acc + b[c], 0.0f));
-      o[r * W + c] = a;
-      if (keep) keep[r * W + c] = a;
-    });
-    __syncthreads();
+  });
+  __syncthreads();
+}
+
+// The tile through the whole MLP (inputs already in t.x0 / t.cond).
+//   save(id, buf, width) (K5) is called once each stored activation is
+//     complete in shared memory: id i < depth for trunk layer i, depth for
+//     the bottleneck, depth + 1 for the condition layer.
+//   out (K4, or null): [n][num_rgb + num_sigma] fp32, raw rgb then sigma,
+//     rows row0 + r < end.
+// On return the condition layer's activation is in t.act[(depth - 1) & 1]
+// and everything else of the forward is free.
+template <typename P, typename Save, typename T = typename P::Elem>
+__device__ void forward_tile(const Spec& s, const T* wkn, const float* bias,
+                             const TileBufs<T>& t, float* out, long long row0,
+                             long long end, Save save) {
+  constexpr int RT = P::kRows;
+  const int W = s.width, D = s.depth, CW = s.cond_width;
+  const int R = s.num_rgb, S = s.num_sigma, O = R + S;
+  const ASeg<T> none = {nullptr, 0, 0};
+  const ASeg<T> x0 = {t.x0, t.ld_x0, s.feat};
+  for (int i = 0; i < D; ++i) {
+    const ASeg<T> s0 = i == 0 ? x0 : ASeg<T>{t.act[(i - 1) & 1], t.ld_act, W};
+    const ASeg<T> s1 = i > 0 && skip_after(s, i - 1) ? x0 : none;
+    dense<P>(s0, s1, wkn + s.w_off[i], W, bias + s.b_off[i], true,
+          t.act[i & 1], t.ld_act, t.ring);
+    save(i, t.act[i & 1], W);
   }
 
   // Heads: the sigma column stays fp32, the bottleneck (no activation) is
   // rounded to T before it meets the condition.
-  const T* h = bufs[(D - 1) & 1];
-  T* bn = bufs[D & 1];
-  {
-    const T* w = wkn + s.w_off[D + 1];
-    const float* b = bias + s.b_off[D + 1];
-    T* keep = save ? save + static_cast<long long>(D) * kRows * W : nullptr;
-    gemm(kRows, W, Seg<T>{h, W, 1, w, W, W}, none,
-         [&](int r, int c, float acc) {
-           const T v = round_to<T>(acc + b[c]);
-           bn[r * W + c] = v;
-           if (keep) keep[r * W + c] = v;
-         });
-  }
+  const T* h = t.act[(D - 1) & 1];
+  T* bn = t.act[D & 1];
+  dense<P>(ASeg<T>{h, t.ld_act, W}, none, wkn + s.w_off[D + 1], W,
+        bias + s.b_off[D + 1], false, bn, t.ld_act, t.ring);
+  save(D, bn, W);
   if (out) {
     const T* w = wkn + s.w_off[D];
     const float* b = bias + s.b_off[D];
-    for (int e = threadIdx.x; e < kRows * S; e += blockDim.x) {
+    for (int e = threadIdx.x; e < RT * S; e += kThreads) {
       const int r = e / S, c = e % S;
-      if (row0 + r >= n) continue;
+      if (row0 + r >= end) continue;
       float acc = 0.0f;
       for (int k = 0; k < W; ++k) {
-        acc = __fmaf_rn(load(h + r * W + k), load(w + k * S + c), acc);
+        acc = __fmaf_rn(load(h + r * t.ld_act + k), load(w + k * S + c), acc);
       }
-      out[static_cast<long long>(row0 + r) * O + R + c] = acc + b[c];
+      out[(row0 + r) * O + R + c] = acc + b[c];
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   // Condition layer on [bottleneck, condition], into h's buffer.
-  T* ac = bufs[(D - 1) & 1];
-  {
-    const T* w = wkn + s.w_off[D + 2];
-    const float* b = bias + s.b_off[D + 2];
-    T* keep =
-        save ? save + static_cast<long long>(D + 1) * kRows * W : nullptr;
-    gemm(kRows, CW, Seg<T>{bn, W, 1, w, CW, W},
-         Seg<T>{conds, C, 1, w + static_cast<long long>(W) * CW, CW, C},
-         [&](int r, int c, float acc) {
-           const T a = round_to<T>(fmaxf(acc + b[c], 0.0f));
-           ac[r * CW + c] = a;
-           if (keep) keep[r * CW + c] = a;
-         });
-  }
-  __syncthreads();
+  T* ac = t.act[(D - 1) & 1];
+  dense<P>(ASeg<T>{bn, t.ld_act, W}, ASeg<T>{t.cond, t.ld_c, s.cond},
+        wkn + s.w_off[D + 2], CW, bias + s.b_off[D + 2], true, ac, t.ld_act,
+        t.ring);
+  save(D + 1, ac, CW);
 
   if (out) {
     const T* w = wkn + s.w_off[D + 3];
     const float* b = bias + s.b_off[D + 3];
-    for (int e = threadIdx.x; e < kRows * R; e += blockDim.x) {
+    for (int e = threadIdx.x; e < RT * R; e += kThreads) {
       const int r = e / R, c = e % R;
-      if (row0 + r >= n) continue;
+      if (row0 + r >= end) continue;
       float acc = 0.0f;
       for (int k = 0; k < CW; ++k) {
-        acc = __fmaf_rn(load(ac + r * CW + k), load(w + k * R + c), acc);
+        acc = __fmaf_rn(load(ac + r * t.ld_act + k), load(w + k * R + c),
+                        acc);
       }
-      out[static_cast<long long>(row0 + r) * O + c] = acc + b[c];
+      out[(row0 + r) * O + c] = acc + b[c];
     }
   }
-  __syncthreads();
 }
 
 }  // namespace fused_mlp

@@ -3,9 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by nvcc
 for sm_90a into `build/torch_kernels/<name>-<hash>.so` inside the
 checkout, then loaded with ctypes. The hash covers the source, the
-`csrc/*.cuh` headers it includes and the flags, so an edited source or
-header rebuilds and an unchanged one is reused. Builds happen at first
-use, never at import.
+`csrc/*.cuh` headers it includes, the flags and any `-D` defines (a
+kernel's trial switches), so an edited source or header rebuilds and an
+unchanged one is reused. Builds happen at first use, never at import.
 """
 
 import ctypes
@@ -44,28 +44,39 @@ def nvcc_path():
 
 
 def _local_headers(src):
-  """The csrc headers a source includes by quoted name, in order."""
-  return [CSRC / m.group(1) for m in re.finditer(
-      r'^#include "([^"]+)"', src.read_text(), flags=re.MULTILINE)]
+  """The csrc headers a source includes by quoted name, and those they
+  include, each once, in order."""
+  found = []
+  for m in re.finditer(r'^#include "([^"]+)"', src.read_text(),
+                       flags=re.MULTILINE):
+    header = CSRC / m.group(1)
+    for h in [header, *_local_headers(header)]:
+      if h not in found:
+        found.append(h)
+  return found
 
 
-def _target(name):
+def _flags(defines):
+  return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def _target(name, defines=()):
   src = CSRC / f"{name}.cu"
   content = src.read_bytes() + b"".join(h.read_bytes()
                                         for h in _local_headers(src))
-  digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode())
+  digest = hashlib.sha256(content + " ".join(_flags(defines)).encode())
   return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name):
+def _start(name, defines=()):
   """Start nvcc for one kernel; returns (Popen, tmp, so, log) or None."""
-  src, so = _target(name)
+  src, so = _target(name, defines)
   if so.exists():
     return None
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   tmp = so.with_suffix(f".{os.getpid()}.tmp")
   log = so.with_suffix(".log")
-  cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+  cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp), str(src)]
   proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
   return proc, tmp, so, log
@@ -81,17 +92,18 @@ def _finish(name, job):
   os.replace(tmp, so)
 
 
-def build(names):
-  """Compile the named kernels, all nvcc processes started together.
+def build(names, defines=()):
+  """Compile the named kernels, all nvcc processes started together, with
+  the given `-D` defines.
 
   Returns {name: nvcc output} for the kernels built by this call.
   """
   with _lock:
-    jobs = {n: _start(n) for n in names}
+    jobs = {n: _start(n, defines) for n in names}
     for n, job in jobs.items():
       if job is not None:
         _finish(n, job)
-    return {n: _target(n)[1].with_suffix(".log").read_text()
+    return {n: _target(n, defines)[1].with_suffix(".log").read_text()
             for n, job in jobs.items() if job is not None}
 
 
@@ -99,14 +111,16 @@ def kernel_names():
   return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def load(name):
-  """The ctypes library of kernel `name`, built first if needed."""
+def load(name, defines=()):
+  """The ctypes library of kernel `name` built with `defines`, built first
+  if needed."""
+  key = (name, tuple(defines))
   with _lock:
-    lib = _loaded.get(name)
+    lib = _loaded.get(key)
   if lib is not None:
     return lib
-  build([name])
-  lib = ctypes.CDLL(str(_target(name)[1]))
+  build([name], defines)
+  lib = ctypes.CDLL(str(_target(name, defines)[1]))
   with _lock:
-    _loaded[name] = lib
+    _loaded[key] = lib
   return lib

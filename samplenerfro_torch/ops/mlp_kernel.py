@@ -16,7 +16,8 @@ refuses another activation with the fused path).
 returns gradients for the MLP's weights only: the radiance stage's inputs
 come from the frozen path sampler, and an input that requires grad raises.
 `mlp_fwd` and `mlp_bwd` launch K4 and K5 for CUDA tensors and use the plain
-versions only for CPU tensors. The JAX kernel's 128-lane padding of the
+versions only for CPU tensors. The Function packs the weights once a step
+(pack_params) for both kernels. The JAX kernel's 128-lane padding of the
 features and heads is a TPU layout and is not carried over.
 """
 
@@ -31,7 +32,17 @@ from samplenerfro_torch.ops import cuda_build
 from samplenerfro_torch.ops import math as math_ops
 
 MAX_WIDTH = 256  # widest layer the CUDA kernels' shared memory holds
-ROWS = 64        # rows of a kernel tile (csrc/mlp_common.cuh:kRows)
+# Rows of a kernel tile by compute type (csrc/mlp_common.cuh:Policy).
+TILE_ROWS = {torch.float32: 64, torch.bfloat16: 128}
+IN_PAD = 32      # feature and condition widths padded to this in the kernels
+OUT_COLS = 8     # the cotangent's columns, padded (csrc/mlp_common.cuh)
+# Rows of a K5 super-tile: each block adds its weight gradients into its
+# partial once per this many rows (csrc/mlp_bwd.cu).
+SUPER_ROWS = 1024
+# `-D` switches the kernels are built with: empty in use; the rounding
+# trials of debug/mlp_rounding.py set them (csrc/mlp_common.cuh,
+# csrc/mlp_bwd.cu).
+TRIAL_DEFINES = ()
 
 # The static geometry of a fused MLP: trunk depth and width, skip period,
 # feature and condition widths, condition layer width, rgb and sigma
@@ -103,20 +114,28 @@ def mlp_params(mlp):
   return [p for layer in mlp.layers for p in (layer.weight, layer.bias)]
 
 
-def pack_params(params, dtype):
-  """The kernels' operands from the flat [W_0, b_0, ...] (nn.Linear, W
-  [out, in]).
+# The kernels' operands: every weight input-major (wkn, [in, out], the JAX
+# kernel's layout) and output-major (wnk, [out, kp] with each row of `in`
+# weights padded with zeros to kp = `in` rounded up to 16, so that rows
+# start on 16 bytes for K5's dZ W^T products), each concatenated in layer
+# order in the compute type, and the biases concatenated in fp32.
+Pack = collections.namedtuple("Pack", ("wkn", "wnk", "bias"))
 
-  Returns (wkn, wnk, bias): every weight input-major ([in, out], the JAX
-  kernel's layout) and output-major ([out, in], K5's transposed products),
-  each concatenated in layer order in the compute type, and the biases
-  concatenated in fp32.
-  """
+
+def wnk_row_len(k):
+  """The row length of a layer with k inputs in the wnk pack."""
+  return -(-k // 16) * 16
+
+
+def pack_params(params, dtype):
+  """The Pack of the flat [W_0, b_0, ...] (nn.Linear, W [out, in])."""
   weights = [w.detach() for w in params[0::2]]
   wkn = torch.cat([w.t().reshape(-1) for w in weights]).to(dtype)
-  wnk = torch.cat([w.reshape(-1) for w in weights]).to(dtype)
+  wnk = torch.cat([
+      torch.nn.functional.pad(w, (0, wnk_row_len(w.shape[1]) - w.shape[1]))
+      .reshape(-1) for w in weights]).to(dtype)
   bias = torch.cat([b.detach().reshape(-1) for b in params[1::2]]).float()
-  return wkn.contiguous(), wnk.contiguous(), bias.contiguous()
+  return Pack(wkn.contiguous(), wnk.contiguous(), bias.contiguous())
 
 
 def unpack_grads(spec, flat):
@@ -251,9 +270,20 @@ def _check(spec, x, cond, params, who):
                        f"{(n, k)}")
     if w.device != dev or b.device != dev:
       raise ValueError(f"{who}: weights on {w.device}, inputs on {dev}")
-  if max(spec.width, spec.cond_width) > MAX_WIDTH:
-    raise ValueError(f"{who}: the CUDA kernels take layer widths up to "
+  if {spec.width, spec.cond_width} - {128, MAX_WIDTH}:
+    raise ValueError(f"{who}: the CUDA kernels take layer widths of 128 or "
                      f"{MAX_WIDTH}, got {spec.width} and {spec.cond_width}")
+  if feature_cols(spec.feat) + feature_cols(spec.cond) > 128:
+    raise ValueError(f"{who}: the CUDA kernels' shared memory holds "
+                     f"features and condition of 128 columns together "
+                     f"(each padded to {IN_PAD}), got {spec.feat} and "
+                     f"{spec.cond}")
+
+
+def feature_cols(k):
+  """The columns the kernels keep for k input features or condition
+  values (csrc/mlp_common.cuh: Spec.fp, Spec.cp)."""
+  return -(-k // IN_PAD) * IN_PAD
 
 
 def _spec_args(spec, dtype):
@@ -263,6 +293,58 @@ def _spec_args(spec, dtype):
           spec.num_sigma, int(spec.pe is not None), nweights)
 
 
+def _pack_for(spec, params, dtype, pack):
+  """pack, or a fresh one; raises if a given pack does not fit."""
+  if pack is None:
+    return pack_params(params, dtype)
+  dims = layer_dims(spec)
+  want = (sum(k * n for k, n in dims),
+          sum(wnk_row_len(k) * n for k, n in dims), sum(n for _, n in dims))
+  got = tuple(t.numel() for t in pack)
+  if (got != want or pack.wkn.dtype != dtype or pack.wnk.dtype != dtype
+      or pack.bias.dtype != torch.float32
+      or any(t.device != params[0].device for t in pack)):
+    raise ValueError(f"a pack of {got} {pack.wkn.dtype} values on "
+                     f"{pack.wkn.device} does not fit this MLP in {dtype}")
+  return pack
+
+
+def scratch_sections(spec):
+  """[(name, first column, width)] of the values K5 stores for a row, in
+  the order of csrc/mlp_bwd.cu:Sections: the inputs (x0, cond), the
+  rounded cotangent (d16), the stored activations (act0.., bn, ac) and
+  the rounded cotangents (dpre0.., dbn, dac)."""
+  w, d, cw = spec.width, spec.depth, spec.cond_width
+  widths = ([("x0", feature_cols(spec.feat)),
+             ("cond", feature_cols(spec.cond)), ("d16", OUT_COLS)]
+            + [(f"act{i}", w) for i in range(d)]
+            + [("bn", w), ("ac", cw)] + [(f"dpre{i}", w) for i in range(d)]
+            + [("dbn", w), ("dac", cw)])
+  out, col = [], 0
+  for name, width in widths:
+    out.append((name, col, width))
+    col += width
+  return out
+
+
+def scratch_row_elems(spec):
+  """Values K5 stores for a row."""
+  return sum(width for _, _, width in scratch_sections(spec))
+
+
+def stored_values(spec, stash, rows):
+  """{name: [rows, width]} of what K5 stored for every row, from the
+  `stash` of an mlp_bwd call whose super-tiles held each block's rows."""
+  scratch, blocks, sr = stash["scratch"], stash["blocks"], stash["super_rows"]
+  bounds = [rows * b // blocks for b in range(blocks + 1)]
+  if max(hi - lo for lo, hi in zip(bounds, bounds[1:])) > sr:
+    raise ValueError("the call's super-tiles did not hold a block's rows")
+  return {name: torch.cat([
+      scratch[b, sr * col:sr * col + (hi - lo) * width].view(hi - lo, width)
+      for b, (lo, hi) in enumerate(zip(bounds, bounds[1:]))])
+          for name, col, width in scratch_sections(spec)}
+
+
 def _dtype_of(dtype):
   if dtype not in (torch.float32, torch.bfloat16):
     raise ValueError(f"the fused MLP computes in float32 or bfloat16, not "
@@ -270,7 +352,7 @@ def _dtype_of(dtype):
   return dtype
 
 
-def mlp_fwd(spec, params, x, cond, dtype):
+def mlp_fwd(spec, params, x, cond, dtype, pack=None):
   """K4: (raw rgb [N, num_rgb], sigma [N, num_sigma]) in fp32.
 
   Args:
@@ -279,6 +361,8 @@ def mlp_fwd(spec, params, x, cond, dtype):
     x: [N, feat] features, or [N, 3] raw points when spec.pe is set.
     cond: [N, cond] view encodings, or [N, 3] raw view directions.
     dtype: compute type, torch.float32 or torch.bfloat16.
+    pack: pack_params(params, dtype) when the caller has it, else made
+      here (CUDA only; the plain version reads params).
   """
   dtype = _dtype_of(dtype)
   dev = x.device
@@ -287,7 +371,7 @@ def mlp_fwd(spec, params, x, cond, dtype):
   if dev.type != "cuda":
     raise ValueError(f"mlp_fwd runs on CUDA or CPU tensors, not {dev}")
   _check(spec, x, cond, params, "mlp_fwd")
-  wkn, _, bias = pack_params(params, dtype)
+  wkn, _, bias = _pack_for(spec, params, dtype, pack)
   rows, out_dim = x.shape[0], spec.num_rgb + spec.num_sigma
   out = torch.empty((rows, out_dim), dtype=torch.float32, device=dev)
   lib = _library("mlp_fwd")
@@ -306,9 +390,14 @@ def mlp_fwd(spec, params, x, cond, dtype):
 mlp_fwd.launches = 0
 
 
-def mlp_bwd(spec, params, x, cond, drgb, dsigma, dtype):
+def mlp_bwd(spec, params, x, cond, drgb, dsigma, dtype, pack=None,
+            super_rows=SUPER_ROWS, stash=None):
   """K5: the flat fp32 [dW_0, db_0, ...] (nn.Linear layout) from the
-  cotangents of mlp_fwd's outputs; arguments as mlp_fwd."""
+  cotangents of mlp_fwd's outputs; arguments as mlp_fwd. super_rows, a
+  multiple of the tile's rows, sizes the super-tiles over which each
+  block sums its weight gradients before adding them into its partial.
+  stash, a dict, receives the call's scratch, blocks and super_rows
+  (for stored_values)."""
   dtype = _dtype_of(dtype)
   dev = x.device
   if dev.type == "cpu":
@@ -322,13 +411,22 @@ def mlp_bwd(spec, params, x, cond, drgb, dsigma, dtype):
   if tuple(dout.shape) != (rows, spec.num_rgb + spec.num_sigma):
     raise ValueError(f"mlp_bwd: cotangents of shape {tuple(drgb.shape)} "
                      f"and {tuple(dsigma.shape)} do not fit {rows} rows")
-  wkn, wnk, bias = pack_params(params, dtype)
-  blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count,
-               max(1, math.ceil(rows / ROWS)))
-  slab = ((spec.depth + 1) * spec.width + spec.cond_width) * ROWS
+  tile = TILE_ROWS[dtype]
+  if super_rows <= 0 or super_rows % tile:
+    raise ValueError(f"mlp_bwd: super_rows must be a positive multiple of "
+                     f"{tile}, got {super_rows}")
+  wkn, wnk, bias = _pack_for(spec, params, dtype, pack)
   count = wkn.numel() + bias.numel()
-  scratch = torch.empty((blocks, slab), dtype=dtype, device=dev)
-  partial = torch.zeros((blocks, count), dtype=torch.float32, device=dev)
+  if rows == 0:
+    return unpack_grads(spec, torch.zeros((count,), dtype=torch.float32,
+                                          device=dev))
+  blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count,
+               math.ceil(rows / tile))
+  # A block's rows, rounded up to tiles, if fewer than a super-tile.
+  super_rows = min(super_rows, -(-math.ceil(rows / blocks) // tile) * tile)
+  scratch = torch.empty((blocks, super_rows * scratch_row_elems(spec)),
+                        dtype=dtype, device=dev)
+  partial = torch.empty((blocks, count), dtype=torch.float32, device=dev)
   grads = torch.empty((count,), dtype=torch.float32, device=dev)
   lib = _library("mlp_bwd")
   with torch.cuda.device(dev):
@@ -336,11 +434,13 @@ def mlp_bwd(spec, params, x, cond, drgb, dsigma, dtype):
     err = lib.mlp_bwd_launch(
         x.data_ptr(), cond.data_ptr(), dout.data_ptr(), wkn.data_ptr(),
         wnk.data_ptr(), bias.data_ptr(), scratch.data_ptr(),
-        partial.data_ptr(), grads.data_ptr(), rows, blocks,
-        *_spec_args(spec, dtype), stream)
+        partial.data_ptr(), grads.data_ptr(), rows, blocks, super_rows,
+        *_spec_args(spec, dtype), wnk.numel(), stream)
   if err != 0:
     raise RuntimeError(f"mlp_bwd: kernel launch failed with CUDA error "
                        f"{err}")
+  if stash is not None:
+    stash.update(scratch=scratch, blocks=blocks, super_rows=super_rows)
   mlp_bwd.launches += 1
   return unpack_grads(spec, grads)
 
@@ -359,12 +459,17 @@ class FusedNerfMLP(torch.autograd.Function):
                        "from the frozen path sampler)")
     ctx.spec, ctx.dtype = spec, dtype
     ctx.save_for_backward(x, cond, *params)
-    return mlp_fwd(spec, list(params), x, cond, dtype)
+    # The kernels' operands, packed once for K4 and K5 of this step (the
+    # plain versions on CPU tensors read params and ignore it).
+    ctx.pack = pack_params(params, dtype)
+    return mlp_fwd(spec, list(params), x, cond, dtype, pack=ctx.pack)
 
   @staticmethod
   def backward(ctx, drgb, dsigma):
     x, cond, *params = ctx.saved_tensors
-    grads = mlp_bwd(ctx.spec, params, x, cond, drgb, dsigma, ctx.dtype)
+    grads = mlp_bwd(ctx.spec, params, x, cond, drgb, dsigma, ctx.dtype,
+                    pack=ctx.pack)
+    ctx.pack = None
     return (None, None, None, None, *grads)
 
 
@@ -388,12 +493,14 @@ def fused_nerf_mlp(mlp, x, cond, *, dtype, pe=None):
 
 
 def _library(name):
-  lib = cuda_build.load(name)
+  lib = cuda_build.load(name, TRIAL_DEFINES)
   fn = getattr(lib, f"{name}_launch")
   if fn.restype is not ctypes.c_int or not fn.argtypes:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    pointers = 5 if name == "mlp_fwd" else 9
-    ints = 1 if name == "mlp_fwd" else 2
-    fn.argtypes = [vp] * pointers + [ci] * (ints + 10) + [cl, vp]
+    spec = [ci] * 10 + [cl]
+    if name == "mlp_fwd":
+      fn.argtypes = [vp] * 5 + [cl] + spec + [vp]
+    else:
+      fn.argtypes = [vp] * 9 + [cl, ci, ci] + spec + [cl, vp]
     fn.restype = ci
   return lib

@@ -342,6 +342,47 @@ def test_cuda_fused_mlp_backward_matches_plain_version(cuda_device, dtype,
   assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# Row counts around the kernels' tiles (64 rows in fp32, 128 in bf16) and a
+# count that leaves each K5 block's range (39,601 rows over the card's SMs)
+# short of a whole number of 256-row super-tiles; widths 128 and 256 with
+# and without the skip layer (depth 3, skip 4 has none); fed and pe.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pe,n,width,depth,skip,super_rows", [
+    (torch.float32, None, 1, 128, 4, 2, 1024),
+    (torch.float32, (10, 4), 63, 256, 3, 4, 1024),
+    (torch.float32, None, 65, 256, 4, 2, 1024),
+    (torch.float32, (10, 4), 39601, 256, 4, 2, 256),
+    (torch.bfloat16, (10, 4), 1, 256, 4, 2, 1024),
+    (torch.bfloat16, None, 127, 128, 3, 4, 1024),
+    (torch.bfloat16, (10, 4), 129, 256, 4, 2, 1024),
+    (torch.bfloat16, None, 39601, 128, 4, 2, 256)])
+def test_cuda_fused_mlp_tiling(cuda_device, dtype, pe, n, width, depth, skip,
+                               super_rows):
+  """K4 and K5 against their plain versions at the tolerances above, K5
+  bit for bit across two runs, at the edges of the new tiling."""
+  from samplenerfro_torch.ops import mlp_kernel
+  spec, params, x, c = _mlp_case(cuda_device, n, pe, depth=depth,
+                                 width=width, skip=skip, seed=5)
+  got = torch.cat(mlp_kernel.mlp_fwd(spec, params, x, c, dtype), -1)
+  want = torch.cat(mlp_kernel.fused_nerf_mlp_reference(spec, params, x, c,
+                                                       dtype), -1)
+  err = (got - want).abs()
+  if dtype == torch.float32:
+    assert float(err.max()) <= K4_FP32_ATOL
+  else:
+    assert float(err.max()) <= K4_BF16_MAX
+    assert float(err.mean()) <= K4_BF16_MEAN
+  gen = torch.Generator().manual_seed(6)
+  drgb = torch.randn((n, 3), generator=gen).to(cuda_device)
+  dsigma = torch.randn((n, 1), generator=gen).to(cuda_device)
+  args = (spec, params, x, c, drgb, dsigma, dtype)
+  grads = mlp_kernel.mlp_bwd(*args, super_rows=super_rows)
+  _assert_mlp_grads(grads, mlp_kernel.fused_nerf_mlp_bwd_reference(*args),
+                    1e-4 if dtype == torch.float32 else 2e-2)
+  again = mlp_kernel.mlp_bwd(*args, super_rows=super_rows)
+  assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
 @pytest.mark.cuda
 def test_cuda_fused_mlp_autograd_and_ship_width(cuda_device):
   """Through the autograd Function at the ship's 8x256 width: one K4 and

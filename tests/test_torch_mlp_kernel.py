@@ -34,6 +34,7 @@ import pytest
 import torch
 from jax import random
 
+from samplenerfro_torch.debug import mlp_rounding
 from samplenerfro_torch.models import convert
 from samplenerfro_torch.models import mlp as t_mlp
 from samplenerfro_torch.ops import math as t_math
@@ -199,6 +200,93 @@ def test_pack_and_unpack_round_trip():
   back = mlp_kernel.unpack_grads(spec, torch.cat([wkn32, bias]))
   for g, p in zip(back, params):
     assert torch.equal(g, p.detach())
+
+
+def test_wnk_pack_is_padded_output_major():
+  """The output-major pack: each layer [out, in] with its rows padded with
+  zeros to a multiple of 16 inputs, in layer order, in the compute type."""
+  _, port, *_ = _setup(8, **SMALL)
+  spec = mlp_kernel.mlp_spec(port)
+  params = mlp_kernel.mlp_params(port)
+  for dtype in (torch.float32, torch.bfloat16):
+    wnk = mlp_kernel.pack_params(params, dtype).wnk
+    assert wnk.dtype == dtype
+    off = 0
+    for (k, n), w in zip(mlp_kernel.layer_dims(spec), params[0::2]):
+      kp = mlp_kernel.wnk_row_len(k)
+      assert kp % 16 == 0 and k <= kp < k + 16
+      block = wnk[off:off + n * kp].reshape(n, kp)
+      assert torch.equal(block[:, :k], w.detach().to(dtype))
+      assert not block[:, k:].any()
+      off += n * kp
+    assert off == wnk.numel()
+
+
+def test_saved_pack_gives_fresh_pack_gradients(monkeypatch):
+  """FusedNerfMLP packs the weights once in forward and hands that pack to
+  the backward; it equals a fresh pack, and the gradients equal those of a
+  backward that packs for itself."""
+  n = 70
+  _, port, _, _, x, c = _setup(n, **SMALL, seed=7)
+  params = mlp_kernel.mlp_params(port)
+  spec = mlp_kernel.mlp_spec(port)
+  xi, ci = torch.from_numpy(x), torch.from_numpy(c)
+  packs, seen = [], []
+  pack_params, mlp_bwd = mlp_kernel.pack_params, mlp_kernel.mlp_bwd
+
+  def counting_pack(*args):
+    packs.append(pack_params(*args))
+    return packs[-1]
+
+  def spying_bwd(*args, pack=None, **kwargs):
+    seen.append(pack)
+    return mlp_bwd(*args, pack=pack, **kwargs)
+
+  monkeypatch.setattr(mlp_kernel, "pack_params", counting_pack)
+  monkeypatch.setattr(mlp_kernel, "mlp_bwd", spying_bwd)
+  for dtype in (torch.float32, torch.bfloat16):
+    packs.clear()
+    seen.clear()
+    port.zero_grad()
+    rgb, sigma = mlp_kernel.fused_nerf_mlp(port, xi, ci, dtype=dtype)
+    (rgb.square().sum() + sigma.sum()).backward()
+    assert len(packs) == 1 and len(seen) == 1 and seen[0] is packs[0]
+    fresh = pack_params(params, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(seen[0], fresh))
+    drgb = 2 * rgb.detach()
+    dsigma = torch.ones_like(sigma)
+    want = mlp_bwd(spec, params, xi, ci, drgb, dsigma, dtype, pack=fresh)
+    for p, w in zip(params, want):
+      assert torch.equal(p.grad, w)
+
+
+def test_staged_plain_version_gives_its_weight_gradients():
+  """debug/mlp_rounding's staged plain version, the chain of bf16 values
+  it compares with K5's stored ones, gives the plain K5's weight
+  gradients from the same inputs, stored as K5 stores them."""
+  n = 70
+  _, port, _, _, x, c = _setup(n, **SMALL, seed=9)
+  spec = mlp_kernel.mlp_spec(port)
+  params = mlp_kernel.mlp_params(port)
+  drgb, dsigma = map(torch.from_numpy, _loss_targets(n, seed=10))
+  bf16 = torch.bfloat16
+
+  def stored(t, width):
+    return torch.nn.functional.pad(t, (0, width - t.shape[1])).to(bf16)
+
+  sections = {name: width for name, _, width in
+              mlp_kernel.scratch_sections(spec)}
+  inputs = {"x0": stored(torch.from_numpy(x), sections["x0"]),
+            "cond": stored(torch.from_numpy(c), sections["cond"]),
+            "d16": stored(torch.cat([drgb, dsigma], -1), sections["d16"])}
+  with torch.no_grad():
+    plain = mlp_rounding.plain_stages(spec, params, inputs)
+    got = mlp_rounding.stage_dw(spec, plain, torch.float32)
+  want = mlp_kernel.fused_nerf_mlp_bwd_reference(
+      spec, params, torch.from_numpy(x), torch.from_numpy(c), drgb, dsigma,
+      bf16)[0::2]
+  for g, w in zip(got, want):
+    torch.testing.assert_close(g, w.t(), rtol=1e-6, atol=1e-9)
 
 
 @pytest.mark.parametrize("case", [
