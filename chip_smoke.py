@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py [--seed N] [--profile]
 
---profile adds torch.profiler tables: one render chunk and one radiance
-train step with the nn.Linear MLPs and again with the fused MLP (K4/K5),
-and one 'all' train step.
+--profile adds torch.profiler tables: one K3 call at the ship and at
+glass's shape (its split over its launches), one render chunk and one
+radiance train step with the nn.Linear MLPs and again with the fused MLP
+(K4/K5), and one 'all' train step.
 
 Phases, each of which must pass or the script exits non-zero:
   1. device: a CUDA card is required; prints its name and power limit.
-  2. build: compiles every kernel under samplenerfro_torch/ops/csrc, one
-     nvcc per source, all started together. P1 (x + 1) must then come back
+  2. build: compiles every kernel under samplenerfro_torch/ops/csrc, and
+     K4 with its tensor-core trial switch (the F2 count below), one nvcc
+     per source, all started together. P1 (x + 1) must then come back
      exact; P2 (sinf at argument scales 1 to 2048) within 1e-6 of float64.
      Each is timed with its host call (CUDA events around the Python call)
      and by device time alone (a CUDA graph of 100 launches), beside x + 1
@@ -38,10 +40,16 @@ Phases, each of which must pass or the script exits non-zero:
      fp32 at that call, twice, bit for bit, after a stage-by-stage
      comparison of the bf16 K5 with its plain version and of both with a
      float64 twin (debug/mlp_rounding.stage_report, printed, not a
-     gate). Each timed with its weights packed (as the path packs them once
-     a step) and as a call that packs them, with its TFLOP/s and share of
-     its bound, beside the time of the port's nn.Linear stack for the same
-     work (unfused); K5 with the bytes its partial and scratch move.
+     gate) and the count of activations where K4 and K5's recompute
+     differ (fault F2: must be 0; with K4 on tensor cores, printed). Each
+     timed with its weights packed (as the path packs them once a step)
+     and as a call that packs them, with its TFLOP/s and share of its
+     bound, beside the time of the port's nn.Linear stack for the same
+     work (unfused); K5 with the bytes its partial and scratch move. Then
+     K1, K2 and K3 again at glass's shape (configs/tpu/glass.*: 1536 march
+     steps on a 384^3 grid), and K4/K5 in fp32 and bf16 at the geometries
+     past the ship MLP's that supports admits (fault F1: widths 384, 512,
+     1024, pe with max_deg_point 16) on 4,096 random rows.
   5. render path: one 256x256 view rendered through samplenerfro_torch.eval's
      render function (8 chunks of 8192 rays); K1 must have been launched
      once per chunk. Then the same view with --mlp_kernel=pallas and
@@ -62,7 +70,8 @@ Phases, each of which must pass or the script exits non-zero:
      128 rays, fp32 MLPs, on the CPU (plain K2 and K3) against the card,
      with P3's count of the ReLU masks the two set apart;
      one fused radiance step's loss and MLP gradients on 128 rays, fp32,
-     on the CPU (plain K1, K4, K5) against the card.
+     on the CPU (plain K1, K4, K5) against the card, the CPU replaying the
+     card's paths, samples and the ReLU masks of K4's activations.
 The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
@@ -80,6 +89,7 @@ from samplenerfro_torch.debug import mlp_rounding
 from samplenerfro_torch.debug import probe_so3_relu
 from samplenerfro_torch.eval import make_render_fn
 from samplenerfro_torch.models import convert
+from samplenerfro_torch.models import mlp as mlp_modules
 from samplenerfro_torch.models import nerf
 from samplenerfro_torch.models.path_sampler import SO3_MAX_DEG
 from samplenerfro_torch.ops import cuda_build
@@ -103,6 +113,7 @@ SHIP = "configs/tpu/ship_skydome-bkgd_no-partial-reflect_cycles"
 MARCH_KERNEL = "samplenerfro_tpu/ops/pallas/march_kernel.py:248"
 MLP_KERNEL = "samplenerfro_tpu/ops/pallas/mlp_kernel.py"
 GRID_N = 512
+GLASS_N = 384  # configs/tpu/glass.gin: voxelize_uni384_bbox-3.5
 RES = 256
 CAMERA_ANGLE_X = 0.6911112070083618  # the Blender scenes' field of view
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
@@ -235,13 +246,18 @@ def device_phase():
 
 
 def build_phase():
+  """Every kernel, and K4 with its tensor-core trial switch (the F2
+  measurement's before), one nvcc each, all started together."""
   t0 = time.time()
-  logs = cuda_build.build(cuda_build.kernel_names())
-  log(f"build: {time.time() - t0:.1f} s for {cuda_build.kernel_names()}")
-  for name, out in logs.items():
+  logs = cuda_build.build(cuda_build.kernel_names(),
+                          also=[("mlp_fwd", (mlp_rounding.K4_TENSOR,))])
+  log(f"build: {time.time() - t0:.1f} s for {cuda_build.kernel_names()} and "
+      f"mlp_fwd with {mlp_rounding.K4_TENSOR}")
+  for (name, defines), out in logs.items():
     for line in out.splitlines():
-      if "registers" in line or "spill" in line:
-        log(f"  {name}: {line.strip()}")
+      if "registers" in line or "spill" in line or "smem" in line:
+        log(f"  {name}{' ' + ' '.join(defines) if defines else ''}: "
+            f"{line.strip()}")
 
 
 def model_phase(device, seed, grid_n=GRID_N, **overrides):
@@ -319,10 +335,18 @@ def bound(nbytes, flops, peak=FP32_FLOPS):
 
 
 def kernel_phase(model, chunk_rays, jitter):
-  """K1 against its plain version on the card, timed, with its bound."""
+  """K1 against its plain version on the card at the render's first chunk,
+  timed, with its bound."""
   ps = model.path_sampler
-  args = (ps.spec, ps.grid, chunk_rays.origins, chunk_rays.viewdirs, ps.near,
-          ps.step_size, ps.num_samples, jitter)
+  return k1_case(ps.spec, ps.grid, chunk_rays.origins, chunk_rays.viewdirs,
+                 ps.near, ps.step_size, ps.num_samples, jitter, "")
+
+
+def k1_case(spec, grid, origins, viewdirs, near, step_size, num_samples,
+            jitter, what, time_plain=True):
+  """K1 against its plain version on the card, timed, with its bound."""
+  args = (spec, grid, origins, viewdirs, near, step_size, num_samples,
+          jitter)
   got = march_kernel.march_lean(*args)
   torch.cuda.synchronize()
   want = march_kernel.march_lean_reference(*args)
@@ -331,20 +355,22 @@ def kernel_phase(model, chunk_rays, jitter):
   for name, a, b in zip(names, got, want):
     per = (a - b).abs().reshape(-1, a.shape[-1] if a.dim() == 3 else 1)
     per = per.amax(dim=0).tolist()
-    log(f"  K1 {name}: max abs err per channel {per}")
+    log(f"  K1{what} {name}: max abs err per channel {per}")
     if not all(np.isfinite(per)):
-      raise SystemExit(f"K1 {name}: non-finite output")
+      raise SystemExit(f"K1{what} {name}: non-finite output")
     err = max(err, max(per))
+  del got
   if err > K1_ATOL:
-    raise SystemExit(f"K1 disagrees with its plain version: {err} > "
+    raise SystemExit(f"K1{what} disagrees with its plain version: {err} > "
                      f"{K1_ATOL}")
   ms = cuda_ms(lambda: march_kernel.march_lean(*args))
-  plain_ms = cuda_ms(lambda: march_kernel.march_lean_reference(*args))
+  plain_ms = (cuda_ms(lambda: march_kernel.march_lean_reference(*args))
+              if time_plain else None)
   nbytes, flops, distinct = march_bytes_and_flops(
-      ps.spec, want[0], chunk_rays.origins.shape[0], ps.num_samples,
-      jitter.shape[0])
+      spec, want[0], origins.shape[0], num_samples, jitter.shape[0])
   bound_ms, bound_by = bound(nbytes, flops)
-  log(f"  K1 march_lean: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+  plain_txt = f"{plain_ms:.3f} ms" if plain_ms is not None else "not timed"
+  log(f"  K1{what} march_lean: {ms:.4f} ms, plain {plain_txt}, bound "
       f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB incl. "
       f"{distinct} distinct voxels; {flops / 1e9:.3f} GFLOP)")
   return report_row("march_lean", MARCH_KERNEL, err, ms, plain_ms, bound_ms,
@@ -477,39 +503,77 @@ def synthetic_batch(args, seed):
           "rays": rays, "env_rays": env}
 
 
-def so3_kernel_phases(model, batch, seed):
+def so3_kernel_phases(model, batch, seed, profile=False):
   """K2 and K3 against their plain versions on the card, timed, with
   their bounds, on one training batch's rays."""
   ps = model.path_sampler
   dev = ps.grid.device
-  head = mlp_ops.So3MLP(6 * SO3_MAX_DEG, output_init_std=SO3_STD,
-                        generator=torch.Generator().manual_seed(seed))
-  so3 = [p.detach().to(dev) for p in head.params()]
   o = torch.from_numpy(batch["rays"].origins).to(dev)
   d = torch.from_numpy(batch["rays"].viewdirs).to(dev)
-  fwd_args = (ps.spec, ps.grid, o, d, ps.near, ps.step_size, ps.num_samples,
-              so3, SO3_ALPHA, SO3_MAX_DEG)
+  return so3_case(ps.spec, ps.grid, ps.near, ps.step_size, ps.num_samples, o,
+                  d, seed, "", profile=profile)
+
+
+def so3_params_for(seed, dev):
+  """so3 weights drawn from `seed` at output std SO3_STD."""
+  head = mlp_ops.So3MLP(6 * SO3_MAX_DEG, output_init_std=SO3_STD,
+                        generator=torch.Generator().manual_seed(seed))
+  return [p.detach().to(dev) for p in head.params()]
+
+
+def profile_calls(what, fn):
+  """Device time by kernel of one fn() (torch.profiler)."""
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as tprofile
+  fn()
+  torch.cuda.synchronize()
+  with tprofile(activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  log(f"profile of {what}:")
+  log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
+
+
+def so3_case(spec, grid, near, step_size, steps, o, d, seed, what,
+             time_plain=True, profile=False, dist_relative=False):
+  """K2 and K3 against their plain versions on the card at rays (o, d),
+  timed, with their bounds; returns their report rows."""
+  dev = grid.device
+  so3 = so3_params_for(seed, dev)
+  fwd_args = (spec, grid, o, d, near, step_size, steps, so3, SO3_ALPHA,
+              SO3_MAX_DEG)
   traj = march_kernel.march_full(*fwd_args)
   torch.cuda.synchronize()
   want = march_kernel.march_full_reference(*fwd_args)
   per = (traj - want).abs().reshape(-1, 11).amax(dim=0).tolist()
-  log(f"  K2 max abs err per channel (pos 3, dir 3, dist, n, grad n 3): "
-      f"{per}")
+  log(f"  K2{what} max abs err per channel (pos 3, dir 3, dist, n, grad n "
+      f"3): {per}")
   err2 = max(per)
-  if not (np.all(np.isfinite(per)) and err2 <= K2_ATOL):
-    raise SystemExit(f"K2 disagrees with its plain version: {err2} > "
-                     f"{K2_ATOL}")
-  batch_n, steps = o.shape[0], ps.num_samples
+  # The arclength sums |p_s - p_s+1| of fp32 positions, which cancel: at
+  # glass's 1536 steps to 13.8 units the ulps of the path carry into it
+  # beyond K2_ATOL (4.4e-4 on NVIDIA H100 80GB HBM3, chip_smoke.py), so
+  # there (dist_relative) it is held at K2_ATOL of its largest value.
+  dist_scale = (max(1.0, float(want[..., 6].abs().max())) if dist_relative
+                else 1.0)
+  worst = max(max(per[:6] + per[7:]), per[6] / dist_scale)
+  if not (np.all(np.isfinite(per)) and worst <= K2_ATOL):
+    raise SystemExit(f"K2{what} disagrees with its plain version: {per} "
+                     f"against {K2_ATOL} (the arclength's relative)")
+  batch_n = o.shape[0]
   active = int((traj[..., 8:11].norm(dim=-1) > 1e-3).sum())
-  distinct = distinct_voxels(ps.spec, traj[..., 0:3])
+  distinct = distinct_voxels(spec, traj[..., 0:3])
+  del traj
   nparams = sum(p.numel() for p in so3)
   mlp_flops = so3_flops(so3) * active
   march_ops = 120 * batch_n * steps
   ms2 = cuda_ms(lambda: march_kernel.march_full(*fwd_args))
-  plain2 = cuda_ms(lambda: march_kernel.march_full_reference(*fwd_args), 3)
+  plain2 = (cuda_ms(lambda: march_kernel.march_full_reference(*fwd_args), 3)
+            if time_plain else None)
   bytes2 = 44 * batch_n * steps + 16 * distinct + 24 * batch_n + 4 * nparams
   bound2, by2 = bound(bytes2, mlp_flops + march_ops)
-  log(f"  K2 march_so3: {ms2:.4f} ms, plain {plain2:.3f} ms, bound "
+  plain_txt = f"{plain2:.3f} ms" if plain2 is not None else "not timed"
+  log(f"  K2{what} march_so3: {ms2:.4f} ms, plain {plain_txt}, bound "
       f"{bound2:.4f} ms by {by2} ({active} of {batch_n * steps} ray-steps "
       f"active, {(mlp_flops + march_ops) / 1e9:.3f} GFLOP, "
       f"{bytes2 / 1e6:.1f} MB incl. {distinct} distinct voxels)")
@@ -518,47 +582,48 @@ def so3_kernel_phases(model, batch, seed):
   # replays, so that both differentiate the same path: K2's own path
   # differs by the ulps above, which the PE multiplies by up to 2^9 and
   # which then flip ReLU masks of the head near 0.
-  cfg = eikonal_vjp.MarchConfig(ps.spec, ps.near, ps.step_size, steps,
-                                SO3_MAX_DEG)
+  cfg = eikonal_vjp.MarchConfig(spec, near, step_size, steps, SO3_MAX_DEG)
   gen = torch.Generator().manual_seed(seed + 1)
-  dtraj = torch.randn(traj.shape, generator=gen).to(dev)
-  bwd_args = (cfg, ps.grid, o, d, so3, SO3_ALPHA, want, dtraj)
+  dtraj = torch.randn(want.shape, generator=gen).to(dev)
+  bwd_args = (cfg, grid, o, d, so3, SO3_ALPHA, want, dtraj)
   swept = want[..., 8:11].norm(dim=-1) > 1e-3
-  p3_case("'all' batch, active ray-steps", want[..., 0:3][swept].contiguous(),
-          so3, SO3_ALPHA)
+  p3_case(f"'all' batch{what}, active ray-steps",
+          want[..., 0:3][swept].contiguous(), so3, SO3_ALPHA,
+          time_plain=time_plain)
   by_step = probes.so3_preacts_by_step(want[..., 0:3], so3, SO3_ALPHA)
   layers = probes.relu_flips(*zip(*by_step), mask=swept)
   del by_step, swept
-  log("  P3 'all' batch against the plain version called a step at a time, "
-      "as the plain march calls the head, over the active ray-steps, per "
-      "layer (max abs err, ReLU flips, min |pre-activation|): "
+  log(f"  P3 'all' batch{what} against the plain version called a step at a "
+      "time, as the plain march calls the head, over the active ray-steps, "
+      "per layer (max abs err, ReLU flips, min |pre-activation|): "
       f"{[(r['max_dev'], r['flips'], r['min_abs']) for r in layers]}")
   got = eikonal_vjp.march_bwd(*bwd_args)
   torch.cuda.synchronize()
-  ref = eikonal_vjp.march_bwd_reference(cfg, ps.grid, o, d, so3, SO3_ALPHA,
+  ref = eikonal_vjp.march_bwd_reference(cfg, grid, o, d, so3, SO3_ALPHA,
                                         dtraj)
-  flat = lambda r: [r[0], r[1], r[2]] + list(r[3])
-  names = ["origins", "directions", "alpha"] + [
-      f"so3 {n}.{k}" for n in ("Dense_0", "Dense_1", "Dense_2", "Dense_3",
-                               "Dense_out") for k in ("weight", "bias")]
   err3 = 0.0
-  for name, g, w in zip(names, flat(got), flat(ref)):
+  for name, g, w in zip(K3_NAMES, k3_flat(got), k3_flat(ref)):
     diff = (g - w).abs()
     scale = float(w.abs().max())
     worst = float((diff / (K3_ATOL_SCALE * scale + K3_RTOL * w.abs()))
                   .max()) if scale > 0 else 0.0
-    log(f"  K3 {name}: max abs err {float(diff.max()):.3e} of scale "
+    log(f"  K3{what} {name}: max abs err {float(diff.max()):.3e} of scale "
         f"{scale:.3e} ({worst:.3f} of the tolerance)")
     if not (bool(torch.isfinite(g).all()) and worst <= 1.0):
-      raise SystemExit(f"K3 {name} disagrees with its plain version")
+      raise SystemExit(f"K3{what} {name} disagrees with its plain version")
     err3 = max(err3, float(diff.max()))
+  del ref
   again = eikonal_vjp.march_bwd(*bwd_args)
-  if not all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))):
-    raise SystemExit("K3 is not deterministic: two runs differ")
-  log("  K3 two runs agree bit for bit")
+  if not all(torch.equal(a, b) for a, b in zip(k3_flat(got), k3_flat(again))):
+    raise SystemExit(f"K3{what} is not deterministic: two runs differ")
+  del got, again
+  log(f"  K3{what} two runs agree bit for bit")
   ms3 = cuda_ms(lambda: eikonal_vjp.march_bwd(*bwd_args))
-  plain3 = cuda_ms(lambda: eikonal_vjp.march_bwd_reference(
-      cfg, ps.grid, o, d, so3, SO3_ALPHA, dtraj), 3)
+  plain3 = (cuda_ms(lambda: eikonal_vjp.march_bwd_reference(
+      cfg, grid, o, d, so3, SO3_ALPHA, dtraj), 3) if time_plain else None)
+  if profile:
+    profile_calls(f"one K3 call{what}",
+                  lambda: eikonal_vjp.march_bwd(*bwd_args))
   # Least work: the head's forward, its backward to the input and its
   # weight gradients at each active ray-step (3x K2's MLP arithmetic) plus
   # ~200 operations of step adjoints a ray-step; the trajectory and its
@@ -568,7 +633,8 @@ def so3_kernel_phases(model, batch, seed):
   bytes3 = (2 * 44 * batch_n * steps + 16 * distinct + 24 * batch_n
             + 8 * nparams)
   bound3, by3 = bound(bytes3, flops3)
-  log(f"  K3 march_bwd: {ms3:.4f} ms, plain {plain3:.3f} ms, bound "
+  plain_txt = f"{plain3:.3f} ms" if plain3 is not None else "not timed"
+  log(f"  K3{what} march_bwd: {ms3:.4f} ms, plain {plain_txt}, bound "
       f"{bound3:.4f} ms by {by3} ({flops3 / 1e9:.3f} GFLOP, "
       f"{bytes3 / 1e6:.1f} MB)")
   return (report_row("march_so3", MARCH_KERNEL, err2, ms2, plain2, bound2,
@@ -576,6 +642,53 @@ def so3_kernel_phases(model, batch, seed):
           report_row("march_bwd",
                      "samplenerfro_tpu/ops/pallas/march_bwd_kernel.py:168",
                      err3, ms3, plain3, bound3, by3))
+
+
+K3_NAMES = ["origins", "directions", "alpha"] + [
+    f"so3 {n}.{k}" for n in ("Dense_0", "Dense_1", "Dense_2", "Dense_3",
+                             "Dense_out") for k in ("weight", "bias")]
+
+
+def k3_flat(r):
+  """K3's (origins_bar, directions_bar, alpha_bar, [so3 grads]) flat."""
+  return [r[0], r[1], r[2]] + list(r[3])
+
+
+def glass_phase(device, seed, profile=False):
+  """K1, K2 and K3 against their plain versions at glass's shape
+  (configs/tpu/glass.{yaml,gin}: 64x24 = 1536 march steps, near 0.2, far
+  14, a 384^3 grid of extent 3.5 prefiltered 5/3), on a synthetic blob, a
+  1024-ray batch of a camera at radius 4; plain versions not timed."""
+  t0 = time.time()
+  values, ndim, nmin, nmax = grid_io.synthetic_blob_grid(GLASS_N, 3.5, 0.33)
+  spec = grid_ops.GridSpec(ndim, nmin, nmax)
+  vals = grid_ops.gaussian_prefilter(torch.from_numpy(values).to(device),
+                                     tuple(ndim), 5, 3.0)
+  grid = torch.cat([vals, grid_ops.central_difference_grad(spec, vals)],
+                   -1).contiguous()
+  del values, vals
+  near, far, coarse, per = 0.2, 14.0, 64, 24
+  steps = coarse * per
+  step_size = (far - near) / (steps - 1)
+  rng = np.random.RandomState(seed + 3)
+  view = camera_rays(RES, theta=rng.uniform(0, 2 * np.pi),
+                     phi=rng.uniform(0.2, 0.8))
+  idx = rng.choice(RES * RES, 1024, replace=False)
+  flat = rays_lib.namedtuple_map(
+      lambda r: torch.from_numpy(np.ascontiguousarray(
+          r.reshape(-1, r.shape[-1])[idx])).to(device), view)
+  log(f"glass shape: {GLASS_N}^3 grid prefiltered 5/3, {coarse}x{per} = "
+      f"{steps} steps, near {near}, far {far}, 1024 rays "
+      f"({time.time() - t0:.1f} s to build)")
+  jitter = nerf.make_jitter(coarse, per, torch.Generator().manual_seed(seed),
+                            device)
+  with torch.no_grad():
+    k1 = k1_case(spec, grid, flat.origins, flat.viewdirs, near, step_size,
+                 steps, jitter, " (glass)", time_plain=False)
+  k2, k3 = so3_case(spec, grid, near, step_size, steps, flat.origins,
+                    flat.viewdirs, seed, " (glass)", time_plain=False,
+                    profile=profile, dist_relative=True)
+  return {"k1_ms": k1["ms"], "k2_ms": k2["ms"], "k3_ms": k3["ms"]}
 
 
 def probe_phase(device):
@@ -653,7 +766,7 @@ def selfcheck_phase():
                      f"at least 1")
 
 
-def p3_case(what, pos, so3, alpha):
+def p3_case(what, pos, so3, alpha, time_plain=True):
   """P3 against its plain version at points `pos` [N, 3], timed, with its
   bound; returns (max abs err, ms, plain ms, bound ms, bound by)."""
   got = probes.so3_preacts(pos, so3, alpha)
@@ -671,7 +784,8 @@ def p3_case(what, pos, so3, alpha):
     raise SystemExit(f"P3 ({what}) disagrees with its plain version: {err} "
                      f"> {P3_ATOL} * {scale}")
   ms = cuda_ms(lambda: probes.so3_preacts(pos, so3, alpha))
-  plain = cuda_ms(lambda: probes.so3_preacts_reference(pos, so3, alpha))
+  plain = (cuda_ms(lambda: probes.so3_preacts_reference(pos, so3, alpha))
+           if time_plain else float("nan"))
   # Least work: the PE (~20 operations a sine) and the three layers'
   # multiply-adds (2 operations each); the points and the three layers'
   # weights read once, the three [N, width] outputs written once.
@@ -751,7 +865,7 @@ def k5_traffic(spec, rows, dtype, blocks):
   kernel issues, from its layout in csrc/mlp_bwd.cu), and what PR 4's
   design moved in its partial (read and written once per 64-row tile).
   Returns (partial, scratch, parent partial)."""
-  tile, sr = mlp_kernel.TILE_ROWS[dtype], mlp_kernel.SUPER_ROWS
+  tile, sr = mlp_kernel.tile_rows(spec, dtype), mlp_kernel.SUPER_ROWS
   esize = 2 if dtype == torch.bfloat16 else 4
   dims = mlp_kernel.layer_dims(spec)
   count = sum(k * n for k, n in dims) + sum(n for _, n in dims)
@@ -849,6 +963,18 @@ def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
   dsigma = (1e-3 * torch.randn((n, 1), generator=gen)).to(x.device)
   mlp_rounding.stage_report(spec, params, x, c, drgb, dsigma,
                             K5_BF16_SCALE, log)
+  # F2: K5 takes the gradient of the activations K4 produced. Before: K4's
+  # bf16 forward on tensor cores (the trial switch keeps that design).
+  before = mlp_rounding.forward_disagreement(
+      spec, params, x, c, drgb, dsigma, torch.bfloat16,
+      (mlp_rounding.K4_TENSOR,))
+  after = mlp_rounding.forward_disagreement(spec, params, x, c, drgb, dsigma,
+                                            torch.bfloat16)
+  log(f"  F2, bf16 train fine call ({n} rows): elements where K4's stored "
+      f"activations and K5's recompute differ, per layer, K4 on tensor "
+      f"cores (before): {before}; K4 as shipped: {after}")
+  if any(after.values()):
+    raise SystemExit("F2: K5's recompute differs from K4's activations")
   for what, dtype in (("bf16 train fine call", torch.bfloat16),
                       ("fp32 train fine call", torch.float32)):
     args = (spec, params, x, c, drgb, dsigma, dtype)
@@ -892,7 +1018,8 @@ def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
     unfused = cuda_ms(linear_backward)
     bound_ms, by, tflop = mlp_bound(spec, n, dtype, backward=True)
     blocks = min(torch.cuda.get_device_properties(x.device)
-                 .multi_processor_count, -(-n // mlp_kernel.TILE_ROWS[dtype]))
+                 .multi_processor_count,
+                 -(-n // mlp_kernel.tile_rows(spec, dtype)))
     part_b, scratch_b, parent_b = k5_traffic(spec, n, dtype, blocks)
     log(f"  K5 {what}: {blocks} blocks, super-tiles of "
         f"{mlp_kernel.SUPER_ROWS} rows; partial {part_b / 1e9:.3f} GB "
@@ -908,6 +1035,99 @@ def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
                            bound_ms, by, case=what, unfused_ms=unfused,
                            call_ms=call_ms, tflops=tflop / ms * 1e3))
   return rows
+
+
+def k5_worst(got, want, dtype):
+  """K5's worst error across tensors in units of its tolerance."""
+  worst = 0.0
+  for g, w in zip(got, want):
+    if not bool(torch.isfinite(g).all()):
+      return float("inf")
+    scale = float(w.abs().max())
+    tol = (K5_BF16_SCALE * scale if dtype == torch.bfloat16 else
+           K5_ATOL_SCALE * scale + K5_RTOL * w.abs())
+    if scale > 0:
+      worst = max(worst, float(((g - w).abs() / tol).max()))
+  return worst
+
+
+WIDE_ROWS = 4096
+
+
+def wide_mlp_phase(device, seed):
+  """K4 and K5 at the geometries `supports` admits past the ship MLP's
+  (fault F1): trunk and condition widths 384, 512 and 1024, and pallas_pe
+  with max_deg_point 16 (99 + 27 input columns); each in fp32 and bf16 on
+  WIDE_ROWS random samples, against the plain versions at the K4 and K5
+  tolerances, K5 twice, bit for bit. Returns {case: (K4 fp32 ms, K5 bf16
+  ms)}."""
+  out = {}
+  rng = np.random.RandomState(seed + 5)
+  pts = torch.from_numpy(rng.uniform(-1.5, 1.5, (WIDE_ROWS, 3))
+                         .astype(np.float32)).to(device)
+  dirs = torch.from_numpy(rng.randn(WIDE_ROWS, 3).astype(np.float32))
+  dirs = (dirs / dirs.norm(dim=-1, keepdim=True)).to(device)
+  gen = torch.Generator().manual_seed(seed + 6)
+  drgb = (1e-3 * torch.randn((WIDE_ROWS, 3), generator=gen)).to(device)
+  dsigma = (1e-3 * torch.randn((WIDE_ROWS, 1), generator=gen)).to(device)
+  for width, deg, pe in ((384, 10, False), (512, 10, False),
+                         (1024, 10, False), (256, 16, True)):
+    what = f"width {width}, max_deg_point {deg}, {'pe' if pe else 'fed'}"
+    mlp = mlp_modules.NerfMLP(3 + 6 * deg, 27, net_depth=8, net_width=width,
+                              net_width_condition=width, skip_layer=4,
+                              generator=torch.Generator().manual_seed(seed))
+    params = [t.detach().to(device) for t in mlp_kernel.mlp_params(mlp)]
+    spec = mlp_kernel.mlp_spec(mlp, (deg, 4) if pe else None)
+    x, c = ((pts, dirs) if pe else
+            (math_ops.pe_cols(pts, deg).contiguous(),
+             math_ops.pe_cols(dirs, 4).contiguous()))
+    for dtype in (torch.float32, torch.bfloat16):
+      acts = {}
+      got = torch.cat(mlp_kernel.mlp_fwd(spec, params, x, c, dtype,
+                                         acts=acts), -1)
+      torch.cuda.synchronize()
+      want = torch.cat(mlp_kernel.fused_nerf_mlp_reference(spec, params, x, c,
+                                                           dtype), -1)
+      err = (got - want).abs()
+      e_max, e_mean = float(err.max()), float(err.mean())
+      ok4 = (e_max <= K4_FP32_ATOL if dtype == torch.float32 else
+             e_max <= K4_BF16_MAX and e_mean <= K4_BF16_MEAN)
+      args = (spec, params, x, c, drgb, dsigma, dtype)
+      g5 = mlp_kernel.mlp_bwd(*args)
+      again = mlp_kernel.mlp_bwd(*args)
+      plain_acts = {}
+      own = k5_worst(g5, mlp_kernel.fused_nerf_mlp_bwd_reference(
+          *args, stored=plain_acts), dtype)
+      # ReLU masks that K4's sums (k order) and the plain version's
+      # (cuBLAS) set apart at a pre-activation at 0: the plain version
+      # replays K4's activations, as the K3 checks replay P3's flips.
+      flips = sum(int(((acts[k] > 0) != (plain_acts[k] > 0)).sum())
+                  for k in acts)
+      worst = (k5_worst(g5, mlp_kernel.fused_nerf_mlp_bwd_reference(
+          *args, at=acts), dtype) if flips else own)
+      same = all(torch.equal(a, b) for a, b in zip(g5, again))
+      log(f"  F1 {what}, {str(dtype)[6:]}: "
+          f"{'wide' if mlp_kernel.wide(spec) else 'narrow'} tiles of "
+          f"{mlp_kernel.tile_rows(spec, dtype)} rows; K4 max abs err "
+          f"{e_max:.3e}, mean {e_mean:.3e}; ReLU masks K4 and the plain "
+          f"version set apart: {flips}; K5 within {worst:.3f} of its "
+          f"tolerance ({own:.3f} without the replay), two runs "
+          f"{'bit for bit' if same else 'DIFFER'}")
+      if not (ok4 and np.isfinite(e_max) and worst <= 1.0 and same):
+        raise SystemExit(f"F1 {what} {dtype}: K4/K5 disagree with their "
+                         f"plain versions")
+      if dtype == torch.float32:
+        ms4 = cuda_ms(lambda: mlp_kernel.mlp_fwd(spec, params, x, c, dtype))
+      else:
+        ms5 = cuda_ms(lambda: mlp_kernel.mlp_bwd(*args))
+        if not pe:
+          mlp_rounding.stage_report(spec, params, x, c, drgb, dsigma,
+                                    K5_BF16_SCALE, log)
+      del got, want, err, g5, again
+    log(f"  F1 {what}: K4 fp32 {ms4:.4f} ms, K5 bf16 {ms5:.4f} ms at "
+        f"{WIDE_ROWS} rows")
+    out[what] = (ms4, ms5)
+  return out
 
 
 def _grads_finite(model):
@@ -1170,8 +1390,11 @@ def fused_cross_check(model, args, host, device, seed):
   weights that place the fine samples by the order of the MLP sums; the
   fine samples' 2^9 encoding turns either into weight-gradient differences
   of its own. The comparison without the replay is printed for the fused
-  and for the nn.Linear step, which stand alike. Returns K5's launches on
-  the card."""
+  and for the nn.Linear step, which stand alike. Where K4's sums and the
+  CPU's set a ReLU mask apart (a pre-activation at 0), the CPU's backward
+  replays K4's activations, as the K3 checks replay P3's flips; the
+  comparison without that replay is printed. Returns K5's launches on the
+  card."""
   sub = dict(host)
   sub["rays"] = rays_lib.namedtuple_map(lambda r: r[:XCHECK_RAYS],
                                         host["rays"])
@@ -1184,9 +1407,34 @@ def fused_cross_check(model, args, host, device, seed):
   mlps = (model.coarse_mlp, model.fine_mlp)
   sample_pdf = render_ops.sample_pdf
 
-  def run(dev, kernel, record=None, replay=None):
+  fwd, bwd = mlp_kernel.mlp_fwd, mlp_kernel.mlp_bwd
+  card_acts, flips = {}, [0]
+
+  def fwd_recording(spec, params, x, cond, dtype, pack=None, acts=None):
+    """K4, its activations kept by row count (coarse and fine differ)."""
+    got = {}
+    mlp_kernel.mlp_fwd = fwd  # K4 counts its launches on its own name
+    try:
+      out = fwd(spec, params, x, cond, dtype, pack=pack, acts=got)
+    finally:
+      mlp_kernel.mlp_fwd = fwd_recording
+    card_acts[x.shape[0]] = {k: v.cpu() for k, v in got.items()}
+    return out
+
+  def bwd_replaying(spec, params, x, cond, drgb, dsigma, dtype, pack=None):
+    """The plain K5 at K4's activations; counts the masks they move."""
+    card, own = card_acts[x.shape[0]], {}
+    mlp_kernel.fused_nerf_mlp_bwd_reference(spec, params, x, cond, drgb,
+                                            dsigma, dtype, stored=own)
+    flips[0] += sum(int(((card[k] > 0) != (own[k] > 0)).sum())
+                    for k in card)
+    return mlp_kernel.fused_nerf_mlp_bwd_reference(
+        spec, params, x, cond, drgb, dsigma, dtype, at=card)
+
+  def run(dev, kernel, record=None, replay=None, masks=False):
     """loss and MLP gradients of one step; record appends the march and
-    sample_pdf outputs, replay returns the recorded ones."""
+    sample_pdf outputs (and K4's activations), replay returns the recorded
+    ones (and with masks, K4's activations to the backward)."""
     def pdf(*a, **k):
       if replay is not None:
         return replay[1]
@@ -1205,6 +1453,10 @@ def fused_cross_check(model, args, host, device, seed):
     model.mlp_kernel = kernel
     handle = model.path_sampler.register_forward_hook(march)
     render_ops.sample_pdf = pdf
+    if record is not None and kernel == "pallas":
+      mlp_kernel.mlp_fwd = fwd_recording
+    if masks:
+      mlp_kernel.mlp_bwd = bwd_replaying
     try:
       model.zero_grad(set_to_none=True)
       total, _ = step_lib.loss_fn(model, batch_to_device(sub, alpha, dev),
@@ -1213,6 +1465,7 @@ def fused_cross_check(model, args, host, device, seed):
     finally:
       handle.remove()
       render_ops.sample_pdf = sample_pdf
+      mlp_kernel.mlp_fwd, mlp_kernel.mlp_bwd = fwd, bwd
     grads = [p.grad.detach().cpu().clone() for m in mlps
              for p in m.parameters()]
     return float(total.detach()), grads
@@ -1227,7 +1480,10 @@ def fused_cross_check(model, args, host, device, seed):
   loss_cpu, g_cpu = run(torch.device("cpu"), "pallas", replay=recorded)
   secs = time.time() - t0
   rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-  worst = _worst_against(g_gpu, g_cpu)
+  unmasked = _worst_against(g_gpu, g_cpu)
+  _, g_masked = run(torch.device("cpu"), "pallas", replay=recorded,
+                    masks=True)
+  worst = _worst_against(g_gpu, g_masked)
   own_fused = _worst_against(g_gpu, run(torch.device("cpu"), "pallas")[1])
   own_linear = _worst_against(g_gpu_linear,
                               run(torch.device("cpu"), "xla")[1])
@@ -1235,9 +1491,10 @@ def fused_cross_check(model, args, host, device, seed):
   log(f"fused radiance-step cpu cross-check: {XCHECK_RAYS} rays in "
       f"{secs:.1f} s, loss {loss_gpu:.8f} vs {loss_cpu:.8f} (rel "
       f"{rel:.3e}, tolerance {XCHECK_LOSS_RTOL}), MLP grads at {worst:.3f} "
-      f"of the K5 tolerance, K5 launches {launches}; each device placing "
-      f"its own samples: fused step at {own_fused:.3f}, nn.Linear step at "
-      f"{own_linear:.3f} of it")
+      f"of the K5 tolerance with K4's {flips[0]} ReLU masks that the CPU "
+      f"sets apart replayed ({unmasked:.3f} without), K5 launches "
+      f"{launches}; each device placing its own samples: fused step at "
+      f"{own_fused:.3f}, nn.Linear step at {own_linear:.3f} of it")
   if not (rel <= XCHECK_LOSS_RTOL and worst <= 1.0 and launches == 2):
     raise SystemExit("fused radiance-step cpu cross-check failed")
   return launches
@@ -1272,10 +1529,14 @@ def main():
   host = synthetic_batch(args, ns.seed)
   with torch.no_grad():
     k1 = kernel_phase(model, first, jitter)
-  k2, k3 = so3_kernel_phases(model, host, ns.seed)
+  k2, k3 = so3_kernel_phases(model, host, ns.seed, ns.profile)
+  glass = glass_phase(device, ns.seed, ns.profile)
+  k3["glass_ms"] = glass["k3_ms"]
+  torch.cuda.empty_cache()
   batch_rays = batch_to_device(host, 1.0, device)["rays"]
   k4, k4_pe, k4_bf16, k5_bf16, k5_fp32 = fused_kernel_phases(
       model, first, batch_rays, jitter, ns.seed)
+  wide_mlp_phase(device, ns.seed)
   del first, batch_rays
   torch.cuda.empty_cache()
 

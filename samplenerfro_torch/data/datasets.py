@@ -19,6 +19,21 @@ from samplenerfro_torch.data import rays as rays_lib
 from samplenerfro_torch.data.rays import namedtuple_map
 
 
+# The dataset formats the port loads; samplenerfro_tpu/data/datasets.py:519
+# (dataset_dict) has opencv, llff, nsvf and grid besides, which wait.
+PORTED = ("blender",)
+
+
+def check_dataset(args):
+  """Raise NotImplementedError unless args.dataset is a ported format; the
+  entry points call it before they read any scene file."""
+  name = getattr(args, "dataset", "blender")
+  if name not in PORTED:
+    raise NotImplementedError(
+        f"dataset {name!r} is not ported yet: samplenerfro_torch loads "
+        f"{', '.join(PORTED)} scenes only")
+
+
 def _load_image(fname):
   from PIL import Image
   with open(fname, "rb") as f:

@@ -16,10 +16,12 @@ layer's weight gradient, in units of the K5 bf16 tolerance.
     python -m samplenerfro_torch.debug.mlp_rounding [--rows=196608]
 
 runs that report for the shipped kernels and for their rounding trials
-(mlp_kernel.TRIAL_DEFINES): tensor-core products that keep their running
-sum inside the tensor core, and K5's recompute on tensor cores, at the
-ship width on random samples; with K4-bf16's and K5-bf16's errors against
-their plain versions and their times. It needs a CUDA card.
+(mlp_kernel.TRIAL_DEFINES): K4's bf16 forward on tensor cores, tensor-core
+products that keep their running sum inside the tensor core, and K5's
+recompute on tensor cores, at the ship width on random samples; with
+K4-bf16's and K5-bf16's errors against their plain versions and their
+times. It needs a CUDA card. forward_disagreement counts where K4's
+stored activations and K5's recompute differ.
 """
 
 import argparse
@@ -34,12 +36,17 @@ from samplenerfro_torch.ops import mlp_kernel
 # K5-bf16's tolerance: 2e-3 of each plain tensor's largest |value|
 # (chip_smoke.py, tests/test_torch_cuda.py).
 K5_BF16_SCALE = 2e-3
+K4_TENSOR = "FUSED_MLP_K4_TENSOR_FORWARD=1"
 TRIALS = (
     ("shipped", ()),
-    ("tensor-core running sums", ("FUSED_MLP_MMA_RUNNING_SUM=1",)),
-    ("K5 recompute on tensor cores", ("FUSED_MLP_K5_TENSOR_FORWARD=1",)),
+    ("K4-bf16 on tensor cores (the earlier K4)", (K4_TENSOR,)),
+    ("tensor-core running sums",
+     (K4_TENSOR, "FUSED_MLP_MMA_RUNNING_SUM=1")),
+    ("K5 recompute on tensor cores",
+     (K4_TENSOR, "FUSED_MLP_K5_TENSOR_FORWARD=1")),
     ("all on tensor cores, running sums",
-     ("FUSED_MLP_K5_TENSOR_FORWARD=1", "FUSED_MLP_MMA_RUNNING_SUM=1")),
+     (K4_TENSOR, "FUSED_MLP_K5_TENSOR_FORWARD=1",
+      "FUSED_MLP_MMA_RUNNING_SUM=1")),
 )
 
 
@@ -168,6 +175,26 @@ def stage_report(spec, params, x, c, drgb, dsigma, scale=K5_BF16_SCALE,
       + ", ".join(lines))
   log(f"  bf16 dW worst: {worst}")
   return worst
+
+
+def forward_disagreement(spec, params, x, c, drgb, dsigma, dtype,
+                         k4_defines=()):
+  """Per stored activation (mlp_kernel.forward_activations' names), the
+  count of elements where K4's forward (built with k4_defines) and K5's
+  recompute store different values, at the same rows: {name: count}."""
+  saved = mlp_kernel.TRIAL_DEFINES
+  acts = {}
+  try:
+    mlp_kernel.TRIAL_DEFINES = tuple(k4_defines)
+    mlp_kernel.mlp_fwd(spec, params, x, c, dtype, acts=acts)
+  finally:
+    mlp_kernel.TRIAL_DEFINES = saved
+  stash, n = {}, x.shape[0]
+  mlp_kernel.mlp_bwd(spec, params, x, c, drgb, dsigma, dtype,
+                     super_rows=-(-n // 128) * 128, stash=stash)
+  stored = mlp_kernel.stored_values(spec, stash, n)
+  return {name: int((acts[name] != stored[name]).sum())
+          for name, _, _ in mlp_kernel.forward_activations(spec)}
 
 
 def _ms(fn, reps=5):

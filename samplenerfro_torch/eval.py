@@ -77,6 +77,7 @@ def main(argv=None):
   args, cfg, bindings = config_lib.load_args(
       ns.config, ns.gin_file, ns.gin_param,
       **config_lib.parse_flag_overrides(rest))
+  datasets.check_dataset(args)
   rays, images = datasets.load_blender(
       ns.data_dir, "test", args.factor, args.use_pixel_centers,
       args.white_bkgd, args.skip_frames)

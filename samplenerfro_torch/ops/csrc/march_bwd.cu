@@ -3,95 +3,133 @@
 //
 // Replaces samplenerfro_tpu/ops/pallas/march_bwd_kernel.py:_bwd_kernel,
 // reached there through march_bwd_pallas as the backward of
-// ops/eikonal_vjp.make_march_allstage.
+// ops/eikonal_vjp.make_march_allstage. Its design is the JAX package's
+// other backward, bwd_impl="passes" (samplenerfro_tpu/ops/eikonal_vjp.py:
+// 209-444): the step adjoints are linear in the state cotangents (pbar,
+// dbar) with coefficients that depend only on stored forward values, so
+// the so3 head leaves the sequential loop.
 //
 // What it computes: the cotangents of K2's inputs (origins, directions,
 // the annealing alpha and every so3 weight and bias) from the cotangents
-// of its trajectory, by the step adjoints of
-// samplenerfro_tpu/ops/eikonal_vjp.py:11-25. Walking s = S-1 .. 0 with
-// (pbar, dbar) the cotangents of (p_{s+1}, d_{s+1}):
-//   ubar = h dbar;  m = |g_s| > 1e-3
-//   if m: recompute the so3 head at p_s, then back through Rodrigues
-//         (rawbar, g_so3), the MLP and the annealed PE (p_so3, wbar_k)
-//   gbar  = (1-m) ubar + g_so3 + dg_s
-//   nbar  = -(h/n^2)(pbar.d) + dn_s - segbar_s (h/n^2)|d|
-//   dbar' = dbar + (h/n) pbar + dd_s + segbar_s (h/n) d/|d|
-//   pbar' = pbar + p_so3 + [nbar, gbar] . d(trilinear)/dp + dp_s
-// The trilinear adjoint re-gathers the 8 corners of p_s and takes the
-// derivative of the x-then-y-then-z lerps along each axis, divided by the
-// voxel size (ops/grid.trilinear's fraction has slope 1/ndelta). The
-// wrapper has already turned the direction cotangent into the raw
-// direction's and the arclength cotangent into segbar_s = sum_{k>s} ddist_k
-// (eikonal_vjp.py:590-594).
+// of its trajectory. Walking s = S-1 .. 0 with (pbar, dbar) the
+// cotangents of (p_{s+1}, d_{s+1}) (eikonal_vjp.py:11-25):
+//   pbar' = pbar + h K_s dbar + a_s (-(h / n_s^2) pbar . d_s) + c_p,s
+//   dbar' = dbar + (h / n_s) pbar + c_d,s
+// with a = dn/dp, B = dg/dp (the trilinear derivative at p_s), and at the
+// active ray-steps (|g_s| > 1e-3) K = Jp^T + B^T Jg^T, Jp = du/dp through
+// the annealed PE, the head and Rodrigues, Jg = du/dg; elsewhere K = B^T.
+// c_p = a (dn_s - segbar_s (h / n^2) |d|) + B^T dg_s + dp_s and c_d = dd_s
+// + segbar_s (h / n) d / |d| gather the direct cotangents (the wrapper has
+// turned the direction cotangent into the raw direction's and the
+// arclength's into segbar_s = sum_{k>s} ddist_k). The head's weight and
+// window cotangents are then one batched VJP at ubar_s = h dbar_{s+1} over
+// the active ray-steps.
 //
-// Three launches, one wrapper call:
-//  1. march_bwd_sweep: sequential in s, parallel over rays. As K2, a block
-//     of 128 threads takes a tile of R = 8 rays; threads 0..R-1 own the
-//     rays' (pbar, dbar) and do the Euler and trilinear adjoints, and all
-//     threads recompute the MLP for the tile and run it backward to its
-//     input (thread j owns hidden unit j). It writes the origin/direction
-//     cotangents, each ray's per-degree window cotangent (the wrapper turns
-//     those into alpha's by autograd of the window function) and, for
-//     every ray-step, the MLP output cotangent rawbar.
-//  2. march_bwd_params: the parameter gradients, a sum over the ~786k
-//     ray-steps of a training batch (pass 3 of eikonal_vjp.py:226-227). A
-//     fixed grid of G blocks each owns a contiguous range of ray-steps,
-//     compacts the active ones in order into tiles of T = 32, recomputes
-//     the MLP forward and backward for the tile in shared memory, and adds
-//     the tile's outer products into its own slice of a [G, P] partial
-//     buffer. No atomics: each block adds in a fixed order.
-//  3. march_bwd_reduce: sums the G partials of each parameter in block
-//     order. Repeated runs therefore match bit for bit.
+// Five launches, one wrapper call:
+//  1a. k3_pieces: one thread a ray-step: the trilinear derivative (the 8
+//      corner gathers), inv_n, c_p, c_d and K = B^T, stored field-major
+//      for the sweep ([S][22][Bp], Bp the rays rounded up to 32).
+//  1b. k3_jacobians: the active ray-steps, compacted in order into tiles
+//      of 64 by a grid of blocks that each own a contiguous range of
+//      ray-steps. Per tile: the annealed PE and its derivative, each
+//      hidden layer forward and then its three tangents (one per axis of
+//      p), each a product of the tile's 64 rows with the layer's weights
+//      on the CUDA-core engine of mlp_common.cuh (weights streamed from L2
+//      in k-slabs through the cp.async ring, 8 x 8 register tiles a
+//      lane), then the output layer, Rodrigues' Jacobians (its adjoint at
+//      three unit cotangents) and K, written over B^T.
+//  2.  k3_sweep: the recurrence above, one thread a ray, 32 rays a block
+//      (a block per 32 rays spreads 1,024 rays over 32 SMs), the pieces
+//      of 8 steps staged by cp.async while the 8 before are swept. It
+//      writes dbar_{s+1} at every ray-step and (pbar_0, dbar_0).
+//  3.  k3_params: as 1b, a fixed grid of blocks over contiguous ranges,
+//      compacting the active ray-steps into tiles of 64. Per tile: the
+//      head's forward again (the same device functions as 1b), rawbar by
+//      the Rodrigues adjoint at ubar, the cotangents of each layer (dZ
+//      W^T on the engine, masked by the stored activations), and each
+//      layer's dW = A^T dZ over the tile's rows on the engine, added into
+//      the block's own [P] slice of a [G, P] partial; the first layer's
+//      and the skip rows' products are taken against the PE's sines
+//      before the window, so that the wrapper gets the window's cotangent
+//      from them (W . G summed per degree) and scales them by the window
+//      into dW.
+//  4.  k3_reduce: sums the G partials of each parameter in block order.
+// Every sum is owned by one thread and runs in a fixed order; no atomics,
+// so two runs agree bit for bit.
 //
-// What bounds it: about three times K2's MLP arithmetic on the active
-// ray-steps (forward recompute, backward to the input, and the weight
-// outer products), fp32 on CUDA cores, against reading the trajectory and
-// its cotangents once. Known weaknesses of this first version: the sweep
-// streams the 260 KB of weights through L1 twice a step (forward and
-// backward layouts), the parameter pass reads and writes its 260 KB
-// partial once per tile, and the outer products read shared memory for
-// every multiply-add.
+// The head's products are fp32 sums on CUDA cores that start from zero and
+// run in k order over the layer's input, then the skip input, then + bias:
+// the rounding points of the first version's gemv_tile and of K2. Tensor
+// cores would flip ReLU masks near 0 (PERF.md). The hidden layers are
+// computed at width 128: a narrower head is zero-padded by the wrapper
+// (zero units add exact zeros to every sum).
 //
-// The file also holds P3 (so3_preacts_launch), which recomputes the head's
-// pre-activations with the sweep's own code so that ReLU masks can be held
-// against another summation order's; see so3_preacts_kernel.
+// What bounds it: the head's arithmetic at the active ray-steps. This
+// design runs seven head products a ray-step (1b: forward and three
+// tangents; 3: forward, cotangents, dW), 7/3 of the bound's three, fp32
+// on CUDA cores; besides, it streams the trajectory and its cotangent
+// once, the pieces out and back in (88 bytes a ray-step) and each block's
+// 262 KB partial through L2 once a tile.
+//
+// The file also holds P3 (so3_preacts_launch), which computes the head's
+// pre-activations with 1b's and 3's forward (so3_encode, so3_layer), so
+// that ReLU masks can be held against another summation order's.
 
-#include <cuda_runtime.h>
+#include "mlp_common.cuh"
 
 namespace {
 
-constexpr int kRays = 8;        // rays per sweep block
-constexpr int kThreads = 128;   // sweep threads = max hidden width
-constexpr int kMaxIn = 64;      // max PE features
-constexpr int kMaxCat = 192;    // max width + PE features
+using Seg = fused_mlp::ASeg<float>;
+using Engine = fused_mlp::Simt<128, float>;
+
+constexpr int kThreads = fused_mlp::kThreads;  // 256
+constexpr int kW = 128;        // hidden width of the products
+constexpr int kTile = Engine::kRows;  // 64 ray-steps a tile
+constexpr int kIn = 64;        // PE columns kept; zero past 6 * max_deg
+constexpr int kLdH = kW + 4;   // shared-memory rows padded by 16 bytes
+constexpr int kLdX = kIn + 4;
 constexpr int kMaxDeg = 10;
-constexpr int kTile = 32;       // ray-steps per parameter-pass tile
-constexpr int kPThreads = 256;  // parameter-pass threads
+constexpr int kFields = 22;    // pieces a ray-step: K 9, a 3, inv_n,
+                               // c_p 3, c_d 3, d 3
+constexpr int kChunk = 8;      // steps a sweep stage holds
+constexpr int kRing = fused_mlp::kStages * 16 * kLdH;  // floats
 constexpr float kHalfPi = 1.5707963267948966f;
 
+// The engine's k-slab pipeline in fp32: 16 weight rows a slab.
+struct Pol {
+  using Elem = float;
+  static constexpr int kSlab = 16;
+};
+
+// The head's weights. Forward pack, input-major, hidden units padded to
+// kW: W0t [I][kW] b0 W1t [kW][kW] b1 W2t b2 W3t [kW + I][kW] b3 Woutt
+// [kW][3] bout. Backward pack, nn.Linear layout [out][in]: W1, W2 and the
+// first kW inputs of W3, each [kW][kW].
 struct Net {
-  // Forward pack, input-major: W0t b0 W1t b1 W2t b2 W3t b3 Woutt bout.
   const float *w0t, *b0, *w1t, *b1, *w2t, *b2, *w3t, *b3, *wot, *bo;
-  // Backward pack, nn.Linear layout [out][in]: W0 W1 W2 W3 Wout.
-  const float *w0, *w1, *w2, *w3, *wo;
-  int in_dim, width;
+  const float *w1, *w2, *w3;
+  int in_dim;
 };
 
 __device__ __forceinline__ Net make_net(const float* fwd, const float* bwd,
-                                        int in_dim, int width) {
+                                        int in_dim) {
   Net n;
-  const int I = in_dim, W = width;
+  const int I = in_dim;
   n.in_dim = I;
-  n.width = W;
-  n.w0t = fwd;          n.b0 = n.w0t + I * W;
-  n.w1t = n.b0 + W;     n.b1 = n.w1t + W * W;
-  n.w2t = n.b1 + W;     n.b2 = n.w2t + W * W;
-  n.w3t = n.b2 + W;     n.b3 = n.w3t + (W + I) * W;
-  n.wot = n.b3 + W;     n.bo = n.wot + W * 3;
-  n.w0 = bwd;           n.w1 = n.w0 + W * I;
-  n.w2 = n.w1 + W * W;  n.w3 = n.w2 + W * W;
-  n.wo = n.w3 + W * (W + I);
+  n.w0t = fwd;           n.b0 = n.w0t + I * kW;
+  n.w1t = n.b0 + kW;     n.b1 = n.w1t + kW * kW;
+  n.w2t = n.b1 + kW;     n.b2 = n.w2t + kW * kW;
+  n.w3t = n.b2 + kW;     n.b3 = n.w3t + (kW + I) * kW;
+  n.wot = n.b3 + kW;     n.bo = n.wot + kW * 3;
+  n.w1 = bwd;            n.w2 = bwd + kW * kW;
+  n.w3 = bwd + 2 * kW * kW;
   return n;
+}
+
+// Parameters of the padded forward pack, which the partial mirrors.
+__host__ __device__ inline int num_params(int in_dim) {
+  return in_dim * kW + kW + 2 * (kW * kW + kW) + (kW + in_dim) * kW + kW +
+         kW * 3 + 3;
 }
 
 __device__ __forceinline__ float4 lerp4(float4 a, float4 b, float t) {
@@ -102,10 +140,6 @@ __device__ __forceinline__ float4 lerp4(float4 a, float4 b, float t) {
 
 __device__ __forceinline__ float4 sub4(float4 a, float4 b) {
   return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return ((a.x * b.x + a.y * b.y) + a.z * b.z) + a.w * b.w;
 }
 
 __device__ __forceinline__ int clampi(int v, int hi) {
@@ -119,10 +153,11 @@ struct GridArgs {
   float nd_x, nd_y, nd_z;
 };
 
-// d(trilinear)/dp . vbar for ops/grid.trilinear at p: the three fraction
-// derivatives of the x-then-y-then-z lerps, over the voxel size.
-__device__ void trilinear_adjoint(const GridArgs& a, float px, float py,
-                                  float pz, float4 vbar, float* out) {
+// d(trilinear)/dp of ops/grid.trilinear at p: dv[a] = the derivative of
+// the x-then-y-then-z lerps of [n, g] along axis a, over the voxel size
+// (the fraction has slope 1 / ndelta; clamped corners give 0).
+__device__ void trilinear_jacobian(const GridArgs& a, float px, float py,
+                                   float pz, float4 (&dv)[3]) {
   const float cx = (px - a.nmin_x) / a.nd_x;
   const float cy = (py - a.nmin_y) / a.nd_y;
   const float cz = (pz - a.nmin_z) / a.nd_z;
@@ -150,47 +185,12 @@ __device__ void trilinear_adjoint(const GridArgs& a, float px, float py,
                            lerp4(sub4(c101, c001), sub4(c111, c011), yd), zd);
   const float4 dvy = lerp4(sub4(c10, c00), sub4(c11, c01), zd);
   const float4 dvz = sub4(lerp4(c01, c11, yd), lerp4(c00, c10, yd));
-  out[0] = dot4(vbar, dvx) / a.nd_x;
-  out[1] = dot4(vbar, dvy) / a.nd_y;
-  out[2] = dot4(vbar, dvz) / a.nd_z;
-}
-
-// out[r][i] = f(sum_k in[r][k] M[k*ncols + i] (+ sum_k in2[r][k]
-// M[(K+k)*ncols + i]) + bias[i]) for the sweep tile's R rows, thread i
-// owning columns i, i+128, ...; f applies ReLU, a mask (row r, column i of
-// `mask` > 0) and an addend, each when given.
-__device__ void gemv_tile(const float* in, int ld_in, int K,
-                          const float* in2, int ld_in2, int K2,
-                          const float* __restrict__ M, int ncols,
-                          const float* __restrict__ bias, bool relu,
-                          const float* mask, int ld_mask, const float* add,
-                          int ld_add, float* out, int ld_out) {
-  for (int i = threadIdx.x; i < ncols; i += kThreads) {
-    float acc[kRays];
-#pragma unroll
-    for (int r = 0; r < kRays; ++r) acc[r] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float m = __ldg(M + k * ncols + i);
-#pragma unroll
-      for (int r = 0; r < kRays; ++r)
-        acc[r] = __fmaf_rn(in[r * ld_in + k], m, acc[r]);
-    }
-    for (int k = 0; k < K2; ++k) {
-      const float m = __ldg(M + (K + k) * ncols + i);
-#pragma unroll
-      for (int r = 0; r < kRays; ++r)
-        acc[r] = __fmaf_rn(in2[r * ld_in2 + k], m, acc[r]);
-    }
-    const float b = bias ? __ldg(bias + i) : 0.0f;
-#pragma unroll
-    for (int r = 0; r < kRays; ++r) {
-      float v = acc[r] + b;
-      if (relu) v = fmaxf(v, 0.0f);
-      if (mask && !(mask[r * ld_mask + i] > 0.0f)) v = 0.0f;
-      if (add) v = v + add[r * ld_add + i];
-      out[r * ld_out + i] = v;
-    }
-  }
+  dv[0] = make_float4(dvx.x / a.nd_x, dvx.y / a.nd_x, dvx.z / a.nd_x,
+                      dvx.w / a.nd_x);
+  dv[1] = make_float4(dvy.x / a.nd_y, dvy.y / a.nd_y, dvy.z / a.nd_y,
+                      dvy.w / a.nd_y);
+  dv[2] = make_float4(dvz.x / a.nd_z, dvz.y / a.nd_z, dvz.z / a.nd_z,
+                      dvz.w / a.nd_z);
 }
 
 __device__ __forceinline__ float3 cross3(float3 a, float3 b) {
@@ -255,426 +255,529 @@ __device__ __forceinline__ bool active_g(const float* row) {
   return sqrtf(gx * gx + gy * gy + gz * gz) > 1e-3f;
 }
 
-struct SweepArgs {
+// ------------------------------------------------- the head on a tile
+
+// The annealed PE of the tile's points p[r] (r < kTile), column f < I of
+// degree f / 6, coordinate f % 3, sine for f % 6 < 3 and the sine of the
+// argument + pi/2 past it: x[r][f] = sin(arg) * win[deg]; with val, the
+// sine itself; with dco, the derivative of x[r][f] along p[r][f % 3],
+// cos(arg) 2^deg win[deg]. Columns I .. kIn - 1 are zero.
+__device__ void so3_encode(const float (*p)[3], int in_dim, const float* win,
+                           float* x, float* val, float* dco) {
+  for (int i = threadIdx.x; i < kTile * kIn; i += kThreads) {
+    const int r = i / kIn, f = i % kIn;
+    float xv = 0.0f, sv = 0.0f, dv = 0.0f;
+    if (f < in_dim) {
+      const int deg = f / 6, c = f % 3;
+      const float scale = (float)(1 << deg);
+      const float xb = p[r][c] * scale;
+      const float arg = (f % 6) < 3 ? xb : xb + kHalfPi;
+      sv = sinf(arg);
+      xv = sv * win[deg];
+      if (dco) dv = win[deg] * (cosf(arg) * scale);
+    }
+    x[r * kLdX + f] = xv;
+    if (val) val[r * kLdX + f] = sv;
+    if (dco) dco[r * kLdX + f] = dv;
+  }
+}
+
+// One hidden layer of the head on the tile, fp32 on CUDA cores: out[r][c]
+// = ReLU(sum_k s0(r, k) W[k][c] + sum_k s1(r, k) W[s0.k + k][c] + b[c]),
+// each sum from zero in k order. W is input-major [*][kW] in device
+// memory. With pre, the pre-activations of rows r < rows and columns c <
+// width also go to pre[r * width + c]. out may be s0's buffer.
+__device__ void so3_layer(const Seg& s0, const Seg& s1, const float* w,
+                          const float* b, float* out, float* ring,
+                          float* pre = nullptr, int rows = 0,
+                          int width = 0) {
+  Engine e;
+  e.zero();
+  fused_mlp::weight_product<Pol, kW>(e, s0, s1, w, kW, ring);
+  e.template each<false>([&](int, int r, int c, float v0, float v1) {
+    v0 += __ldg(b + c);
+    v1 += __ldg(b + c + 1);
+    if (pre && r < rows) {
+      if (c < width) pre[r * width + c] = v0;
+      if (c + 1 < width) pre[r * width + c + 1] = v1;
+    }
+    out[r * kLdH + c] = fmaxf(v0, 0.0f);
+    out[r * kLdH + c + 1] = fmaxf(v1, 0.0f);
+  });
+  __syncthreads();
+}
+
+// A layer's product without bias, its output masked by mask[r][c] > 0:
+// out[r][c] = (sum_k s0(r, k) W[k][c] + ...) * (mask > 0), W [*][ldw] in
+// device memory, its first kW columns. The tangents (W input-major) and
+// the cotangents (W in nn.Linear layout) of the head. out may be s0's
+// buffer.
+__device__ void masked_product(const Seg& s0, const Seg& s1, const float* w,
+                               int ldw, const float* mask, float* out,
+                               float* ring) {
+  Engine e;
+  e.zero();
+  fused_mlp::weight_product<Pol, kW>(e, s0, s1, w, ldw, ring);
+  e.template each<false>([&](int, int r, int c, float v0, float v1) {
+    out[r * kLdH + c] = mask[r * kLdH + c] > 0.0f ? v0 : 0.0f;
+    out[r * kLdH + c + 1] = mask[r * kLdH + c + 1] > 0.0f ? v1 : 0.0f;
+  });
+  __syncthreads();
+}
+
+// raw[r][o] = sum_k h[r][k] Wout[k][o] (+ bout[o] when bias), k in order.
+__device__ void so3_out(const float* h, const Net& n, bool bias,
+                        float (*raw)[3]) {
+  for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
+    const int r = i / 3, o = i % 3;
+    float acc = 0.0f;
+    for (int k = 0; k < kW; ++k)
+      acc = __fmaf_rn(h[r * kLdH + k], __ldg(n.wot + 3 * k + o), acc);
+    raw[r][o] = bias ? acc + __ldg(n.bo + o) : acc;
+  }
+}
+
+// ------------------------------------------- compaction of active steps
+
+// The active ray-steps of [begin, end), in order, handed to tile(nt) in
+// groups of kTile (the last one shorter) as list[0 .. nt).
+template <typename Tile>
+__device__ void active_tiles(const float* traj, long long begin,
+                             long long end, int* list, int* warp_count,
+                             Tile tile) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  int count = 0;
+  for (long long base = begin; base < end; base += kThreads) {
+    const long long idx = base + tid;
+    const bool flag = idx < end && active_g(traj + 11 * idx);
+    const unsigned ballot = __ballot_sync(0xffffffffu, flag);
+    if (lane == 0) warp_count[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      if (w < warp) before += warp_count[w];
+      total += warp_count[w];
+    }
+    if (flag)
+      list[count + before + __popc(ballot & ((1u << lane) - 1u))] = (int)idx;
+    count += total;
+    __syncthreads();
+    while (count >= kTile) {
+      tile(kTile);
+      int keep[2];
+      const int rest = count - kTile;
+      for (int q = 0; q < 2; ++q) {
+        const int i = tid + q * kThreads;
+        keep[q] = i < rest ? list[kTile + i] : 0;
+      }
+      __syncthreads();
+      for (int q = 0; q < 2; ++q) {
+        const int i = tid + q * kThreads;
+        if (i < rest) list[i] = keep[q];
+      }
+      count = rest;
+      __syncthreads();
+    }
+  }
+  if (count > 0) tile(count);
+}
+
+struct Args {
   const float* traj;     // [B, S, 11]: p, raw d, t, n, g
   const float* cts;      // [B, S, 11]: dp, dd(raw), segbar, dn, dg
   const float* wfwd;
   const float* wbwd;
   const float* window;   // [max_deg]
   GridArgs grid;
+  float* pieces;         // [S][kFields][Bp]
+  float* dbar;           // [B * S, 3]: dbar_{s+1} of each ray-step
   float* raybar;         // [B, 6]: pbar_0, dbar_0
-  float* rawbar;         // [B, S, 3]
-  float* wbar;           // [B, max_deg]
-  int batch, num_samples, max_deg, width;
+  float* partial;        // [G, P]
+  int batch, bp, num_samples, max_deg;
+  long long chunk;       // ray-steps a block of 1b / 3 owns
   float step;
 };
 
-__global__ void __launch_bounds__(kThreads)
-march_bwd_sweep(const SweepArgs a) {
-  __shared__ float x_s[kRays][kMaxIn];    // PE features; then p terms
-  __shared__ float val_s[kRays][kMaxIn];  // sin(arg); then window terms
-  __shared__ float dco_s[kRays][kMaxIn];  // cos(arg) * 2^k
-  __shared__ float h_s[4][kRays][kThreads];
-  __shared__ float ba_s[kRays][kThreads];
-  __shared__ float bb_s[kRays][kThreads];
-  __shared__ float bc_s[kRays][kMaxCat];
-  __shared__ float p_s[kRays][3];
-  __shared__ float raw_s[kRays][3];
-  __shared__ float rb_s[kRays][3];
-  __shared__ int act_s[kRays];
-  __shared__ float win_s[kMaxDeg];
+__device__ __forceinline__ float* piece(const Args& a, int s, int f,
+                                        int ray) {
+  return a.pieces + ((long long)s * kFields + f) * a.bp + ray;
+}
 
-  const int tid = threadIdx.x;
-  const int IN = 6 * a.max_deg, W = a.width;
-  const Net net = make_net(a.wfwd, a.wbwd, IN, W);
-  if (tid < a.max_deg) win_s[tid] = a.window[tid];
+// ------------------------------------------------------------ pass 1a
 
-  const int ray = blockIdx.x * kRays + tid;
-  const bool owner = tid < kRays && ray < a.batch;
-  const int S = a.num_samples;
+__global__ void __launch_bounds__(256) k3_pieces(const Args a) {
+  const long long i = blockIdx.x * 256LL + threadIdx.x;
+  const long long total = (long long)a.batch * a.num_samples;
+  if (i >= total) return;
+  const int s = (int)(i / a.batch), ray = (int)(i % a.batch);
+  const long long row = (long long)ray * a.num_samples + s;
+  const float* tr = a.traj + 11 * row;
+  const float* ct = a.cts + 11 * row;
   const float h = a.step;
-  float pbx = 0.f, pby = 0.f, pbz = 0.f, dbx = 0.f, dby = 0.f, dbz = 0.f;
-  float wacc[kMaxDeg];
-#pragma unroll
-  for (int k = 0; k < kMaxDeg; ++k) wacc[k] = 0.0f;
-
-  for (int s = S - 1; s >= 0; --s) {
-    const long long row = (long long)ray * S + s;
-    float px = 0.f, py = 0.f, pz = 0.f, n = 1.f, gx = 0.f, gy = 0.f,
-          gz = 0.f;
-    bool act = false;
-    if (owner) {
-      const float* tr = a.traj + 11 * row;
-      px = tr[0]; py = tr[1]; pz = tr[2];
-      n = tr[7]; gx = tr[8]; gy = tr[9]; gz = tr[10];
-      act = active_g(tr);
-      p_s[tid][0] = px; p_s[tid][1] = py; p_s[tid][2] = pz;
-      act_s[tid] = act;
-    } else if (tid < kRays) {
-      p_s[tid][0] = p_s[tid][1] = p_s[tid][2] = 0.0f;
-      act_s[tid] = 0;
-    }
-    __syncthreads();
-    int any = 0;
-#pragma unroll
-    for (int r = 0; r < kRays; ++r) any |= act_s[r];
-    const float ubx = h * dbx, uby = h * dby, ubz = h * dbz;
-    float3 g_so3 = make_float3(0.f, 0.f, 0.f);
-    float3 p_so3 = make_float3(0.f, 0.f, 0.f);
-    if (any) {
-      // Forward recompute: annealed PE, four hidden layers, output.
-      for (int i = tid; i < kRays * IN; i += kThreads) {
-        const int r = i / IN, f = i % IN;
-        const int deg = f / 6, c = f % 3;
-        const float scale = (float)(1 << deg);
-        const float xb = p_s[r][c] * scale;
-        const float arg = (f % 6) < 3 ? xb : xb + kHalfPi;
-        const float sv = sinf(arg);
-        val_s[r][f] = sv;
-        dco_s[r][f] = cosf(arg) * scale;
-        x_s[r][f] = sv * win_s[deg];
-      }
-      __syncthreads();
-      gemv_tile(&x_s[0][0], kMaxIn, IN, nullptr, 0, 0, net.w0t, W, net.b0,
-                true, nullptr, 0, nullptr, 0, &h_s[0][0][0], kThreads);
-      __syncthreads();
-      gemv_tile(&h_s[0][0][0], kThreads, W, nullptr, 0, 0, net.w1t, W,
-                net.b1, true, nullptr, 0, nullptr, 0, &h_s[1][0][0],
-                kThreads);
-      __syncthreads();
-      gemv_tile(&h_s[1][0][0], kThreads, W, nullptr, 0, 0, net.w2t, W,
-                net.b2, true, nullptr, 0, nullptr, 0, &h_s[2][0][0],
-                kThreads);
-      __syncthreads();
-      gemv_tile(&h_s[2][0][0], kThreads, W, &x_s[0][0], kMaxIn, IN, net.w3t,
-                W, net.b3, true, nullptr, 0, nullptr, 0, &h_s[3][0][0],
-                kThreads);
-      __syncthreads();
-      if (tid < 3 * kRays) {
-        const int r = tid / 3, o = tid % 3;
-        float acc = 0.0f;
-        for (int k = 0; k < W; ++k)
-          acc = __fmaf_rn(h_s[3][r][k], __ldg(net.wot + 3 * k + o), acc);
-        raw_s[r][o] = acc + __ldg(net.bo + o);
-      }
-      __syncthreads();
-      // Rodrigues adjoint of the owner's ray; rawbar is 0 where m = 0.
-      if (tid < kRays) {
-        float3 rb = make_float3(0.f, 0.f, 0.f);
-        if (act) {
-          rodrigues_bwd(make_float3(raw_s[tid][0], raw_s[tid][1],
-                                    raw_s[tid][2]),
-                        make_float3(gx, gy, gz), make_float3(ubx, uby, ubz),
-                        &rb, &g_so3);
-        }
-        rb_s[tid][0] = rb.x; rb_s[tid][1] = rb.y; rb_s[tid][2] = rb.z;
-      }
-      __syncthreads();
-      // MLP backward to its input: dh4, [dh3 | dx_skip], dh2, dh1, dx.
-      gemv_tile(&rb_s[0][0], 3, 3, nullptr, 0, 0, net.wo, W, nullptr, false,
-                &h_s[3][0][0], kThreads, nullptr, 0, &ba_s[0][0], kThreads);
-      __syncthreads();
-      gemv_tile(&ba_s[0][0], kThreads, W, nullptr, 0, 0, net.w3, W + IN,
-                nullptr, false, nullptr, 0, nullptr, 0, &bc_s[0][0],
-                kMaxCat);
-      __syncthreads();
-      for (int i = tid; i < kRays * W; i += kThreads) {
-        const int r = i / W, j = i % W;
-        if (!(h_s[2][r][j] > 0.0f)) bc_s[r][j] = 0.0f;
-      }
-      __syncthreads();
-      gemv_tile(&bc_s[0][0], kMaxCat, W, nullptr, 0, 0, net.w2, W, nullptr,
-                false, &h_s[1][0][0], kThreads, nullptr, 0, &ba_s[0][0],
-                kThreads);
-      __syncthreads();
-      gemv_tile(&ba_s[0][0], kThreads, W, nullptr, 0, 0, net.w1, W, nullptr,
-                false, &h_s[0][0][0], kThreads, nullptr, 0, &bb_s[0][0],
-                kThreads);
-      __syncthreads();
-      // dx = dh1 . W0 + the skip part; then the PE adjoint terms.
-      gemv_tile(&bb_s[0][0], kThreads, W, nullptr, 0, 0, net.w0, IN, nullptr,
-                false, nullptr, 0, &bc_s[0][W], kMaxCat, &ba_s[0][0],
-                kThreads);
-      __syncthreads();
-      for (int i = tid; i < kRays * IN; i += kThreads) {
-        const int r = i / IN, f = i % IN;
-        const float dxf = ba_s[r][f];
-        x_s[r][f] = dxf * win_s[f / 6] * dco_s[r][f];
-        val_s[r][f] = dxf * val_s[r][f];
-      }
-      __syncthreads();
-      if (owner && act) {
-        float pc[3] = {0.f, 0.f, 0.f};
-        for (int f = 0; f < IN; ++f) pc[f % 3] += x_s[tid][f];
-        p_so3 = make_float3(pc[0], pc[1], pc[2]);
-        for (int k = 0; k < a.max_deg; ++k) {
-          float wk = 0.0f;
-          for (int f = 6 * k; f < 6 * k + 6; ++f) wk += val_s[tid][f];
-          wacc[k] += wk;
-        }
-      }
-    }
-    if (owner) {
-      float* rbo = a.rawbar + 3 * row;
-      if (any) {
-        rbo[0] = rb_s[tid][0]; rbo[1] = rb_s[tid][1]; rbo[2] = rb_s[tid][2];
-      } else {
-        rbo[0] = rbo[1] = rbo[2] = 0.0f;
-      }
-      const float* tr = a.traj + 11 * row;
-      const float* ct = a.cts + 11 * row;
-      const float dx = tr[3], dy = tr[4], dz = tr[5];
-      const float sb = ct[6];
-      const float mk = act ? 0.0f : 1.0f;
-      const float gbx = (mk * ubx + g_so3.x) + ct[8];
-      const float gby = (mk * uby + g_so3.y) + ct[9];
-      const float gbz = (mk * ubz + g_so3.z) + ct[10];
-      const float dlen = sqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-6f));
-      const float inv_n = 1.0f / n;
-      const float hn = h * inv_n, hn2 = h * inv_n * inv_n;
-      const float pdotd = (pbx * dx + pby * dy) + pbz * dz;
-      const float nbar = (-hn2 * pdotd + ct[7]) - sb * hn2 * dlen;
-      const float ndx = ((dbx + hn * pbx) + ct[3]) + sb * hn * dx / dlen;
-      const float ndy = ((dby + hn * pby) + ct[4]) + sb * hn * dy / dlen;
-      const float ndz = ((dbz + hn * pbz) + ct[5]) + sb * hn * dz / dlen;
-      float pin[3];
-      trilinear_adjoint(a.grid, px, py, pz,
-                        make_float4(nbar, gbx, gby, gbz), pin);
-      pbx = ((pbx + p_so3.x) + pin[0]) + ct[0];
-      pby = ((pby + p_so3.y) + pin[1]) + ct[1];
-      pbz = ((pbz + p_so3.z) + pin[2]) + ct[2];
-      dbx = ndx; dby = ndy; dbz = ndz;
-    }
-    __syncthreads();
+  const float dx = tr[3], dy = tr[4], dz = tr[5], n = tr[7];
+  float4 dv[3];
+  trilinear_jacobian(a.grid, tr[0], tr[1], tr[2], dv);
+  // a_vec[c] = dn/dp_c; bg[j][c] = dg_j/dp_c.
+  const float av[3] = {dv[0].x, dv[1].x, dv[2].x};
+  const float bg[3][3] = {{dv[0].y, dv[1].y, dv[2].y},
+                          {dv[0].z, dv[1].z, dv[2].z},
+                          {dv[0].w, dv[1].w, dv[2].w}};
+  const float sb = ct[6];
+  const float dlen = sqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-6f));
+  const float inv_n = 1.0f / n;
+  const float hn = h * inv_n, hn2 = h * inv_n * inv_n;
+  const float c_n = ct[7] - sb * hn2 * dlen;
+  const float d3[3] = {dx, dy, dz};
+  for (int c = 0; c < 3; ++c) {
+    for (int k = 0; k < 3; ++k) *piece(a, s, 3 * c + k, ray) = bg[k][c];
+    *piece(a, s, 9 + c, ray) = av[c];
+    const float btdg = (bg[0][c] * ct[8] + bg[1][c] * ct[9]) + bg[2][c] * ct[10];
+    *piece(a, s, 13 + c, ray) = (av[c] * c_n + btdg) + ct[c];
+    *piece(a, s, 16 + c, ray) = ct[3 + c] + sb * hn * d3[c] / dlen;
+    *piece(a, s, 19 + c, ray) = d3[c];
   }
-  if (owner) {
-    float* rb = a.raybar + 6 * (long long)ray;
-    rb[0] = pbx; rb[1] = pby; rb[2] = pbz;
-    rb[3] = dbx; rb[4] = dby; rb[5] = dbz;
-    for (int k = 0; k < a.max_deg; ++k)
-      a.wbar[(long long)ray * a.max_deg + k] = wacc[k];
-  }
+  *piece(a, s, 12, ray) = inv_n;
 }
 
-struct ParamArgs {
-  const float* traj;     // [M, 11]
-  const float* rawbar;   // [M, 3]
-  const float* wfwd;
-  const float* wbwd;
-  const float* window;
-  float* partial;        // [G, P]
-  long long total, chunk;
-  int max_deg, width, num_params;
-};
+// ------------------------------------------------------------ pass 1b
 
-// Shared memory of the parameter pass, carved from one dynamic buffer.
-struct ParamSmem {
+struct JacSmem {
+  float x[kTile * kLdX];
+  float dco[kTile * kLdX];      // then a tangent's skip input
+  float h[kTile * kLdH];
+  float t[3][kTile * kLdH];
+  float ring[kRing];
   float p[kTile][3];
-  float rb[kTile][3];
-  float x[kTile][kMaxIn];
-  float h[4][kTile][kThreads];
-  float ba[kTile][kThreads];
-  float bb[kTile][kThreads];
-  float bc[kTile][kMaxCat];
+  float raw[kTile][3];
+  float traw[3][kTile][3];
   float win[kMaxDeg];
-  int list[kPThreads + kTile];
-  int warp_count[kPThreads / 32];
+  int list[kThreads + kTile];
+  int warp_count[kThreads / 32];
 };
 
-// out[t][i] = f(sum_k in[t][k] M[k*ncols + i] (+ in2 part) + bias[i]) for
-// the tile's kTile rows; thread (i, half) owns rows half, half+2, ...
-__device__ void gemm_tile(const float* in, int ld_in, int K, const float* in2,
-                          int ld_in2, int K2, const float* __restrict__ M,
-                          int ncols, const float* __restrict__ bias,
-                          bool relu, const float* mask, int ld_mask,
-                          float* out, int ld_out) {
-  constexpr int kRows = kTile / 2;
-  const int half = threadIdx.x / kThreads;
-  for (int i = threadIdx.x % kThreads; i < ncols; i += kThreads) {
-    float acc[kRows];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) acc[q] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float m = __ldg(M + k * ncols + i);
-#pragma unroll
-      for (int q = 0; q < kRows; ++q)
-        acc[q] = __fmaf_rn(in[(half + 2 * q) * ld_in + k], m, acc[q]);
-    }
-    for (int k = 0; k < K2; ++k) {
-      const float m = __ldg(M + (K + k) * ncols + i);
-#pragma unroll
-      for (int q = 0; q < kRows; ++q)
-        acc[q] = __fmaf_rn(in2[(half + 2 * q) * ld_in2 + k], m, acc[q]);
-    }
-    const float b = bias ? __ldg(bias + i) : 0.0f;
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      const int t = half + 2 * q;
-      float v = acc[q] + b;
-      if (relu) v = fmaxf(v, 0.0f);
-      if (mask && !(mask[t * ld_mask + i] > 0.0f)) v = 0.0f;
-      out[t * ld_out + i] = v;
-    }
+// The tangent of the PE along axis c: dco's columns of coordinate c.
+__device__ void tangent_input(const float* dco, int c, float* out, int ld) {
+  for (int i = threadIdx.x; i < kTile * kIn; i += kThreads) {
+    const int r = i / kIn, f = i % kIn;
+    out[r * ld + f] = f % 3 == c ? dco[r * kLdX + f] : 0.0f;
   }
 }
 
-// partial[row*ncols + col] += sum_{t < nt} act(t, row) * dh[t][col], where
-// act(t, row) is a[t][row] for row < ka, else a2[t][row - ka].
-__device__ void accumulate_outer(float* partial, int nrows, int ncols,
-                                 const float* act, int ld_a, int ka,
-                                 const float* act2, int ld_a2,
-                                 const float* dh, int ld_dh, int nt) {
-  const int n = nrows * ncols;
-  for (int e = threadIdx.x; e < n; e += kPThreads) {
-    const int row = e / ncols, col = e % ncols;
-    const float* ap = row < ka ? act + row : act2 + (row - ka);
-    const int lda = row < ka ? ld_a : ld_a2;
-    float s = 0.0f;
-    for (int t = 0; t < nt; ++t)
-      s = __fmaf_rn(ap[t * lda], dh[t * ld_dh + col], s);
-    partial[e] += s;
+__device__ void jacobian_tile(const Args& a, const Net& net, JacSmem& m,
+                              int nt) {
+  const int tid = threadIdx.x, I = net.in_dim;
+  for (int i = tid; i < kTile * 3; i += kThreads) {
+    const int r = i / 3, c = i % 3;
+    m.p[r][c] = r < nt ? a.traj[11 * (long long)m.list[r] + c] : 0.0f;
   }
-}
-
-__device__ void accumulate_bias(float* partial, int ncols, const float* dh,
-                                int ld_dh, int nt) {
-  for (int c = threadIdx.x; c < ncols; c += kPThreads) {
-    float s = 0.0f;
-    for (int t = 0; t < nt; ++t) s += dh[t * ld_dh + c];
-    partial[c] += s;
-  }
-}
-
-__device__ void param_tile(const ParamArgs& a, const Net& net, ParamSmem& m,
-                           float* part, int nt) {
-  const int tid = threadIdx.x;
-  const int IN = net.in_dim, W = net.width;
-  for (int t = tid; t < kTile; t += kPThreads) {
-    const long long idx = t < nt ? m.list[t] : -1;
+  __syncthreads();
+  so3_encode(m.p, I, m.win, m.x, nullptr, m.dco);
+  __syncthreads();
+  const Seg none = {nullptr, 0, 0};
+  const float* wt[4] = {net.w0t, net.w1t, net.w2t, net.w3t};
+  const float* bs[4] = {net.b0, net.b1, net.b2, net.b3};
+  for (int l = 0; l < 4; ++l) {
+    // Forward, into h (over its input past layer 0).
+    const Seg in = l == 0 ? Seg{m.x, kLdX, I} : Seg{m.h, kLdH, kW};
+    so3_layer(in, l == 3 ? Seg{m.x, kLdX, I} : none, wt[l], bs[l], m.h,
+              m.ring);
+    // The three tangents, each over its own input, masked by h.
     for (int c = 0; c < 3; ++c) {
-      m.p[t][c] = idx >= 0 ? a.traj[11 * idx + c] : 0.0f;
-      m.rb[t][c] = idx >= 0 ? a.rawbar[3 * idx + c] : 0.0f;
+      if (l == 0) tangent_input(m.dco, c, m.t[c], kLdH);
+      if (l == 3) tangent_input(m.dco, c, m.x, kLdX);  // x is free now
+      if (l == 0 || l == 3) __syncthreads();
+      const Seg tin = l == 0 ? Seg{m.t[c], kLdH, I} : Seg{m.t[c], kLdH, kW};
+      masked_product(tin, l == 3 ? Seg{m.x, kLdX, I} : none, wt[l], kW, m.h,
+                     m.t[c], m.ring);
     }
   }
-  __syncthreads();
-  for (int i = tid; i < kTile * IN; i += kPThreads) {
-    const int t = i / IN, f = i % IN;
-    const int deg = f / 6, c = f % 3;
-    const float xb = m.p[t][c] * (float)(1 << deg);
-    const float arg = (f % 6) < 3 ? xb : xb + kHalfPi;
-    m.x[t][f] = sinf(arg) * m.win[deg];
+  so3_out(m.h, net, true, m.raw);
+  for (int i = tid; i < 3 * kTile * 3; i += kThreads) {
+    const int c = i / (kTile * 3), r = (i / 3) % kTile, o = i % 3;
+    float acc = 0.0f;
+    for (int k = 0; k < kW; ++k)
+      acc = __fmaf_rn(m.t[c][r * kLdH + k], __ldg(net.wot + 3 * k + o), acc);
+    m.traw[c][r][o] = acc;
   }
   __syncthreads();
-  gemm_tile(&m.x[0][0], kMaxIn, IN, nullptr, 0, 0, net.w0t, W, net.b0, true,
-            nullptr, 0, &m.h[0][0][0], kThreads);
-  __syncthreads();
-  gemm_tile(&m.h[0][0][0], kThreads, W, nullptr, 0, 0, net.w1t, W, net.b1,
-            true, nullptr, 0, &m.h[1][0][0], kThreads);
-  __syncthreads();
-  gemm_tile(&m.h[1][0][0], kThreads, W, nullptr, 0, 0, net.w2t, W, net.b2,
-            true, nullptr, 0, &m.h[2][0][0], kThreads);
-  __syncthreads();
-  gemm_tile(&m.h[2][0][0], kThreads, W, &m.x[0][0], kMaxIn, IN, net.w3t, W,
-            net.b3, true, nullptr, 0, &m.h[3][0][0], kThreads);
-  __syncthreads();
-  // dh4 = (rawbar . Wout) * relu'(h4); then dhc = dh4 . W3.
-  gemm_tile(&m.rb[0][0], 3, 3, nullptr, 0, 0, net.wo, W, nullptr, false,
-            &m.h[3][0][0], kThreads, &m.ba[0][0], kThreads);
-  __syncthreads();
-  gemm_tile(&m.ba[0][0], kThreads, W, nullptr, 0, 0, net.w3, W + IN, nullptr,
-            false, nullptr, 0, &m.bc[0][0], kMaxCat);
-  // Offsets of the forward pack, which the partial mirrors.
-  float* pw0 = part;
-  float* pb0 = pw0 + IN * W;
-  float* pw1 = pb0 + W;
-  float* pb1 = pw1 + W * W;
-  float* pw2 = pb1 + W;
-  float* pb2 = pw2 + W * W;
-  float* pw3 = pb2 + W;
-  float* pb3 = pw3 + (W + IN) * W;
-  float* pwo = pb3 + W;
-  float* pbo = pwo + W * 3;
-  accumulate_outer(pwo, W, 3, &m.h[3][0][0], kThreads, W, nullptr, 0,
-                   &m.rb[0][0], 3, nt);
-  accumulate_bias(pbo, 3, &m.rb[0][0], 3, nt);
-  accumulate_outer(pw3, W + IN, W, &m.h[2][0][0], kThreads, W, &m.x[0][0],
-                   kMaxIn, &m.ba[0][0], kThreads, nt);
-  accumulate_bias(pb3, W, &m.ba[0][0], kThreads, nt);
-  __syncthreads();
-  for (int i = tid; i < kTile * W; i += kPThreads) {
-    const int t = i / W, j = i % W;
-    if (!(m.h[2][t][j] > 0.0f)) m.bc[t][j] = 0.0f;
+  if (tid < nt) {
+    const long long idx = m.list[tid];
+    const int ray = (int)(idx / a.num_samples);
+    const int s = (int)(idx % a.num_samples);
+    const float* tr = a.traj + 11 * idx;
+    const float3 raw = make_float3(m.raw[tid][0], m.raw[tid][1],
+                                   m.raw[tid][2]);
+    const float3 g = make_float3(tr[8], tr[9], tr[10]);
+    // Row i of du/draw and of du/dg: the adjoint at the unit cotangent e_i.
+    float jp[3][3], jg[3][3];
+    for (int i = 0; i < 3; ++i) {
+      float3 rb, gb;
+      rodrigues_bwd(raw, g,
+                    make_float3(i == 0 ? 1.f : 0.f, i == 1 ? 1.f : 0.f,
+                                i == 2 ? 1.f : 0.f),
+                    &rb, &gb);
+      for (int c = 0; c < 3; ++c) {
+        // du_i/dp_c = du_i/draw . draw/dp_c.
+        jp[i][c] = (rb.x * m.traw[c][tid][0] + rb.y * m.traw[c][tid][1]) +
+                   rb.z * m.traw[c][tid][2];
+      }
+      jg[i][0] = gb.x;
+      jg[i][1] = gb.y;
+      jg[i][2] = gb.z;
+    }
+    // K[c][k] = Jp[k][c] + sum_j B[j][c] Jg[k][j], B^T read from K.
+    float bt[3][3];
+    for (int c = 0; c < 3; ++c)
+      for (int j = 0; j < 3; ++j) bt[c][j] = *piece(a, s, 3 * c + j, ray);
+    for (int c = 0; c < 3; ++c)
+      for (int k = 0; k < 3; ++k)
+        *piece(a, s, 3 * c + k, ray) =
+            jp[k][c] +
+            ((bt[c][0] * jg[k][0] + bt[c][1] * jg[k][1]) + bt[c][2] * jg[k][2]);
   }
-  __syncthreads();
-  accumulate_outer(pw2, W, W, &m.h[1][0][0], kThreads, W, nullptr, 0,
-                   &m.bc[0][0], kMaxCat, nt);
-  accumulate_bias(pb2, W, &m.bc[0][0], kMaxCat, nt);
-  gemm_tile(&m.bc[0][0], kMaxCat, W, nullptr, 0, 0, net.w2, W, nullptr,
-            false, &m.h[1][0][0], kThreads, &m.ba[0][0], kThreads);
-  __syncthreads();
-  accumulate_outer(pw1, W, W, &m.h[0][0][0], kThreads, W, nullptr, 0,
-                   &m.ba[0][0], kThreads, nt);
-  accumulate_bias(pb1, W, &m.ba[0][0], kThreads, nt);
-  gemm_tile(&m.ba[0][0], kThreads, W, nullptr, 0, 0, net.w1, W, nullptr,
-            false, &m.h[0][0][0], kThreads, &m.bb[0][0], kThreads);
-  __syncthreads();
-  accumulate_outer(pw0, IN, W, &m.x[0][0], kMaxIn, IN, nullptr, 0,
-                   &m.bb[0][0], kThreads, nt);
-  accumulate_bias(pb0, W, &m.bb[0][0], kThreads, nt);
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kPThreads)
-march_bwd_params(const ParamArgs a) {
+__global__ void __launch_bounds__(kThreads) k3_jacobians(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  JacSmem& m = *reinterpret_cast<JacSmem*>(smem_raw);
+  const Net net = make_net(a.wfwd, a.wbwd, 6 * a.max_deg);
+  if (threadIdx.x < a.max_deg) m.win[threadIdx.x] = a.window[threadIdx.x];
+  __syncthreads();
+  const long long total = (long long)a.batch * a.num_samples;
+  const long long begin = blockIdx.x * a.chunk;
+  const long long end = begin + a.chunk < total ? begin + a.chunk : total;
+  active_tiles(a.traj, begin, end, m.list, m.warp_count,
+               [&](int nt) { jacobian_tile(a, net, m, nt); });
+}
+
+// ------------------------------------------------------------- pass 2
+
+__global__ void __launch_bounds__(32) k3_sweep(const Args a) {
+  __shared__ __align__(16) float buf[2][kChunk][kFields][32];
+  const int lane = threadIdx.x, ray0 = blockIdx.x * 32, ray = ray0 + lane;
+  const int S = a.num_samples;
+  const int chunks = (S + kChunk - 1) / kChunk;
+  const float h = a.step;
+  // Chunk j holds steps [S - (j + 1) kChunk, S - j kChunk), clipped at 0.
+  auto load = [&](int j) {
+    const int s0 = S - (j + 1) * kChunk;
+    float(*dst)[kFields][32] = buf[j & 1];
+    for (int i = lane; i < kChunk * kFields * 8; i += 32) {
+      const int st = i / (kFields * 8), f = (i / 8) % kFields, q = i % 8;
+      const int s = s0 + st;
+      if (s >= 0)
+        fused_mlp::cp_async16(&dst[st][f][4 * q], piece(a, s, f, ray0 + 4 * q),
+                              16);
+    }
+  };
+  float pb[3] = {0.f, 0.f, 0.f}, db[3] = {0.f, 0.f, 0.f};
+  load(0);
+  fused_mlp::cp_async_commit();
+  for (int j = 0; j < chunks; ++j) {
+    if (j + 1 < chunks) load(j + 1);
+    fused_mlp::cp_async_commit();
+    fused_mlp::cp_async_wait<1>();
+    __syncwarp();
+    const int s0 = S - (j + 1) * kChunk;
+    const float(*src)[kFields][32] = buf[j & 1];
+    for (int st = kChunk - 1; st >= 0; --st) {
+      const int s = s0 + st;
+      if (s < 0) break;
+      float v[kFields];
+#pragma unroll
+      for (int f = 0; f < kFields; ++f) v[f] = src[st][f][lane];
+      if (ray < a.batch) {
+        float* out = a.dbar + 3 * ((long long)ray * S + s);
+        out[0] = db[0];
+        out[1] = db[1];
+        out[2] = db[2];
+      }
+      const float inv_n = v[12];
+      const float pdot = (pb[0] * v[19] + pb[1] * v[20]) + pb[2] * v[21];
+      const float coef = -(h * inv_n * inv_n) * pdot;
+      const float hn = h * inv_n;
+      float np[3], nd[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float kd = (v[3 * c] * db[0] + v[3 * c + 1] * db[1]) +
+                         v[3 * c + 2] * db[2];
+        np[c] = ((pb[c] + h * kd) + v[9 + c] * coef) + v[13 + c];
+        nd[c] = (db[c] + hn * pb[c]) + v[16 + c];
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        pb[c] = np[c];
+        db[c] = nd[c];
+      }
+    }
+    __syncwarp();
+  }
+  fused_mlp::cp_async_wait<0>();
+  if (ray < a.batch) {
+    float* rb = a.raybar + 6 * (long long)ray;
+    for (int c = 0; c < 3; ++c) {
+      rb[c] = pb[c];
+      rb[3 + c] = db[c];
+    }
+  }
+}
+
+// ------------------------------------------------------------- pass 3
+
+struct ParamSmem {
+  float x[kTile * kLdX];
+  float val[kTile * kLdX];
+  float h[4][kTile * kLdH];   // h[3] then each layer's cotangent in turn
+  float ring[kRing];
+  float p[kTile][3];
+  float raw[kTile][3];
+  float rb[kTile][3];
+  float win[kMaxDeg];
+  int list[kThreads + kTile];
+  int warp_count[kThreads / 32];
+};
+
+// part[(row0 + m) * kW + c] += sum_r A[r][m0 + m] Z[r][c] over the tile's
+// rows in order, for m0 + m < mrows: A [kTile][lda], Z [kTile][kLdH] in
+// shared memory.
+__device__ void grad_product(const float* A, int lda, int m0, int mrows,
+                             const float* Z, float* part, int row0) {
+  Engine e;
+  e.zero();
+  for (int k = 0; k < kTile; k += Engine::kK)
+    e.step_t(A + k * lda + m0, lda, Z + k * kLdH, kLdH);
+  e.template each<true>([&](int, int r, int c, float v0, float v1) {
+    const int m = m0 + r;
+    if (m >= mrows) return;
+    float* q = part + (long long)(row0 + m) * kW + c;
+    q[0] += v0;
+    q[1] += v1;
+  });
+}
+
+// bias[c] += sum_r Z[r][c] over the tile's rows in order.
+__device__ void bias_sum(const float* Z, float* bias) {
+  for (int c = threadIdx.x; c < kW; c += kThreads) {
+    float s = 0.0f;
+    for (int r = 0; r < kTile; ++r) s += Z[r * kLdH + c];
+    bias[c] += s;
+  }
+}
+
+__device__ void param_tile(const Args& a, const Net& net, ParamSmem& m,
+                           float* part, int nt) {
+  const int tid = threadIdx.x, I = net.in_dim;
+  const float h = a.step;
+  for (int i = tid; i < kTile * 3; i += kThreads) {
+    const int r = i / 3, c = i % 3;
+    m.p[r][c] = r < nt ? a.traj[11 * (long long)m.list[r] + c] : 0.0f;
+  }
+  __syncthreads();
+  so3_encode(m.p, I, m.win, m.x, m.val, nullptr);
+  __syncthreads();
+  const Seg none = {nullptr, 0, 0};
+  so3_layer(Seg{m.x, kLdX, I}, none, net.w0t, net.b0, m.h[0], m.ring);
+  so3_layer(Seg{m.h[0], kLdH, kW}, none, net.w1t, net.b1, m.h[1], m.ring);
+  so3_layer(Seg{m.h[1], kLdH, kW}, none, net.w2t, net.b2, m.h[2], m.ring);
+  so3_layer(Seg{m.h[2], kLdH, kW}, Seg{m.x, kLdX, I}, net.w3t, net.b3,
+            m.h[3], m.ring);
+  so3_out(m.h[3], net, true, m.raw);
+  __syncthreads();
+  if (tid < kTile) {
+    float3 rb = make_float3(0.f, 0.f, 0.f), gb;
+    if (tid < nt) {
+      const long long idx = m.list[tid];
+      const float* tr = a.traj + 11 * idx;
+      const float* db = a.dbar + 3 * idx;
+      rodrigues_bwd(make_float3(m.raw[tid][0], m.raw[tid][1], m.raw[tid][2]),
+                    make_float3(tr[8], tr[9], tr[10]),
+                    make_float3(h * db[0], h * db[1], h * db[2]), &rb, &gb);
+    }
+    m.rb[tid][0] = rb.x;
+    m.rb[tid][1] = rb.y;
+    m.rb[tid][2] = rb.z;
+  }
+  __syncthreads();
+  // Offsets of the forward pack in the partial.
+  float* pw0 = part;
+  float* pb0 = pw0 + I * kW;
+  float* pw1 = pb0 + kW;
+  float* pb1 = pw1 + kW * kW;
+  float* pw2 = pb1 + kW;
+  float* pb2 = pw2 + kW * kW;
+  float* pw3 = pb2 + kW;
+  float* pb3 = pw3 + (kW + I) * kW;
+  float* pwo = pb3 + kW;
+  float* pbo = pwo + kW * 3;
+  // Output layer: dWout = h3^T rawbar, dbout; then dh3 over h3's buffer.
+  for (int e = tid; e < kW * 3; e += kThreads) {
+    const int k = e / 3, o = e % 3;
+    float acc = 0.0f;
+    for (int r = 0; r < kTile; ++r)
+      acc = __fmaf_rn(m.h[3][r * kLdH + k], m.rb[r][o], acc);
+    pwo[e] += acc;
+  }
+  if (tid < 3) {
+    float acc = 0.0f;
+    for (int r = 0; r < kTile; ++r) acc += m.rb[r][tid];
+    pbo[tid] += acc;
+  }
+  __syncthreads();
+  float* dz = m.h[3];
+  for (int i = tid; i < kTile * kW; i += kThreads) {
+    const int r = i / kW, c = i % kW;
+    float v = 0.0f;
+    for (int o = 0; o < 3; ++o)
+      v = __fmaf_rn(m.rb[r][o], __ldg(net.wot + 3 * c + o), v);
+    dz[r * kLdH + c] = dz[r * kLdH + c] > 0.0f ? v : 0.0f;
+  }
+  __syncthreads();
+  // Layer 3: dW over [h2 | sines], its cotangent to h2.
+  bias_sum(dz, pb3);
+  grad_product(m.h[2], kLdH, 0, kW, dz, pw3, 0);
+  grad_product(m.h[2], kLdH, 64, kW, dz, pw3, 0);
+  grad_product(m.val, kLdX, 0, I, dz, pw3, kW);
+  __syncthreads();
+  masked_product(Seg{dz, kLdH, kW}, none, net.w3, kW, m.h[2], dz, m.ring);
+  // Layers 2, 1, 0.
+  float* const pws[3] = {pw2, pw1, pw0};
+  float* const pbs[3] = {pb2, pb1, pb0};
+  const float* const wb[2] = {net.w2, net.w1};
+  for (int l = 2; l >= 0; --l) {
+    bias_sum(dz, pbs[2 - l]);
+    if (l > 0) {
+      grad_product(m.h[l - 1], kLdH, 0, kW, dz, pws[2 - l], 0);
+      grad_product(m.h[l - 1], kLdH, 64, kW, dz, pws[2 - l], 0);
+    } else {
+      grad_product(m.val, kLdX, 0, I, dz, pws[2], 0);
+    }
+    __syncthreads();
+    if (l > 0) {
+      masked_product(Seg{dz, kLdH, kW}, none, wb[2 - l], kW, m.h[l - 1], dz,
+                     m.ring);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) k3_params(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   ParamSmem& m = *reinterpret_cast<ParamSmem*>(smem_raw);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const Net net = make_net(a.wfwd, a.wbwd, 6 * a.max_deg, a.width);
-  float* part = a.partial + (long long)blockIdx.x * a.num_params;
-  for (int e = tid; e < a.num_params; e += kPThreads) part[e] = 0.0f;
-  if (tid < a.max_deg) m.win[tid] = a.window[tid];
-  const long long begin = (long long)blockIdx.x * a.chunk;
-  const long long end = begin + a.chunk < a.total ? begin + a.chunk : a.total;
-  int count = 0;
+  const int I = 6 * a.max_deg, P = num_params(I);
+  const Net net = make_net(a.wfwd, a.wbwd, I);
+  float* part = a.partial + (long long)blockIdx.x * P;
+  for (int e = threadIdx.x; e < P; e += kThreads) part[e] = 0.0f;
+  if (threadIdx.x < a.max_deg) m.win[threadIdx.x] = a.window[threadIdx.x];
   __syncthreads();
-  for (long long base = begin; base < end; base += kPThreads) {
-    const long long idx = base + tid;
-    const bool flag = idx < end && active_g(a.traj + 11 * idx);
-    const unsigned ballot = __ballot_sync(0xffffffffu, flag);
-    if (lane == 0) m.warp_count[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0, total = 0;
-    for (int w = 0; w < kPThreads / 32; ++w) {
-      if (w < warp) before += m.warp_count[w];
-      total += m.warp_count[w];
-    }
-    if (flag)
-      m.list[count + before + __popc(ballot & ((1u << lane) - 1u))] =
-          (int)idx;
-    count += total;
-    __syncthreads();
-    while (count >= kTile) {
-      param_tile(a, net, m, part, kTile);
-      int keep[2];
-      const int rest = count - kTile;
-      for (int q = 0; q < 2; ++q) {
-        const int i = tid + q * kPThreads;
-        keep[q] = i < rest ? m.list[kTile + i] : 0;
-      }
-      __syncthreads();
-      for (int q = 0; q < 2; ++q) {
-        const int i = tid + q * kPThreads;
-        if (i < rest) m.list[i] = keep[q];
-      }
-      count = rest;
-      __syncthreads();
-    }
-  }
-  if (count > 0) param_tile(a, net, m, part, count);
+  const long long total = (long long)a.batch * a.num_samples;
+  const long long begin = blockIdx.x * a.chunk;
+  const long long end = begin + a.chunk < total ? begin + a.chunk : total;
+  active_tiles(a.traj, begin, end, m.list, m.warp_count,
+               [&](int nt) { param_tile(a, net, m, part, nt); });
 }
 
-__global__ void march_bwd_reduce(const float* partial, int num_blocks,
-                                 int num_params, float* out) {
+__global__ void k3_reduce(const float* partial, int num_blocks,
+                          int num_params, float* out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= num_params) return;
   float s = 0.0f;
@@ -684,154 +787,137 @@ __global__ void march_bwd_reduce(const float* partial, int num_blocks,
 }
 
 // P3, the ReLU-flip probe: the so3 head's pre-activations of hidden layers
-// 1-3 at n points, in the sweep's own arithmetic. Replaces the Pallas
-// kernel of samplenerfro_tpu's scripts/debug/probe_so3_relu.py. Each block
-// takes 8 points on 128 threads, encodes them with the sweep's PE
-// expression and runs the sweep's gemv_tile, so every value is bitwise
-// what the sweep recomputes at that point (the parameter pass's gemm_tile
-// sums in the same k order). The ReLU is applied after the pre-activation
-// is written, as gemv_tile's own fmaxf would. Bound by its multiply-adds
-// (60*W + 2*W*W a point), fp32 on CUDA cores.
-struct PreactArgs {
-  const float* pts;     // [n, 3]
-  const float* wfwd;    // forward pack, as the sweep's
-  const float* window;  // [max_deg]
-  float* pre;           // [3, n, width]
-  int n, max_deg, width;
+// 1-3 at n points, with K3's own forward (so3_encode, so3_layer): each
+// value is bitwise what passes 1b and 3 compute at that point. Replaces
+// the Pallas kernel of samplenerfro_tpu's scripts/debug/probe_so3_relu.py.
+// A block takes 64 points. Bound by its multiply-adds (60 W + 2 W^2 a
+// point), fp32 on CUDA cores.
+struct PreactSmem {
+  float x[kTile * kLdX];
+  float h[kTile * kLdH];
+  float ring[kRing];
+  float p[kTile][3];
+  float win[kMaxDeg];
 };
 
 __global__ void __launch_bounds__(kThreads)
-so3_preacts_kernel(const PreactArgs a) {
-  __shared__ float x_s[kRays][kMaxIn];
-  __shared__ float h_s[2][kRays][kThreads];
-  __shared__ float p_s[kRays][3];
-  __shared__ float win_s[kMaxDeg];
-
-  const int tid = threadIdx.x;
-  const int IN = 6 * a.max_deg, W = a.width;
-  // Only the forward pack is read; its offsets are the sweep's.
-  const Net net = make_net(a.wfwd, a.wfwd, IN, W);
-  if (tid < a.max_deg) win_s[tid] = a.window[tid];
-  const long long row0 = (long long)blockIdx.x * kRays;
-  if (tid < 3 * kRays) {
-    const int r = tid / 3, c = tid % 3;
-    p_s[r][c] = row0 + r < a.n ? a.pts[3 * (row0 + r) + c] : 0.0f;
+    so3_preacts_kernel(const float* pts, const float* wfwd,
+                       const float* window, float* pre, int n, int max_deg,
+                       int width) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PreactSmem& m = *reinterpret_cast<PreactSmem*>(smem_raw);
+  const int I = 6 * max_deg;
+  // Only the forward pack is read.
+  const Net net = make_net(wfwd, wfwd, I);
+  if (threadIdx.x < max_deg) m.win[threadIdx.x] = window[threadIdx.x];
+  const long long row0 = (long long)blockIdx.x * kTile;
+  const int rows = n - row0 < kTile ? (int)(n - row0) : kTile;
+  for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
+    const int r = i / 3, c = i % 3;
+    m.p[r][c] = r < rows ? pts[3 * (row0 + r) + c] : 0.0f;
   }
   __syncthreads();
-  for (int i = tid; i < kRays * IN; i += kThreads) {
-    const int r = i / IN, f = i % IN;
-    const int deg = f / 6, c = f % 3;
-    const float scale = (float)(1 << deg);
-    const float xb = p_s[r][c] * scale;
-    const float arg = (f % 6) < 3 ? xb : xb + kHalfPi;
-    const float sv = sinf(arg);
-    x_s[r][f] = sv * win_s[deg];
-  }
+  so3_encode(m.p, I, m.win, m.x, nullptr, nullptr);
   __syncthreads();
+  const Seg none = {nullptr, 0, 0};
   const float* const w[3] = {net.w0t, net.w1t, net.w2t};
   const float* const b[3] = {net.b0, net.b1, net.b2};
-  const float* in = &x_s[0][0];
-  int ld_in = kMaxIn, k_in = IN;
-  for (int layer = 0; layer < 3; ++layer) {
-    float* h = &h_s[layer % 2][0][0];
-    gemv_tile(in, ld_in, k_in, nullptr, 0, 0, w[layer], W, b[layer], false,
-              nullptr, 0, nullptr, 0, h, kThreads);
-    __syncthreads();
-    float* out = a.pre + (long long)layer * a.n * W;
-    for (int i = tid; i < kRays * W; i += kThreads) {
-      const int r = i / W, j = i % W;
-      const float v = h[r * kThreads + j];
-      if (row0 + r < a.n) out[(row0 + r) * W + j] = v;
-      h[r * kThreads + j] = fmaxf(v, 0.0f);
-    }
-    __syncthreads();
-    in = h;
-    ld_in = kThreads;
-    k_in = W;
+  for (int l = 0; l < 3; ++l) {
+    const Seg in = l == 0 ? Seg{m.x, kLdX, I} : Seg{m.h, kLdH, kW};
+    so3_layer(in, none, w[l], b[l], m.h, m.ring,
+              pre + (long long)l * n * width + row0 * width, rows, width);
   }
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace
 
+// traj, cts: [B, S, 11] (cts with segbar in channel 6); wfwd, wbwd: the
+// padded packs (see Net); window: [max_deg]; pieces: [S, 22, bp] scratch
+// (bp = B rounded up to 32); dbar: [B, S, 3] scratch; raybar: [B, 6];
+// partial: [num_blocks, P]; grads: [P], P the padded forward pack's size.
+// Returns a cudaError_t.
 extern "C" int march_bwd_launch(
     const float* traj, const float* cts, const float* grid,
-    const float* wfwd, const float* wbwd, const float* window, float* raybar,
-    float* rawbar, float* wbar, float* partial, float* grads, int batch,
-    int num_samples, int max_deg, int width, int num_blocks, int nx, int ny,
-    int nz, float step, float nmin_x, float nmin_y, float nmin_z, float nd_x,
+    const float* wfwd, const float* wbwd, const float* window, float* pieces,
+    float* dbar, float* raybar, float* partial, float* grads, int batch,
+    int num_samples, int max_deg, int num_blocks, int nx, int ny, int nz,
+    float step, float nmin_x, float nmin_y, float nmin_z, float nd_x,
     float nd_y, float nd_z, void* stream_ptr) {
-  if (width > kThreads || 6 * max_deg > kMaxIn || max_deg > kMaxDeg ||
-      width + 6 * max_deg > kMaxCat)
+  if (6 * max_deg > kIn - 4 || max_deg < 1 || max_deg > kMaxDeg ||
+      batch < 1 || num_samples < 1 || num_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int in_dim = 6 * max_deg;
-  const int num_params = in_dim * width + width + 2 * (width * width + width)
-                         + (width + in_dim) * width + width + width * 3 + 3;
+  Args a;
+  a.traj = traj;
+  a.cts = cts;
+  a.wfwd = wfwd;
+  a.wbwd = wbwd;
+  a.window = window;
+  a.grid.grid = reinterpret_cast<const float4*>(grid);
+  a.grid.nx = nx; a.grid.ny = ny; a.grid.nz = nz;
+  a.grid.nmin_x = nmin_x; a.grid.nmin_y = nmin_y; a.grid.nmin_z = nmin_z;
+  a.grid.nd_x = nd_x; a.grid.nd_y = nd_y; a.grid.nd_z = nd_z;
+  a.pieces = pieces;
+  a.dbar = dbar;
+  a.raybar = raybar;
+  a.partial = partial;
+  a.batch = batch;
+  a.bp = (batch + 31) / 32 * 32;
+  a.num_samples = num_samples;
+  a.max_deg = max_deg;
+  a.step = step;
+  const long long total = (long long)batch * num_samples;
+  a.chunk = (total + num_blocks - 1) / num_blocks;
 
-  SweepArgs s;
-  s.traj = traj;
-  s.cts = cts;
-  s.wfwd = wfwd;
-  s.wbwd = wbwd;
-  s.window = window;
-  s.grid.grid = reinterpret_cast<const float4*>(grid);
-  s.grid.nx = nx; s.grid.ny = ny; s.grid.nz = nz;
-  s.grid.nmin_x = nmin_x; s.grid.nmin_y = nmin_y; s.grid.nmin_z = nmin_z;
-  s.grid.nd_x = nd_x; s.grid.nd_y = nd_y; s.grid.nd_z = nd_z;
-  s.raybar = raybar;
-  s.rawbar = rawbar;
-  s.wbar = wbar;
-  s.batch = batch;
-  s.num_samples = num_samples;
-  s.max_deg = max_deg;
-  s.width = width;
-  s.step = step;
-  march_bwd_sweep<<<(batch + kRays - 1) / kRays, kThreads, 0, stream>>>(s);
+  k3_pieces<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  ParamArgs p;
-  p.traj = traj;
-  p.rawbar = rawbar;
-  p.wfwd = wfwd;
-  p.wbwd = wbwd;
-  p.window = window;
-  p.partial = partial;
-  p.total = (long long)batch * num_samples;
-  p.chunk = (p.total + num_blocks - 1) / num_blocks;
-  p.max_deg = max_deg;
-  p.width = width;
-  p.num_params = num_params;
-  const int smem = static_cast<int>(sizeof(ParamSmem));
-  err = cudaFuncSetAttribute(march_bwd_params,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  err = set_smem(k3_jacobians, sizeof(JacSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  march_bwd_params<<<num_blocks, kPThreads, smem, stream>>>(p);
+  k3_jacobians<<<num_blocks, kThreads, sizeof(JacSmem), stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  march_bwd_reduce<<<(num_params + 255) / 256, 256, 0, stream>>>(
-      partial, num_blocks, num_params, grads);
+  k3_sweep<<<a.bp / 32, 32, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = set_smem(k3_params, sizeof(ParamSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k3_params<<<num_blocks, kThreads, sizeof(ParamSmem), stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int P = num_params(6 * max_deg);
+  k3_reduce<<<(P + 255) / 256, 256, 0, stream>>>(partial, num_blocks, P,
+                                                  grads);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Parameters of the padded forward pack for 6 * max_deg inputs.
+extern "C" int march_bwd_num_params(int max_deg) {
+  return num_params(6 * max_deg);
 }
 
 extern "C" int so3_preacts_launch(const float* pts, const float* wfwd,
                                   const float* window, float* pre, int n,
                                   int max_deg, int width, void* stream_ptr) {
-  if (n < 0 || width < 1 || width > kThreads || max_deg < 1 ||
+  if (n < 0 || width < 1 || width > kW || max_deg < 1 ||
       max_deg > kMaxDeg)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  PreactArgs a;
-  a.pts = pts;
-  a.wfwd = wfwd;
-  a.window = window;
-  a.pre = pre;
-  a.n = n;
-  a.max_deg = max_deg;
-  a.width = width;
-  so3_preacts_kernel<<<(n + kRays - 1) / kRays, kThreads, 0,
-                       static_cast<cudaStream_t>(stream_ptr)>>>(a);
+  cudaError_t err = set_smem(so3_preacts_kernel, sizeof(PreactSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  so3_preacts_kernel<<<(n + kTile - 1) / kTile, kThreads, sizeof(PreactSmem),
+                       static_cast<cudaStream_t>(stream_ptr)>>>(
+      pts, wfwd, window, pre, n, max_deg, width);
   return static_cast<int>(cudaGetLastError());
 }

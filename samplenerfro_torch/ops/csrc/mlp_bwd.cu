@@ -21,9 +21,11 @@
 //  1. mlp_bwd_kernel: a fixed grid of G blocks (one per SM at most); block
 //     b takes the contiguous rows [b n / G, (b + 1) n / G), in super-tiles
 //     of super_rows rows (a multiple of the row tile). For each super-tile:
-//     a. per row tile (128 rows in bf16, 64 in fp32): the forward on
-//        CUDA cores in k order (the plain version's rounding of every
-//        stored activation, see Chain below), then the cotangents, layer
+//     a. per row tile (128 rows in bf16, 64 in fp32; a quarter of that
+//        for layers wider than 256 or inputs past 128 columns, whose
+//        products run in column panels): the forward on CUDA cores in k
+//        order (the plain version's rounding of every stored activation,
+//        and K4's, see Chain below), then the cotangents, layer
 //        by layer, as products with the output-major weight pack (dZ W^T,
 //        weights streamed through the cp.async ring; tensor cores in
 //        bf16). Bias gradients and the two narrow heads' dW are summed per
@@ -64,22 +66,20 @@ using fused_mlp::Spec;
 using fused_mlp::TileBufs;
 
 // The recompute sums in fp32 on CUDA cores, in k order, as the plain
-// version's forward products do: each stored bf16 activation is rounded
-// from that sum, and any other order rounds some of them to the other bf16
-// neighbour, flips that every later layer, mask and cotangent carries
-// (PERF.md). The cotangents and the weight gradients run on tensor cores
+// version's forward products and K4 do: each stored bf16 activation is
+// rounded from that sum, and any other order rounds some of them to the
+// other bf16 neighbour, flips that every later layer, mask and cotangent
+// carries (PERF.md). The cotangents and the weight gradients run on tensor cores
 // in bf16.
 // Trial switch for debug/mlp_rounding.py, 0 in use: 1 runs the bf16
 // recompute on tensor cores as well.
 #ifndef FUSED_MLP_K5_TENSOR_FORWARD
 #define FUSED_MLP_K5_TENSOR_FORWARD 0
 #endif
-template <typename T>
+template <typename T, bool kWide>
 using Chain = fused_mlp::Policy<
     T, std::is_same<T, __nv_bfloat16>::value && FUSED_MLP_K5_TENSOR_FORWARD,
-    std::is_same<T, __nv_bfloat16>::value>;
-template <typename T, int N>
-using BwdEngine = typename Chain<T>::template Bwd<N>;
+    std::is_same<T, __nv_bfloat16>::value, kWide>;
 
 // Where each stored tensor sits in a block's scratch slab, as a count of
 // columns before it: the slab holds, for super_rows rows each, a dense
@@ -105,12 +105,12 @@ __host__ __device__ inline Sections sections(const Spec& s) {
 }
 
 // dst[r * width + j] = src[r * ld + j] for the tile's rows, 16 bytes a copy.
-template <typename T>
+template <typename P, typename T>
 __device__ __forceinline__ void copy_rows(const T* src, int ld, int width,
                                           T* dst) {
   constexpr int E = fused_mlp::pad<T>();
   const int cpr = width / E;
-  for (int e = threadIdx.x; e < Chain<T>::kRows * cpr; e += kThreads) {
+  for (int e = threadIdx.x; e < P::kRows * cpr; e += kThreads) {
     const int r = e / cpr, q = e % cpr;
     *reinterpret_cast<uint4*>(dst + static_cast<long long>(r) * width +
                               q * E) =
@@ -119,46 +119,48 @@ __device__ __forceinline__ void copy_rows(const T* src, int ld, int width,
 }
 
 // One cotangent product: v = f(r, c, sum_j A(r, j) W(j, c)) for the tile's
-// rows and n columns (W's rows of the output-major pack, ldw apart);
-// dst = round(v), and pb[c] += the column sums of v.
-template <typename T, typename F>
+// rows and n columns (W's rows of the output-major pack, ldw apart), in
+// column panels; dst = round(v), and pb[c] += the column sums of v.
+template <typename P, typename T, typename F>
 __device__ __forceinline__ void cotangent(const ASeg<T>& a, const T* w,
                                           int ldw, int n,
                                           const TileBufs<T>& t, T* dst,
                                           float* colbuf, float* pb, F f) {
-  fused_mlp::with_width(n, [&](auto width) {
+  fused_mlp::panels(n, [&](int c0, auto width) {
     constexpr int N = decltype(width)::value;
-    BwdEngine<T, N> e;
+    using E = typename P::template Bwd<N>;
+    E e;
     e.zero();
-    fused_mlp::weight_product<Chain<T>, N>(e, a, ASeg<T>{nullptr, 0, 0}, w,
-                                           ldw, t.ring);
-    float cs[BwdEngine<T, N>::kSlots];
+    fused_mlp::weight_product<P, N>(e, a, ASeg<T>{nullptr, 0, 0}, w + c0,
+                                    ldw, t.ring);
+    float cs[E::kSlots];
 #pragma unroll
-    for (int q = 0; q < BwdEngine<T, N>::kSlots; ++q) cs[q] = 0.0f;
+    for (int q = 0; q < E::kSlots; ++q) cs[q] = 0.0f;
     e.template each<false>([&](int q, int r, int c, float v0, float v1) {
+      c += c0;
       v0 = f(r, c, v0);
       v1 = f(r, c + 1, v1);
       fused_mlp::store_pair(dst + r * t.ld_act + c, v0, v1);
       cs[q] += v0;
       cs[q + 1] += v1;
     });
-    BwdEngine<T, N>::colsums(cs, colbuf);
+    E::colsums(cs, colbuf);
     __syncthreads();
     if (threadIdx.x < N) {
-      pb[threadIdx.x] += colbuf[threadIdx.x] + colbuf[256 + threadIdx.x];
+      pb[c0 + threadIdx.x] += colbuf[threadIdx.x] + colbuf[256 + threadIdx.x];
     }
   });
 }
 
 // e.acc += A^T dZ over rows [0, rows) of a super-tile: A's columns
 // [m0, m0 + tile rows) of [s0 | s1] ([rows][w0] and [rows][w1] sections,
-// zero past w0 + w1), dZ a [rows][N] section.
-template <typename T, int N>
-__device__ __forceinline__ void grad_product(BwdEngine<T, N>& e,
-                                             const T* s0, int w0,
+// zero past w0 + w1), dZ N columns of a [rows][ldz] section.
+template <typename P, int N, typename T, typename Eng>
+__device__ __forceinline__ void grad_product(Eng& e, const T* s0, int w0,
                                              const T* s1, int w1, int m0,
-                                             const T* dz, int rows, T* ring) {
-  constexpr int KR = Chain<T>::kSlab, MP = BwdEngine<T, N>::kRows;
+                                             const T* dz, int ldz, int rows,
+                                             T* ring) {
+  constexpr int KR = P::kSlab, MP = Eng::kRows;
   constexpr int E = fused_mlp::pad<T>(), LDA = MP + E, LDZ = N + E;
   constexpr int STAGE = KR * LDA + KR * LDZ;
   fused_mlp::pipeline(
@@ -182,14 +184,14 @@ __device__ __forceinline__ void grad_product(BwdEngine<T, N>& e,
           const int i = x / (N / E), q = x % (N / E);
           fused_mlp::cp_async16(
               sz + i * LDZ + q * E,
-              dz + (static_cast<long long>(sl) * KR + i) * N + q * E, 16);
+              dz + (static_cast<long long>(sl) * KR + i) * ldz + q * E, 16);
         }
       },
       [&](int, int st) {
         const T* sa = ring + st * STAGE;
         const T* sz = sa + KR * LDA;
 #pragma unroll
-        for (int kk = 0; kk < KR; kk += BwdEngine<T, N>::kK) {
+        for (int kk = 0; kk < KR; kk += Eng::kK) {
           e.step_t(sa + kk * LDA, LDA, sz + kk * LDZ, LDZ);
         }
       });
@@ -198,13 +200,13 @@ __device__ __forceinline__ void grad_product(BwdEngine<T, N>& e,
 // dW += A^T dZ for a head of `cols` (<= kOutCols) outputs on the tile:
 // A [rows][k] (ld apart) and dZ (the rounded cotangent's columns, kOutCols
 // apart) in shared memory; a thread a weight, the rows in order.
-template <typename T>
+template <typename P, typename T>
 __device__ __forceinline__ void head_grads(const T* a, int ld, int k,
                                            const T* dz, int cols, float* dw) {
   for (int e = threadIdx.x; e < k * cols; e += kThreads) {
     const int i = e / cols, j = e % cols;
     float acc = 0.0f;
-    for (int r = 0; r < Chain<T>::kRows; ++r) {
+    for (int r = 0; r < P::kRows; ++r) {
       acc = __fmaf_rn(load(a + r * ld + i), load(dz + r * kOutCols + j), acc);
     }
     dw[e] += acc;
@@ -213,7 +215,7 @@ __device__ __forceinline__ void head_grads(const T* a, int ld, int k,
 
 // Phase a for one row tile: inputs, forward, cotangents; rows [row0,
 // row0 + tile) of the block, at row srow of the super-tile's sections.
-template <typename T>
+template <typename P, typename T = typename P::Elem>
 __device__ void tile_backward(const Spec& s, const float* x, const float* c,
                               const float* dout, const T* wkn, const T* wnk,
                               const float* bias, const TileBufs<T>& t,
@@ -221,14 +223,14 @@ __device__ void tile_backward(const Spec& s, const float* x, const float* c,
                               const Sections& sec, int super_rows,
                               long long row0, long long end, int srow,
                               float* part) {
-  constexpr int RT = Chain<T>::kRows;
+  constexpr int RT = P::kRows;
   const int W = s.width, D = s.depth, CW = s.cond_width;
   const int R = s.num_rgb, S = s.num_sigma, O = R + S, ld = t.ld_act;
   float* pbias = part + s.num_weights;
   auto section = [&](long long col, int width) {
     return base + super_rows * col + static_cast<long long>(srow) * width;
   };
-  fused_mlp::load_tile<Chain<T>>(s, x, c, row0, end, t);
+  fused_mlp::load_tile<P>(s, x, c, row0, end, t);
   for (int e = threadIdx.x; e < RT * kOutCols; e += kThreads) {
     const int r = e / kOutCols, j = e % kOutCols;
     const float v =
@@ -237,18 +239,18 @@ __device__ void tile_backward(const Spec& s, const float* x, const float* c,
     d16[e] = round_to<T>(v);
   }
   __syncthreads();
-  copy_rows(t.x0, t.ld_x0, s.fp, section(sec.x0, s.fp));
-  copy_rows(t.cond, t.ld_c, s.cp, section(sec.cond, s.cp));
-  copy_rows(d16, kOutCols, kOutCols, section(sec.d16, kOutCols));
-  fused_mlp::forward_tile<Chain<T>>(
+  copy_rows<P>(t.x0, t.ld_x0, s.fp, section(sec.x0, s.fp));
+  copy_rows<P>(t.cond, t.ld_c, s.cp, section(sec.cond, s.cp));
+  copy_rows<P>(d16, kOutCols, kOutCols, section(sec.d16, kOutCols));
+  fused_mlp::forward_tile<P>(
       s, wkn, bias, t, nullptr, row0, end,
       [&](int id, const T* buf, int width) {
         const long long col = id < D ? sec.act + static_cast<long long>(id) * W
                                      : (id == D ? sec.bn : sec.ac);
-        copy_rows(buf, ld, width, section(col, width));
+        copy_rows<P>(buf, ld, width, section(col, width));
         if (id == D - 1) {
           // The sigma head's dW on the trunk's output, while it is here.
-          head_grads(buf, ld, W, d16 + R, S, part + s.w_off[D]);
+          head_grads<P>(buf, ld, W, d16 + R, S, part + s.w_off[D]);
         }
       });
 
@@ -264,9 +266,8 @@ __device__ void tile_backward(const Spec& s, const float* x, const float* c,
   // thread a column, its bias gradient summed over the rows in order.
   const T* ac = t.act[(D - 1) & 1];
   T* dac = t.act[D & 1];
-  head_grads(ac, ld, CW, d16, R, part + s.w_off[D + 3]);
-  if (threadIdx.x < CW) {
-    const int k = threadIdx.x;
+  head_grads<P>(ac, ld, CW, d16, R, part + s.w_off[D + 3]);
+  for (int k = threadIdx.x; k < CW; k += kThreads) {
     const T* w = wkn + s.w_off[D + 3] + k * R;
     float sum = 0.0f;
     for (int r = 0; r < RT; ++r) {
@@ -281,42 +282,45 @@ __device__ void tile_backward(const Spec& s, const float* x, const float* c,
     pbias[s.b_off[D + 2] + k] += sum;
   }
   __syncthreads();
-  copy_rows(dac, ld, CW, section(sec.dac, CW));
+  copy_rows<P>(dac, ld, CW, section(sec.dac, CW));
 
   // The bottleneck's cotangent: (da_c16 Wc^T) over its first W inputs.
   T* dbn = t.act[(D - 1) & 1];
-  cotangent(ASeg<T>{dac, ld, CW}, wnk + s.t_off[D + 2], s.kp[D + 2], W, t,
-            dbn, colbuf, pbias + s.b_off[D + 1],
-            [](int, int, float v) { return v; });
-  copy_rows(dbn, ld, W, section(sec.dbn, W));
+  cotangent<P>(ASeg<T>{dac, ld, CW}, wnk + s.t_off[D + 2], s.kp[D + 2], W, t,
+               dbn, colbuf, pbias + s.b_off[D + 1],
+               [](int, int, float v) { return v; });
+  copy_rows<P>(dbn, ld, W, section(sec.dbn, W));
 
   // dh = dbn16 Wbn^T + dsigma16 Wsigma^T, masked by the trunk's output.
   const T* wsig = wnk + s.t_off[D];
   const int kps = s.kp[D];
   const T* act_last = section(sec.act + static_cast<long long>(D - 1) * W, W);
   T* src = t.act[D & 1];
-  cotangent(ASeg<T>{dbn, ld, W}, wnk + s.t_off[D + 1], s.kp[D + 1], W, t, src,
-            colbuf, pbias + s.b_off[D - 1], [&](int r, int col, float v) {
-              for (int j = 0; j < S; ++j) {
-                v = __fmaf_rn(load(d16 + r * kOutCols + R + j),
-                              load(wsig + j * kps + col), v);
-              }
-              return v * (load(act_last + r * W + col) > 0.0f ? 1.0f : 0.0f);
-            });
-  copy_rows(src, ld, W, section(sec.dpre + static_cast<long long>(D - 1) * W,
-                                W));
+  cotangent<P>(ASeg<T>{dbn, ld, W}, wnk + s.t_off[D + 1], s.kp[D + 1], W, t,
+               src, colbuf, pbias + s.b_off[D - 1],
+               [&](int r, int col, float v) {
+                 for (int j = 0; j < S; ++j) {
+                   v = __fmaf_rn(load(d16 + r * kOutCols + R + j),
+                                 load(wsig + j * kps + col), v);
+                 }
+                 return v *
+                        (load(act_last + r * W + col) > 0.0f ? 1.0f : 0.0f);
+               });
+  copy_rows<P>(src, ld, W,
+               section(sec.dpre + static_cast<long long>(D - 1) * W, W));
 
   // Trunk, last layer first: dh over the previous activation's columns
   // (the skip input's columns carry no gradient anywhere).
   T* dst = t.act[(D - 1) & 1];
   for (int i = D - 1; i >= 1; --i) {
     const T* act = section(sec.act + static_cast<long long>(i - 1) * W, W);
-    cotangent(ASeg<T>{src, ld, W}, wnk + s.t_off[i], s.kp[i], W, t, dst,
-              colbuf, pbias + s.b_off[i - 1], [&](int r, int col, float v) {
-                return v * (load(act + r * W + col) > 0.0f ? 1.0f : 0.0f);
-              });
-    copy_rows(dst, ld, W,
-              section(sec.dpre + static_cast<long long>(i - 1) * W, W));
+    cotangent<P>(ASeg<T>{src, ld, W}, wnk + s.t_off[i], s.kp[i], W, t, dst,
+                 colbuf, pbias + s.b_off[i - 1],
+                 [&](int r, int col, float v) {
+                   return v * (load(act + r * W + col) > 0.0f ? 1.0f : 0.0f);
+                 });
+    copy_rows<P>(dst, ld, W,
+                 section(sec.dpre + static_cast<long long>(i - 1) * W, W));
     T* tmp = src;
     src = dst;
     dst = tmp;
@@ -325,8 +329,8 @@ __device__ void tile_backward(const Spec& s, const float* x, const float* c,
 
 // Phase b: the dW of every layer but the two heads over the super-tile's
 // first `rows` rows, into the block's partial (stored when first, added
-// after).
-template <typename T>
+// after), in column panels of the layer's outputs.
+template <typename P, typename T = typename P::Elem>
 __device__ void weight_grads(const Spec& s, const T* base,
                              const Sections& sec, int super_rows, int rows,
                              float* part, bool first, T* ring) {
@@ -370,12 +374,13 @@ __device__ void weight_grads(const Spec& s, const T* base,
       n = CW;
     }
     float* p = part + s.w_off[l];
-    fused_mlp::with_width(n, [&](auto width) {
+    fused_mlp::panels(n, [&](int c0, auto width) {
       constexpr int N = decltype(width)::value;
-      for (int m0 = 0; m0 < w0 + w1; m0 += BwdEngine<T, N>::kRows) {
-        BwdEngine<T, N> e;
+      using E = typename P::template Grad<N>;
+      for (int m0 = 0; m0 < w0 + w1; m0 += E::kRows) {
+        E e;
         e.zero();
-        grad_product<T, N>(e, s0, w0, s1, w1, m0, dz, rows, ring);
+        grad_product<P, N>(e, s0, w0, s1, w1, m0, dz + c0, n, rows, ring);
         e.template each<true>([&](int, int r, int c, float v0, float v1) {
           const int m = m0 + r;
           int row;
@@ -386,7 +391,7 @@ __device__ void weight_grads(const Spec& s, const T* base,
             if (m - w0 >= k1) return;
             row = k0 + (m - w0);
           }
-          float* q = p + static_cast<long long>(row) * N + c;
+          float* q = p + static_cast<long long>(row) * n + c0 + c;
           if (first) {
             q[0] = v0;
             q[1] = v1;
@@ -402,32 +407,34 @@ __device__ void weight_grads(const Spec& s, const T* base,
   __syncthreads();
 }
 
-template <typename T>
+template <typename P, typename T = typename P::Elem>
 __host__ __device__ inline size_t smem_bytes(const Spec& s) {
-  return fused_mlp::tile_bytes<Chain<T>>(s) +
-         (sizeof(float) + sizeof(T)) * Chain<T>::kRows * kOutCols +
+  return fused_mlp::tile_bytes<P>(s) +
+         (sizeof(float) + sizeof(T)) * P::kRows * kOutCols +
          sizeof(float) * 2 * 256;
 }
 
 // Shared memory of weight_grads' ring, which reuses the tile's buffers.
-template <typename T>
+template <typename P, typename T = typename P::Elem>
 __host__ __device__ inline size_t grad_ring_bytes(const Spec& s) {
   constexpr int E = fused_mlp::pad<T>();
+  constexpr int MP = P::template Grad<128>::kRows;
   const int maxw = s.width > s.cond_width ? s.width : s.cond_width;
-  return sizeof(T) * fused_mlp::kStages * Chain<T>::kSlab *
-         (Chain<T>::kRows + E + maxw + E);
+  return sizeof(T) * fused_mlp::kStages * P::kSlab *
+         (MP + E + fused_mlp::panel_width(maxw) + E);
 }
 
-template <typename T>
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads)
     mlp_bwd_kernel(Spec s, const float* x, const float* c, const float* dout,
                    const T* wkn, const T* wnk, const float* bias, T* scratch,
                    float* partial, long long n, int super_rows) {
+  using P = Chain<T, kWide>;
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int RT = Chain<T>::kRows;
-  const TileBufs<T> t = fused_mlp::tile_bufs<Chain<T>>(s, smem);
+  constexpr int RT = P::kRows;
+  const TileBufs<T> t = fused_mlp::tile_bufs<P>(s, smem);
   float* douts =
-      reinterpret_cast<float*>(smem + fused_mlp::tile_bytes<Chain<T>>(s));
+      reinterpret_cast<float*>(smem + fused_mlp::tile_bytes<P>(s));
   T* d16 = reinterpret_cast<T*>(douts + RT * kOutCols);
   float* colbuf = reinterpret_cast<float*>(d16 + RT * kOutCols);
 
@@ -449,10 +456,10 @@ __global__ void __launch_bounds__(kThreads)
     const long long st_end = st0 + super_rows < end ? st0 + super_rows : end;
     int rows = 0;
     for (long long row0 = st0; row0 < st_end; row0 += RT, rows += RT) {
-      tile_backward<T>(s, x, c, dout, wkn, wnk, bias, t, douts, d16, colbuf,
+      tile_backward<P>(s, x, c, dout, wkn, wnk, bias, t, douts, d16, colbuf,
                        base, sec, super_rows, row0, end, rows, part);
     }
-    weight_grads<T>(s, base, sec, super_rows, rows, part, first, t.act[0]);
+    weight_grads<P>(s, base, sec, super_rows, rows, part, first, t.act[0]);
     first = false;
   }
 }
@@ -467,21 +474,23 @@ __global__ void mlp_bwd_reduce(const float* partial, int blocks,
   grads[p] = acc;
 }
 
-template <typename T>
+template <typename T, bool kWide>
 int launch(const Spec& s, const float* x, const float* c, const float* dout,
            const void* wkn, const void* wnk, const float* bias,
            void* scratch, float* partial, float* grads, long long n,
            int blocks, int super_rows, cudaStream_t stream) {
-  if (super_rows <= 0 || super_rows % Chain<T>::kRows != 0 ||
-      Chain<T>::kRows % Chain<T>::kSlab != 0 ||
-      grad_ring_bytes<T>(s) > fused_mlp::tile_bytes<Chain<T>>(s))
+  using P = Chain<T, kWide>;
+  const size_t smem = smem_bytes<P>(s);
+  if (super_rows <= 0 || super_rows % P::kRows != 0 ||
+      P::kRows % P::kSlab != 0 ||
+      grad_ring_bytes<P>(s) > fused_mlp::tile_bytes<P>(s) ||
+      smem > fused_mlp::kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes<T>(s);
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mlp_bwd_kernel<T, kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_bwd_kernel<T><<<blocks, kThreads, smem, stream>>>(
+  mlp_bwd_kernel<T, kWide><<<blocks, kThreads, smem, stream>>>(
       s, x, c, dout, static_cast<const T*>(wkn), static_cast<const T*>(wnk),
       bias, static_cast<T*>(scratch), partial, n, super_rows);
   err = cudaGetLastError();
@@ -490,6 +499,20 @@ int launch(const Spec& s, const float* x, const float* c, const float* dout,
   mlp_bwd_reduce<<<static_cast<unsigned>((count + 255) / 256), 256, 0,
                    stream>>>(partial, blocks, count, grads);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_any(const Spec& s, const float* x, const float* c,
+               const float* dout, const void* wkn, const void* wnk,
+               const float* bias, void* scratch, float* partial,
+               float* grads, long long n, int blocks, int super_rows,
+               cudaStream_t stream) {
+  return s.wide ? launch<T, true>(s, x, c, dout, wkn, wnk, bias, scratch,
+                                  partial, grads, n, blocks, super_rows,
+                                  stream)
+                : launch<T, false>(s, x, c, dout, wkn, wnk, bias, scratch,
+                                   partial, grads, n, blocks, super_rows,
+                                   stream);
 }
 
 }  // namespace
@@ -517,9 +540,9 @@ extern "C" int mlp_bwd_launch(const float* x, const float* c,
       blocks > n)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(s, x, c, dout, wkn, wnk, bias, scratch,
-                                      partial, grads, n, blocks, super_rows,
-                                      st)
-              : launch<float>(s, x, c, dout, wkn, wnk, bias, scratch, partial,
-                              grads, n, blocks, super_rows, st);
+  return bf16 ? launch_any<__nv_bfloat16>(s, x, c, dout, wkn, wnk, bias,
+                                          scratch, partial, grads, n, blocks,
+                                          super_rows, st)
+              : launch_any<float>(s, x, c, dout, wkn, wnk, bias, scratch,
+                                  partial, grads, n, blocks, super_rows, st);
 }

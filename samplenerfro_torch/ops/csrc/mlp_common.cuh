@@ -15,22 +15,28 @@
 // shared memory and B streamed from device memory in k-slabs (kSlab rows
 // x N columns) through a ring of kStages shared-memory buffers filled by
 // cp.async: slab s + 2 is in flight while slab s is multiplied, and one
-// fetch feeds all 8 warps of the block. N is 128 or 256; 8 warps split the
-// output 2 (rows) x 4 (columns). Every shared-memory row is padded by 16
-// bytes, so that consecutive rows start on different banks.
-//  - Mma (bf16 on tensor cores): 128 rows; a warp owns 64 rows x N/4
+// fetch feeds all 8 warps of the block. An engine's N is 128 or 256; a
+// wider layer (any multiple of 128 up to 1024) runs in column panels of
+// 256 and 128 (panels), each panel its own product, every output still
+// summed over the whole k in order. 8 warps split the output 2 (rows) x 4
+// (columns). Every shared-memory row is padded by 16 bytes, so that
+// consecutive rows start on different banks.
+//  - Mma (bf16 on tensor cores): 32 MT rows; a warp owns 16 MT rows x N/4
 //    columns as m16n8 fp32 accumulators; operands come through ldmatrix
 //    (.trans for a [k][n] operand); each mma.sync m16n8k16 step starts from
 //    zero and is added to the accumulators in fp32 (add_mma).
-//  - Simt (fp32 on CUDA cores, of fp32 or bf16 operands): 64 rows; a lane
-//    owns 8 rows x N/32 columns, reads A 4 k at a time along its rows and B
-//    4 columns at a time (16 or 8 bytes), so each operand read feeds 8 or
-//    more fmaf. Each output is summed by one thread in k order, the order
-//    of the plain version's products.
+//  - Simt (fp32 on CUDA cores, of fp32 or bf16 operands): 8 RI rows; a
+//    lane owns RI rows x N/32 columns, reads A 4 k at a time along its rows
+//    and B 4 columns at a time (16 or 8 bytes), so each operand read feeds
+//    RI x 4 or more fmaf. Each output is summed by one thread in k order,
+//    the order of the plain version's products.
 // A Policy picks the engine of each kernel's forward and backward products
-// (K4: tensor cores in bf16; K5: the forward on CUDA cores, its cotangents
-// and weight gradients on tensor cores in bf16). K5's weight gradients
-// (A^T dZ, contracting over the rows of a super-tile) read A transposed.
+// (K4: CUDA cores; K5: the forward on CUDA cores, its cotangents and
+// weight gradients on tensor cores in bf16) and the rows of a tile: 128
+// with tensor cores and 64 without, a quarter of that (wide) when a tile's
+// activations at that width would not fit in shared memory. K5's weight
+// gradients (A^T dZ, contracting over the rows of a super-tile) read A
+// transposed, on the full-size engine whatever the tile.
 
 #pragma once
 
@@ -79,6 +85,7 @@ __host__ __device__ inline int round_up(int v, int m) {
 struct Spec {
   int depth, width, skip, feat, cond, cond_width, num_rgb, num_sigma, pe;
   int fp, cp;
+  bool wide;  // the tiles run at a quarter of the rows (see Policy)
   int k[kMaxLayers], n[kMaxLayers], kp[kMaxLayers];
   long long w_off[kMaxLayers], t_off[kMaxLayers];
   int b_off[kMaxLayers];
@@ -91,16 +98,20 @@ __host__ __device__ inline bool skip_after(const Spec& s, int i) {
   return i > 0 && i % s.skip == 0;
 }
 
+constexpr int kMaxWidth = 1024;  // widest layer the kernels take
+constexpr size_t kMaxSmem = 232448;  // shared memory a block may use
+constexpr int kMaxInputs = 128;  // feature and condition columns, each
+
 // Fills a Spec; false for a geometry the kernels do not take (the
 // wrapper checks the same before it launches).
 inline bool make_spec(Spec* s, int depth, int width, int skip, int feat,
                       int cond, int cond_width, int num_rgb, int num_sigma,
                       int pe) {
-  const bool wide_ok = (width == 128 || width == 256) &&
-                       (cond_width == 128 || cond_width == 256);
-  if (depth < 2 || depth + 4 > kMaxLayers || skip < 1 || !wide_ok ||
-      feat < 1 || cond < 1 ||
-      round_up(feat, kInPad) + round_up(cond, kInPad) > 128 ||
+  const bool width_ok = width % 128 == 0 && cond_width % 128 == 0 &&
+                        width >= 128 && cond_width >= 128 &&
+                        width <= kMaxWidth && cond_width <= kMaxWidth;
+  if (depth < 2 || depth + 4 > kMaxLayers || skip < 1 || !width_ok ||
+      feat < 1 || cond < 1 || feat > kMaxInputs || cond > kMaxInputs ||
       num_rgb < 1 || num_sigma < 1 || num_rgb + num_sigma > kOutCols)
     return false;
   s->depth = depth;
@@ -114,6 +125,7 @@ inline bool make_spec(Spec* s, int depth, int width, int skip, int feat,
   s->pe = pe;
   s->fp = round_up(feat, kInPad);
   s->cp = round_up(cond, kInPad);
+  s->wide = width > 256 || cond_width > 256 || s->fp + s->cp > 128;
   if (skip_after(*s, depth - 1)) return false;  // the heads see width inputs
   for (int i = 0; i < depth; ++i) {
     s->k[i] = i == 0 ? feat : (skip_after(*s, i - 1) ? width + feat : width);
@@ -188,26 +200,26 @@ __device__ __forceinline__ void add_mma(float (&d)[4], const unsigned (&a)[4],
 #endif
 }
 
-// bf16 on tensor cores: 128 output rows (2 warps of 64), N columns (4 warps
-// of N/4).
-template <int N>
+// bf16 on tensor cores: 32 MT output rows (2 warps of 16 MT), N columns (4
+// warps of N/4).
+template <int N, int MT = 4>
 struct Mma {
-  static constexpr int kRows = 128;   // output rows of the block
-  static constexpr int kK = 16;       // k of one step
-  static constexpr int kNT = N / 32;  // n8 tiles of a warp
+  static constexpr int kRows = 32 * MT;  // output rows of the block
+  static constexpr int kK = 16;          // k of one step
+  static constexpr int kNT = N / 32;     // n8 tiles of a warp
   static constexpr int kSlots = 2 * kNT;
-  float acc[4][kNT][4];
+  float acc[MT][kNT][4];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
   }
 
-  __device__ __forceinline__ void mul(const unsigned (&af)[4][4],
+  __device__ __forceinline__ void mul(const unsigned (&af)[MT][4],
                                       const bf16* b, int ldb) {
     const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) & 3;
     const bf16* bp = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldb +
@@ -217,7 +229,7 @@ struct Mma {
       unsigned bf[4];
       ldsm_x4_t(bf, bp + np * 16);
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
         add_mma(acc[mt][2 * np], af[mt], bf[0], bf[1]);
         add_mma(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
       }
@@ -228,11 +240,11 @@ struct Mma {
   __device__ __forceinline__ void step(const bf16* a, int lda, const bf16* b,
                                        int ldb) {
     const int lane = threadIdx.x & 31, wm = threadIdx.x >> 7;
-    unsigned af[4][4];
+    unsigned af[MT][4];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      ldsm_x4(af[mt],
-              a + (wm * 64 + mt * 16 + (lane & 15)) * lda + (lane >> 4) * 8);
+    for (int mt = 0; mt < MT; ++mt) {
+      ldsm_x4(af[mt], a + (wm * 16 * MT + mt * 16 + (lane & 15)) * lda +
+                          (lane >> 4) * 8);
     }
     mul(af, b, ldb);
   }
@@ -241,11 +253,11 @@ struct Mma {
   __device__ __forceinline__ void step_t(const bf16* a, int lda,
                                          const bf16* b, int ldb) {
     const int lane = threadIdx.x & 31, wm = threadIdx.x >> 7;
-    unsigned af[4][4];
+    unsigned af[MT][4];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
+    for (int mt = 0; mt < MT; ++mt) {
       ldsm_x4_t(af[mt], a + ((lane & 7) + ((lane >> 4) << 3)) * lda +
-                            wm * 64 + mt * 16 + ((lane >> 3) & 1) * 8);
+                            wm * 16 * MT + mt * 16 + ((lane >> 3) & 1) * 8);
     }
     mul(af, b, ldb);
   }
@@ -257,12 +269,12 @@ struct Mma {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          f(2 * nt, wm * 64 + mt * 16 + g + 8 * h,
+          f(2 * nt, wm * 16 * MT + mt * 16 + g + 8 * h,
             wn * (N / 4) + nt * 8 + 2 * t, acc[mt][nt][2 * h],
             acc[mt][nt][2 * h + 1]);
   }
@@ -296,25 +308,26 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
 }
 
 // fp32 sums on CUDA cores of S operands (float, or bf16 widened exactly):
-// 64 output rows (2 warps of 32), N columns (4 warps of N/4); lane (rg, cg)
-// = (lane / 8, lane % 8) owns rows rg + 4i (rg * 8 + i with A transposed)
-// and columns cg * 4 + 32 j + 0..3 of its warp's span.
-template <int N, typename S>
+// 8 RI output rows (2 warps of 4 RI), N columns (4 warps of N/4); lane
+// (rg, cg) = (lane / 8, lane % 8) owns rows rg + 4i, i < RI (rg * 8 + i
+// with A transposed, which takes RI = 8) and columns cg * 4 + 32 j + 0..3
+// of its warp's span.
+template <int N, typename S, int RI = 8>
 struct Simt {
-  static constexpr int kRows = 64;
+  static constexpr int kRows = 8 * RI;
   static constexpr int kK = 4;
   static constexpr int kTN = N / 32;
   static constexpr int kSlots = kTN;
-  float acc[8][kTN];
+  float acc[RI][kTN];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
   }
 
-  __device__ __forceinline__ void mul(const float (&av)[8][4], const S* b,
+  __device__ __forceinline__ void mul(const float (&av)[RI][4], const S* b,
                                       int ldb) {
     const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) & 3;
     const S* bp = b + wn * (N / 4) + (lane & 7) * 4;
@@ -332,7 +345,7 @@ struct Simt {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < kTN; ++j)
           acc[i][j] = __fmaf_rn(av[i][kk], bv[kk][j], acc[i][j]);
@@ -342,10 +355,10 @@ struct Simt {
   __device__ __forceinline__ void step(const S* a, int lda, const S* b,
                                        int ldb) {
     const int lane = threadIdx.x & 31, wm = threadIdx.x >> 7;
-    const S* ap = a + (wm * 32 + (lane >> 3)) * lda;
-    float av[8][4];
+    const S* ap = a + (wm * 4 * RI + (lane >> 3)) * lda;
+    float av[RI][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const float4 v = load4(ap + 4 * i * lda);
       av[i][0] = v.x;
       av[i][1] = v.y;
@@ -358,6 +371,7 @@ struct Simt {
   // As step with A stored transposed, [k][m].
   __device__ __forceinline__ void step_t(const S* a, int lda, const S* b,
                                          int ldb) {
+    static_assert(RI == 8, "A transposed takes 8 rows a lane");
     const int lane = threadIdx.x & 31, wm = threadIdx.x >> 7;
     const S* ap = a + wm * 32 + (lane >> 3) * 8;
     float av[8][4];
@@ -382,10 +396,10 @@ struct Simt {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int wm = warp >> 2, wn = warp & 3, rg = lane >> 3, cg = lane & 7;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < kTN; j += 2)
-        f(j, wm * 32 + (kTransposed ? rg * 8 + i : rg + 4 * i),
+        f(j, wm * 4 * RI + (kTransposed ? rg * 8 + i : rg + 4 * i),
           wn * (N / 4) + (j >> 2) * 32 + cg * 4 + (j & 3), acc[i][j],
           acc[i][j + 1]);
   }
@@ -407,31 +421,46 @@ struct Simt {
 
 // How a kernel runs its products on T operands, on tensor cores (bf16
 // only) or in fp32 on CUDA cores: Fwd for the forward's layers, Bwd for
-// K5's cotangents and weight gradients; the rows of a tile (a CUDA-core
-// product of 64 rows runs once per 64 rows of a 128-row tile) and the
-// k-rows of a weight slab.
-template <typename T, bool kTensorFwd, bool kTensorBwd = kTensorFwd>
+// K5's cotangents, Grad for its weight gradients; the rows of a tile (a
+// CUDA-core product of 64 rows runs once per 64 rows of a 128-row tile),
+// a quarter of them when kWide, and the k-rows of a weight slab.
+template <typename T, bool kTensorFwd, bool kTensorBwd = kTensorFwd,
+          bool kWide = false>
 struct Policy {
   static_assert(std::is_same<T, bf16>::value || !(kTensorFwd || kTensorBwd),
                 "tensor-core products take bf16");
   using Elem = T;
-  static constexpr int kRows = kTensorFwd || kTensorBwd ? 128 : 64;
+  static constexpr int kRows =
+      (kTensorFwd || kTensorBwd ? 128 : 64) / (kWide ? 4 : 1);
   static constexpr int kSlab = sizeof(T) == 4 ? 16 : 32;
+  static constexpr int kSimtRI = (kRows < 64 ? kRows : 64) / 8;
+  static constexpr int kMmaMT = kRows < 32 ? 1 : kRows / 32;
   template <int N>
-  using Fwd = std::conditional_t<kTensorFwd, Mma<N>, Simt<N, T>>;
+  using Fwd = std::conditional_t<kTensorFwd, Mma<N, kMmaMT>,
+                                 Simt<N, T, kSimtRI>>;
   template <int N>
-  using Bwd = std::conditional_t<kTensorBwd, Mma<N>, Simt<N, T>>;
+  using Bwd = std::conditional_t<kTensorBwd, Mma<N, kMmaMT>,
+                                 Simt<N, T, kSimtRI>>;
+  template <int N>
+  using Grad = std::conditional_t<kTensorBwd, Mma<N>, Simt<N, T>>;
 };
 
-// f(std::integral_constant<int, n>) for n = 128 or 256.
+// The column panels of an n-wide layer (n a multiple of 128): f(c0,
+// std::integral_constant<int, N>) for panels of N = 256 columns from c0 =
+// 0, and one of 128 when n is an odd multiple of 128.
 template <typename F>
-__device__ __forceinline__ void with_width(int n, F f) {
-  if (n == 256) {
-    f(std::integral_constant<int, 256>{});
-  } else {
-    f(std::integral_constant<int, 128>{});
+__device__ __forceinline__ void panels(int n, F f) {
+  for (int c0 = 0; c0 < n; c0 += 256) {
+    if (n - c0 >= 256) {
+      f(c0, std::integral_constant<int, 256>{});
+    } else {
+      f(c0, std::integral_constant<int, 128>{});
+    }
   }
 }
+
+// The widest panel of an n-wide layer.
+__host__ __device__ inline int panel_width(int n) { return n < 256 ? n : 256; }
 
 // The k-slab pipeline: load(slab, stage) issues the cp.async copies of a
 // slab, step(slab, stage) multiplies one. kStages - 1 slabs are in flight
@@ -542,7 +571,8 @@ __host__ __device__ inline size_t tile_bytes(const Spec& s) {
   const int maxw = s.width > s.cond_width ? s.width : s.cond_width;
   return sizeof(T) * (static_cast<size_t>(2) * R * (maxw + P) +
                       static_cast<size_t>(R) * (s.fp + P + s.cp + P) +
-                      static_cast<size_t>(kStages) * KS * (maxw + P));
+                      static_cast<size_t>(kStages) * KS *
+                          (panel_width(maxw) + P));
 }
 
 template <typename Pol, typename T = typename Pol::Elem>
@@ -590,12 +620,13 @@ __device__ void load_tile(const Spec& s, const float* x, const float* c,
   }
 }
 
-// One layer of the forward: o = round(act(sum + bias)), act ReLU or none.
+// One layer of the forward: o = round(act(sum + bias)), act ReLU or none;
+// w is the layer's input-major [k][n] block.
 template <typename P, typename T = typename P::Elem>
 __device__ __forceinline__ void dense(const ASeg<T>& s0, const ASeg<T>& s1,
                                       const T* w, int n, const float* b,
                                       bool relu, T* o, int ldo, T* ring) {
-  with_width(n, [&](auto width) {
+  panels(n, [&](int c0, auto width) {
     constexpr int N = decltype(width)::value;
     using E = typename P::template Fwd<N>;
     for (int h = 0; h < P::kRows / E::kRows; ++h) {
@@ -603,9 +634,10 @@ __device__ __forceinline__ void dense(const ASeg<T>& s0, const ASeg<T>& s1,
       E e;
       e.zero();
       weight_product<P, N>(e, ASeg<T>{s0.a + r0 * s0.ld, s0.ld, s0.k},
-                           ASeg<T>{s1.a + r0 * s1.ld, s1.ld, s1.k}, w, N,
-                           ring);
+                           ASeg<T>{s1.a + r0 * s1.ld, s1.ld, s1.k}, w + c0,
+                           n, ring);
       e.template each<false>([&](int, int r, int c, float v0, float v1) {
+        c += c0;
         v0 += b[c];
         v1 += b[c + 1];
         if (relu) {

@@ -92,19 +92,22 @@ def _finish(name, job):
   os.replace(tmp, so)
 
 
-def build(names, defines=()):
-  """Compile the named kernels, all nvcc processes started together, with
-  the given `-D` defines.
+def build(names, defines=(), also=()):
+  """Compile the named kernels with the given `-D` defines, and each
+  (name, defines) of `also`, all nvcc processes started together.
 
-  Returns {name: nvcc output} for the kernels built by this call.
+  Returns {(name, defines): nvcc output} for the kernels built by this
+  call.
   """
+  targets = [(n, tuple(defines)) for n in names]
+  targets += [(n, tuple(d)) for n, d in also]
   with _lock:
-    jobs = {n: _start(n, defines) for n in names}
-    for n, job in jobs.items():
+    jobs = {t: _start(*t) for t in targets}
+    for t, job in jobs.items():
       if job is not None:
-        _finish(n, job)
-    return {n: _target(n, defines)[1].with_suffix(".log").read_text()
-            for n, job in jobs.items() if job is not None}
+        _finish(t[0], job)
+    return {t: _target(*t)[1].with_suffix(".log").read_text()
+            for t, job in jobs.items() if job is not None}
 
 
 def kernel_names():

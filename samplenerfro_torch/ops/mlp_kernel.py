@@ -31,9 +31,12 @@ import torch
 from samplenerfro_torch.ops import cuda_build
 from samplenerfro_torch.ops import math as math_ops
 
-MAX_WIDTH = 256  # widest layer the CUDA kernels' shared memory holds
-# Rows of a kernel tile by compute type (csrc/mlp_common.cuh:Policy).
-TILE_ROWS = {torch.float32: 64, torch.bfloat16: 128}
+# The widest layer and the most feature or condition columns the CUDA
+# kernels take (csrc/mlp_common.cuh: kMaxWidth, kMaxInputs), and their
+# deepest trunk (kMaxLayers less the four heads).
+MAX_WIDTH = 1024
+MAX_INPUTS = 128
+MAX_DEPTH = 20
 IN_PAD = 32      # feature and condition widths padded to this in the kernels
 OUT_COLS = 8     # the cotangent's columns, padded (csrc/mlp_common.cuh)
 # Rows of a K5 super-tile: each block adds its weight gradients into its
@@ -214,14 +217,27 @@ def fused_nerf_mlp_reference(spec, params, x, cond, dtype):
   return out[7], out[6]
 
 
-def fused_nerf_mlp_bwd_reference(spec, params, x, cond, drgb, dsigma, dtype):
+def _activations(spec, acts, bn, a_c):
+  """{name: value} of the stored activations (forward_activations)."""
+  out = {f"act{i}": a for i, a in enumerate(acts)}
+  out.update(bn=bn, ac=a_c)
+  return out
+
+
+def fused_nerf_mlp_bwd_reference(spec, params, x, cond, drgb, dsigma, dtype,
+                                 stored=None, at=None):
   """Plain PyTorch version of K5: the recompute and backward of
   samplenerfro_tpu/ops/pallas/mlp_kernel.py:268-317.
 
   Returns the flat fp32 [dW_0, db_0, ...] in nn.Linear's layout. ReLU masks
   come from the stored activations; each pre-activation cotangent is
   rounded to the compute type before its products, and each bias gradient
-  sums the unrounded cotangent.
+  sums the unrounded cotangent. stored, a dict, receives the recomputed
+  activations as mlp_fwd's `acts` names them. at, such a dict (a kernel's
+  `acts`), replaces the recomputed activations: the backward then runs at
+  those values and ReLU masks, which replays the kernel's masks where a
+  pre-activation at 0 rounds to the other side in another summation
+  order.
   """
   rnd = lambda t: _rnd(t, dtype)
   d, width = spec.depth, spec.width
@@ -229,6 +245,17 @@ def fused_nerf_mlp_bwd_reference(spec, params, x, cond, drgb, dsigma, dtype):
   with torch.no_grad(), _full_fp32():
     x0, c = _featurize(spec, x, cond, dtype)
     w, augs, acts, h, xcat, a_c, _, _ = _forward(spec, params, x0, c, dtype)
+    if at is not None:
+      acts = [at[f"act{i}"].float() for i in range(d)]
+      augs = [x0] + [torch.cat([acts[i - 1], x0], dim=-1)
+                     if skip_after(spec, i - 1) else acts[i - 1]
+                     for i in range(1, d)]
+      h = acts[d - 1]
+      xcat = torch.cat([at["bn"].float(), c], dim=-1)
+      a_c = at["ac"].float()
+    if stored is not None:
+      stored.update({k: v.to(dtype) for k, v in _activations(
+          spec, acts, xcat[:, :width], a_c).items()})
     drgb, dsigma = drgb.float(), dsigma.float()
     drgb16 = rnd(drgb)
     gw[d + 3], gb[d + 3] = a_c.t() @ drgb16, drgb.sum(0)
@@ -252,6 +279,38 @@ def fused_nerf_mlp_bwd_reference(spec, params, x, cond, drgb, dsigma, dtype):
                                               pair[1])]
 
 
+def wide(spec):
+  """Whether the kernels run this geometry's tiles at a quarter of the rows
+  (csrc/mlp_common.cuh: Spec.wide): layers wider than 256, or features
+  and condition past 128 columns together."""
+  return (max(spec.width, spec.cond_width) > 256
+          or feature_cols(spec.feat) + feature_cols(spec.cond) > 128)
+
+
+def tile_rows(spec, dtype):
+  """Rows of K5's row tile (csrc/mlp_common.cuh:Policy): 128 in bf16, 64
+  in fp32, a quarter of that for a wide geometry."""
+  rows = 128 if dtype == torch.bfloat16 else 64
+  return rows // 4 if wide(spec) else rows
+
+
+def kernel_limits(spec):
+  """The reasons the CUDA kernels refuse spec, empty when they take it."""
+  out = []
+  for name, w in (("width", spec.width), ("cond_width", spec.cond_width)):
+    if w % 128 or not 128 <= w <= MAX_WIDTH:
+      out.append(f"{name} {w} is not a multiple of 128 up to {MAX_WIDTH}")
+  for name, k in (("features", spec.feat), ("condition", spec.cond)):
+    if k > MAX_INPUTS:
+      out.append(f"{k} {name} columns are more than {MAX_INPUTS}")
+  if not 2 <= spec.depth <= MAX_DEPTH:
+    out.append(f"depth {spec.depth} is not in 2 .. {MAX_DEPTH}")
+  if spec.num_rgb + spec.num_sigma > OUT_COLS:
+    out.append(f"{spec.num_rgb + spec.num_sigma} output channels are more "
+               f"than {OUT_COLS}")
+  return out
+
+
 def _check(spec, x, cond, params, who):
   """Raise ValueError unless the kernels take these tensors."""
   dev = x.device
@@ -270,14 +329,13 @@ def _check(spec, x, cond, params, who):
                        f"{(n, k)}")
     if w.device != dev or b.device != dev:
       raise ValueError(f"{who}: weights on {w.device}, inputs on {dev}")
-  if {spec.width, spec.cond_width} - {128, MAX_WIDTH}:
-    raise ValueError(f"{who}: the CUDA kernels take layer widths of 128 or "
-                     f"{MAX_WIDTH}, got {spec.width} and {spec.cond_width}")
-  if feature_cols(spec.feat) + feature_cols(spec.cond) > 128:
-    raise ValueError(f"{who}: the CUDA kernels' shared memory holds "
-                     f"features and condition of 128 columns together "
-                     f"(each padded to {IN_PAD}), got {spec.feat} and "
-                     f"{spec.cond}")
+  limits = kernel_limits(spec)
+  if limits:
+    raise ValueError(f"{who}: the CUDA kernels take layer widths that are "
+                     f"multiples of 128 up to {MAX_WIDTH}, at most "
+                     f"{MAX_INPUTS} feature and condition columns each and "
+                     f"a trunk of at most {MAX_DEPTH} layers: "
+                     + "; ".join(limits))
 
 
 def feature_cols(k):
@@ -334,7 +392,10 @@ def scratch_row_elems(spec):
 
 def stored_values(spec, stash, rows):
   """{name: [rows, width]} of what K5 stored for every row, from the
-  `stash` of an mlp_bwd call whose super-tiles held each block's rows."""
+  `stash` of an mlp_bwd call whose super-tiles held each block's rows (on
+  CPU tensors: the plain version's activations)."""
+  if "values" in stash:
+    return stash["values"]
   scratch, blocks, sr = stash["scratch"], stash["blocks"], stash["super_rows"]
   bounds = [rows * b // blocks for b in range(blocks + 1)]
   if max(hi - lo for lo, hi in zip(bounds, bounds[1:])) > sr:
@@ -352,7 +413,17 @@ def _dtype_of(dtype):
   return dtype
 
 
-def mlp_fwd(spec, params, x, cond, dtype, pack=None):
+def forward_activations(spec):
+  """[(name, first column, width)] of the activations K4 writes for a row
+  with `acts` (csrc/mlp_fwd.cu): the trunk's, the bottleneck's, the
+  condition layer's, named as stored_values names them."""
+  w = spec.width
+  return ([(f"act{i}", i * w, w) for i in range(spec.depth)]
+          + [("bn", spec.depth * w, w),
+             ("ac", (spec.depth + 1) * w, spec.cond_width)])
+
+
+def mlp_fwd(spec, params, x, cond, dtype, pack=None, acts=None):
   """K4: (raw rgb [N, num_rgb], sigma [N, num_sigma]) in fp32.
 
   Args:
@@ -363,27 +434,45 @@ def mlp_fwd(spec, params, x, cond, dtype, pack=None):
     dtype: compute type, torch.float32 or torch.bfloat16.
     pack: pack_params(params, dtype) when the caller has it, else made
       here (CUDA only; the plain version reads params).
+    acts: a dict (CUDA only) that receives {name: [N, width]} of every
+      stored activation, in the compute type (forward_activations).
   """
   dtype = _dtype_of(dtype)
   dev = x.device
   if dev.type == "cpu":
-    return fused_nerf_mlp_reference(spec, params, x, cond, dtype)
+    if acts is None:
+      return fused_nerf_mlp_reference(spec, params, x, cond, dtype)
+    with _full_fp32():
+      x0, c = _featurize(spec, x, cond, dtype)
+      _, _, stored, _, xcat, a_c, sigma, rgb = _forward(spec, params, x0, c,
+                                                        dtype)
+    acts.update({k: v.detach().to(dtype) for k, v in _activations(
+        spec, stored, xcat[:, :spec.width], a_c).items()})
+    return rgb, sigma
   if dev.type != "cuda":
     raise ValueError(f"mlp_fwd runs on CUDA or CPU tensors, not {dev}")
   _check(spec, x, cond, params, "mlp_fwd")
   wkn, _, bias = _pack_for(spec, params, dtype, pack)
   rows, out_dim = x.shape[0], spec.num_rgb + spec.num_sigma
   out = torch.empty((rows, out_dim), dtype=torch.float32, device=dev)
+  stored = None
+  if acts is not None:
+    per_row = (spec.depth + 1) * spec.width + spec.cond_width
+    stored = torch.empty((rows, per_row), dtype=dtype, device=dev)
   lib = _library("mlp_fwd")
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.mlp_fwd_launch(x.data_ptr(), cond.data_ptr(), wkn.data_ptr(),
-                             bias.data_ptr(), out.data_ptr(), rows,
-                             *_spec_args(spec, dtype), stream)
+                             bias.data_ptr(), out.data_ptr(),
+                             stored.data_ptr() if stored is not None else None,
+                             rows, *_spec_args(spec, dtype), stream)
   if err != 0:
     raise RuntimeError(f"mlp_fwd: kernel launch failed with CUDA error "
                        f"{err}")
   mlp_fwd.launches += 1
+  if acts is not None:
+    acts.update({name: stored[:, col:col + width]
+                 for name, col, width in forward_activations(spec)})
   return out[:, :spec.num_rgb], out[:, spec.num_rgb:]
 
 
@@ -397,12 +486,15 @@ def mlp_bwd(spec, params, x, cond, drgb, dsigma, dtype, pack=None,
   multiple of the tile's rows, sizes the super-tiles over which each
   block sums its weight gradients before adding them into its partial.
   stash, a dict, receives the call's scratch, blocks and super_rows
-  (for stored_values)."""
+  (for stored_values; on CPU tensors, the plain version's activations)."""
   dtype = _dtype_of(dtype)
   dev = x.device
   if dev.type == "cpu":
+    stored = None
+    if stash is not None:
+      stored = stash.setdefault("values", {})
     return fused_nerf_mlp_bwd_reference(spec, params, x, cond, drgb, dsigma,
-                                        dtype)
+                                        dtype, stored=stored)
   if dev.type != "cuda":
     raise ValueError(f"mlp_bwd runs on CUDA or CPU tensors, not {dev}")
   _check(spec, x, cond, params, "mlp_bwd")
@@ -411,7 +503,7 @@ def mlp_bwd(spec, params, x, cond, drgb, dsigma, dtype, pack=None,
   if tuple(dout.shape) != (rows, spec.num_rgb + spec.num_sigma):
     raise ValueError(f"mlp_bwd: cotangents of shape {tuple(drgb.shape)} "
                      f"and {tuple(dsigma.shape)} do not fit {rows} rows")
-  tile = TILE_ROWS[dtype]
+  tile = tile_rows(spec, dtype)
   if super_rows <= 0 or super_rows % tile:
     raise ValueError(f"mlp_bwd: super_rows must be a positive multiple of "
                      f"{tile}, got {super_rows}")
@@ -499,7 +591,7 @@ def _library(name):
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     spec = [ci] * 10 + [cl]
     if name == "mlp_fwd":
-      fn.argtypes = [vp] * 5 + [cl] + spec + [vp]
+      fn.argtypes = [vp] * 6 + [cl] + spec + [vp]
     else:
       fn.argtypes = [vp] * 9 + [cl, ci, ci] + spec + [cl, vp]
     fn.restype = ci

@@ -78,6 +78,7 @@ def main(argv=None):
       ns.config, ns.gin_file, ns.gin_param,
       **config_lib.parse_flag_overrides(rest))
   args.data_dir, args.train_dir = ns.data_dir, ns.train_dir
+  datasets.check_dataset(args)
   step_lib.check_supported(args)
 
   rng = np.random.RandomState(DATA_SEED)

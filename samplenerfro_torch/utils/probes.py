@@ -15,7 +15,8 @@ kernel's encoding can stand from the plain version's.
 
 P3, `so3_preacts`, is the counterpart of the Pallas kernel of
 scripts/debug/probe_so3_relu.py: the so3 head's pre-activations of hidden
-layers 1-3, computed by K3's own code (the sweep's PE and gemv_tile), to be
+layers 1-3, computed by K3's own forward (so3_encode and so3_layer, which
+its passes 1b and 3 run), to be
 held against `so3_preacts_reference`, which computes them as the plain
 march and autograd do (annealed_pos_enc, then F.linear: cuBLAS on the
 card). The two sum each product in another order; where a pre-activation
@@ -34,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from samplenerfro_torch.ops import cuda_build
+from samplenerfro_torch.ops import eikonal_vjp
 from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.ops import math as math_ops
 
@@ -138,7 +140,7 @@ def so3_preacts(p, so3_params, alpha, max_deg=10):
   for q in so3_params:
     if q.device != dev:
       raise ValueError(f"so3_preacts: so3 params on {q.device}, p on {dev}")
-  wpack = march_kernel.pack_so3(so3_params)
+  wpack, _ = eikonal_vjp.so3_packs(so3_params)
   window = march_kernel.so3_window(torch.as_tensor(
       alpha, dtype=torch.float32, device=dev), max_deg).detach().contiguous()
   n = p.shape[0]

@@ -261,3 +261,177 @@ def test_allstage_function_gradients_flow():
   assert o_t.grad is not None and bool(torch.isfinite(o_t.grad).all())
   assert all(p.grad is not None and float(p.grad.abs().sum()) > 0
              for p in flat)
+
+
+# The three-pass plain version of K3 (eikonal_vjp.march_bwd_passes_reference)
+# at the so3 head's ship width and PE degree, on a 32^3 blob. alpha * 10
+# lies inside a window band (at 0.6 or 0.7 it sits on a band's edge,
+# where the window's derivative is a rounding of 0).
+P_N, P_MAX_DEG, P_ALPHA = 32, 10, 0.45
+P_SO3_KEY = (0, P_MAX_DEG, True, True, True, False)
+
+
+def _passes_setup(nrays, steps):
+  spec = j_grid.GridSpec([P_N] * 3, [-1.5] * 3, [1.5] * 3)
+  axes = np.linspace(-1.5, 1.5, P_N)
+  xx, yy, zz = np.meshgrid(axes, axes, axes, indexing="ij")
+  vals = (1.0 + 0.3 * np.exp(-(xx**2 + yy**2 + zz**2) / 0.25)).reshape(-1, 1)
+  vals = vals.astype(np.float32)
+  grad = t_grid.central_difference_grad_numpy(spec, vals)
+  data = np.concatenate([vals, grad], axis=-1).astype(np.float32)
+  d = np.array([[0.003 * (i % 4), 0.002 * (i // 4), 1.0]
+                for i in range(nrays)], np.float32)
+  d /= np.linalg.norm(d, axis=-1, keepdims=True)
+  o = np.broadcast_to(np.array([0.1, -0.05, -4.0], np.float32),
+                      d.shape).copy()
+  o[nrays // 2:] += np.array([0.3, -0.2, 0.0], np.float32)
+  params = j_mlp.mlp_init(random.PRNGKey(7), 6 * P_MAX_DEG, net_depth=4,
+                          net_width=128, skip_layer=2, num_out_channels=3,
+                          output_init_std=1e-2)
+  params = jax.tree_util.tree_map(np.asarray, params)
+  flat = []
+  for name in ("Dense_0", "Dense_1", "Dense_2", "Dense_3", "Dense_out"):
+    flat += [torch.from_numpy(params[name]["kernel"].T.copy()),
+             torch.from_numpy(params[name]["bias"].copy())]
+  tspec = t_grid.GridSpec(spec.ndim, spec.nmin, spec.nmax)
+  cfg = t_vjp.MarchConfig(tspec, NEAR, H, steps, P_MAX_DEG)
+  traj = t_mk.march_full_reference(tspec, torch.from_numpy(data),
+                                   torch.from_numpy(o), torch.from_numpy(d),
+                                   NEAR, H, steps, flat, P_ALPHA, P_MAX_DEG)
+  rng = np.random.RandomState(nrays + steps)
+  cots = [rng.randn(nrays, steps, c).astype(np.float32)
+          for c in (3, 3, 1, 1, 3)]
+  return spec, data, o, d, params, flat, cfg, traj, cots
+
+
+def _assert_k3(got, want, what):
+  """The K3 tolerance per tensor: |got - want| <= 2e-4 max|want| + 2e-3
+  |want|."""
+  got, want = np.asarray(got), np.asarray(want)
+  scale = float(np.abs(want).max())
+  assert np.all(np.isfinite(got)), what
+  assert np.all(np.abs(got - want) <= 2e-4 * scale + 2e-3 * np.abs(want)), (
+      what, float(np.abs(got - want).max()), scale)
+
+
+@pytest.mark.parametrize("nrays,steps", [(8, 24), (16, 48)])
+def test_passes_reference_matches_autograd(nrays, steps):
+  _, data, o, d, _, flat, cfg, traj, cots = _passes_setup(nrays, steps)
+  active = float((traj[..., 8:11].norm(dim=-1) > 1e-3).float().mean())
+  assert 0.2 < active < 1.0  # both kinds of step are swept
+  dtraj = torch.from_numpy(np.concatenate(cots, -1))
+  args = (cfg, torch.from_numpy(data), torch.from_numpy(o),
+          torch.from_numpy(d), flat, P_ALPHA)
+  got = t_vjp.march_bwd_passes_reference(*args, traj, dtraj)
+  want = t_vjp.march_bwd_reference(*args, dtraj)
+  names = ["origins", "directions", "alpha"] + [f"so3 {i}" for i in
+                                                range(10)]
+  flat_of = lambda r: [r[0], r[1], r[2]] + list(r[3])
+  for name, a, b in zip(names, flat_of(got), flat_of(want)):
+    _assert_k3(a, b, name)
+
+
+@pytest.mark.parametrize("nrays,steps", [(8, 24), (16, 48)])
+def test_passes_reference_matches_jax_passes(nrays, steps):
+  spec, data, o, d, params, flat, cfg, traj, cots = _passes_setup(nrays,
+                                                                  steps)
+  wp, wd, wt, wn, wg = cots
+  # The JAX march emits unit directions: their cotangent becomes the raw
+  # directions' by the normalisation's vjp.
+  dirs_raw = traj[..., 3:6].detach().requires_grad_()
+  unit = t_math.safe_l2_normalize(dirs_raw)
+  ddir_raw, = torch.autograd.grad(unit, dirs_raw, torch.from_numpy(wd))
+  dtraj = torch.from_numpy(np.concatenate(cots, -1))
+  dtraj[..., 3:6] = ddir_raw
+  got = t_vjp.march_bwd_passes_reference(
+      cfg, torch.from_numpy(data), torch.from_numpy(o), torch.from_numpy(d),
+      flat, P_ALPHA, traj, dtraj)
+
+  march = j_vjp.make_march_allstage(spec, NEAR, H, steps, nrays // 2, 16, 4,
+                                    P_SO3_KEY, "tiled", bwd_impl="passes")
+  data3d = jnp.asarray(data).reshape(P_N, P_N, P_N * 4)
+  out = march(data3d, jnp.asarray(o), jnp.asarray(d), jnp.float32(P_ALPHA),
+              params)
+  assert int(out[5]) == 0, "the JAX march clamped"
+
+  def jloss(o_, d_, al_, th_):
+    pos, dirs, dist, nv, g, _ = march(data3d, o_, d_, al_, th_)
+    return (jnp.sum(pos * wp) + jnp.sum(dirs * wd) + jnp.sum(dist * wt[..., 0])
+            + jnp.sum(nv * wn) + jnp.sum(g * wg))
+
+  want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+      jnp.asarray(o), jnp.asarray(d), jnp.float32(P_ALPHA), params)
+  _assert_k3(got[0], want[0], "origins")
+  _assert_k3(got[1], want[1], "directions")
+  _assert_k3(got[2], want[2], "alpha")
+  for i, name in enumerate(("Dense_0", "Dense_1", "Dense_2", "Dense_3",
+                            "Dense_out")):
+    _assert_k3(got[3][2 * i].t(), want[3][name]["kernel"], f"{name} kernel")
+    _assert_k3(got[3][2 * i + 1], want[3][name]["bias"], f"{name} bias")
+
+
+def _kernel_pass3_sums(wfwd, wbwd, pos, g, ub, window, max_deg):
+  """What K3's pass 3 sums (csrc/march_bwd.cu:param_tile), in its layout:
+  the padded forward pack's order, the first layer's rows and the fourth
+  layer's skip rows against the PE's sines before the window. Its
+  backward products read the backward pack."""
+  hid, in_dim = t_vjp.HIDDEN, 6 * max_deg
+  sizes = [in_dim * hid, hid, hid * hid, hid, hid * hid, hid,
+           (hid + in_dim) * hid, hid, hid * 3, 3]
+  w0t, b0, w1t, b1, w2t, b2, w3t, b3, wot, bo = torch.split(wfwd, sizes)
+  w0t, w1t, w2t = w0t.view(in_dim, hid), w1t.view(hid, hid), w2t.view(
+      hid, hid)
+  w3t, wot = w3t.view(hid + in_dim, hid), wot.view(hid, 3)
+  w1, w2, w3h = wbwd.view(3, hid, hid)
+  scales = torch.tensor([2.0**i for i in range(max_deg)])
+  xb = pos[:, None, :] * scales[:, None]
+  val = torch.sin(torch.cat([xb, xb + 0.5 * np.pi], -1)).reshape(
+      pos.shape[0], -1)
+  x = (val.view(-1, max_deg, 6) * window[:, None]).reshape(val.shape)
+  h0 = torch.relu(x @ w0t + b0)
+  h1 = torch.relu(h0 @ w1t + b1)
+  h2 = torch.relu(h1 @ w2t + b2)
+  h3 = torch.relu(torch.cat([h2, x], -1) @ w3t + b3)
+  raw = (h3 @ wot + bo).detach().requires_grad_()
+  rawbar, = torch.autograd.grad(t_eik.rodrigues_rotate(raw, g), raw, ub)
+  dz3 = (rawbar @ wot.t()) * (h3 > 0)
+  dz2 = (dz3 @ w3h) * (h2 > 0)
+  dz1 = (dz2 @ w2) * (h1 > 0)
+  dz0 = (dz1 @ w1) * (h0 > 0)
+  parts = [val.t() @ dz0, dz0.sum(0), h0.t() @ dz1, dz1.sum(0),
+           h1.t() @ dz2, dz2.sum(0), torch.cat([h2, val], -1).t() @ dz3,
+           dz3.sum(0), h3.t() @ rawbar, rawbar.sum(0)]
+  return torch.cat([p.reshape(-1) for p in parts])
+
+
+@pytest.mark.parametrize("width", [32, 128])
+def test_k3_packs_and_sums_give_the_head_gradients(width):
+  """K3's weight packs (hidden units padded to 128), the sums its pass 3
+  takes, and the wrapper's unpacking (the window applied to the first
+  layer's and the skip rows, the window's cotangent from them) give the
+  so3 head's weight and alpha gradients."""
+  max_deg = P_MAX_DEG
+  head = t_mlp.So3MLP(6 * max_deg, net_width=width, output_init_std=1e-2,
+                      generator=torch.Generator().manual_seed(3))
+  so3 = [p.detach() for p in head.params()]
+  rng = np.random.RandomState(5)
+  pos = torch.from_numpy(rng.uniform(-1, 1, (96, 3)).astype(np.float32))
+  g = torch.from_numpy(rng.randn(96, 3).astype(np.float32))
+  ub = torch.from_numpy(rng.randn(96, 3).astype(np.float32))
+  alpha = torch.tensor(P_ALPHA)
+  window = t_mk.so3_window(alpha, max_deg)
+  wfwd, wbwd = t_vjp.so3_packs(so3)
+  sums = _kernel_pass3_sums(wfwd, wbwd, pos, g, ub, window, max_deg)
+  wbar, got = t_vjp._unpack_grads(so3, sums, window, max_deg, wfwd)
+  a = alpha.clone().requires_grad_()
+  got_alpha, = torch.autograd.grad(t_mk.so3_window(a, max_deg), a, wbar)
+
+  ps = [p.clone().requires_grad_() for p in so3]
+  a = alpha.clone().requires_grad_()
+  x = t_math.annealed_pos_enc(pos, 0, max_deg, a * max_deg)
+  u = t_eik.rodrigues_rotate(t_mlp.apply_params(ps, x), g)
+  want = torch.autograd.grad(u, [a, *ps], ub)
+  _assert_k3(got_alpha, want[0], "alpha")
+  for i, (gr, w) in enumerate(zip(got, want[1:])):
+    assert gr.shape == w.shape, i
+    _assert_k3(gr, w, f"so3 param {i}")

@@ -481,3 +481,177 @@ def test_cuda_selfcheck_passes(cuda_device):
   assert "grad_so3.Dense_0.bias" in deviations
   assert [m.split(":")[0] for m in not_run] == [
       name for name, _ in selfcheck.SKIPPED_ARMS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(1, 0), (3, 0), (1024, 0), (1027, 0),
+                                      (70001, 0), (1024, 1), (37, 3)])
+def test_cuda_add_one_is_exact(cuda_device, n, offset):
+  """P1 on float4 loads with a scalar tail, and all scalar on a view that
+  starts off 16 bytes."""
+  x = torch.randn(n + offset, generator=torch.Generator().manual_seed(n))
+  x = x.to(cuda_device)[offset:]
+  assert torch.equal(probes.add_one(x), x + 1)
+
+
+def _shape_inputs(device, shape, nrays=1024, seed=7):
+  """The 'all' batch's shapes on a synthetic blob: the ship's (512^3 grid
+  of extent 1.5 prefiltered 9/3, 768 steps from near 2 to far 6) or
+  glass's (384^3 of extent 3.5 prefiltered 5/3, 1536 steps from 0.2 to
+  14); rays from a camera at radius 4 towards the blob."""
+  n, extent, ks, sigma, near, far, steps = {
+      "ship": (512, 1.5, 9, 3.0, 2.0, 6.0, 768),
+      "glass": (384, 3.5, 5, 3.0, 0.2, 14.0, 1536)}[shape]
+  values, ndim, nmin, nmax = grid_io.synthetic_blob_grid(n, extent, 0.33)
+  spec = grid_ops.GridSpec(ndim, nmin, nmax)
+  vals = grid_ops.gaussian_prefilter(torch.from_numpy(values).to(device),
+                                     tuple(ndim), ks, sigma)
+  data = torch.cat([vals, grid_ops.central_difference_grad(spec, vals)],
+                   -1).contiguous()
+  rng = np.random.RandomState(seed)
+  eye = np.array([4.0 * np.cos(0.6), 4.0 * np.sin(0.6), 1.2])
+  d = -eye / np.linalg.norm(eye) + 0.12 * rng.randn(nrays, 3)
+  d /= np.linalg.norm(d, axis=-1, keepdims=True)
+  o = np.broadcast_to(eye, d.shape)
+  o, d = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+          for a in (o, d)]
+  so3 = _so3_params(device)
+  cfg = eikonal_vjp.MarchConfig(spec, near, (far - near) / (steps - 1),
+                                steps, 10)
+  traj = march_kernel.march_full_reference(spec, data, o, d, near,
+                                           cfg.step_size, steps, so3, ALPHA)
+  gen = torch.Generator().manual_seed(seed)
+  dtraj = torch.randn(traj.shape, generator=gen).to(device)
+  return cfg, data, o, d, so3, traj, dtraj
+
+
+def _assert_k3(got, want, what):
+  """The K3 tolerance per tensor: |got - want| <= 2e-4 max|want| + 2e-3
+  |want|."""
+  scale = float(want.abs().max())
+  bound = 2e-4 * scale + 2e-3 * want.abs()
+  assert bool(torch.isfinite(got).all()), what
+  assert bool(((got - want).abs() <= bound).all()), (
+      what, float((got - want).abs().max()), scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["ship", "glass"])
+def test_cuda_march_bwd_at_the_shipped_shapes(cuda_device, monkeypatch,
+                                              shape):
+  """K3 (three passes) at the 'all' batch's ship and glass shapes against
+  its two plain versions: the three-pass one and autograd of the plain
+  march, this one with P3's ReLU flips replayed; two runs bit for bit."""
+  cfg, data, o, d, so3, traj, dtraj = _shape_inputs(cuda_device, shape)
+  active = traj[..., 8:11].norm(dim=-1) > 1e-3
+  assert 0.05 < float(active.float().mean()) < 0.95
+  args = (cfg, data, o, d, so3, ALPHA)
+  before = eikonal_vjp.march_bwd.launches
+  got = eikonal_vjp.march_bwd(*args, traj, dtraj)
+  again = eikonal_vjp.march_bwd(*args, traj, dtraj)
+  torch.cuda.synchronize()
+  assert eikonal_vjp.march_bwd.launches == before + 2
+  flat = lambda r: [r[0], r[1], r[2]] + list(r[3])
+  assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+  del again
+  passes = eikonal_vjp.march_bwd_passes_reference(*args, traj, dtraj)
+  for i, (g, w) in enumerate(zip(flat(got), flat(passes))):
+    _assert_k3(g, w, f"{shape}: against the passes, tensor {i}")
+  del passes
+  pos = traj[..., 0:3]
+  by_step = probes.so3_preacts_by_step(pos, so3, ALPHA)
+  k3_pre = [k3 for k3, _ in by_step]
+  flipped = [((k3 > 0) != (plain > 0)) & active[..., None]
+             for k3, plain in by_step]
+  del by_step
+  if any(bool(f.any()) for f in flipped):
+    monkeypatch.setattr(march_kernel, "so3_refine_fn",
+                        probe_so3_relu.replaying_refine_fn(k3_pre, flipped))
+  want = eikonal_vjp.march_bwd_reference(*args, dtraj)
+  for i, (g, w) in enumerate(zip(flat(got), flat(want))):
+    _assert_k3(g, w, f"{shape}: against autograd, tensor {i}")
+
+
+# The geometries that `supports` admits past the ship MLP's (fault F1).
+WIDE_CASES = [(384, 10, None), (512, 10, None), (1024, 10, None),
+              (256, 16, (16, 4))]
+
+
+def _wide_case(device, n, width, deg, pe, seed=0):
+  from samplenerfro_torch.models import mlp as mlp_modules
+  from samplenerfro_torch.ops import mlp_kernel
+  gen = torch.Generator().manual_seed(seed)
+  mlp = mlp_modules.NerfMLP(3 + 6 * deg, 27, net_depth=8, net_width=width,
+                            net_width_condition=width, skip_layer=4,
+                            generator=gen)
+  with torch.no_grad():
+    for layer in mlp.layers:
+      layer.bias.normal_(0.0, 0.1, generator=gen)
+  rng = np.random.RandomState(seed)
+  pts = torch.from_numpy(rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32))
+  dirs = torch.from_numpy(rng.randn(n, 3).astype(np.float32))
+  dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+  x, c = ((pts, dirs) if pe is not None else
+          (math_ops.pe_cols(pts, deg), math_ops.pe_cols(dirs, 4)))
+  spec = mlp_kernel.mlp_spec(mlp, pe)
+  params = [p.detach().to(device) for p in mlp_kernel.mlp_params(mlp)]
+  return spec, params, x.to(device).contiguous(), c.to(device).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width,deg,pe", WIDE_CASES)
+def test_cuda_fused_mlp_wide_geometries(cuda_device, width, deg, pe, dtype):
+  """K4 and K5 at widths 384, 512 and 1024 and at pallas_pe with
+  max_deg_point 16, against their plain versions at the tolerances of the
+  tests above; K5 twice, bit for bit."""
+  from samplenerfro_torch.ops import mlp_kernel
+  n = 4096
+  spec, params, x, c = _wide_case(cuda_device, n, width, deg, pe)
+  assert mlp_kernel.wide(spec)
+  got = torch.cat(mlp_kernel.mlp_fwd(spec, params, x, c, dtype), -1)
+  want = torch.cat(mlp_kernel.fused_nerf_mlp_reference(spec, params, x, c,
+                                                       dtype), -1)
+  err = (got - want).abs()
+  if dtype == torch.float32:
+    assert float(err.max()) <= K4_FP32_ATOL
+  else:
+    assert float(err.max()) <= K4_BF16_MAX
+    assert float(err.mean()) <= K4_BF16_MEAN
+  gen = torch.Generator().manual_seed(1)
+  drgb = (0.1 * torch.randn((n, 3), generator=gen)).to(cuda_device)
+  dsigma = (0.1 * torch.randn((n, 1), generator=gen)).to(cuda_device)
+  args = (spec, params, x, c, drgb, dsigma, dtype)
+  g5 = mlp_kernel.mlp_bwd(*args)
+  assert all(torch.equal(a, b) for a, b in zip(g5,
+                                                 mlp_kernel.mlp_bwd(*args)))
+  # Where K4's sums and cuBLAS's round a pre-activation at 0 to opposite
+  # sides, the plain version replays K4's activations (the K3 tests replay
+  # P3's flips the same way).
+  acts, plain_acts = {}, {}
+  mlp_kernel.mlp_fwd(spec, params, x, c, dtype, acts=acts)
+  want = mlp_kernel.fused_nerf_mlp_bwd_reference(*args, stored=plain_acts)
+  if any(bool(((acts[k] > 0) != (plain_acts[k] > 0)).any()) for k in acts):
+    want = mlp_kernel.fused_nerf_mlp_bwd_reference(*args, at=acts)
+  _assert_mlp_grads(g5, want, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,deg,pe", [(256, 10, None)] + WIDE_CASES[2:])
+def test_cuda_k5_recomputes_k4_activations(cuda_device, width, deg, pe):
+  """Fault F2: in bf16, the activations K5 stores are K4's, bit for bit,
+  so the weight gradients belong to the forward that made the loss."""
+  from samplenerfro_torch.ops import mlp_kernel
+  n = 1000
+  spec, params, x, c = _wide_case(cuda_device, n, width, deg, pe, seed=2)
+  acts = {}
+  mlp_kernel.mlp_fwd(spec, params, x, c, torch.bfloat16, acts=acts)
+  gen = torch.Generator().manual_seed(3)
+  drgb = torch.randn((n, 3), generator=gen).to(cuda_device)
+  dsigma = torch.randn((n, 1), generator=gen).to(cuda_device)
+  stash = {}
+  mlp_kernel.mlp_bwd(spec, params, x, c, drgb, dsigma, torch.bfloat16,
+                     super_rows=1024, stash=stash)
+  stored = mlp_kernel.stored_values(spec, stash, n)
+  for name, value in acts.items():
+    assert torch.equal(stored[name], value), name

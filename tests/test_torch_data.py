@@ -148,3 +148,20 @@ def test_eval_chunks_agree_with_one_batch(scene, tmp_path):
                                 tile=0)
   for a, b in zip(chunked, whole):
     np.testing.assert_allclose(a, b, atol=1e-6)
+
+
+def test_eval_refuses_an_unported_dataset(tmp_path, monkeypatch):
+  """An OpenCV config stops with NotImplementedError naming the dataset,
+  before eval reads any scene file."""
+  scene = fixtures.make_opencv_scene(str(tmp_path / "scene"), num_train=1,
+                                     res=16)
+  cfg = fixtures.write_opencv_config(str(tmp_path / "cfg"))
+
+  def untouched(*args, **kwargs):
+    raise AssertionError("a scene file was read")
+
+  monkeypatch.setattr(t_datasets, "load_blender", untouched)
+  monkeypatch.setattr(t_eval, "build_model", untouched)
+  with pytest.raises(NotImplementedError, match="'opencv'"):
+    t_eval.main([f"--data_dir={scene}", f"--train_dir={tmp_path / 'out'}",
+                 f"--config={cfg}", f"--gin_file={cfg}.gin", "--device=cpu"])

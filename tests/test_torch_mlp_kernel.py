@@ -333,3 +333,81 @@ def test_pe_cols_is_the_kernel_layout():
   assert torch.equal(got, t_math.pos_enc(pt, 0, PTS_DEG))
   want = np.asarray(j_kernel._pe_cols(jnp.asarray(p), PTS_DEG))
   np.testing.assert_allclose(got.numpy(), want, atol=1.2e-7, rtol=0)
+
+
+def _spec_and_tensors(width, pts_deg, pe):
+  """A supported 8-layer geometry at `width` (condition layer too) with
+  zero weights of its shapes and 4 rows of inputs, on the CPU."""
+  feat, cond = 3 + 6 * pts_deg, COND
+  spec = mlp_kernel.MlpSpec(8, width, 4, feat, cond, width, 3, 1,
+                            (pts_deg, DIRS_DEG) if pe else None)
+  params = []
+  for k, n in mlp_kernel.layer_dims(spec):
+    params += [torch.zeros((n, k)), torch.zeros((n,))]
+  x = torch.zeros((4, 3 if pe else feat))
+  c = torch.zeros((4, 3 if pe else cond))
+  return spec, params, x, c
+
+
+@pytest.mark.parametrize("pe", [False, True])
+@pytest.mark.parametrize("pts_deg", [10, 16])
+@pytest.mark.parametrize("width", [128, 256, 384, 512, 768, 1024])
+def test_kernels_take_every_supported_width(width, pts_deg, pe):
+  """Every geometry `supports` admits on this grid passes the kernels'
+  check (the CUDA kernels' own limits), and runs the tiles that fit."""
+  spec, params, x, c = _spec_and_tensors(width, pts_deg, pe)
+  assert mlp_kernel.supports(spec.feat, spec.cond, 8, width, 4, 1, width,
+                             3, 1, pe=spec.pe)
+  mlp_kernel._check(spec, x, c, params, "test")
+  assert mlp_kernel.wide(spec) == (width > 256 or pts_deg == 16)
+  rows = mlp_kernel.tile_rows(spec, torch.bfloat16)
+  assert mlp_kernel.SUPER_ROWS % rows == 0
+  assert rows == (32 if mlp_kernel.wide(spec) else 128)
+
+
+@pytest.mark.parametrize("width", [1152, 2048])
+def test_kernels_name_their_width_limit(width):
+  spec, params, x, c = _spec_and_tensors(width, 10, False)
+  assert mlp_kernel.supports(spec.feat, spec.cond, 8, width, 4, 1, width, 3,
+                             1)
+  with pytest.raises(ValueError, match="multiples of 128 up to 1024"):
+    mlp_kernel._check(spec, x, c, params, "mlp_fwd")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_weight_gradients_are_taken_at_the_forward_activations(dtype):
+  """The fused step's backward (plain K5) takes its gradients at the
+  activations its forward (plain K4) returned: the values mlp_bwd stores
+  are mlp_fwd's, bit for bit, and its gradients are those of the same
+  forward."""
+  dt = DTYPES[dtype]
+  _, port, pts, dirs, *_ = _setup(96, **SMALL)
+  spec = mlp_kernel.mlp_spec(port, (PTS_DEG, DIRS_DEG))
+  params = [p.detach() for p in mlp_kernel.mlp_params(port)]
+  x, c = torch.from_numpy(pts), torch.from_numpy(dirs)
+  acts = {}
+  rgb, sigma = mlp_kernel.mlp_fwd(spec, params, x, c, dt, acts=acts)
+  want_rgb, want_sigma = mlp_kernel.fused_nerf_mlp_reference(spec, params,
+                                                             x, c, dt)
+  assert torch.equal(rgb, want_rgb) and torch.equal(sigma, want_sigma)
+  assert sorted(acts) == sorted(n for n, _, _ in
+                                mlp_kernel.forward_activations(spec))
+  rng = np.random.RandomState(4)
+  drgb = torch.from_numpy(rng.randn(96, 3).astype(np.float32))
+  dsigma = torch.from_numpy(rng.randn(96, 1).astype(np.float32))
+  stash = {}
+  grads = mlp_kernel.mlp_bwd(spec, params, x, c, drgb, dsigma, dt,
+                             stash=stash)
+  stored = mlp_kernel.stored_values(spec, stash, 96)
+  for name, value in acts.items():
+    assert value.dtype == dt and torch.equal(stored[name], value), name
+  # Taken at the forward's own activations, the gradients do not move.
+  at = mlp_kernel.fused_nerf_mlp_bwd_reference(spec, params, x, c, drgb,
+                                               dsigma, dt, at=acts)
+  assert all(torch.equal(a, b) for a, b in zip(at, grads))
+  if dt == torch.float32:
+    ps = [p.clone().requires_grad_() for p in params]
+    out = mlp_kernel.fused_nerf_mlp_reference(spec, ps, x, c, dt)
+    want = torch.autograd.grad(out, ps, (drgb, dsigma))
+    for g, w in zip(grads, want):
+      torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)

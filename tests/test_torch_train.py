@@ -311,3 +311,22 @@ def test_train_entry_point_writes_and_resumes(scene, tmp_path):
                        "--chunk=256"])
   assert len(psnrs) == 1 and np.isfinite(psnrs[0])
   assert os.path.exists(tmp_path / "ev" / "all" / "test_preds" / "000.png")
+
+
+def test_train_refuses_an_unported_dataset(tmp_path, monkeypatch):
+  """An OpenCV config stops with NotImplementedError naming the dataset,
+  before training reads any scene file."""
+  scene = fixtures.make_opencv_scene(str(tmp_path / "scene"), num_train=1,
+                                     res=16)
+  cfg = fixtures.write_opencv_config(str(tmp_path / "cfg"))
+
+  def untouched(*args, **kwargs):
+    raise AssertionError("a scene file was read")
+
+  monkeypatch.setattr(t_datasets, "BlenderTrain", untouched)
+  monkeypatch.setattr(t_datasets, "load_blender", untouched)
+  monkeypatch.setattr(t_loop, "build_model", untouched)
+  with pytest.raises(NotImplementedError, match="'opencv'"):
+    t_loop.main([f"--data_dir={scene}", f"--train_dir={tmp_path / 'out'}",
+                 f"--config={cfg}", f"--gin_file={cfg}.gin", "--device=cpu",
+                 "--stage=radiance"])
