@@ -1,11 +1,15 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile] [--marches]
 
 --profile adds torch.profiler tables: one K3 call at the ship and at
 glass's shape (its split over its launches), one render chunk and one
 radiance train step with the nn.Linear MLPs and again with the fused MLP
-(K4/K5), and one 'all' train step.
+(K4/K5), and one 'all' train step, each with its total device time.
+--marches runs only the forward marches' phase (3b below) and the device
+time of one radiance and one 'all' train step. It calls the march
+wrappers by their common interface only, so the same script, copied into
+an earlier tree, measures that tree's K1 and K2 on the same inputs.
 
 Phases, each of which must pass or the script exits non-zero:
   1. device: a CUDA card is required; prints its name and power limit.
@@ -28,6 +32,16 @@ Phases, each of which must pass or the script exits non-zero:
   3. model: the ship configuration (configs/tpu/ship_*.yaml + .gin) at full
      width with weights drawn from --seed, on a synthetic 512^3 IOR blob
      grid prefiltered 9/3 on the card.
+  3b. forward marches: K1 and K2 at every shape this script runs them at
+     (K1: the render's first 8192-ray chunk, the 1024-ray radiance batch,
+     glass's shape, the self-check's 512 rays; K2: the 1024-ray 'all'
+     batch, glass's shape, the self-check's 512 x 768 and 256 x 192): a
+     sha256 digest of the outputs (equal to the parent tree's, bit for
+     bit), the max abs error against the plain version, the call's time
+     (CUDA events) and the kernel's device time alone (torch.profiler),
+     the launch geometry. Then one march_lean and one march_full call
+     under torch.cuda.set_sync_debug_mode("error"): neither may read back
+     from the card.
   4. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes its path gives it, timed beside its bound: K1 at the
      render's first 8192-ray chunk; K2 (so3 march) and K3 (its reverse
@@ -76,6 +90,7 @@ The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -83,6 +98,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from samplenerfro_torch.data import rays as rays_lib
 from samplenerfro_torch.debug import mlp_rounding
@@ -654,12 +670,11 @@ def k3_flat(r):
   return [r[0], r[1], r[2]] + list(r[3])
 
 
-def glass_phase(device, seed, profile=False):
-  """K1, K2 and K3 against their plain versions at glass's shape
-  (configs/tpu/glass.{yaml,gin}: 64x24 = 1536 march steps, near 0.2, far
-  14, a 384^3 grid of extent 3.5 prefiltered 5/3), on a synthetic blob, a
-  1024-ray batch of a camera at radius 4; plain versions not timed."""
-  t0 = time.time()
+def glass_inputs(device, seed):
+  """Glass's march shape (configs/tpu/glass.{yaml,gin}: 64x24 = 1536 march
+  steps, near 0.2, far 14, a 384^3 grid of extent 3.5 prefiltered 5/3) on
+  a synthetic blob, and a 1024-ray batch of a camera at radius 4:
+  (spec, grid, origins, directions, near, step_size, steps, jitter)."""
   values, ndim, nmin, nmax = grid_io.synthetic_blob_grid(GLASS_N, 3.5, 0.33)
   spec = grid_ops.GridSpec(ndim, nmin, nmax)
   vals = grid_ops.gaussian_prefilter(torch.from_numpy(values).to(device),
@@ -677,18 +692,210 @@ def glass_phase(device, seed, profile=False):
   flat = rays_lib.namedtuple_map(
       lambda r: torch.from_numpy(np.ascontiguousarray(
           r.reshape(-1, r.shape[-1])[idx])).to(device), view)
-  log(f"glass shape: {GLASS_N}^3 grid prefiltered 5/3, {coarse}x{per} = "
-      f"{steps} steps, near {near}, far {far}, 1024 rays "
-      f"({time.time() - t0:.1f} s to build)")
   jitter = nerf.make_jitter(coarse, per, torch.Generator().manual_seed(seed),
                             device)
+  return (spec, grid, flat.origins, flat.viewdirs, near, step_size, steps,
+          jitter)
+
+
+def glass_phase(device, seed, profile=False):
+  """K1, K2 and K3 against their plain versions at glass's shape
+  (glass_inputs); plain versions not timed."""
+  t0 = time.time()
+  spec, grid, o, d, near, step_size, steps, jitter = glass_inputs(device,
+                                                                  seed)
+  log(f"glass shape: {GLASS_N}^3 grid prefiltered 5/3, 64x24 = {steps} "
+      f"steps, near {near}, step {step_size:.6f}, 1024 rays "
+      f"({time.time() - t0:.1f} s to build)")
   with torch.no_grad():
-    k1 = k1_case(spec, grid, flat.origins, flat.viewdirs, near, step_size,
-                 steps, jitter, " (glass)", time_plain=False)
-  k2, k3 = so3_case(spec, grid, near, step_size, steps, flat.origins,
-                    flat.viewdirs, seed, " (glass)", time_plain=False,
-                    profile=profile, dist_relative=True)
+    k1 = k1_case(spec, grid, o, d, near, step_size, steps, jitter,
+                 " (glass)", time_plain=False)
+  k2, k3 = so3_case(spec, grid, near, step_size, steps, o, d, seed,
+                    " (glass)", time_plain=False, profile=profile,
+                    dist_relative=True)
   return {"k1_ms": k1["ms"], "k2_ms": k2["ms"], "k3_ms": k3["ms"]}
+
+
+def digest(*tensors):
+  """The first 16 hex digits of the sha256 of the tensors' bytes."""
+  h = hashlib.sha256()
+  for t in tensors:
+    h.update(t.detach().contiguous().cpu().numpy().tobytes())
+  return h.hexdigest()[:16]
+
+
+def _device_us(event, self_only=False):
+  names = (("self_device_time_total", "self_cuda_time_total") if self_only
+           else ("device_time_total", "cuda_time_total"))
+  for name in names:
+    value = getattr(event, name, None)
+    if value is not None:
+      return value
+  raise SystemExit("torch.profiler reports no device time")
+
+
+def step_device_us(prof):
+  """The device time of a profile: its kernels' and copies' own time, as
+  the profiler's table sums it (user annotations on the device's
+  timeline, such as the optimizer's step, span kernels counted already)."""
+  return sum(_device_us(e, self_only=True) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
+
+
+def kernel_device_ms(fn, kernel, reps=5, tries=4):
+  """(mean device ms of one launch of the kernel whose name holds
+  `kernel`, its launches the profiler recorded a call): torch.profiler
+  over `reps` calls of fn() after one warm-up. The profiler can drop a
+  kernel's record; the mean is over the records it kept, and a window
+  with none is profiled again, up to `tries` times."""
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as tprofile
+  fn()
+  torch.cuda.synchronize()
+  for _ in range(tries):
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+      if kernel in e.key and _device_us(e) > 0:
+        total += _device_us(e)
+        count += e.count
+    if count:
+      return total / 1e3 / count, count / reps
+  raise SystemExit(f"torch.profiler saw no {kernel} launch in {tries} "
+                   f"windows of {reps} calls")
+
+
+LEAN_NAMES = ("pos", "dir", "dist", "sub_pos", "sub_dir", "sub_dist")
+
+
+def march_cases(device, seed, model, first, batch_rays, jitter):
+  """Every shape at which this script runs K1 and K2, with its inputs:
+  [(shape, "lean" or "so3", wrapper args)]. The ship chunk (the render's
+  first 8192 rays), the radiance / 'all' batch (1024 rays), glass's shape,
+  and the self-check's (its 128^3 blob, 512 rays of 768 steps; the 'all'
+  arm's 256 rays of 192 steps)."""
+  ps = model.path_sampler
+  ship = (ps.spec, ps.grid)
+  cases = [
+      ("ship chunk", "lean", (*ship, first.origins, first.viewdirs, ps.near,
+                              ps.step_size, ps.num_samples, jitter)),
+      ("radiance batch", "lean", (*ship, batch_rays.origins,
+                                  batch_rays.viewdirs, ps.near, ps.step_size,
+                                  ps.num_samples, jitter)),
+      ("ship 'all' batch", "so3", (*ship, batch_rays.origins,
+                                   batch_rays.viewdirs, ps.near, ps.step_size,
+                                   ps.num_samples,
+                                   so3_params_for(seed, device), SO3_ALPHA,
+                                   SO3_MAX_DEG))]
+  spec, grid, o, d, near, step_size, steps, gjit = glass_inputs(device, seed)
+  cases += [("glass", "lean", (spec, grid, o, d, near, step_size, steps,
+                               gjit)),
+            ("glass", "so3", (spec, grid, o, d, near, step_size, steps,
+                              so3_params_for(seed, device), SO3_ALPHA,
+                              SO3_MAX_DEG))]
+  n = 128
+  spec = grid_ops.GridSpec([n] * 3, [-1.5] * 3, [1.5] * 3)
+  grid = torch.from_numpy(selfcheck._blob_grid3d(spec, n)).to(device)
+  o, d = (torch.from_numpy(a).to(device)
+          for a in selfcheck._center_tile_rays(512))
+  h = (selfcheck.FAR - selfcheck.NEAR) / (768 - 1)
+  rng = np.random.RandomState(11)
+  sjit = torch.from_numpy(np.arange(0, 768, 12) + rng.randint(0, 12, 64))
+  so3 = selfcheck.default_so3_params(device)
+  cases += [("self-check", "lean", (spec, grid, o, d, selfcheck.NEAR, h, 768,
+                                    sjit)),
+            ("self-check", "so3", (spec, grid, o, d, selfcheck.NEAR, h, 768,
+                                   so3, selfcheck.ALPHA, SO3_MAX_DEG)),
+            ("self-check 'all' arm", "so3", (spec, grid, o[:256], d[:256],
+                                             selfcheck.NEAR, h, 192, so3,
+                                             selfcheck.ALPHA, SO3_MAX_DEG))]
+  return cases
+
+
+def _march_call(kind):
+  if kind == "lean":
+    return (march_kernel.march_lean, march_kernel.march_lean_reference,
+            "march_lean_kernel")
+  return (march_kernel.march_full, march_kernel.march_full_reference,
+          "march_so3_kernel")
+
+
+def _geometry(kind, args):
+  """The launch geometry of this call, where the wrappers expose it."""
+  if kind == "lean" and hasattr(march_kernel, "lean_launch_geometry"):
+    return march_kernel.lean_launch_geometry(args[2].shape[0], args[6],
+                                             args[7].shape[0])
+  if kind == "so3" and hasattr(march_kernel, "so3_launch_geometry"):
+    return march_kernel.so3_launch_geometry(args[2].shape[0],
+                                            args[7][0].shape[0], args[9])
+  return "not exposed"
+
+
+def marches_phase(cases):
+  """K1 and K2 at every shape of `cases`: the sha256 digest of the
+  wrapper's outputs (and of a sample of its inputs), the max abs error per
+  channel against the plain version, the call's time (CUDA events, host
+  call included) and the kernel's device time alone (torch.profiler).
+  Returns {(kind, shape): (call ms, kernel ms)}."""
+  times = {}
+  for shape, kind, args in cases:
+    fn, ref, kernel = _march_call(kind)
+    with torch.no_grad():
+      got = fn(*args)
+      torch.cuda.synchronize()
+      want = ref(*args)
+      if kind == "lean":
+        per = [max((a - b).abs().reshape(-1, a.shape[-1] if a.dim() == 3
+                                         else 1).amax(dim=0).tolist())
+               for a, b in zip(got, want)]
+        outs = got
+      else:
+        per = (got - want).abs().reshape(-1, 11).amax(dim=0).tolist()
+        outs = (got,)
+      sample = [args[1][::997], args[2], args[3]]
+      log(f"  march {kind} {shape} ({args[2].shape[0]} rays x {args[6]} "
+          f"steps): output digest {digest(*outs)}, inputs {digest(*sample)};"
+          f" max abs err per {'output' if kind == 'lean' else 'channel'} "
+          f"{per}")
+      if not all(np.isfinite(per)):
+        raise SystemExit(f"march {kind} {shape}: non-finite output")
+      del got, want, outs
+      call_ms = cuda_ms(lambda: fn(*args))
+      kern_ms, launches = kernel_device_ms(lambda: fn(*args), kernel)
+    log(f"  march {kind} {shape}: call {call_ms:.4f} ms, kernel "
+        f"{kern_ms:.4f} ms a launch (profiler: {launches:g} launches a "
+        f"call recorded); geometry {_geometry(kind, args)}")
+    times[(kind, shape)] = (call_ms, kern_ms)
+  return times
+
+
+def sync_phase(cases):
+  """One march_lean and one march_full call (the first case of each)
+  under torch.cuda.set_sync_debug_mode("error"); returns the calls that
+  synchronized the stream."""
+  synced = []
+  for want_kind in ("lean", "so3"):
+    shape, kind, args = next(c for c in cases if c[1] == want_kind)
+    fn = _march_call(kind)[0]
+    with torch.no_grad():
+      fn(*args)
+      torch.cuda.synchronize()
+      torch.cuda.set_sync_debug_mode("error")
+      try:
+        fn(*args)
+      except RuntimeError as e:
+        synced.append(f"{kind} {shape}: {str(e).splitlines()[0]}")
+      finally:
+        torch.cuda.set_sync_debug_mode(0)
+      torch.cuda.synchronize()
+  log(f"sync check (set_sync_debug_mode('error'), march_lean and "
+      f"march_full): {'no sync' if not synced else synced}")
+  return synced
 
 
 def probe_phase(device):
@@ -1149,8 +1356,11 @@ def profile_train_step(model, args, host, device, step, generator):
                             ProfilerActivity.CUDA]) as prof:
     step_lib.train_step(model, optimizer, batch, step, args, generator)
     torch.cuda.synchronize()
-  log(f"profile of one {args.stage} train step:")
+  total = step_device_us(prof)
+  log(f"profile of one {args.stage} train step: {total / 1e3:.3f} ms of "
+      f"device time")
   log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+  return total / 1e3
 
 
 def _train_steps(model, args, host, device, first_step, n, generator):
@@ -1276,6 +1486,26 @@ def fused_train_phase(args, scene, device, seed, host, xla_rate,
     profile_train_step(rad, fargs, host, device,
                        TRAIN_FROM + N_RADIANCE + N_ALL, gen)
   return counts, rad, fargs
+
+
+def step_phase(args, scene, device, seed, host):
+  """One radiance and one 'all' train step: device time (torch.profiler,
+  every kernel) after two untimed steps, and steps/s over 5 more."""
+  ndim, nmin, nmax, grid, bindings = scene
+  gen = torch.Generator(device=device).manual_seed(seed)
+  for stage in ("radiance", "all"):
+    sargs = argparse.Namespace(**{**vars(args), "stage": stage})
+    model = nerf.construct_nerf(sargs, ndim, nmin, nmax, grid, bindings,
+                                device=device, seed=seed)
+    _train_steps(model, sargs, host, device, TRAIN_FROM + 1, 2, gen)
+    device_ms = profile_train_step(model, sargs, host, device,
+                                   TRAIN_FROM + 3, gen)
+    _, rate, _, _ = _train_steps(model, sargs, host, device,
+                                 TRAIN_FROM + 4, 6, gen)
+    log(f"{stage} step: {device_ms:.3f} ms of device time, {rate:.3f} "
+        f"steps/s (wall, 5 steps)")
+    del model
+    torch.cuda.empty_cache()
 
 
 def allstep_cross_check(model, args, host, device, seed):
@@ -1459,8 +1689,9 @@ def fused_cross_check(model, args, host, device, seed):
       mlp_kernel.mlp_bwd = bwd_replaying
     try:
       model.zero_grad(set_to_none=True)
+      # The host jitter: march_lean checks it there.
       total, _ = step_lib.loss_fn(model, batch_to_device(sub, alpha, dev),
-                                  xargs, jitter.to(dev))
+                                  xargs, jitter)
       total.backward()
     finally:
       handle.remove()
@@ -1506,16 +1737,23 @@ def main():
   p.add_argument("--profile", action="store_true",
                  help="print device time by kernel for one render chunk "
                  "and one train step of each stage")
+  p.add_argument("--marches", action="store_true",
+                 help="only the forward marches' phase (K1 and K2 digests, "
+                 "errors and times at every shape, the sync check) and the "
+                 "device time of one radiance and one 'all' step; uses the "
+                 "wrappers' common interface, so it also runs against an "
+                 "earlier tree's package")
   ns = p.parse_args()
 
   t_start = time.time()
   card = device_phase()
   device = torch.device("cuda")
-  build_phase()
-  probe_rows = probe_phase(device)
-  selfcheck_phase()
-  probe_rows.append(p3_phase(device))
-  torch.cuda.empty_cache()
+  if not ns.marches:
+    build_phase()
+    probe_rows = probe_phase(device)
+    selfcheck_phase()
+    probe_rows.append(p3_phase(device))
+    torch.cuda.empty_cache()
   args, model, scene = model_phase(device, ns.seed)
   view = camera_rays(RES)
   jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
@@ -1527,13 +1765,32 @@ def main():
           r.reshape(-1, r.shape[-1])[perm[:args.chunk]].copy()).to(device),
       view)
   host = synthetic_batch(args, ns.seed)
+  batch_rays = batch_to_device(host, 1.0, device)["rays"]
+  log("forward marches (K1, K2) at every shape:")
+  cases = march_cases(device, ns.seed, model, first, batch_rays, jitter)
+  times = marches_phase(cases)
+  synced = sync_phase(cases)
+  del cases
+  torch.cuda.empty_cache()
+  if ns.marches:
+    step_phase(args, scene, device, ns.seed, host)
+    log(f"total: {time.time() - t_start:.1f} s")
+    log(f"card: {card}")
+    return 0
+  if synced:
+    raise SystemExit(f"sync check: {synced}")
   with torch.no_grad():
     k1 = kernel_phase(model, first, jitter)
   k2, k3 = so3_kernel_phases(model, host, ns.seed, ns.profile)
   glass = glass_phase(device, ns.seed, ns.profile)
   k3["glass_ms"] = glass["k3_ms"]
+  for row, kind, shape in ((k1, "lean", "ship chunk"),
+                           (k2, "so3", "ship 'all' batch")):
+    row["device_ms"] = times[(kind, shape)][1]
+    row["glass_device_ms"] = times[(kind, "glass")][1]
+  k1["radiance_batch_ms"], k1["radiance_batch_device_ms"] = times[
+      ("lean", "radiance batch")]
   torch.cuda.empty_cache()
-  batch_rays = batch_to_device(host, 1.0, device)["rays"]
   k4, k4_pe, k4_bf16, k5_bf16, k5_fp32 = fused_kernel_phases(
       model, first, batch_rays, jitter, ns.seed)
   wide_mlp_phase(device, ns.seed)
@@ -1548,6 +1805,7 @@ def main():
   k4["launches"], k4_pe["launches"] = fused["pallas"], fused["pallas_pe"]
   counts, all_model, all_args, rate_r = train_path_phase(
       args, scene, device, ns.seed, host, ns.profile)
+  k1["radiance_launches"] = counts[0]
   k2["launches"], k3["launches"] = counts[1], counts[2]
   fcounts, fused_model, fused_args = fused_train_phase(
       args, scene, device, ns.seed, host, rate_r, ns.profile)

@@ -21,6 +21,7 @@ from torch import nn
 from samplenerfro_torch.models import mlp as mlp_modules
 from samplenerfro_torch.models import path_sampler as ps_module
 from samplenerfro_torch.ops import grid as grid_ops
+from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mlp_kernel as fused_ops
 from samplenerfro_torch.ops import render as render_ops
@@ -41,13 +42,16 @@ def make_jitter(num_coarse_samples, num_path_samples, generator=None,
 
   jitter[c] = c*num_path + U{0..num_path-1}, as models/nerf.py:387-392
   draws it, but from a torch.Generator (drawn on the generator's device).
+  Valid by construction, so it is marked for march_lean, which then takes
+  it on the card without reading it back.
   """
   gen_device = generator.device if generator is not None else None
   base = torch.arange(0, num_coarse_samples * num_path_samples,
                       num_path_samples, device=gen_device)
   off = torch.randint(0, num_path_samples, (num_coarse_samples,),
                       generator=generator, device=gen_device)
-  return (base + off).to(device)
+  return march_kernel.mark_jitter((base + off).to(device),
+                                  num_coarse_samples * num_path_samples)
 
 
 class NerfModel(nn.Module):

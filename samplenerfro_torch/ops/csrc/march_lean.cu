@@ -10,143 +10,191 @@
 //   if s == jitter[s / num_path]: sub[ray, s / num_path] = (p, d, t)
 //   p' = p + (h / n) * d;  d' = d + h * grad n;  t' = t + |p - p'|
 // starting from p = o + near * d0, d = d0, t = near. Directions are emitted
-// raw; the wrapper normalizes them (march_kernel.py:709-722).
+// raw; the wrapper normalizes them (march_kernel.py:709-722). There are no
+// grid windows: the TPU kernel stages windows in VMEM and counts
+// out-of-window clamps; here every lookup reads the grid in device memory.
 //
-// Design: one thread per ray, the whole march in registers. The grid is
-// [N^3, 4] fp32 in x-major order, so one voxel is one aligned float4 and a
-// trilinear lookup is 8 float4 loads through the read-only cache. There are
-// no grid windows: the TPU kernel stages windows in VMEM and counts
-// out-of-window clamps; here every lookup reads the whole grid in global
-// memory, so nothing is clamped and there is no window to size.
-// Interpolation follows ops/grid.trilinear exactly: x first, then y, then
-// z; corner indices clamped to [0, N-1]; the fraction x - floor(x) is not
-// clamped. The build turns off FMA contraction (-fmad=false) so each
-// product and sum rounds as in the plain PyTorch version.
+// What bounds it on the card. Bytes: per 8192-ray chunk at S=768, Nc=64,
+// the dense rows (176 MB) and the subsample (15 MB) written once, and the
+// distinct voxels the chunk's paths touch read once: 0.111 ms at HBM rate.
+// The arithmetic (~120 fp32 operations a step) is far below the fp32 peak.
+// But a ray's 768 steps are a dependent chain: each step's gathers need the
+// position the last step computed. So the floor under the byte bound is
+// 768 x (one gather round trip + the step's own latency: three true
+// divisions for the cell, the lerps, a division and a square root), which
+// no spread over the card shortens; with the gathers loaded ahead (below)
+// the card shows ~0.8 us a step at 1024 rays (chip_smoke.py; PERF.md).
 //
-// What bounds it on the card, per 8192-ray chunk at S=768, Nc=64:
-//   writes: dense 8192*768*7*4 B = 176 MB, subsample 8192*64*7*4 B = 15 MB;
-//   reads: 8 corner float4 per step = 805 MB of gathers, mostly L1/L2 hits:
-//   the device-memory floor is the distinct voxels the chunk touches.
-// So its bound is (bytes written + distinct grid bytes) / HBM bandwidth;
-// the arithmetic (~100 fp32 operations per step) is far below the fp32
-// peak. Known weaknesses, left for later work: each thread stores 28 B at a
-// stride of S*28 B, so the dense stores coalesce poorly; nothing is staged
-// in shared memory; the per-step gathers are latency-bound.
+// Design (march_common.cuh): 8 lanes a ray, one a trilinear corner, the
+// corners combined by shuffles in the plain version's order, the state
+// held identically by all 8. The gathers leave the chain: each step also
+// loads the corners of the cell it guesses the ray will reach kAhead steps
+// on (from the new state at this step's speed), and a step uses a value
+// loaded ahead wherever its exact corner address equals the guessed one,
+// else it loads. A block is 8 rays (64 threads), so a 1024-ray radiance
+// batch spreads over 128 SMs and an 8192-ray chunk has 2048 warps. Each ray's rows go to shared memory for
+// kStage steps and then out as 16-byte stores: a ray's rows of a stage are
+// contiguous in [B, S, 7], so each 8-lane group writes whole 128-byte
+// lines. The subsample rows wait in shared memory until the march ends.
+// Every output comes from the same expressions in the same order as in a
+// one-thread-a-ray march, so the layout does not change a bit of it.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "march_common.cuh"
+
 namespace {
+
+using march::kLanes;
+
+constexpr int kRays = 8;                  // rays a block
+constexpr int kThreads = kRays * kLanes;  // 64
+constexpr int kStage = 32;                // steps staged before a store
+constexpr int kRow = 7;                   // floats a row: p, d, t
+constexpr int kAhead = 6;                 // steps a gather is loaded ahead
 
 struct MarchArgs {
   const float* origins;  // [B, 3]
   const float* dirs;     // [B, 3]
-  const float4* grid;    // [nx*ny*nz] of (n, gx, gy, gz)
+  march::Grid grid;
   const int* jitter;     // [Nc]
   float* dense;          // [B, S, 7]
   float* sub;            // [B, Nc, 7]
   int batch, num_samples, num_coarse, num_path;
-  int nx, ny, nz;
   float near, step;
-  float nmin_x, nmin_y, nmin_z;
-  float nd_x, nd_y, nd_z;
 };
 
-__device__ __forceinline__ float4 lerp4(float4 a, float4 b, float t) {
-  const float u = 1.0f - t;
-  return make_float4(a.x * u + b.x * t, a.y * u + b.y * t,
-                     a.z * u + b.z * t, a.w * u + b.w * t);
+// n floats from shared `src` to device `dst` by the 8 lanes of a ray:
+// 16-byte stores where both ends allow them, else 4-byte ones.
+__device__ __forceinline__ void flush(const float* src, float* dst, int n,
+                                      int lane) {
+  const bool wide = ((reinterpret_cast<uintptr_t>(dst) |
+                      reinterpret_cast<uintptr_t>(src)) & 15) == 0 &&
+                    (n & 3) == 0;
+  if (wide) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int i = lane; i < n / 4; i += kLanes) d4[i] = s4[i];
+  } else {
+    for (int i = lane; i < n; i += kLanes) dst[i] = src[i];
+  }
 }
 
-__device__ __forceinline__ int clampi(int v, int hi) {
-  return v < 0 ? 0 : (v > hi ? hi : v);
-}
+__global__ void __launch_bounds__(kThreads)
+march_lean_kernel(const MarchArgs a) {
+  // [kRays][kStage][7] staged dense rows, then [kRays][Nc][7] subsample.
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int lane = threadIdx.x % kLanes, local = threadIdx.x / kLanes;
+  const int want = blockIdx.x * kRays + local;
+  // A ray past the batch marches the last ray again and stores nothing,
+  // so that every lane of the warp takes every shuffle.
+  const bool valid = want < a.batch;
+  const int ray = valid ? want : a.batch - 1;
+  float* stage = smem + local * kStage * kRow;
+  float* subs = smem + kRays * kStage * kRow + local * a.num_coarse * kRow;
 
-__device__ __forceinline__ float4 trilinear(const MarchArgs& a, float px,
-                                            float py, float pz) {
-  const float cx = (px - a.nmin_x) / a.nd_x;
-  const float cy = (py - a.nmin_y) / a.nd_y;
-  const float cz = (pz - a.nmin_z) / a.nd_z;
-  const float fx0 = floorf(cx), fy0 = floorf(cy), fz0 = floorf(cz);
-  const float xd = cx - fx0, yd = cy - fy0, zd = cz - fz0;
-  const int ix = (int)fx0, iy = (int)fy0, iz = (int)fz0;
-  const long long x0 = clampi(ix, a.nx - 1), x1 = clampi(ix + 1, a.nx - 1);
-  const long long y0 = clampi(iy, a.ny - 1), y1 = clampi(iy + 1, a.ny - 1);
-  const long long z0 = clampi(iz, a.nz - 1), z1 = clampi(iz + 1, a.nz - 1);
-  const long long sy = a.nz, sx = (long long)a.ny * a.nz;
-  const float4* g = a.grid;
-  const float4 c000 = __ldg(g + sx * x0 + sy * y0 + z0);
-  const float4 c100 = __ldg(g + sx * x1 + sy * y0 + z0);
-  const float4 c001 = __ldg(g + sx * x0 + sy * y0 + z1);
-  const float4 c101 = __ldg(g + sx * x1 + sy * y0 + z1);
-  const float4 c010 = __ldg(g + sx * x0 + sy * y1 + z0);
-  const float4 c110 = __ldg(g + sx * x1 + sy * y1 + z0);
-  const float4 c011 = __ldg(g + sx * x0 + sy * y1 + z1);
-  const float4 c111 = __ldg(g + sx * x1 + sy * y1 + z1);
-  const float4 c00 = lerp4(c000, c100, xd);
-  const float4 c01 = lerp4(c001, c101, xd);
-  const float4 c10 = lerp4(c010, c110, xd);
-  const float4 c11 = lerp4(c011, c111, xd);
-  const float4 c0 = lerp4(c00, c10, yd);
-  const float4 c1 = lerp4(c01, c11, yd);
-  return lerp4(c0, c1, zd);
-}
-
-__device__ __forceinline__ void store7(float* out, float px, float py,
-                                       float pz, float dx, float dy, float dz,
-                                       float t) {
-  out[0] = px; out[1] = py; out[2] = pz;
-  out[3] = dx; out[4] = dy; out[5] = dz;
-  out[6] = t;
-}
-
-__global__ void march_lean_kernel(const MarchArgs a) {
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= a.batch) return;
   float dx = a.dirs[3 * ray], dy = a.dirs[3 * ray + 1],
         dz = a.dirs[3 * ray + 2];
   float px = a.origins[3 * ray] + a.near * dx;
   float py = a.origins[3 * ray + 1] + a.near * dy;
   float pz = a.origins[3 * ray + 2] + a.near * dz;
   float t = a.near;
-  float* dense = a.dense + (long long)ray * a.num_samples * 7;
-  float* sub = a.sub + (long long)ray * a.num_coarse * 7;
+  float* dense = a.dense + (long long)ray * a.num_samples * kRow;
 
-  int bin = 0, in_bin = 0;
+  // Slot u holds the corner loaded ahead for the steps s with s % kAhead
+  // == u: its address and value. Before the march the guesses assume
+  // n = 1.
+  const float4* ahead_a[kAhead];
+  float4 ahead_v[kAhead];
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u) {
+    const float f = (float)u * a.step;
+    ahead_a[u] = march::guess8(a.grid, px + f * dx, py + f * dy, pz + f * dz,
+                               lane);
+    ahead_v[u] = march::load_now(ahead_a[u]);
+  }
+
+  int bin = 0, in_bin = 0, s0 = 0;
   int pick = __ldg(a.jitter);
-  for (int s = 0; s < a.num_samples; ++s) {
-    const float4 v = trilinear(a, px, py, pz);
-    store7(dense + 7 * (long long)s, px, py, pz, dx, dy, dz, t);
-    if (s == pick) store7(sub + 7 * bin, px, py, pz, dx, dy, dz, t);
+  for (int base = 0; base < a.num_samples; base += kAhead) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int s = base + u;
+      if (s >= a.num_samples) break;
+      const march::Corner c = march::corner8(a.grid, px, py, pz, lane);
+      const float4 v = march::combine8(
+          march::load_if(c.addr != ahead_a[u], c.addr, ahead_v[u]), c, lane);
+      if (lane < kRow) {
+        const float x = lane == 0 ? px : lane == 1 ? py : lane == 2 ? pz
+                      : lane == 3 ? dx : lane == 4 ? dy : lane == 5 ? dz : t;
+        stage[(s - s0) * kRow + lane] = x;
+        if (s == pick) subs[bin * kRow + lane] = x;
+      }
+      float qx, qy, qz;
+      march::next_position(a.step, v.x, px, py, pz, dx, dy, dz, qx, qy, qz);
+      march::finish_step(a.step, v.y, v.z, v.w, qx, qy, qz, px, py, pz, dx,
+                         dy, dz, t);
+      // Slot u is free: load ahead for step s + kAhead, guessed from the
+      // new state at this step's speed.
+      const float f = (float)(kAhead - 1) * a.step / v.x;
+      ahead_a[u] = march::guess8(a.grid, px + f * dx, py + f * dy,
+                                 pz + f * dz, lane);
+      ahead_v[u] = march::load_now(ahead_a[u]);
 
-    const float hn = a.step / v.x;
-    const float nx = px + hn * dx, ny = py + hn * dy, nz = pz + hn * dz;
-    dx = dx + a.step * v.y;
-    dy = dy + a.step * v.z;
-    dz = dz + a.step * v.w;
-    const float ex = px - nx, ey = py - ny, ez = pz - nz;
-    t = t + sqrtf(ex * ex + ey * ey + ez * ez);
-    px = nx; py = ny; pz = nz;
-
-    if (++in_bin == a.num_path && s + 1 < a.num_samples) {
-      in_bin = 0;
-      ++bin;
-      pick = __ldg(a.jitter + bin);
+      if (++in_bin == a.num_path && s + 1 < a.num_samples) {
+        in_bin = 0;
+        ++bin;
+        pick = __ldg(a.jitter + bin);
+      }
+      if (s + 1 - s0 == kStage || s + 1 == a.num_samples) {
+        __syncwarp();
+        if (valid) flush(stage, dense + (long long)s0 * kRow,
+                         (s + 1 - s0) * kRow, lane);
+        __syncwarp();
+        s0 = s + 1;
+      }
     }
   }
+  if (valid)
+    flush(subs, a.sub + (long long)ray * a.num_coarse * kRow,
+          a.num_coarse * kRow, lane);
 }
 
 }  // namespace
 
+// The launch geometry is march_kernel.lean_launch_geometry's; the caller
+// passes its rays a block, threads and shared bytes, and they are checked
+// here again.
 extern "C" int march_lean_launch(
     const float* origins, const float* dirs, const float* grid,
     const int* jitter, float* dense, float* sub, int batch, int num_samples,
     int num_coarse, int nx, int ny, int nz, float near, float step,
     float nmin_x, float nmin_y, float nmin_z, float nd_x, float nd_y,
-    float nd_z, void* stream) {
+    float nd_z, int rays_per_block, int threads, int smem_bytes,
+    void* stream) {
+  const long long want_smem =
+      4LL * kRays * kRow * ((long long)kStage + num_coarse);
+  if (batch < 1 || num_coarse < 1 || num_samples % num_coarse ||
+      rays_per_block != kRays || threads != kThreads ||
+      smem_bytes != want_smem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int smem_set = 0;
+  if (smem_bytes > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        march_lean_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = smem_bytes;
+  }
   MarchArgs a;
   a.origins = origins;
   a.dirs = dirs;
-  a.grid = reinterpret_cast<const float4*>(grid);
+  a.grid = {reinterpret_cast<const float4*>(grid), nx, ny, nz,
+            nmin_x, nmin_y, nmin_z, nd_x, nd_y, nd_z,
+            1.0f / nd_x, 1.0f / nd_y, 1.0f / nd_z};
   a.jitter = jitter;
   a.dense = dense;
   a.sub = sub;
@@ -154,16 +202,10 @@ extern "C" int march_lean_launch(
   a.num_samples = num_samples;
   a.num_coarse = num_coarse;
   a.num_path = num_samples / num_coarse;
-  a.nx = nx; a.ny = ny; a.nz = nz;
   a.near = near;
   a.step = step;
-  a.nmin_x = nmin_x; a.nmin_y = nmin_y; a.nmin_z = nmin_z;
-  a.nd_x = nd_x; a.nd_y = nd_y; a.nd_z = nd_z;
-  // 64 threads a block: an 8192-ray chunk spreads over 128 blocks, about
-  // one per SM of the 132.
-  const int threads = 64;
-  const int blocks = (batch + threads - 1) / threads;
-  march_lean_kernel<<<blocks, threads, 0,
+  const int blocks = (batch + kRays - 1) / kRays;
+  march_lean_kernel<<<blocks, kThreads, smem_bytes,
                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

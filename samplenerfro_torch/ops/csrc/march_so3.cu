@@ -11,9 +11,9 @@
 //   emit traj[ray, s] = (p, d, t, n, g)         11 channels, raw d
 //   u = g;  if |g| > 1e-3:
 //     x   = annealed PE of p: per degree k < K, [sin(p 2^k) w_k,
-//           sin(p 2^k + pi/2) w_k]               (6K features, K = 10)
-//     raw = MLP(x): 4 ReLU layers of width W (128), the inputs concatenated
-//           after the third, then a linear layer to 3
+//           sin(p 2^k + pi/2) w_k]               (6K features, K <= 10)
+//     raw = MLP(x): 4 ReLU layers of width W (<= 128), the inputs
+//           concatenated after the third, then a linear layer to 3
 //     u   = Rodrigues rotation of g by the axis-angle raw
 //   p' = p + (h / n) d;  d' = d + h u;  t' = t + |p - p'|
 // starting from p = o + near d0, d = d0, t = near. The window weights w_k
@@ -21,219 +21,373 @@
 // computes them. Skipping the MLP where |g| <= 1e-3 is exact: the plain
 // version's `where` discards its result there.
 //
-// Design. A 1024-ray training batch is too few rays for one thread per ray
-// to fill the card, and the so3 MLP (~1.3e5 fp32 operations per active
-// ray-step) is the work. So a block of 128 threads marches a tile of
-// R = 8 rays together: threads 0..R-1 each own one ray's state (p, d, t)
-// in registers and do its trilinear gathers (8 float4 __ldg loads, as K1)
-// and Euler update; all 128 threads then evaluate the MLP for the tile,
-// thread j computing hidden unit j for the R rays, with the activations in
-// shared memory. The fp32 weights (~65k floats = 260 KB) do not fit the
-// 227 KB of shared memory a block may use, so they stay in device memory,
-// stored input-major ([in][out]) so that a warp's 32 loads of one weight
-// row are one coalesced 128-byte line, and are read through L1/L2: all 128
-// blocks read the same 260 KB, which stays resident in the 50 MB L2. Each
-// weight loaded is used for R rays. A tile with no active ray skips the
-// MLP; the choice is uniform across the block, so every __syncthreads is
-// reached by all threads.
+// What bounds it. (1) The head's fp32 operations on the active ray-steps:
+// ~1.3e5 a ray-step, 0.640 ms at ship (329,450 active of 786,432) at the
+// 67 TFLOP/s of the CUDA cores. Tensor cores and TF32 are ruled out: K3
+// and P3 recompute this head with its rounding points (fp32 sums from zero
+// in k order, then the skip input, then + bias) and must find the same
+// ReLU masks. (2) Latency: a ray's steps are a dependent chain of 768
+// steps, each a gather and 5 dependent layers, and 1024 rays are few
+// threads for 132 SMs.
 //
-// What bounds it: the MLP's fp32 arithmetic on the active ray-steps (at
-// 67 TFLOP/s on CUDA cores; no tensor cores and no TF32, which would round
-// differently from the plain version and flip ReLU masks) against the
-// trajectory written (B*S*11*4 bytes) and the distinct voxels read. The
-// known weakness of this first version: each step's weight reads stream
-// 260 KB through L1 per block, and with 4 warps a block the load latency
-// is poorly hidden. The dot products use explicit fmaf (the build turns
-// off FMA contraction for everything else, so the march arithmetic rounds
-// as in the plain version); the plain version's matrix products sum in
-// another order, so the MLP agrees to rounding, not bit for bit.
+// Design. The head's weights (65,411 floats) do not fit the 227 KB of one
+// block, but half of them do: a cluster of kCluster = 2 CTAs on two SMs
+// marches kRays = 16 rays, 1024 rays make 64 clusters on 128 SMs. Both
+// CTAs hold the first hidden layer and the output layer whole; CTA `rank`
+// holds the input-major columns [64 rank, 64 rank + 64) of hidden layers
+// 1-3 (W3 with its 60 skip rows) and their biases. All of it is
+// zero-padded to width 128 and 60 inputs as K3 pads the head, and loaded
+// once with cp.async: no weight crosses from L2 inside the step loop.
+// Warp q of each CTA runs the cluster's rays 4 q .. 4 q + 3 through the
+// head on its own, a lane summing 2 columns for the 4 rays (each output one
+// fmaf chain in k order: the split is over outputs only): layer 0 whole in
+// both CTAs, so that it needs no exchange; then per layer 1-3 its 64
+// columns, written into both CTAs' activations through distributed shared
+// memory, and one exchange with warp q of the peer (an mbarrier a warp; no
+// barrier across the CTA). The march (8 lanes a ray, march_common.cuh),
+// the PE (by each ray's own lanes), the output layer and the Rodrigues
+// rotation run in both CTAs on the same values in the same arithmetic, so
+// both hold the same state without another exchange, and whether a warp's
+// 4 rays need the head at a step is decided identically in both: every
+// exchange is taken by both warps or by neither. A step loads its next
+// corner before its head runs: the next position needs only n and the old
+// direction. Each CTA writes half of the rays' trajectory rows.
+// What bounds it now: a busy warp issues 10 instructions for 8 fmaf at
+// every k of a layer (504 k a step), and waits at 3 exchanges a step that
+// runs the head; 4 warps an SM, one a scheduler. Every output comes from
+// the same expressions in the same order as in a one-thread-a-ray march,
+// so the layout does not change a bit of the trajectory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "march_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRays = 8;        // rays per block
-constexpr int kThreads = 128;   // threads per block = max hidden width
-constexpr int kMaxIn = 64;      // max PE features (6 * max_deg)
-constexpr int kMaxDeg = 10;
+using march::kLanes;
+
+constexpr int kCluster = 2;               // CTAs a cluster
+constexpr int kRays = 16;                 // rays a cluster
+constexpr int kThreads = kRays * kLanes;  // 128: the march's 8 lanes a ray
+constexpr int kW = 128;                   // head width, padded
+constexpr int kIn = 60;                   // PE features, padded
+constexpr int kMaxDeg = kIn / 6;
+constexpr int kCols = kW / kCluster;      // columns a CTA
+// Row stride of the activations [k][ray]: 16 rays and 4 floats of
+// padding, so that a warp's float4 stores of 32 rows fall in different
+// banks (2-way, where a stride of 16 would be 8-way).
+constexpr int kLd = kRays + 4;
 constexpr float kHalfPi = 1.5707963267948966f;
+constexpr int kQuads = kThreads / 32;     // warps: a warp 4 rays
+// The layers: a thread sums 2 columns for its warp's 4 rays.
+static_assert(kCols == 2 * 32 && kRays == 4 * kQuads,
+              "a thread: 2 columns x 4 rays");
+
+// Shared memory, in floats; every block 16-byte aligned.
+constexpr int kOffW0 = 0;                          // [kIn][kW], whole
+constexpr int kOffW1 = kOffW0 + kIn * kW;          // [kW][kCols]
+constexpr int kOffW2 = kOffW1 + kW * kCols;        // [kW][kCols]
+constexpr int kOffW3 = kOffW2 + kW * kCols;        // [kW + kIn][kCols]
+constexpr int kOffB0 = kOffW3 + (kW + kIn) * kCols; // [kW], whole
+constexpr int kOffB = kOffB0 + kW;                 // [3][kCols]
+constexpr int kOffWo = kOffB + 3 * kCols;          // [kW][4], whole
+constexpr int kOffBo = kOffWo + kW * 4;            // [4]
+constexpr int kOffX = kOffBo + 4;                  // [kIn][kLd]
+constexpr int kOffHa = kOffX + kIn * kLd;          // [kW][kLd]: h0, h2
+constexpr int kOffHb = kOffHa + kW * kLd;          // [kW][kLd]: h1
+constexpr int kOffHc = kOffHb + kW * kLd;          // [kW][kLd]: h3
+constexpr int kOffWin = kOffHc + kW * kLd;         // [16]
+constexpr int kOffBar = kOffWin + 16;              // [kQuads][2] mbarriers
+constexpr int kSmemFloats = kOffBar + 2 * 2 * kQuads;
+constexpr int kSmemBytes = 4 * kSmemFloats;
+static_assert(kOffX % 4 == 0 && kOffHa % 4 == 0 && kOffHb % 4 == 0 &&
+                  kOffHc % 4 == 0 && kOffB % 4 == 0,
+              "activation rows are read as float4");
+static_assert(kOffBar % 2 == 0, "an mbarrier is 8-byte aligned");
+static_assert(kSmemBytes <= 232448, "a block's shared memory");
 
 struct So3Args {
   const float* origins;  // [B, 3]
   const float* dirs;     // [B, 3]
-  const float4* grid;    // [nx*ny*nz] of (n, gx, gy, gz)
-  const float* wpack;    // W0t b0 W1t b1 W2t b2 W3t b3 Woutt bout
+  march::Grid grid;
+  // The head in nn.Linear layout: W_l [out][in], b_l [out].
+  const float *w0, *b0, *w1, *b1, *w2, *b2, *w3, *b3, *wo, *bo;
   const float* window;   // [max_deg] annealing weights
   float* traj;           // [B, S, 11]
   int batch, num_samples, max_deg, in_dim, width;
-  int nx, ny, nz;
   float near, step;
-  float nmin_x, nmin_y, nmin_z;
-  float nd_x, nd_y, nd_z;
 };
 
-__device__ __forceinline__ float4 lerp4(float4 a, float4 b, float t) {
-  const float u = 1.0f - t;
-  return make_float4(a.x * u + b.x * t, a.y * u + b.y * t,
-                     a.z * u + b.z * t, a.w * u + b.w * t);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ int clampi(int v, int hi) {
-  return v < 0 ? 0 : (v > hi ? hi : v);
+// dst[k][c] = w[col0 + c][koff + k] for c < cols (ld floats a row of w)
+// where k < kn and col0 + c < width; zero for the rest of the rows <
+// krows.
+__device__ __forceinline__ void load_cols(float* dst, const float* w,
+                                          int ld, int koff, int kn,
+                                          int krows, int col0, int width,
+                                          int cols) {
+  for (int e = threadIdx.x; e < krows * cols; e += kThreads) {
+    const int k = e / cols, col = col0 + e % cols;
+    const bool ok = k < kn && col < width;
+    cp_async4(dst + e, ok ? w + (long long)col * ld + koff + k : w, ok);
+  }
 }
 
-// ops/grid.trilinear: x first, then y, then z; clamped corner indices,
-// unclamped fractions (the same code as K1).
-__device__ __forceinline__ float4 trilinear(const So3Args& a, float px,
-                                            float py, float pz) {
-  const float cx = (px - a.nmin_x) / a.nd_x;
-  const float cy = (py - a.nmin_y) / a.nd_y;
-  const float cz = (pz - a.nmin_z) / a.nd_z;
-  const float fx0 = floorf(cx), fy0 = floorf(cy), fz0 = floorf(cz);
-  const float xd = cx - fx0, yd = cy - fy0, zd = cz - fz0;
-  const int ix = (int)fx0, iy = (int)fy0, iz = (int)fz0;
-  const long long x0 = clampi(ix, a.nx - 1), x1 = clampi(ix + 1, a.nx - 1);
-  const long long y0 = clampi(iy, a.ny - 1), y1 = clampi(iy + 1, a.ny - 1);
-  const long long z0 = clampi(iz, a.nz - 1), z1 = clampi(iz + 1, a.nz - 1);
-  const long long sy = a.nz, sx = (long long)a.ny * a.nz;
-  const float4* g = a.grid;
-  const float4 c000 = __ldg(g + sx * x0 + sy * y0 + z0);
-  const float4 c100 = __ldg(g + sx * x1 + sy * y0 + z0);
-  const float4 c001 = __ldg(g + sx * x0 + sy * y0 + z1);
-  const float4 c101 = __ldg(g + sx * x1 + sy * y0 + z1);
-  const float4 c010 = __ldg(g + sx * x0 + sy * y1 + z0);
-  const float4 c110 = __ldg(g + sx * x1 + sy * y1 + z0);
-  const float4 c011 = __ldg(g + sx * x0 + sy * y1 + z1);
-  const float4 c111 = __ldg(g + sx * x1 + sy * y1 + z1);
-  const float4 c00 = lerp4(c000, c100, xd);
-  const float4 c01 = lerp4(c001, c101, xd);
-  const float4 c10 = lerp4(c010, c110, xd);
-  const float4 c11 = lerp4(c011, c111, xd);
-  const float4 c0 = lerp4(c00, c10, yd);
-  const float4 c1 = lerp4(c01, c11, yd);
-  return lerp4(c0, c1, zd);
+// A warp's exchange with the same warp of the peer CTA (they run the same
+// 4 rays). Each warp has two mbarriers, used by alternate exchanges, each
+// expecting the peer warp's 32 arrivals a phase: every lane arrives on the
+// peer's once its stores into the peer are made, with release semantics at
+// cluster scope, and then waits on its own, with acquire. A warp cannot
+// run two exchanges ahead of its peer (it needs the peer's columns of each
+// layer), so an mbarrier's phase cannot advance twice before both have
+// waited on it.
+__device__ __forceinline__ void arrive_peer(unsigned bar, int peer) {
+  asm volatile(
+      "{\n .reg .b32 remote;\n mapa.shared::cluster.u32 remote, %0, %1;\n"
+      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar), "r"(peer)
+      : "memory");
 }
 
-// out[r][j] = act(bias[j] + sum_k in[r][k] * w[k * width + j]) for the
-// tile's R rays; thread j owns column j. The inputs of layer 3 are the
-// concatenation [h3, x], passed as two pieces.
-__device__ __forceinline__ void dense_tile(
-    const float* __restrict__ w, const float* __restrict__ bias,
-    const float (*in_a)[kThreads], int ka, const float (*in_b)[kMaxIn],
-    int kb, int width, bool relu, float (*out)[kThreads]) {
-  const int j = threadIdx.x;
-  if (j >= width) return;
-  float acc[kRays];
-#pragma unroll
-  for (int r = 0; r < kRays; ++r) acc[r] = 0.0f;
-  for (int k = 0; k < ka; ++k) {
-    const float wk = __ldg(w + k * width + j);
-#pragma unroll
-    for (int r = 0; r < kRays; ++r) acc[r] = __fmaf_rn(in_a[r][k], wk, acc[r]);
-  }
-  for (int k = 0; k < kb; ++k) {
-    const float wk = __ldg(w + (ka + k) * width + j);
-#pragma unroll
-    for (int r = 0; r < kRays; ++r) acc[r] = __fmaf_rn(in_b[r][k], wk, acc[r]);
-  }
-  const float b = __ldg(bias + j);
-#pragma unroll
-  for (int r = 0; r < kRays; ++r) {
-    const float v = acc[r] + b;
-    out[r][j] = relu ? fmaxf(v, 0.0f) : v;
-  }
+__device__ __forceinline__ void wait_peer(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0],"
+      " %1;\n"
+      " @!done bra WAIT;\n}\n" ::"r"(bar), "r"(parity)
+      : "memory");
 }
 
 __device__ __forceinline__ float safe_norm(float x, float y, float z) {
   return sqrtf(fmaxf(x * x + y * y + z * z, 1e-6f));
 }
 
-__global__ void __launch_bounds__(kThreads)
-march_so3_kernel(const So3Args a) {
-  __shared__ float x_s[kRays][kMaxIn];
-  __shared__ float h_s[4][kRays][kThreads];
-  __shared__ float p_s[kRays][3];
-  __shared__ float raw_s[kRays][3];
-  __shared__ int act_s[kRays];
-  __shared__ float win_s[kMaxDeg];
+// acc[c][r] += in[k][4 q + r] * w[k][2 cp + c] for k < K, in k order; w
+// has LDW floats a row.
+template <int K, int LDW>
+__device__ __forceinline__ void sum_rows(const float* w, const float* in,
+                                         int cp, int q, float (&acc)[2][4]) {
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    const float2 wk = *reinterpret_cast<const float2*>(w + k * LDW + 2 * cp);
+    const float4 x = *reinterpret_cast<const float4*>(in + k * kLd + 4 * q);
+    acc[0][0] = __fmaf_rn(x.x, wk.x, acc[0][0]);
+    acc[0][1] = __fmaf_rn(x.y, wk.x, acc[0][1]);
+    acc[0][2] = __fmaf_rn(x.z, wk.x, acc[0][2]);
+    acc[0][3] = __fmaf_rn(x.w, wk.x, acc[0][3]);
+    acc[1][0] = __fmaf_rn(x.x, wk.y, acc[1][0]);
+    acc[1][1] = __fmaf_rn(x.y, wk.y, acc[1][1]);
+    acc[1][2] = __fmaf_rn(x.z, wk.y, acc[1][2]);
+    acc[1][3] = __fmaf_rn(x.w, wk.y, acc[1][3]);
+  }
+}
 
+// One hidden layer for rays 4 q .. 4 q + 3 of the cluster and the columns
+// col, col + 1 (w and bias start at this thread's column block, 2 cp
+// columns in): ReLU(sum over in_a's KA rows, then in_b's KB rows, of
+// in[k][ray] * w[k][c], from zero in k order, + b), written to out[col]
+// here and, unless out_peer is null, in the peer CTA.
+template <int KA, int KB, int LDW>
+__device__ __forceinline__ void hidden_layer(const float* w,
+                                             const float* bias,
+                                             const float* in_a,
+                                             const float* in_b, float* out,
+                                             float* out_peer, int cp, int col,
+                                             int q) {
+  float acc[2][4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[c][r] = 0.0f;
+  sum_rows<KA, LDW>(w, in_a, cp, q, acc);
+  if constexpr (KB > 0) sum_rows<KB, LDW>(w + KA * LDW, in_b, cp, q, acc);
+  const float2 b = *reinterpret_cast<const float2*>(bias + 2 * cp);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const float bc = c == 0 ? b.x : b.y;
+    const float4 o = make_float4(
+        fmaxf(acc[c][0] + bc, 0.0f), fmaxf(acc[c][1] + bc, 0.0f),
+        fmaxf(acc[c][2] + bc, 0.0f), fmaxf(acc[c][3] + bc, 0.0f));
+    *reinterpret_cast<float4*>(out + (col + c) * kLd + 4 * q) = o;
+    if (out_peer)
+      *reinterpret_cast<float4*>(out_peer + (col + c) * kLd + 4 * q) = o;
+  }
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kThreads, 1) march_so3_kernel(const So3Args a) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
   const int W = a.width, IN = a.in_dim;
-  const float* w0 = a.wpack;
-  const float* b0 = w0 + IN * W;
-  const float* w1 = b0 + W;
-  const float* b1 = w1 + W * W;
-  const float* w2 = b1 + W;
-  const float* b2 = w2 + W * W;
-  const float* w3 = b2 + W;
-  const float* b3 = w3 + (W + IN) * W;
-  const float* wo = b3 + W;
-  const float* bo = wo + W * 3;
-  if (tid < a.max_deg) win_s[tid] = a.window[tid];
+  const int col0 = rank * kCols;
 
-  const int ray = blockIdx.x * kRays + tid;
-  const bool owner = tid < kRays && ray < a.batch;
-  float px = 0.f, py = 0.f, pz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  float t = a.near, n = 1.f, gx = 0.f, gy = 0.f, gz = 0.f;
-  float* traj = nullptr;
-  if (owner) {
-    dx = a.dirs[3 * ray]; dy = a.dirs[3 * ray + 1]; dz = a.dirs[3 * ray + 2];
-    px = a.origins[3 * ray] + a.near * dx;
-    py = a.origins[3 * ray + 1] + a.near * dy;
-    pz = a.origins[3 * ray + 2] + a.near * dz;
-    traj = a.traj + (long long)ray * a.num_samples * 11;
+  // The weights, once: layer 0 and the output layer whole, this CTA's
+  // columns of layers 1-3, the window.
+  load_cols(sm + kOffW0, a.w0, IN, 0, IN, kIn, 0, W, kW);
+  load_cols(sm + kOffW1, a.w1, W, 0, W, kW, col0, W, kCols);
+  load_cols(sm + kOffW2, a.w2, W, 0, W, kW, col0, W, kCols);
+  load_cols(sm + kOffW3, a.w3, W + IN, 0, W, kW, col0, W, kCols);
+  load_cols(sm + kOffW3 + kW * kCols, a.w3, W + IN, W, IN, kIn, col0, W,
+            kCols);
+  for (int e = tid; e < kW; e += kThreads)
+    cp_async4(sm + kOffB0 + e, e < W ? a.b0 + e : a.b0, e < W);
+  {
+    const float* bs[3] = {a.b1, a.b2, a.b3};
+    for (int e = tid; e < 3 * kCols; e += kThreads) {
+      const int col = col0 + e % kCols;
+      const float* b = bs[e / kCols];
+      cp_async4(sm + kOffB + e, col < W ? b + col : b, col < W);
+    }
   }
+  for (int e = tid; e < kW * 4; e += kThreads) {
+    const int k = e / 4, o = e % 4;
+    const bool ok = k < W && o < 3;
+    cp_async4(sm + kOffWo + e, ok ? a.wo + o * W + k : a.wo, ok);
+  }
+  if (tid < 4) cp_async4(sm + kOffBo + tid, tid < 3 ? a.bo + tid : a.bo,
+                         tid < 3);
+  if (tid < 16) sm[kOffWin + tid] = tid < a.max_deg ? a.window[tid] : 0.0f;
+  const unsigned bars =
+      static_cast<unsigned>(__cvta_generic_to_shared(sm + kOffBar));
+  if (tid < 2 * kQuads)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;\n" ::"r"(
+                     bars + 8 * tid)
+                 : "memory");
+  asm volatile(
+      "cp.async.wait_all;\n"
+      "fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  // Both CTAs have started, hold their weights and have set up their
+  // mbarriers before either writes into the other's shared memory.
+  cluster.sync();
+
+  const float* w0 = sm + kOffW0;
+  const float* w1 = sm + kOffW1;
+  const float* w2 = sm + kOffW2;
+  const float* w3 = sm + kOffW3;
+  const float* b0 = sm + kOffB0;
+  const float* bias = sm + kOffB;
+  const float* wo = sm + kOffWo;
+  const float* bo = sm + kOffBo;
+  const float* win = sm + kOffWin;
+  float* x_s = sm + kOffX;
+  float* ha = sm + kOffHa;
+  float* hb = sm + kOffHb;
+  float* hc = sm + kOffHc;
+  float* ha_peer = cluster.map_shared_rank(ha, rank ^ 1);
+  float* hb_peer = cluster.map_shared_rank(hb, rank ^ 1);
+  float* hc_peer = cluster.map_shared_rank(hc, rank ^ 1);
+
+  // The march: 8 lanes a ray.
+  const int lane = tid % kLanes, local = tid / kLanes;
+  const int want = (blockIdx.x / kCluster) * kRays + local;
+  const bool valid = want < a.batch;
+  const int ray = valid ? want : a.batch - 1;
+  // Rank r writes the trajectory of the cluster's rays 8 r .. 8 r + 7.
+  const bool writer = valid && local / (kRays / kCluster) == rank;
+  float dx = a.dirs[3 * ray], dy = a.dirs[3 * ray + 1],
+        dz = a.dirs[3 * ray + 2];
+  float px = a.origins[3 * ray] + a.near * dx;
+  float py = a.origins[3 * ray + 1] + a.near * dy;
+  float pz = a.origins[3 * ray + 2] + a.near * dz;
+  float t = a.near;
+  float* traj = a.traj + (long long)ray * a.num_samples * 11;
+  // The head: warp q runs the rays 4 q .. 4 q + 3 through every layer,
+  // columns 2 cp, 2 cp + 1 of a column block a lane; it exchanges columns
+  // with warp q of the peer only (no barrier across the CTA).
+  const int cp = tid % 32, q = tid / 32;
+  unsigned exchanges = 0;
+  auto exchange = [&]() {
+    const unsigned bar = bars + 8 * (2 * q + (exchanges & 1));
+    arrive_peer(bar, rank ^ 1);
+    wait_peer(bar, (exchanges >> 1) & 1);
+    __syncwarp();
+    ++exchanges;
+  };
+  // Features past IN stay zero: they meet zero weights.
+  for (int i = tid; i < kIn * kLd; i += kThreads)
+    if (i / kLd >= IN) x_s[i] = 0.0f;
+  __syncthreads();
+  // This step's corner of the cell and its value, loaded a step ahead.
+  march::Corner cn = march::corner8(a.grid, px, py, pz, lane);
+  float4 cv = march::load_now(cn.addr);
 
   for (int s = 0; s < a.num_samples; ++s) {
-    if (owner) {
-      const float4 v = trilinear(a, px, py, pz);
-      n = v.x; gx = v.y; gy = v.z; gz = v.w;
+    const float4 v = march::combine8(cv, cn, lane);
+    const float n = v.x, gx = v.y, gy = v.z, gz = v.w;
+    // The next position does not wait for the head: its corner loads
+    // while the head runs.
+    float qx, qy, qz;
+    march::next_position(a.step, n, px, py, pz, dx, dy, dz, qx, qy, qz);
+    cn = march::corner8(a.grid, qx, qy, qz, lane);
+    cv = march::load_now(cn.addr);
+    const bool act = valid && sqrtf(gx * gx + gy * gy + gz * gz) > 1e-3f;
+    if (writer) {
       float* o = traj + 11 * (long long)s;
-      o[0] = px; o[1] = py; o[2] = pz;
-      o[3] = dx; o[4] = dy; o[5] = dz;
-      o[6] = t; o[7] = n; o[8] = gx; o[9] = gy; o[10] = gz;
-      p_s[tid][0] = px; p_s[tid][1] = py; p_s[tid][2] = pz;
-      act_s[tid] = sqrtf(gx * gx + gy * gy + gz * gz) > 1e-3f;
-    } else if (tid < kRays) {
-      p_s[tid][0] = p_s[tid][1] = p_s[tid][2] = 0.0f;
-      act_s[tid] = 0;
+      o[lane] = lane == 0 ? px : lane == 1 ? py : lane == 2 ? pz
+              : lane == 3 ? dx : lane == 4 ? dy : lane == 5 ? dz
+              : lane == 6 ? t : n;
+      if (lane < 3) o[8 + lane] = lane == 0 ? gx : lane == 1 ? gy : gz;
     }
-    __syncthreads();
-    int any = 0;
-#pragma unroll
-    for (int r = 0; r < kRays; ++r) any |= act_s[r];
-    if (any) {
-      for (int i = tid; i < kRays * IN; i += kThreads) {
-        const int r = i / IN, f = i % IN;
-        const int deg = f / 6, c = f % 3;
-        const float xb = p_s[r][c] * (float)(1 << deg);
-        const float arg = (f % 6) < 3 ? xb : xb + kHalfPi;
-        x_s[r][f] = sinf(arg) * win_s[deg];
+    float ux = gx, uy = gy, uz = gz;
+    // The head runs where any of the warp's 4 rays is active: the same in
+    // the peer's warp, so both take every exchange.
+    if (__any_sync(0xffffffffu, act)) {
+      if (act) {
+        // The ray's PE, by its own 8 lanes: features lane, lane + 8, ...
+        for (int f = lane; f < IN; f += kLanes) {
+          const int deg = f / 6, c = f % 3;
+          const float pc = c == 0 ? px : c == 1 ? py : pz;
+          const float xb = pc * (float)(1 << deg);
+          const float arg = (f % 6) < 3 ? xb : xb + kHalfPi;
+          x_s[f * kLd + local] = sinf(arg) * win[deg];
+        }
       }
-      __syncthreads();
-      dense_tile(w0, b0, nullptr, 0, x_s, IN, W, true, h_s[0]);
-      __syncthreads();
-      dense_tile(w1, b1, h_s[0], W, nullptr, 0, W, true, h_s[1]);
-      __syncthreads();
-      dense_tile(w2, b2, h_s[1], W, nullptr, 0, W, true, h_s[2]);
-      __syncthreads();
-      dense_tile(w3, b3, h_s[2], W, x_s, IN, W, true, h_s[3]);
-      __syncthreads();
-      if (tid < 3 * kRays) {
-        const int r = tid / 3, o = tid % 3;
+      __syncwarp();
+      // Layer 0 whole in each CTA, so that it needs no exchange.
+      hidden_layer<kIn, 0, kW>(w0, b0, x_s, nullptr, ha, nullptr, cp, 2 * cp,
+                               q);
+      hidden_layer<kIn, 0, kW>(w0 + kCols, b0 + kCols, x_s, nullptr, ha,
+                               nullptr, cp, kCols + 2 * cp, q);
+      __syncwarp();
+      hidden_layer<kW, 0, kCols>(w1, bias, ha, nullptr, hb, hb_peer, cp,
+                                 col0 + 2 * cp, q);
+      exchange();
+      hidden_layer<kW, 0, kCols>(w2, bias + kCols, hb, nullptr, ha, ha_peer,
+                                 cp, col0 + 2 * cp, q);
+      exchange();
+      hidden_layer<kW, kIn, kCols>(w3, bias + 2 * kCols, ha, x_s, hc,
+                                   hc_peer, cp, col0 + 2 * cp, q);
+      exchange();
+      // The output layer: lane o < 3 of each ray sums raw[o] in k order;
+      // the ray's lanes then share it.
+      float raw = 0.0f;
+      if (act && lane < 3) {
         float acc = 0.0f;
-        for (int k = 0; k < W; ++k)
-          acc = __fmaf_rn(h_s[3][r][k], __ldg(wo + 3 * k + o), acc);
-        raw_s[r][o] = acc + __ldg(bo + o);
+#pragma unroll 16
+        for (int k = 0; k < kW; ++k)
+          acc = __fmaf_rn(hc[k * kLd + local], wo[4 * k + lane], acc);
+        raw = acc + bo[lane];
       }
-      __syncthreads();
-    }
-    if (owner) {
-      float ux = gx, uy = gy, uz = gz;
-      if (act_s[tid]) {
+      const int base = tid % 32 - lane;
+      const float rx = __shfl_sync(0xffffffffu, raw, base);
+      const float ry = __shfl_sync(0xffffffffu, raw, base + 1);
+      const float rz = __shfl_sync(0xffffffffu, raw, base + 2);
+      if (act) {
         // ops/eikonal.rodrigues_rotate, term by term in its order.
-        const float rx = raw_s[tid][0], ry = raw_s[tid][1],
-                    rz = raw_s[tid][2];
         const float theta = safe_norm(rx, ry, rz);
         const float ex = rx / theta, ey = ry / theta, ez = rz / theta;
         const float an = safe_norm(gx, gy, gz);
@@ -247,36 +401,50 @@ march_so3_kernel(const So3Args a) {
         uy = an * ((ct * vy + st * cy) + k * ey);
         uz = an * ((ct * vz + st * cz) + k * ez);
       }
-      const float hn = a.step / n;
-      const float qx = px + hn * dx, qy = py + hn * dy, qz = pz + hn * dz;
-      dx = dx + a.step * ux;
-      dy = dy + a.step * uy;
-      dz = dz + a.step * uz;
-      const float ex = px - qx, ey = py - qy, ez = pz - qz;
-      t = t + sqrtf(ex * ex + ey * ey + ez * ez);
-      px = qx; py = qy; pz = qz;
     }
-    // The owners rewrite p_s and act_s next step: every thread must have
-    // read this step's flags first.
-    __syncthreads();
+    march::finish_step(a.step, ux, uy, uz, qx, qy, qz, px, py, pz, dx, dy,
+                       dz, t);
   }
+  // Neither CTA leaves while the other may still write into it.
+  cluster.sync();
 }
 
 }  // namespace
 
+// The launch geometry is march_kernel.so3_launch_geometry's; the caller
+// passes it and it is checked here again.
 extern "C" int march_so3_launch(
     const float* origins, const float* dirs, const float* grid,
-    const float* wpack, const float* window, float* traj, int batch,
-    int num_samples, int max_deg, int width, int nx, int ny, int nz,
-    float near, float step, float nmin_x, float nmin_y, float nmin_z,
-    float nd_x, float nd_y, float nd_z, void* stream) {
-  if (width > kThreads || 6 * max_deg > kMaxIn || max_deg > kMaxDeg)
+    const float* w0, const float* b0, const float* w1, const float* b1,
+    const float* w2, const float* b2, const float* w3, const float* b3,
+    const float* wo, const float* bo, const float* window, float* traj,
+    int batch, int num_samples, int max_deg, int width, int nx, int ny,
+    int nz, float near, float step, float nmin_x, float nmin_y,
+    float nmin_z, float nd_x, float nd_y, float nd_z, int cluster,
+    int rays_per_cluster, int ctas, int threads, int smem_bytes,
+    void* stream) {
+  const int clusters = (batch + kRays - 1) / kRays;
+  if (batch < 1 || width < 1 || width > kW || max_deg < 1 ||
+      max_deg > kMaxDeg || cluster != kCluster ||
+      rays_per_cluster != kRays || ctas != kCluster * clusters ||
+      threads != kThreads || smem_bytes != kSmemBytes)
     return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        march_so3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
   So3Args a;
   a.origins = origins;
   a.dirs = dirs;
-  a.grid = reinterpret_cast<const float4*>(grid);
-  a.wpack = wpack;
+  a.grid = {reinterpret_cast<const float4*>(grid), nx, ny, nz,
+            nmin_x, nmin_y, nmin_z, nd_x, nd_y, nd_z,
+            1.0f / nd_x, 1.0f / nd_y, 1.0f / nd_z};
+  a.w0 = w0; a.b0 = b0; a.w1 = w1; a.b1 = b1; a.w2 = w2; a.b2 = b2;
+  a.w3 = w3; a.b3 = b3; a.wo = wo; a.bo = bo;
   a.window = window;
   a.traj = traj;
   a.batch = batch;
@@ -284,14 +452,9 @@ extern "C" int march_so3_launch(
   a.max_deg = max_deg;
   a.in_dim = 6 * max_deg;
   a.width = width;
-  a.nx = nx; a.ny = ny; a.nz = nz;
   a.near = near;
   a.step = step;
-  a.nmin_x = nmin_x; a.nmin_y = nmin_y; a.nmin_z = nmin_z;
-  a.nd_x = nd_x; a.nd_y = nd_y; a.nd_z = nd_z;
-  // 1024 rays -> 128 blocks of 8 rays, about one per SM of the 132.
-  const int blocks = (batch + kRays - 1) / kRays;
-  march_so3_kernel<<<blocks, kThreads, 0,
+  march_so3_kernel<<<ctas, kThreads, kSmemBytes,
                      static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

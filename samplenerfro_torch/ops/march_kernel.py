@@ -54,19 +54,89 @@ def check_march_inputs(who, spec, data, origins, directions):
     raise ValueError(f"{who}: data must be 16-byte aligned (float4 voxels)")
 
 
-def _check_inputs(spec, data, origins, directions, num_samples, jitter):
-  check_march_inputs("march_lean", spec, data, origins, directions)
+# K1's launch geometry (csrc/march_lean.cu): 8 lanes a ray, one a trilinear
+# corner; 8 rays a block; each ray's dense rows staged in shared memory for
+# LEAN_STAGE steps, its subsample rows for the whole march.
+LEAN_LANES, LEAN_RAYS, LEAN_STAGE, ROW = 8, 8, 32, 7
+# Dynamic shared memory a block may use on an H100.
+SMEM_LIMIT = 232448
+
+
+def lean_launch_geometry(batch, num_samples, num_coarse):
+  """K1's launch for `batch` rays of num_samples steps and num_coarse
+  subsample bins: rays a block, threads, blocks, shared bytes a block.
+
+  Raises ValueError, naming the limit, for a shape K1 does not take.
+  """
+  if batch < 1:
+    raise ValueError(f"march_lean: batch must be at least 1, got {batch}")
+  if num_coarse < 1 or num_samples % num_coarse:
+    raise ValueError(f"march_lean: num_samples {num_samples} is not a "
+                     f"multiple of the {num_coarse} coarse bins")
+  smem = 4 * ROW * LEAN_RAYS * (LEAN_STAGE + num_coarse)
+  if smem > SMEM_LIMIT:
+    most = SMEM_LIMIT // (4 * ROW * LEAN_RAYS) - LEAN_STAGE
+    raise ValueError(f"march_lean: {num_coarse} coarse bins need {smem} "
+                     f"bytes of shared memory a block, over the "
+                     f"{SMEM_LIMIT} a block may use (at most {most} bins)")
+  return {"lanes": LEAN_LANES, "rays_per_block": LEAN_RAYS,
+          "threads": LEAN_LANES * LEAN_RAYS,
+          "blocks": -(-batch // LEAN_RAYS), "stage_steps": LEAN_STAGE,
+          "smem_bytes": smem}
+
+
+# A jitter's maker vouches for it under this attribute: (bins, num_samples).
+_JITTER_MARK = "_march_jitter_bins"
+
+
+def _jitter_shape(who, jitter, num_samples):
   if jitter.dim() != 1 or jitter.dtype not in (torch.int32, torch.int64):
-    raise ValueError("march_lean: jitter must be a 1-D integer tensor")
+    raise ValueError(f"{who}: jitter must be a 1-D integer tensor")
   nc = jitter.shape[0]
   if nc == 0 or num_samples % nc:
-    raise ValueError(f"march_lean: num_samples {num_samples} is not a "
-                     f"multiple of the {nc} coarse bins")
+    raise ValueError(f"{who}: num_samples {num_samples} is not a multiple "
+                     f"of the {nc} coarse bins")
+  return nc
+
+
+def check_jitter(jitter, num_samples):
+  """Raise ValueError unless the host tensor `jitter` puts bin c's index in
+  [c * num_path, (c + 1) * num_path), num_path = num_samples / bins. It
+  reads the values, so it runs where they are: on the host."""
+  if jitter.device.type != "cpu":
+    raise ValueError(f"check_jitter reads the jitter's values: pass it on "
+                     f"the host, not on {jitter.device}")
+  nc = _jitter_shape("march_lean", jitter, num_samples)
   per = num_samples // nc
-  lo = torch.arange(nc, device=jitter.device) * per
+  lo = torch.arange(nc) * per
   if not bool(((jitter >= lo) & (jitter < lo + per)).all()):
     raise ValueError("march_lean: jitter[c] must lie in "
                      "[c*num_path, (c+1)*num_path)")
+
+
+def mark_jitter(jitter, num_samples):
+  """Vouch that `jitter` is valid for num_samples steps (drawn so by its
+  maker, as nerf.make_jitter draws it), so that march_lean takes it on the
+  card without reading it back. Returns `jitter`."""
+  setattr(jitter, _JITTER_MARK, (jitter.shape[0], num_samples))
+  return jitter
+
+
+def _check_inputs(spec, data, origins, directions, num_samples, jitter):
+  """K1's launch geometry for these inputs; raises ValueError unless K1
+  can take them. Reads no value on the card: a host jitter is checked
+  here, a jitter on the card must carry its maker's mark (mark_jitter)."""
+  check_march_inputs("march_lean", spec, data, origins, directions)
+  nc = _jitter_shape("march_lean", jitter, num_samples)
+  if jitter.device.type == "cpu":
+    check_jitter(jitter, num_samples)
+  elif getattr(jitter, _JITTER_MARK, None) != (nc, num_samples):
+    raise ValueError(f"march_lean: a jitter on {jitter.device} must come "
+                     f"from nerf.make_jitter (or mark_jitter) for "
+                     f"{num_samples} steps, or be passed on the host, where "
+                     f"it is checked: reading it back here would stall the "
+                     f"stream")
+  return lean_launch_geometry(origins.shape[0], num_samples, nc)
 
 
 def march_lean(spec, data, origins, directions, near, step_size, num_samples,
@@ -80,7 +150,10 @@ def march_lean(spec, data, origins, directions, near, step_size, num_samples,
     near: distance to start marching at.
     step_size: Euler step h.
     num_samples: S, path vertices per ray.
-    jitter: [Nc] integer indices, jitter[c] in [c*S/Nc, (c+1)*S/Nc).
+    jitter: [Nc] integer indices, jitter[c] in [c*S/Nc, (c+1)*S/Nc): a
+      host tensor (checked here) or, for CUDA rays, one from
+      nerf.make_jitter on the card. The call reads nothing back from the
+      card.
 
   Returns:
     (pos [B, S, 3], unit dirs [B, S, 3], dist [B, S],
@@ -92,19 +165,22 @@ def march_lean(spec, data, origins, directions, near, step_size, num_samples,
                                 step_size, num_samples, jitter)
   if dev.type != "cuda":
     raise ValueError(f"march_lean runs on CUDA or CPU tensors, not {dev}")
-  _check_inputs(spec, data, origins, directions, num_samples, jitter)
-  lib = _library()
+  geom = _check_inputs(spec, data, origins, directions, num_samples, jitter)
   batch, nc = origins.shape[0], jitter.shape[0]
-  dense = torch.empty((batch, num_samples, 7), dtype=torch.float32, device=dev)
-  sub = torch.empty((batch, nc, 7), dtype=torch.float32, device=dev)
-  jit32 = jitter.to(device=dev, dtype=torch.int32).contiguous()
+  lib = _library()
+  dense = torch.empty((batch, num_samples, ROW), dtype=torch.float32,
+                      device=dev)
+  sub = torch.empty((batch, nc, ROW), dtype=torch.float32, device=dev)
+  jit32 = jitter.to(device=dev, dtype=torch.int32,
+                    non_blocking=True).contiguous()
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.march_lean_launch(
         origins.data_ptr(), directions.data_ptr(), data.data_ptr(),
         jit32.data_ptr(), dense.data_ptr(), sub.data_ptr(), batch,
         num_samples, nc, *spec.ndim, near, step_size, *spec.nmin,
-        *spec.ndelta, stream)
+        *spec.ndelta, geom["rays_per_block"], geom["threads"],
+        geom["smem_bytes"], stream)
   if err != 0:
     raise RuntimeError(f"march_lean: kernel launch failed with CUDA error "
                        f"{err}")
@@ -122,9 +198,18 @@ def _library():
   fn = lib.march_lean_launch
   if fn.restype is not ctypes.c_int or not fn.argtypes:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 6 + [ci] * 6 + [cf] * 8 + [vp]
+    fn.argtypes = [vp] * 6 + [ci] * 6 + [cf] * 8 + [ci] * 3 + [vp]
     fn.restype = ci
   return lib
+
+
+# K2's launch geometry (csrc/march_so3.cu): a cluster of SO3_CLUSTER CTAs
+# marches SO3_RAYS rays, each CTA holding the columns
+# [rank * 64, rank * 64 + 64) of hidden layers 1-3 of the head padded to
+# width SO3_PAD_WIDTH and SO3_PAD_IN PE features, and the first hidden
+# layer and the output layer whole; 8 lanes a ray, a warp 4 rays.
+SO3_CLUSTER, SO3_RAYS, SO3_THREADS = 2, 16, 128
+SO3_PAD_WIDTH, SO3_PAD_IN, SO3_DEG_LIMIT = 128, 60, 10
 
 
 def so3_window(alpha, max_deg):
@@ -147,15 +232,6 @@ def so3_refine_fn(so3_params, alpha, max_deg):
   return refine
 
 
-def pack_so3(so3_params):
-  """Flat input-major weight pack K2 and K3 read: W0t b0 ... Woutt bout."""
-  parts = []
-  for i in range(0, len(so3_params), 2):
-    parts += [so3_params[i].detach().t().reshape(-1),
-              so3_params[i + 1].detach().reshape(-1)]
-  return torch.cat(parts).contiguous()
-
-
 def so3_width(so3_params, max_deg):
   """Width of the so3 MLP; raises unless it is the shape K2 supports."""
   if len(so3_params) != 10:
@@ -169,9 +245,9 @@ def so3_width(so3_params, max_deg):
     if tuple(p.shape) != want or p.dtype != torch.float32:
       raise ValueError(f"so3 param {i}: {tuple(p.shape)} {p.dtype}, "
                        f"expected {want} float32")
-  if width > 128 or max_deg > 10 or max_deg < 1:
-    raise ValueError(f"K2 takes width <= 128 and 1 <= max_deg <= 10, got "
-                     f"{width} and {max_deg}")
+  if width > SO3_PAD_WIDTH or not 1 <= max_deg <= SO3_DEG_LIMIT:
+    raise ValueError(f"K2 takes width <= {SO3_PAD_WIDTH} and 1 <= max_deg "
+                     f"<= {SO3_DEG_LIMIT}, got {width} and {max_deg}")
   return width
 
 
@@ -189,6 +265,47 @@ def march_full_reference(spec, data, origins, directions, near, step_size,
   return torch.cat([pos, dirs, dist[..., None], n, g], dim=-1)
 
 
+def so3_launch_geometry(batch, width, max_deg):
+  """K2's launch for `batch` rays and a head of `width` at PE degree
+  max_deg: cluster size, rays a cluster, clusters, CTAs, threads, dynamic
+  shared bytes a CTA, each rank's columns [lo, hi) of the padded width in
+  hidden layers 1-3 (`columns`), and the layers every rank holds whole
+  (`whole`: the first hidden layer and the output layer).
+
+  Raises ValueError, naming the limit, for a shape K2 does not take.
+  """
+  if batch < 1:
+    raise ValueError(f"march_full: batch must be at least 1, got {batch}")
+  if not 1 <= width <= SO3_PAD_WIDTH:
+    raise ValueError(f"K2 takes a head of width 1 to {SO3_PAD_WIDTH}, got "
+                     f"{width}")
+  if not 1 <= max_deg <= SO3_DEG_LIMIT:
+    raise ValueError(f"K2 takes 1 <= max_deg <= {SO3_DEG_LIMIT}, got "
+                     f"{max_deg}")
+  cols = SO3_PAD_WIDTH // SO3_CLUSTER
+  w, i, r = SO3_PAD_WIDTH, SO3_PAD_IN, SO3_RAYS
+  floats = (
+      i * w                         # W0, whole
+      + (2 * w + (w + i)) * cols    # W1..W3, this rank's columns
+      + w + 3 * cols                # b0 whole, b1..b3's columns
+      + 4 * w + 4                   # the output layer, whole
+      + (i + 3 * w) * (r + 4)       # PE features, three activation
+                                    # buffers (rows of r rays padded by 4)
+      + 16                          # window
+      + 2 * 2 * (SO3_THREADS // 32))  # two mbarriers a warp
+  smem = 4 * floats
+  if smem > SMEM_LIMIT:
+    raise ValueError(f"K2 needs {smem} bytes of shared memory a CTA, over "
+                     f"the {SMEM_LIMIT} a block may use")
+  clusters = -(-batch // SO3_RAYS)
+  return {"cluster": SO3_CLUSTER, "rays_per_cluster": SO3_RAYS,
+          "clusters": clusters, "ctas": SO3_CLUSTER * clusters,
+          "threads": SO3_THREADS, "smem_bytes": smem,
+          "columns": [(k * cols, (k + 1) * cols)
+                      for k in range(SO3_CLUSTER)],
+          "whole": ["Dense_0", "Dense_out"]}
+
+
 def march_full(spec, data, origins, directions, near, step_size, num_samples,
                so3_params, alpha, max_deg=10):
   """The 'all'-stage forward march with the so3-refined gradient (K2).
@@ -197,14 +314,16 @@ def march_full(spec, data, origins, directions, near, step_size, num_samples,
     spec, data, origins, directions, near, step_size, num_samples: as
       march_lean.
     so3_params: the so3 MLP's [W_0, b_0, ..., W_out, b_out]
-      (ops/mlp.So3MLP.params()), float32 on the device of `origins`.
+      (ops/mlp.So3MLP.params()), float32 on the device of `origins`; K2
+      reads them in place.
     alpha: annealing progress (float or 0-d tensor); the PE window runs
       at alpha * max_deg.
     max_deg: PE degrees (the MLP takes 6 * max_deg inputs).
 
   Returns:
     [B, S, 11] float32 trajectory: pos 0:3, raw dir 3:6, arclength 6,
-    n 7, grad n 8:11, each the state before that step's update.
+    n 7, grad n 8:11, each the state before that step's update. The call
+    reads nothing back from the card.
   """
   dev = origins.device
   if dev.type == "cpu":
@@ -218,21 +337,25 @@ def march_full(spec, data, origins, directions, near, step_size, num_samples,
   for p in so3_params:
     if p.device != dev:
       raise ValueError(f"march_full: so3 params on {p.device}, rays on {dev}")
-  lib = _so3_library()
   batch = origins.shape[0]
-  wpack = pack_so3(so3_params)
-  window = so3_window(torch.as_tensor(alpha, dtype=torch.float32,
-                                      device=dev), max_deg).detach()
-  window = window.contiguous()
+  geom = so3_launch_geometry(batch, width, max_deg)
+  lib = _so3_library()
+  params = [p.detach().contiguous() for p in so3_params]
+  if torch.is_tensor(alpha):
+    alpha_t = alpha.to(device=dev, dtype=torch.float32, non_blocking=True)
+  else:
+    alpha_t = torch.full((), alpha, dtype=torch.float32, device=dev)
+  window = so3_window(alpha_t, max_deg).detach().contiguous()
   traj = torch.empty((batch, num_samples, 11), dtype=torch.float32,
                      device=dev)
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.march_so3_launch(
         origins.data_ptr(), directions.data_ptr(), data.data_ptr(),
-        wpack.data_ptr(), window.data_ptr(), traj.data_ptr(), batch,
-        num_samples, max_deg, width, *spec.ndim, near, step_size,
-        *spec.nmin, *spec.ndelta, stream)
+        *[p.data_ptr() for p in params], window.data_ptr(), traj.data_ptr(),
+        batch, num_samples, max_deg, width, *spec.ndim, near, step_size,
+        *spec.nmin, *spec.ndelta, geom["cluster"], geom["rays_per_cluster"],
+        geom["ctas"], geom["threads"], geom["smem_bytes"], stream)
   if err != 0:
     raise RuntimeError(f"march_full: kernel launch failed with CUDA error "
                        f"{err}")
@@ -254,6 +377,6 @@ def _so3_library():
   fn = lib.march_so3_launch
   if fn.restype is not ctypes.c_int or not fn.argtypes:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 6 + [ci] * 7 + [cf] * 8 + [vp]
+    fn.argtypes = [vp] * 15 + [ci] * 7 + [cf] * 8 + [ci] * 5 + [vp]
     fn.restype = ci
   return lib

@@ -435,3 +435,47 @@ def test_k3_packs_and_sums_give_the_head_gradients(width):
   for i, (gr, w) in enumerate(zip(got, want[1:])):
     assert gr.shape == w.shape, i
     _assert_k3(gr, w, f"so3 param {i}")
+
+
+# K2's launch geometry (ops/march_kernel.so3_launch_geometry): the ship
+# batch (1024 x 768), the self-check's (256 x 192), glass's (1024 x 1536)
+# and ragged batches; the head widths and PE degrees K2 takes.
+@pytest.mark.parametrize("batch", [1024, 256, 1, 7, 257, 1000])
+@pytest.mark.parametrize("width", [32, 64, 128])
+@pytest.mark.parametrize("max_deg", [1, 4, 10])
+def test_so3_geometry_covers_rays_and_weights_once(batch, width, max_deg):
+  g = t_mk.so3_launch_geometry(batch, width, max_deg)
+  per, c = g["rays_per_cluster"], g["cluster"]
+  assert g["ctas"] == c * g["clusters"] and g["threads"] == 8 * per
+  covered = np.zeros(batch, np.int64)
+  for k in range(g["clusters"]):
+    rays = np.arange(k * per, min((k + 1) * per, batch))
+    assert rays.size > 0, f"cluster {k} has no ray"
+    covered[rays] += 1
+  assert (covered == 1).all()
+  assert g["smem_bytes"] <= t_mk.SMEM_LIMIT == 232448
+  # Each rank keeps the input-major columns [lo, hi) of the padded head's
+  # layers 1-3: every element of their weights and biases belongs to
+  # exactly one rank. Layer 0 and the output layer are kept whole by every
+  # rank.
+  in_dim = 6 * max_deg
+  shapes = [(width, width), (width,), (width, width), (width,),
+            (width, width + in_dim), (width,)]
+  owners = [np.zeros(s, np.int64) for s in shapes]
+  for lo, hi in g["columns"]:
+    assert 0 <= lo < hi <= t_mk.SO3_PAD_WIDTH
+    for o in owners:
+      o[lo:hi] += 1  # nn.Linear layout: a row a column of the head
+  assert all((o == 1).all() for o in owners)
+  assert sum(hi - lo for lo, hi in g["columns"]) == t_mk.SO3_PAD_WIDTH
+  assert g["whole"] == ["Dense_0", "Dense_out"]
+
+
+def test_so3_geometry_names_its_limits():
+  with pytest.raises(ValueError, match="at least 1"):
+    t_mk.so3_launch_geometry(0, 128, 10)
+  with pytest.raises(ValueError, match="128"):
+    t_mk.so3_launch_geometry(1024, 129, 10)
+  for deg in (0, 11):
+    with pytest.raises(ValueError, match="max_deg <= 10"):
+      t_mk.so3_launch_geometry(1024, 128, deg)

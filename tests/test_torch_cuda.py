@@ -63,10 +63,14 @@ def _march_inputs(nrays, n=64, seed=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nrays", [256, 100])
+@pytest.mark.parametrize("nrays", [256, 100, 1, 1000, 1024, 8192])
 def test_cuda_kernel_matches_plain_version(cuda_device, nrays):
-  spec, *arrays = _march_inputs(nrays)
-  data, o, d, jitter = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+  """K1 at the blocks' ragged edge (1, 100, 1000 rays: 8 a block) and at
+  the radiance batch's and a render chunk's counts. The jitter stays on
+  the host, where march_lean checks it."""
+  spec, data, o, d, jitter = _march_inputs(nrays)
+  data, o, d = [torch.from_numpy(a).to(cuda_device) for a in (data, o, d)]
+  jitter = torch.from_numpy(jitter)
   before = march_kernel.march_lean.launches
   got = march_kernel.march_lean(spec, data, o, d, NEAR, H, S, jitter)
   torch.cuda.synchronize()
@@ -80,17 +84,42 @@ def test_cuda_kernel_matches_plain_version(cuda_device, nrays):
 
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
-  spec, *arrays = _march_inputs(8, n=8)
-  data, o, d, jitter = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+  spec, data, o, d, jitter = _march_inputs(8, n=8)
+  data, o, d = [torch.from_numpy(a).to(cuda_device) for a in (data, o, d)]
+  jitter = torch.from_numpy(jitter)
   before = march_kernel.march_lean.launches
   for bad in (dict(o=o.double()), dict(d=d.t().contiguous().t()),
-              dict(data=data[:-1]), dict(data=data.cpu())):
-    args = dict(data=data, o=o, d=d)
+              dict(data=data[:-1]), dict(data=data.cpu()),
+              # On the card and not from make_jitter: reading it back to
+              # check it would stall the stream, so it is refused.
+              dict(jitter=jitter.to(cuda_device))):
+    args = dict(data=data, o=o, d=d, jitter=jitter)
     args.update(bad)
     with pytest.raises(ValueError):
       march_kernel.march_lean(spec, args["data"], args["o"], args["d"], NEAR, H,
-                              S, jitter)
+                              S, args["jitter"])
   assert march_kernel.march_lean.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_march_wrappers_do_not_sync(cuda_device):
+  """K1 with a jitter from make_jitter on the card, and K2, read nothing
+  back from the card: they run under the sync debug mode's "error"."""
+  spec, data, o, d, _ = _march_inputs(64)
+  data, o, d = [torch.from_numpy(a).to(cuda_device) for a in (data, o, d)]
+  jitter = nerf.make_jitter(S // NUM_PATH, NUM_PATH,
+                            torch.Generator().manual_seed(0), cuda_device)
+  so3 = _so3_params(cuda_device)
+  march_kernel.march_lean(spec, data, o, d, NEAR, H, S, jitter)
+  march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    march_kernel.march_lean(spec, data, o, d, NEAR, H, S, jitter)
+    march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA)
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  torch.cuda.synchronize()
 
 
 def _so3_params(device, max_deg=10, width=128, std=1e-2, seed=0):
@@ -123,6 +152,33 @@ def test_cuda_so3_march_matches_plain_version(cuda_device, nrays):
   plain = march_kernel.march_lean_reference(spec, data, o, d, NEAR, H, S,
                                             torch.arange(0, S, NUM_PATH))
   assert float((plain[0] - got[..., 0:3]).abs().max()) > 10 * SO3_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrays,width,max_deg", [
+    (1, 128, 10), (7, 128, 10), (257, 128, 10), (1000, 128, 10),
+    (100, 32, 1), (100, 64, 4), (257, 32, 10), (7, 64, 1)])
+def test_cuda_so3_march_ragged_and_narrow(cuda_device, nrays, width,
+                                          max_deg):
+  """K2 at the clusters' ragged edge (16 rays a cluster) and with heads
+  narrower than the 128 columns and 60 inputs it pads to."""
+  spec, data, o, d, _ = _allstage_inputs(cuda_device, nrays)
+  so3 = _so3_params(cuda_device, max_deg=max_deg, width=width)
+  got = march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA,
+                                max_deg)
+  torch.cuda.synchronize()
+  want = march_kernel.march_full_reference(spec, data, o, d, NEAR, H, S, so3,
+                                           ALPHA, max_deg)
+  assert got.shape == (nrays, S, 11)
+  torch.testing.assert_close(got, want, atol=SO3_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_so3_march_is_deterministic(cuda_device):
+  spec, data, o, d, so3 = _allstage_inputs(cuda_device, 257)
+  a = march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA)
+  b = march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA)
+  assert torch.equal(a, b)
 
 
 def _sweep(spec, data, o, d, so3, seed=5):
@@ -241,7 +297,8 @@ def test_cuda_render_matches_cpu(cuda_device):
     model = nerf.construct_nerf(args, ndim, nmin, nmax, values, device=dev,
                                 seed=0)
     with torch.no_grad():
-      ret = model(Rays(*[r.to(dev) for r in rays]), jitter.to(dev))
+      # The jitter stays on the host, where march_lean checks it.
+      ret = model(Rays(*[r.to(dev) for r in rays]), jitter)
     outs.append([[x.cpu() for x in level] for level in ret])
   for g_level, w_level in zip(*outs):
     for g, w in zip(g_level, w_level):

@@ -104,3 +104,74 @@ def test_bad_jitter_is_rejected():
     t_march._check_inputs(tspec, torch.from_numpy(data), torch.from_numpy(o),
                           torch.from_numpy(d), S + 1,
                           torch.arange(0, S, NUM_PATH))
+
+
+# K1's launch geometry (ops/march_kernel.lean_launch_geometry): the shapes
+# the port runs K1 at, the blocks' ragged edge, and the limits.
+GEOMETRY_BATCHES = [1, 7, 257, 1000, 1024, 8192]
+GEOMETRY_SHAPES = [(768, 64), (192, 64), (1536, 64), (32, 8)]
+
+
+@pytest.mark.parametrize("batch", GEOMETRY_BATCHES)
+@pytest.mark.parametrize("steps,bins", GEOMETRY_SHAPES)
+def test_lean_geometry_covers_every_ray_once(batch, steps, bins):
+  g = t_march.lean_launch_geometry(batch, steps, bins)
+  per = g["rays_per_block"]
+  assert g["threads"] == g["lanes"] * per and g["lanes"] == 8
+  # Block b marches rays [b * per, min((b + 1) * per, batch)).
+  covered = np.zeros(batch, np.int64)
+  for b in range(g["blocks"]):
+    rays = np.arange(b * per, min((b + 1) * per, batch))
+    assert rays.size > 0, f"block {b} has no ray"
+    covered[rays] += 1
+  assert (covered == 1).all()
+  assert g["smem_bytes"] == 4 * 7 * per * (g["stage_steps"] + bins)
+  assert g["smem_bytes"] <= t_march.SMEM_LIMIT == 232448
+
+
+def test_lean_geometry_names_its_limits():
+  with pytest.raises(ValueError, match="at least 1"):
+    t_march.lean_launch_geometry(0, 768, 64)
+  with pytest.raises(ValueError, match="multiple"):
+    t_march.lean_launch_geometry(1024, 769, 64)
+  most = t_march.SMEM_LIMIT // (4 * 7 * 8) - 32
+  t_march.lean_launch_geometry(1024, 12 * most, most)
+  with pytest.raises(ValueError, match="232448"):
+    t_march.lean_launch_geometry(1024, 12 * (most + 1), most + 1)
+
+
+def test_host_jitter_validator():
+  # The checks of the wrapper's jitter, on the host, where its values are.
+  good = torch.arange(0, S, NUM_PATH) + torch.tensor(
+      np.random.RandomState(0).randint(0, NUM_PATH, S // NUM_PATH))
+  t_march.check_jitter(good, S)
+  t_march.check_jitter(good.to(torch.int32), S)
+  for bad in (good - 1, good + NUM_PATH, good.flip(0)):
+    with pytest.raises(ValueError, match=r"jitter\[c\]"):
+      t_march.check_jitter(bad, S)
+  with pytest.raises(ValueError, match="multiple"):
+    t_march.check_jitter(good, S + 1)
+  with pytest.raises(ValueError, match="integer"):
+    t_march.check_jitter(good.float(), S)
+  with pytest.raises(ValueError, match="host"):
+    t_march.check_jitter(good.to("meta"), S)
+
+
+def test_device_jitter_needs_its_makers_mark():
+  """A jitter that is not on the host is never read back: the wrapper takes
+  it only with make_jitter's mark for these bins (a meta tensor stands in
+  for one on the card)."""
+  _, tspec, data, o, d, _ = _setup(nrays=4, n=8)
+  args = (tspec, torch.from_numpy(data), torch.from_numpy(o),
+          torch.from_numpy(d), S)
+  on_card = torch.empty(S // NUM_PATH, dtype=torch.int64, device="meta")
+  with pytest.raises(ValueError, match="make_jitter"):
+    t_march._check_inputs(*args, on_card)
+  t_march._check_inputs(*args, t_march.mark_jitter(on_card, S))
+  with pytest.raises(ValueError, match="make_jitter"):
+    t_march._check_inputs(tspec, *args[1:4], 2 * S, on_card)
+  from samplenerfro_torch.models import nerf as t_nerf
+  made = t_nerf.make_jitter(S // NUM_PATH, NUM_PATH,
+                            torch.Generator().manual_seed(0))
+  assert getattr(made, t_march._JITTER_MARK) == (S // NUM_PATH, S)
+  t_march.check_jitter(made, S)
