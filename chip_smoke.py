@@ -1,15 +1,14 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--profile] [--marches]
+    python3 chip_smoke.py [--seed N] [--profile]
 
 --profile adds torch.profiler tables: one K3 call at the ship and at
 glass's shape (its split over its launches), one render chunk and one
 radiance train step with the nn.Linear MLPs and again with the fused MLP
 (K4/K5), and one 'all' train step, each with its total device time.
---marches runs only the forward marches' phase (3b below) and the device
-time of one radiance and one 'all' train step. It calls the march
-wrappers by their common interface only, so the same script, copied into
-an earlier tree, measures that tree's K1 and K2 on the same inputs.
+The march inputs and their digests come from
+samplenerfro_torch.debug.march_parity, which also runs alone, and in an
+earlier checkout, to compare K1 and K2 across trees.
 
 Phases, each of which must pass or the script exits non-zero:
   1. device: a CUDA card is required; prints its name and power limit.
@@ -34,14 +33,16 @@ Phases, each of which must pass or the script exits non-zero:
      grid prefiltered 9/3 on the card.
   3b. forward marches: K1 and K2 at every shape this script runs them at
      (K1: the render's first 8192-ray chunk, the 1024-ray radiance batch,
-     glass's shape, the self-check's 512 rays; K2: the 1024-ray 'all'
-     batch, glass's shape, the self-check's 512 x 768 and 256 x 192): a
-     sha256 digest of the outputs (equal to the parent tree's, bit for
-     bit), the max abs error against the plain version, the call's time
-     (CUDA events) and the kernel's device time alone (torch.profiler),
-     the launch geometry. Then one march_lean and one march_full call
-     under torch.cuda.set_sync_debug_mode("error"): neither may read back
-     from the card.
+     glass's shape, ball's (256^3 grid, 1536 steps) at 1024 and 8192
+     rays, the self-check's 512 rays; K2: the 1024-ray 'all' batch,
+     glass's shape, the self-check's 512 x 768 and 256 x 192): a sha256
+     digest of the outputs, the max abs error against the plain version,
+     held at K1_ATOL or K2_ATOL (the arclength of 1536-step marches
+     relative, as K2's at glass in 4),
+     the call's time (CUDA events) and the kernel's device time alone
+     (torch.profiler), the launch geometry. Then one march_lean and one
+     march_full call under torch.cuda.set_sync_debug_mode("error"):
+     neither may read back from the card.
   4. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes its path gives it, timed beside its bound: K1 at the
      render's first 8192-ray chunk; K2 (so3 march) and K3 (its reverse
@@ -82,7 +83,8 @@ Phases, each of which must pass or the script exits non-zero:
   7. CPU cross-checks: 256 rays of the view rendered on the CPU (the plain
      march) against the card; one 'all' step's loss and so3 gradients on
      128 rays, fp32 MLPs, on the CPU (plain K2 and K3) against the card,
-     with P3's count of the ReLU masks the two set apart;
+     with P3's count of the ReLU masks the two set apart, and the plain
+     versions on the card against both (printed, not a gate);
      one fused radiance step's loss and MLP gradients on 128 rays, fp32,
      on the CPU (plain K1, K4, K5) against the card, the CPU replaying the
      card's paths, samples and the ReLU masks of K4's activations.
@@ -90,17 +92,28 @@ The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
 import argparse
-import hashlib
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 
 from samplenerfro_torch.data import rays as rays_lib
+from samplenerfro_torch.debug.march_parity import GLASS
+from samplenerfro_torch.debug.march_parity import RES
+from samplenerfro_torch.debug.march_parity import SO3_ALPHA
+from samplenerfro_torch.debug.march_parity import TRAIN_FROM
+from samplenerfro_torch.debug.march_parity import card_name
+from samplenerfro_torch.debug.march_parity import cuda_ms
+from samplenerfro_torch.debug.march_parity import glass_inputs
+from samplenerfro_torch.debug.march_parity import march_call
+from samplenerfro_torch.debug.march_parity import march_cases
+from samplenerfro_torch.debug.march_parity import march_report
+from samplenerfro_torch.debug.march_parity import ship_inputs
+from samplenerfro_torch.debug.march_parity import ship_model
+from samplenerfro_torch.debug.march_parity import so3_params_for
+from samplenerfro_torch.debug.march_parity import step_device_us
 from samplenerfro_torch.debug import mlp_rounding
 from samplenerfro_torch.debug import probe_so3_relu
 from samplenerfro_torch.eval import make_render_fn
@@ -110,28 +123,19 @@ from samplenerfro_torch.models import nerf
 from samplenerfro_torch.models.path_sampler import SO3_MAX_DEG
 from samplenerfro_torch.ops import cuda_build
 from samplenerfro_torch.ops import eikonal_vjp
-from samplenerfro_torch.ops import grid as grid_ops
 from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.ops import math as math_ops
-from samplenerfro_torch.ops import mlp as mlp_ops
 from samplenerfro_torch.ops import mlp_kernel
 from samplenerfro_torch.ops import render as render_ops
 from samplenerfro_torch.train import selfcheck
 from samplenerfro_torch.train import step as step_lib
 from samplenerfro_torch.train.loop import annealed_alpha
 from samplenerfro_torch.train.loop import batch_to_device
-from samplenerfro_torch.utils import config as config_lib
-from samplenerfro_torch.utils import grid_io
 from samplenerfro_torch.utils import probes
 from samplenerfro_torch.utils import render as render_lib
 
-SHIP = "configs/tpu/ship_skydome-bkgd_no-partial-reflect_cycles"
 MARCH_KERNEL = "samplenerfro_tpu/ops/pallas/march_kernel.py:248"
 MLP_KERNEL = "samplenerfro_tpu/ops/pallas/mlp_kernel.py"
-GRID_N = 512
-GLASS_N = 384  # configs/tpu/glass.gin: voxelize_uni384_bbox-3.5
-RES = 256
-CAMERA_ANGLE_X = 0.6911112070083618  # the Blender scenes' field of view
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                   # H100 SXM fp32 outside tensor cores
 BF16_TC_FLOPS = 989e12               # H100 SXM dense bf16 tensor cores,
@@ -150,13 +154,18 @@ XCHECK_ATOL = 1e-4
 # in another; the refined gradient differs by ~1e-7 relative a step, and
 # 768 steps carry that forward. Held at K1's 1e-4.
 K2_ATOL = 1e-4
+# The arclength sums |p_s - p_s+1|, whose 3-term sum the plain version
+# rounds in another order: a last-ulp difference in a step's length can
+# move the running sum by an ulp of its value, and over 1536 steps
+# (glass's and ball's marches) these walk past K1_ATOL (K1 at ball's 8192
+# rays: 1.45e-4, with every position bit for bit the plain version's, on
+# NVIDIA H100 80GB HBM3, chip_smoke.py). On marches that long the
+# arclength is held at the tolerance of its largest value.
+LONG_MARCH = 1536
 # K3 against autograd of the plain march: the JAX package's own tolerance
 # for its reverse sweep (tests/test_eikonal_vjp.py:108-111), per tensor:
 # |got - want| <= 2e-4 * max|want| + 2e-3 * |want|.
 K3_ATOL_SCALE, K3_RTOL = 2e-4, 2e-3
-SO3_STD = 1e-2     # so3 output init for the kernel phases (ship: 1e-5)
-SO3_ALPHA = 0.7    # annealing progress for the kernel phases
-TRAIN_FROM = 80000  # the train path's steps continue a run at this step
 N_RADIANCE, N_ALL = 12, 4
 N_ALL_FUSED = 2  # 'all' steps with --mlp_kernel=pallas, which keep nn.Linear
 XCHECK_RAYS = 128
@@ -190,36 +199,6 @@ def log(msg):
   print(msg, flush=True)
 
 
-def camera_rays(res, radius=4.0, theta=0.6, phi=0.35):
-  """Pinhole rays of a camera at `radius` looking at the origin."""
-  eye = radius * np.array([np.cos(theta) * np.cos(phi),
-                           np.sin(theta) * np.cos(phi), np.sin(phi)])
-  fwd = eye / np.linalg.norm(eye)
-  right = np.cross([0.0, 0.0, 1.0], fwd)
-  right /= np.linalg.norm(right)
-  c2w = np.eye(4)
-  c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = (
-      right, np.cross(fwd, right), fwd, eye)
-  focal = 0.5 * res / np.tan(0.5 * CAMERA_ANGLE_X)
-  rays = rays_lib.generate_pinhole_rays(res, res, focal, c2w[None], True)
-  return rays_lib.namedtuple_map(lambda r: r[0], rays)
-
-
-def cuda_ms(fn, reps=5):
-  """Median milliseconds of fn() over `reps` timed runs after one warm-up."""
-  fn()
-  times = []
-  for _ in range(reps):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    times.append(start.elapsed_time(end))
-  return float(np.median(times))
-
-
 def graph_ms(fn, count=100, reps=3):
   """Device milliseconds of one fn(): a CUDA graph of `count` calls, so no
   host time sits between the launches, replayed `reps` times after a
@@ -251,10 +230,7 @@ def device_phase():
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                      "is false)")
-  smi = subprocess.run(
-      ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-      capture_output=True, text=True, timeout=60, check=True)
-  card = smi.stdout.strip().splitlines()[0]
+  card = card_name()
   log(f"card: {card}")
   log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
       f"{torch.cuda.device_count()} device(s)")
@@ -274,26 +250,6 @@ def build_phase():
       if "registers" in line or "spill" in line or "smem" in line:
         log(f"  {name}{' ' + ' '.join(defines) if defines else ''}: "
             f"{line.strip()}")
-
-
-def model_phase(device, seed, grid_n=GRID_N, **overrides):
-  """The ship-configured NerfModel on a prefiltered synthetic blob grid."""
-  args, cfg, bindings = config_lib.load_args(SHIP, [SHIP + ".gin"],
-                                             **overrides)
-  t0 = time.time()
-  values, ndim, nmin, nmax = grid_io.synthetic_blob_grid(grid_n, 1.5, 0.33)
-  grid = grid_ops.gaussian_prefilter(torch.from_numpy(values).to(device),
-                                     tuple(ndim), cfg.kernel_size,
-                                     cfg.kernel_sigma)
-  model = nerf.construct_nerf(args, ndim, nmin, nmax, grid, bindings,
-                              device=device, seed=seed)
-  if device.type == "cuda":
-    torch.cuda.synchronize()
-  log(f"model: {grid_n}^3 grid prefiltered {cfg.kernel_size}/"
-      f"{cfg.kernel_sigma}, {args.net_depth}x{args.net_width} MLPs, "
-      f"{args.num_coarse_samples}x{args.num_path_samples} march steps, "
-      f"{args.num_fine_samples} fine samples: {time.time() - t0:.1f} s")
-  return args, model, (ndim, nmin, nmax, grid, bindings)
 
 
 def distinct_voxels(spec, pos):
@@ -502,23 +458,6 @@ def cross_check_phase(model, view, jitter, rgb_gpu, acc_gpu, n=256):
     raise SystemExit("cpu cross-check failed")
 
 
-def synthetic_batch(args, seed):
-  """A host training batch: `batch_size` random pixels of a camera at a
-  seeded pose, the target 0.5 + 0.5 * viewdir, and a bg_patch_size^2
-  env-ray patch of the same view."""
-  rng = np.random.RandomState(seed)
-  view = camera_rays(RES, theta=rng.uniform(0, 2 * np.pi),
-                     phi=rng.uniform(0.2, 0.8))
-  flat = rays_lib.namedtuple_map(lambda r: r.reshape(-1, r.shape[-1]), view)
-  idx = rng.choice(RES * RES, args.batch_size, replace=False)
-  rays = rays_lib.namedtuple_map(lambda r: r[idx], flat)
-  ps = args.bg_patch_size
-  x, y = rng.randint(0, RES - ps, 2)
-  env = rays_lib.namedtuple_map(lambda r: r[y:y + ps, x:x + ps], view)
-  return {"pixels": (0.5 + 0.5 * rays.viewdirs).astype(np.float32),
-          "rays": rays, "env_rays": env}
-
-
 def so3_kernel_phases(model, batch, seed, profile=False):
   """K2 and K3 against their plain versions on the card, timed, with
   their bounds, on one training batch's rays."""
@@ -528,13 +467,6 @@ def so3_kernel_phases(model, batch, seed, profile=False):
   d = torch.from_numpy(batch["rays"].viewdirs).to(dev)
   return so3_case(ps.spec, ps.grid, ps.near, ps.step_size, ps.num_samples, o,
                   d, seed, "", profile=profile)
-
-
-def so3_params_for(seed, dev):
-  """so3 weights drawn from `seed` at output std SO3_STD."""
-  head = mlp_ops.So3MLP(6 * SO3_MAX_DEG, output_init_std=SO3_STD,
-                        generator=torch.Generator().manual_seed(seed))
-  return [p.detach().to(dev) for p in head.params()]
 
 
 def profile_calls(what, fn):
@@ -670,41 +602,13 @@ def k3_flat(r):
   return [r[0], r[1], r[2]] + list(r[3])
 
 
-def glass_inputs(device, seed):
-  """Glass's march shape (configs/tpu/glass.{yaml,gin}: 64x24 = 1536 march
-  steps, near 0.2, far 14, a 384^3 grid of extent 3.5 prefiltered 5/3) on
-  a synthetic blob, and a 1024-ray batch of a camera at radius 4:
-  (spec, grid, origins, directions, near, step_size, steps, jitter)."""
-  values, ndim, nmin, nmax = grid_io.synthetic_blob_grid(GLASS_N, 3.5, 0.33)
-  spec = grid_ops.GridSpec(ndim, nmin, nmax)
-  vals = grid_ops.gaussian_prefilter(torch.from_numpy(values).to(device),
-                                     tuple(ndim), 5, 3.0)
-  grid = torch.cat([vals, grid_ops.central_difference_grad(spec, vals)],
-                   -1).contiguous()
-  del values, vals
-  near, far, coarse, per = 0.2, 14.0, 64, 24
-  steps = coarse * per
-  step_size = (far - near) / (steps - 1)
-  rng = np.random.RandomState(seed + 3)
-  view = camera_rays(RES, theta=rng.uniform(0, 2 * np.pi),
-                     phi=rng.uniform(0.2, 0.8))
-  idx = rng.choice(RES * RES, 1024, replace=False)
-  flat = rays_lib.namedtuple_map(
-      lambda r: torch.from_numpy(np.ascontiguousarray(
-          r.reshape(-1, r.shape[-1])[idx])).to(device), view)
-  jitter = nerf.make_jitter(coarse, per, torch.Generator().manual_seed(seed),
-                            device)
-  return (spec, grid, flat.origins, flat.viewdirs, near, step_size, steps,
-          jitter)
-
-
 def glass_phase(device, seed, profile=False):
   """K1, K2 and K3 against their plain versions at glass's shape
   (glass_inputs); plain versions not timed."""
   t0 = time.time()
   spec, grid, o, d, near, step_size, steps, jitter = glass_inputs(device,
                                                                   seed)
-  log(f"glass shape: {GLASS_N}^3 grid prefiltered 5/3, 64x24 = {steps} "
+  log(f"glass shape: {GLASS[0]}^3 grid prefiltered 5/3, 64x24 = {steps} "
       f"steps, near {near}, step {step_size:.6f}, 1024 rays "
       f"({time.time() - t0:.1f} s to build)")
   with torch.no_grad():
@@ -716,161 +620,42 @@ def glass_phase(device, seed, profile=False):
   return {"k1_ms": k1["ms"], "k2_ms": k2["ms"], "k3_ms": k3["ms"]}
 
 
-def digest(*tensors):
-  """The first 16 hex digits of the sha256 of the tensors' bytes."""
-  h = hashlib.sha256()
-  for t in tensors:
-    h.update(t.detach().contiguous().cpu().numpy().tobytes())
-  return h.hexdigest()[:16]
-
-
-def _device_us(event, self_only=False):
-  names = (("self_device_time_total", "self_cuda_time_total") if self_only
-           else ("device_time_total", "cuda_time_total"))
-  for name in names:
-    value = getattr(event, name, None)
-    if value is not None:
-      return value
-  raise SystemExit("torch.profiler reports no device time")
-
-
-def step_device_us(prof):
-  """The device time of a profile: its kernels' and copies' own time, as
-  the profiler's table sums it (user annotations on the device's
-  timeline, such as the optimizer's step, span kernels counted already)."""
-  return sum(_device_us(e, self_only=True) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False))
-
-
-def kernel_device_ms(fn, kernel, reps=5, tries=4):
-  """(mean device ms of one launch of the kernel whose name holds
-  `kernel`, its launches the profiler recorded a call): torch.profiler
-  over `reps` calls of fn() after one warm-up. The profiler can drop a
-  kernel's record; the mean is over the records it kept, and a window
-  with none is profiled again, up to `tries` times."""
-  from torch.profiler import ProfilerActivity
-  from torch.profiler import profile as tprofile
-  fn()
-  torch.cuda.synchronize()
-  for _ in range(tries):
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-      for _ in range(reps):
-        fn()
-      torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-      if kernel in e.key and _device_us(e) > 0:
-        total += _device_us(e)
-        count += e.count
-    if count:
-      return total / 1e3 / count, count / reps
-  raise SystemExit(f"torch.profiler saw no {kernel} launch in {tries} "
-                   f"windows of {reps} calls")
-
-
-LEAN_NAMES = ("pos", "dir", "dist", "sub_pos", "sub_dir", "sub_dist")
-
-
-def march_cases(device, seed, model, first, batch_rays, jitter):
-  """Every shape at which this script runs K1 and K2, with its inputs:
-  [(shape, "lean" or "so3", wrapper args)]. The ship chunk (the render's
-  first 8192 rays), the radiance / 'all' batch (1024 rays), glass's shape,
-  and the self-check's (its 128^3 blob, 512 rays of 768 steps; the 'all'
-  arm's 256 rays of 192 steps)."""
-  ps = model.path_sampler
-  ship = (ps.spec, ps.grid)
-  cases = [
-      ("ship chunk", "lean", (*ship, first.origins, first.viewdirs, ps.near,
-                              ps.step_size, ps.num_samples, jitter)),
-      ("radiance batch", "lean", (*ship, batch_rays.origins,
-                                  batch_rays.viewdirs, ps.near, ps.step_size,
-                                  ps.num_samples, jitter)),
-      ("ship 'all' batch", "so3", (*ship, batch_rays.origins,
-                                   batch_rays.viewdirs, ps.near, ps.step_size,
-                                   ps.num_samples,
-                                   so3_params_for(seed, device), SO3_ALPHA,
-                                   SO3_MAX_DEG))]
-  spec, grid, o, d, near, step_size, steps, gjit = glass_inputs(device, seed)
-  cases += [("glass", "lean", (spec, grid, o, d, near, step_size, steps,
-                               gjit)),
-            ("glass", "so3", (spec, grid, o, d, near, step_size, steps,
-                              so3_params_for(seed, device), SO3_ALPHA,
-                              SO3_MAX_DEG))]
-  n = 128
-  spec = grid_ops.GridSpec([n] * 3, [-1.5] * 3, [1.5] * 3)
-  grid = torch.from_numpy(selfcheck._blob_grid3d(spec, n)).to(device)
-  o, d = (torch.from_numpy(a).to(device)
-          for a in selfcheck._center_tile_rays(512))
-  h = (selfcheck.FAR - selfcheck.NEAR) / (768 - 1)
-  rng = np.random.RandomState(11)
-  sjit = torch.from_numpy(np.arange(0, 768, 12) + rng.randint(0, 12, 64))
-  so3 = selfcheck.default_so3_params(device)
-  cases += [("self-check", "lean", (spec, grid, o, d, selfcheck.NEAR, h, 768,
-                                    sjit)),
-            ("self-check", "so3", (spec, grid, o, d, selfcheck.NEAR, h, 768,
-                                   so3, selfcheck.ALPHA, SO3_MAX_DEG)),
-            ("self-check 'all' arm", "so3", (spec, grid, o[:256], d[:256],
-                                             selfcheck.NEAR, h, 192, so3,
-                                             selfcheck.ALPHA, SO3_MAX_DEG))]
-  return cases
-
-
-def _march_call(kind):
+def march_geometry(kind, args):
+  """The launch geometry of a march call (K1 or K2)."""
   if kind == "lean":
-    return (march_kernel.march_lean, march_kernel.march_lean_reference,
-            "march_lean_kernel")
-  return (march_kernel.march_full, march_kernel.march_full_reference,
-          "march_so3_kernel")
-
-
-def _geometry(kind, args):
-  """The launch geometry of this call, where the wrappers expose it."""
-  if kind == "lean" and hasattr(march_kernel, "lean_launch_geometry"):
     return march_kernel.lean_launch_geometry(args[2].shape[0], args[6],
                                              args[7].shape[0])
-  if kind == "so3" and hasattr(march_kernel, "so3_launch_geometry"):
-    return march_kernel.so3_launch_geometry(args[2].shape[0],
-                                            args[7][0].shape[0], args[9])
-  return "not exposed"
+  return march_kernel.so3_launch_geometry(args[2].shape[0],
+                                          args[7][0].shape[0], args[9])
 
 
 def marches_phase(cases):
-  """K1 and K2 at every shape of `cases`: the sha256 digest of the
-  wrapper's outputs (and of a sample of its inputs), the max abs error per
-  channel against the plain version, the call's time (CUDA events, host
-  call included) and the kernel's device time alone (torch.profiler).
-  Returns {(kind, shape): (call ms, kernel ms)}."""
+  """K1 and K2 at every shape of `cases` (march_parity.march_report: the
+  digests, the max abs error per output or channel, the call's time and
+  the kernel's device time), each held against its plain version: K1 at
+  K1_ATOL, K2 at K2_ATOL; on marches of LONG_MARCH steps the arclength
+  (K1's dist and sub_dist, K2's channel 6) at that tolerance of its
+  largest value, as so3_case holds K2's at glass. Returns {(kind, shape):
+  (call ms, kernel ms)}."""
   times = {}
   for shape, kind, args in cases:
-    fn, ref, kernel = _march_call(kind)
-    with torch.no_grad():
-      got = fn(*args)
-      torch.cuda.synchronize()
-      want = ref(*args)
-      if kind == "lean":
-        per = [max((a - b).abs().reshape(-1, a.shape[-1] if a.dim() == 3
-                                         else 1).amax(dim=0).tolist())
-               for a, b in zip(got, want)]
-        outs = got
-      else:
-        per = (got - want).abs().reshape(-1, 11).amax(dim=0).tolist()
-        outs = (got,)
-      sample = [args[1][::997], args[2], args[3]]
-      log(f"  march {kind} {shape} ({args[2].shape[0]} rays x {args[6]} "
-          f"steps): output digest {digest(*outs)}, inputs {digest(*sample)};"
-          f" max abs err per {'output' if kind == 'lean' else 'channel'} "
-          f"{per}")
-      if not all(np.isfinite(per)):
-        raise SystemExit(f"march {kind} {shape}: non-finite output")
-      del got, want, outs
-      call_ms = cuda_ms(lambda: fn(*args))
-      kern_ms, launches = kernel_device_ms(lambda: fn(*args), kernel)
-    log(f"  march {kind} {shape}: call {call_ms:.4f} ms, kernel "
-        f"{kern_ms:.4f} ms a launch (profiler: {launches:g} launches a "
-        f"call recorded); geometry {_geometry(kind, args)}")
-    times[(kind, shape)] = (call_ms, kern_ms)
+    report = march_report(shape, kind, args)
+    err = report["err"]
+    scale = (max(1.0, report["dist_max"]) if args[6] >= LONG_MARCH
+             else 1.0)
+    if kind == "lean":
+      dist = (2, 5)
+      worst, atol = max(e / scale if i in dist else e
+                        for i, e in enumerate(err)), K1_ATOL
+    else:
+      worst, atol = max(max(err[:6] + err[7:]), err[6] / scale), K2_ATOL
+    log(f"  march {kind} {shape}: worst error {worst:.3e} against "
+        f"{atol} (arclength over {scale:.4f}); geometry "
+        f"{march_geometry(kind, args)}")
+    if not (np.all(np.isfinite(err)) and worst <= atol):
+      raise SystemExit(f"march {kind} {shape} disagrees with its plain "
+                       f"version: {err} against {atol}")
+    times[(kind, shape)] = (report["call_ms"], report["kernel_ms"])
   return times
 
 
@@ -881,7 +666,7 @@ def sync_phase(cases):
   synced = []
   for want_kind in ("lean", "so3"):
     shape, kind, args = next(c for c in cases if c[1] == want_kind)
-    fn = _march_call(kind)[0]
+    fn = march_call(kind)[0]
     with torch.no_grad():
       fn(*args)
       torch.cuda.synchronize()
@@ -1345,8 +1130,11 @@ def _grads_finite(model):
   return ok
 
 
-def profile_train_step(model, args, host, device, step, generator):
+def profile_train_step(model, args, host, device, step, generators):
   """Device time by kernel for one train step (torch.profiler)."""
+  generator, jitter_gen = generators
+  jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
+                            jitter_gen)
   from torch.profiler import ProfilerActivity
   from torch.profiler import profile as tprofile
   optimizer, _, _ = step_lib.create_optimizer(model, args)
@@ -1354,7 +1142,8 @@ def profile_train_step(model, args, host, device, step, generator):
   torch.cuda.synchronize()
   with tprofile(activities=[ProfilerActivity.CPU,
                             ProfilerActivity.CUDA]) as prof:
-    step_lib.train_step(model, optimizer, batch, step, args, generator)
+    step_lib.train_step(model, optimizer, batch, step, args, generator,
+                        jitter)
     torch.cuda.synchronize()
   total = step_device_us(prof)
   log(f"profile of one {args.stage} train step: {total / 1e3:.3f} ms of "
@@ -1363,9 +1152,18 @@ def profile_train_step(model, args, host, device, step, generator):
   return total / 1e3
 
 
-def _train_steps(model, args, host, device, first_step, n, generator):
-  """n train steps on the repeated batch; returns (losses, steps/s after
-  the first, all finite, [so3 gradient norm per step])."""
+def train_generators(device, seed):
+  """(noise generator on the card, jitter generator on the host), both
+  seeded, as train.loop keeps them."""
+  return (torch.Generator(device=device).manual_seed(seed),
+          torch.Generator().manual_seed(seed))
+
+
+def _train_steps(model, args, host, device, first_step, n, generators):
+  """n train steps on the repeated batch, the jitter of each drawn from
+  the host generator of `generators` (train_generators); returns (losses,
+  steps/s after the first, all finite, [so3 gradient norm per step])."""
+  generator, jitter_gen = generators
   optimizer, _, _ = step_lib.create_optimizer(model, args)
   losses, so3_norms, finite, t0 = [], [], None, None
   for i in range(n):
@@ -1374,8 +1172,10 @@ def _train_steps(model, args, host, device, first_step, n, generator):
       torch.cuda.synchronize()
       t0 = time.time()
     batch = batch_to_device(host, annealed_alpha(step, args), device)
+    jitter = nerf.make_jitter(args.num_coarse_samples,
+                              args.num_path_samples, jitter_gen)
     stats = step_lib.train_step(model, optimizer, batch, step, args,
-                                generator)
+                                generator, jitter)
     ok = _grads_finite(model) & torch.isfinite(stats.loss)
     finite = ok if finite is None else finite & ok
     losses.append(stats.loss)
@@ -1392,7 +1192,7 @@ def train_path_phase(args, scene, device, seed, host, profile=False):
   """Radiance then 'all' steps through train.step.train_step; returns the
   launch counts of K1, K2 and K3 during them and the 'all' model."""
   ndim, nmin, nmax, grid, bindings = scene
-  gen = torch.Generator(device=device).manual_seed(seed)
+  gen = train_generators(device, seed)
   rad_args = argparse.Namespace(**{**vars(args), "stage": "radiance"})
   all_args = argparse.Namespace(**{**vars(args), "stage": "all"})
   rad = nerf.construct_nerf(rad_args, ndim, nmin, nmax, grid, bindings,
@@ -1443,7 +1243,7 @@ def fused_train_phase(args, scene, device, seed, host, xla_rate,
   keeps nn.Linear. Returns the K4 and K5 launches of the radiance steps
   and the radiance model."""
   ndim, nmin, nmax, grid, bindings = scene
-  gen = torch.Generator(device=device).manual_seed(seed)
+  gen = train_generators(device, seed)
   fargs = argparse.Namespace(**{**vars(args), "stage": "radiance",
                                 "mlp_kernel": "pallas"})
   rad = nerf.construct_nerf(fargs, ndim, nmin, nmax, grid, bindings,
@@ -1488,26 +1288,6 @@ def fused_train_phase(args, scene, device, seed, host, xla_rate,
   return counts, rad, fargs
 
 
-def step_phase(args, scene, device, seed, host):
-  """One radiance and one 'all' train step: device time (torch.profiler,
-  every kernel) after two untimed steps, and steps/s over 5 more."""
-  ndim, nmin, nmax, grid, bindings = scene
-  gen = torch.Generator(device=device).manual_seed(seed)
-  for stage in ("radiance", "all"):
-    sargs = argparse.Namespace(**{**vars(args), "stage": stage})
-    model = nerf.construct_nerf(sargs, ndim, nmin, nmax, grid, bindings,
-                                device=device, seed=seed)
-    _train_steps(model, sargs, host, device, TRAIN_FROM + 1, 2, gen)
-    device_ms = profile_train_step(model, sargs, host, device,
-                                   TRAIN_FROM + 3, gen)
-    _, rate, _, _ = _train_steps(model, sargs, host, device,
-                                 TRAIN_FROM + 4, 6, gen)
-    log(f"{stage} step: {device_ms:.3f} ms of device time, {rate:.3f} "
-        f"steps/s (wall, 5 steps)")
-    del model
-    torch.cuda.empty_cache()
-
-
 def allstep_cross_check(model, args, host, device, seed):
   """One 'all' step's loss and so3 gradients on XCHECK_RAYS rays, fp32
   MLPs, not randomized: the card (K2, K3) against the CPU (plain)."""
@@ -1539,6 +1319,18 @@ def allstep_cross_check(model, args, host, device, seed):
     return float(total.detach()), grads
 
   loss_gpu, g_gpu = run(device)
+  # The plain versions on the card (the plain march, autograd, cuBLAS):
+  # which side of kernels / device a deviation lies on. Not a gate.
+  saved = march_kernel.march_full, eikonal_vjp.march_bwd
+  march_kernel.march_full = march_kernel.march_full_reference
+  eikonal_vjp.march_bwd = (
+      lambda cfg, data, o, d, so3, a, traj, dtraj:
+      eikonal_vjp.march_bwd_reference(cfg, data, o, d, so3, a, dtraj))
+  try:
+    _, g_plain = run(device)
+  finally:
+    march_kernel.march_full, eikonal_vjp.march_bwd = saved
+  paths.pop()
   so3 = [p.detach() for p in model.path_sampler.so3_mlp.params()]
   card_pre = [x.cpu() for x in probes.so3_preacts(
       paths[0][0].reshape(-1, 3).contiguous(), so3, alpha)]
@@ -1551,6 +1343,11 @@ def allstep_cross_check(model, args, host, device, seed):
   log(f"all-step cpu cross-check: {XCHECK_RAYS} rays in {secs:.1f} s, loss "
       f"{loss_gpu:.8f} vs {loss_cpu:.8f} (rel {rel:.3e}, tolerance "
       f"{XCHECK_LOSS_RTOL}), so3 grads at {worst:.3f} of the K3 tolerance")
+  log(f"  the plain versions on the card: so3 grads at "
+      f"{_worst_against(g_gpu, g_plain, K3_ATOL_SCALE, K3_RTOL):.3f} of the "
+      f"K3 tolerance from the kernels', "
+      f"{_worst_against(g_plain, g_cpu, K3_ATOL_SCALE, K3_RTOL):.3f} from "
+      f"the CPU's")
   layers, card_pre, flipped = cross_check_flips(
       paths[0][1].cpu(), card_pre, *paths[1], [p.cpu() for p in so3], alpha)
   n_flips = sum(r["flips"] for r in layers)
@@ -1737,46 +1534,24 @@ def main():
   p.add_argument("--profile", action="store_true",
                  help="print device time by kernel for one render chunk "
                  "and one train step of each stage")
-  p.add_argument("--marches", action="store_true",
-                 help="only the forward marches' phase (K1 and K2 digests, "
-                 "errors and times at every shape, the sync check) and the "
-                 "device time of one radiance and one 'all' step; uses the "
-                 "wrappers' common interface, so it also runs against an "
-                 "earlier tree's package")
   ns = p.parse_args()
 
   t_start = time.time()
   card = device_phase()
   device = torch.device("cuda")
-  if not ns.marches:
-    build_phase()
-    probe_rows = probe_phase(device)
-    selfcheck_phase()
-    probe_rows.append(p3_phase(device))
-    torch.cuda.empty_cache()
-  args, model, scene = model_phase(device, ns.seed)
-  view = camera_rays(RES)
-  jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
-                            torch.Generator().manual_seed(ns.seed), device)
-
-  perm, _ = render_lib.tile_order(RES, RES, render_lib.TILE)
-  first = rays_lib.namedtuple_map(
-      lambda r: torch.from_numpy(
-          r.reshape(-1, r.shape[-1])[perm[:args.chunk]].copy()).to(device),
-      view)
-  host = synthetic_batch(args, ns.seed)
-  batch_rays = batch_to_device(host, 1.0, device)["rays"]
+  build_phase()
+  probe_rows = probe_phase(device)
+  selfcheck_phase()
+  probe_rows.append(p3_phase(device))
+  torch.cuda.empty_cache()
+  args, model, scene = ship_model(device, ns.seed)
+  view, jitter, first, host, batch_rays = ship_inputs(args, ns.seed, device)
   log("forward marches (K1, K2) at every shape:")
   cases = march_cases(device, ns.seed, model, first, batch_rays, jitter)
   times = marches_phase(cases)
   synced = sync_phase(cases)
   del cases
   torch.cuda.empty_cache()
-  if ns.marches:
-    step_phase(args, scene, device, ns.seed, host)
-    log(f"total: {time.time() - t_start:.1f} s")
-    log(f"card: {card}")
-    return 0
   if synced:
     raise SystemExit(f"sync check: {synced}")
   with torch.no_grad():
@@ -1790,6 +1565,8 @@ def main():
     row["glass_device_ms"] = times[(kind, "glass")][1]
   k1["radiance_batch_ms"], k1["radiance_batch_device_ms"] = times[
       ("lean", "radiance batch")]
+  k1["ball_batch_device_ms"] = times[("lean", "ball batch")][1]
+  k1["ball_chunk_device_ms"] = times[("lean", "ball chunk")][1]
   torch.cuda.empty_cache()
   k4, k4_pe, k4_bf16, k5_bf16, k5_fp32 = fused_kernel_phases(
       model, first, batch_rays, jitter, ns.seed)

@@ -85,7 +85,7 @@ def main(argv=None):
                       ns.params_npz)
   gen = torch.Generator().manual_seed(ns.seed)
   jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
-                            gen, device)
+                            gen)
   render_fn = make_render_fn(model, jitter)
 
   out_dir = os.path.join(ns.train_dir, args.stage, "test_preds")

@@ -21,7 +21,6 @@ from torch import nn
 from samplenerfro_torch.models import mlp as mlp_modules
 from samplenerfro_torch.models import path_sampler as ps_module
 from samplenerfro_torch.ops import grid as grid_ops
-from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mlp_kernel as fused_ops
 from samplenerfro_torch.ops import render as render_ops
@@ -36,22 +35,22 @@ def activation(name):
   return fn
 
 
-def make_jitter(num_coarse_samples, num_path_samples, generator=None,
-                device=None):
+def make_jitter(num_coarse_samples, num_path_samples, generator=None):
   """The jittered 1-of-num_path dense index of each coarse bin.
 
   jitter[c] = c*num_path + U{0..num_path-1}, as models/nerf.py:387-392
-  draws it, but from a torch.Generator (drawn on the generator's device).
-  Valid by construction, so it is marked for march_lean, which then takes
-  it on the card without reading it back.
+  draws it, but from a torch.Generator on the host (None: torch's default
+  one). It stays on the host, where march_lean checks it, and goes to the
+  card with the rays without a wait.
   """
-  gen_device = generator.device if generator is not None else None
+  if generator is not None and generator.device.type != "cpu":
+    raise ValueError(f"make_jitter draws on the host: pass a CPU generator, "
+                     f"not one on {generator.device}")
   base = torch.arange(0, num_coarse_samples * num_path_samples,
-                      num_path_samples, device=gen_device)
+                      num_path_samples)
   off = torch.randint(0, num_path_samples, (num_coarse_samples,),
-                      generator=generator, device=gen_device)
-  return march_kernel.mark_jitter((base + off).to(device),
-                                  num_coarse_samples * num_path_samples)
+                      generator=generator)
+  return base + off
 
 
 class NerfModel(nn.Module):
@@ -193,7 +192,8 @@ class NerfModel(nn.Module):
     if sub is not None:
       ray_pos_c, ray_dir_c, ray_dist_c = sub
     else:
-      jitter = jitter.to(device=ray_pos.device, dtype=torch.int64)
+      jitter = jitter.to(device=ray_pos.device, dtype=torch.int64,
+                         non_blocking=True)
       ray_pos_c, ray_dir_c, ray_dist_c = (ray_pos[:, jitter],
                                           ray_dir[:, jitter],
                                           ray_dist[:, jitter])

@@ -85,57 +85,34 @@ def lean_launch_geometry(batch, num_samples, num_coarse):
           "smem_bytes": smem}
 
 
-# A jitter's maker vouches for it under this attribute: (bins, num_samples).
-_JITTER_MARK = "_march_jitter_bins"
-
-
-def _jitter_shape(who, jitter, num_samples):
+def check_jitter(jitter, num_samples):
+  """Raise ValueError unless `jitter` is a 1-D integer host tensor that
+  puts bin c's index in [c * num_path, (c + 1) * num_path), num_path =
+  num_samples / bins; returns the number of bins. It reads the values, so
+  it takes them where they are drawn: on the host (nerf.make_jitter)."""
+  if jitter.device.type != "cpu":
+    raise ValueError(f"march_lean: pass the jitter on the host, where it is "
+                     f"checked, not on {jitter.device}: reading it back from "
+                     f"the card would stall the stream")
   if jitter.dim() != 1 or jitter.dtype not in (torch.int32, torch.int64):
-    raise ValueError(f"{who}: jitter must be a 1-D integer tensor")
+    raise ValueError("march_lean: jitter must be a 1-D integer tensor")
   nc = jitter.shape[0]
   if nc == 0 or num_samples % nc:
-    raise ValueError(f"{who}: num_samples {num_samples} is not a multiple "
-                     f"of the {nc} coarse bins")
-  return nc
-
-
-def check_jitter(jitter, num_samples):
-  """Raise ValueError unless the host tensor `jitter` puts bin c's index in
-  [c * num_path, (c + 1) * num_path), num_path = num_samples / bins. It
-  reads the values, so it runs where they are: on the host."""
-  if jitter.device.type != "cpu":
-    raise ValueError(f"check_jitter reads the jitter's values: pass it on "
-                     f"the host, not on {jitter.device}")
-  nc = _jitter_shape("march_lean", jitter, num_samples)
+    raise ValueError(f"march_lean: num_samples {num_samples} is not a "
+                     f"multiple of the {nc} coarse bins")
   per = num_samples // nc
   lo = torch.arange(nc) * per
   if not bool(((jitter >= lo) & (jitter < lo + per)).all()):
     raise ValueError("march_lean: jitter[c] must lie in "
                      "[c*num_path, (c+1)*num_path)")
-
-
-def mark_jitter(jitter, num_samples):
-  """Vouch that `jitter` is valid for num_samples steps (drawn so by its
-  maker, as nerf.make_jitter draws it), so that march_lean takes it on the
-  card without reading it back. Returns `jitter`."""
-  setattr(jitter, _JITTER_MARK, (jitter.shape[0], num_samples))
-  return jitter
+  return nc
 
 
 def _check_inputs(spec, data, origins, directions, num_samples, jitter):
   """K1's launch geometry for these inputs; raises ValueError unless K1
-  can take them. Reads no value on the card: a host jitter is checked
-  here, a jitter on the card must carry its maker's mark (mark_jitter)."""
+  can take them. Reads no value on the card."""
   check_march_inputs("march_lean", spec, data, origins, directions)
-  nc = _jitter_shape("march_lean", jitter, num_samples)
-  if jitter.device.type == "cpu":
-    check_jitter(jitter, num_samples)
-  elif getattr(jitter, _JITTER_MARK, None) != (nc, num_samples):
-    raise ValueError(f"march_lean: a jitter on {jitter.device} must come "
-                     f"from nerf.make_jitter (or mark_jitter) for "
-                     f"{num_samples} steps, or be passed on the host, where "
-                     f"it is checked: reading it back here would stall the "
-                     f"stream")
+  nc = check_jitter(jitter, num_samples)
   return lean_launch_geometry(origins.shape[0], num_samples, nc)
 
 
@@ -150,10 +127,9 @@ def march_lean(spec, data, origins, directions, near, step_size, num_samples,
     near: distance to start marching at.
     step_size: Euler step h.
     num_samples: S, path vertices per ray.
-    jitter: [Nc] integer indices, jitter[c] in [c*S/Nc, (c+1)*S/Nc): a
-      host tensor (checked here) or, for CUDA rays, one from
-      nerf.make_jitter on the card. The call reads nothing back from the
-      card.
+    jitter: [Nc] integer indices on the host, jitter[c] in
+      [c*S/Nc, (c+1)*S/Nc) (nerf.make_jitter); checked there and copied to
+      the card without a wait. The call reads nothing back from the card.
 
   Returns:
     (pos [B, S, 3], unit dirs [B, S, 3], dist [B, S],

@@ -91,6 +91,7 @@ def main(argv=None):
   init_step = checkpoints.restore_checkpoint(stage_dir, model, optimizer) + 1
   dataset.train_it = init_step - 1
   generator = torch.Generator(device=device).manual_seed(NOISE_SEED)
+  jitter_gen = torch.Generator().manual_seed(NOISE_SEED)
 
   val = None
   if args.render_every > 0:
@@ -104,8 +105,10 @@ def main(argv=None):
   for step in range(init_step, args.max_steps + 1):
     batch = batch_to_device(next(dataset), annealed_alpha(step, args),
                             device)
+    jitter = nerf.make_jitter(args.num_coarse_samples,
+                              args.num_path_samples, jitter_gen)
     stats_trace.append(step_lib.train_step(model, optimizer, batch, step,
-                                           args, generator))
+                                           args, generator, jitter))
     if step % args.print_every == 0:
       trace = [s.as_floats() for s in stats_trace]
       avg = lambda name: float(np.mean([getattr(s, name) for s in trace]))
@@ -127,7 +130,7 @@ def main(argv=None):
       val_it += 1
       t0 = time.time()
       jitter = nerf.make_jitter(args.num_coarse_samples,
-                                args.num_path_samples, generator, device)
+                                args.num_path_samples, jitter_gen)
       view = namedtuple_map(lambda r: r[idx], rays)
       rgb, _, _ = render_lib.render_image(
           make_render_fn(model, jitter), view, args.dataset == "llff",

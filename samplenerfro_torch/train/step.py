@@ -225,12 +225,12 @@ def train_step(model, optimizer, batch, step, args, generator=None,
     optimizer: create_optimizer's.
     step: the 1-based training step; its update uses the learning rates
       at count step - 1.
-    jitter: the coarse subsample; None draws it from `generator`, as the
-      JAX model draws it from its per-step key.
+    jitter: the coarse subsample (nerf.make_jitter, on the host), as the
+      JAX model draws it from its per-step key; None draws it from torch's
+      default host generator.
   """
   if jitter is None:
-    jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
-                              generator, batch["pixels"].device)
+    jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples)
   optimizer.zero_grad(set_to_none=True)
   total, stats = loss_fn(model, batch, args, jitter, generator)
   total.backward()

@@ -90,8 +90,8 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
   before = march_kernel.march_lean.launches
   for bad in (dict(o=o.double()), dict(d=d.t().contiguous().t()),
               dict(data=data[:-1]), dict(data=data.cpu()),
-              # On the card and not from make_jitter: reading it back to
-              # check it would stall the stream, so it is refused.
+              # On the card: reading it back to check it would stall the
+              # stream, so it is refused.
               dict(jitter=jitter.to(cuda_device))):
     args = dict(data=data, o=o, d=d, jitter=jitter)
     args.update(bad)
@@ -103,12 +103,12 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_march_wrappers_do_not_sync(cuda_device):
-  """K1 with a jitter from make_jitter on the card, and K2, read nothing
-  back from the card: they run under the sync debug mode's "error"."""
+  """K1 with make_jitter's host jitter, and K2, read nothing back from the
+  card: they run under the sync debug mode's "error"."""
   spec, data, o, d, _ = _march_inputs(64)
   data, o, d = [torch.from_numpy(a).to(cuda_device) for a in (data, o, d)]
   jitter = nerf.make_jitter(S // NUM_PATH, NUM_PATH,
-                            torch.Generator().manual_seed(0), cuda_device)
+                            torch.Generator().manual_seed(0))
   so3 = _so3_params(cuda_device)
   march_kernel.march_lean(spec, data, o, d, NEAR, H, S, jitter)
   march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA)

@@ -9,6 +9,8 @@ frameworks' different rounding of the same fp32 arithmetic.
 The CUDA kernel itself runs only on a card (tests/test_torch_cuda.py).
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -157,21 +159,21 @@ def test_host_jitter_validator():
     t_march.check_jitter(good.to("meta"), S)
 
 
-def test_device_jitter_needs_its_makers_mark():
-  """A jitter that is not on the host is never read back: the wrapper takes
-  it only with make_jitter's mark for these bins (a meta tensor stands in
-  for one on the card)."""
+def test_make_jitter_draws_a_valid_host_jitter():
+  """make_jitter's jitter is on the host and passes the wrapper's check for
+  its bins, which runs there; a jitter on another device is refused before
+  any value is read (a meta tensor stands in for one on the card)."""
   _, tspec, data, o, d, _ = _setup(nrays=4, n=8)
   args = (tspec, torch.from_numpy(data), torch.from_numpy(o),
           torch.from_numpy(d), S)
-  on_card = torch.empty(S // NUM_PATH, dtype=torch.int64, device="meta")
-  with pytest.raises(ValueError, match="make_jitter"):
-    t_march._check_inputs(*args, on_card)
-  t_march._check_inputs(*args, t_march.mark_jitter(on_card, S))
-  with pytest.raises(ValueError, match="make_jitter"):
-    t_march._check_inputs(tspec, *args[1:4], 2 * S, on_card)
   from samplenerfro_torch.models import nerf as t_nerf
   made = t_nerf.make_jitter(S // NUM_PATH, NUM_PATH,
                             torch.Generator().manual_seed(0))
-  assert getattr(made, t_march._JITTER_MARK) == (S // NUM_PATH, S)
-  t_march.check_jitter(made, S)
+  assert made.device.type == "cpu"
+  assert t_march.check_jitter(made, S) == S // NUM_PATH
+  t_march._check_inputs(*args, made)
+  with pytest.raises(ValueError, match="host"):
+    t_march._check_inputs(*args, made.to("meta"))
+  card_gen = types.SimpleNamespace(device=torch.device("cuda"))
+  with pytest.raises(ValueError, match="CPU generator"):
+    t_nerf.make_jitter(S // NUM_PATH, NUM_PATH, card_gen)
