@@ -35,7 +35,8 @@ Phases, each of which must pass or the script exits non-zero:
      (K1: the render's first 8192-ray chunk, the 1024-ray radiance batch,
      glass's shape, ball's (256^3 grid, 1536 steps) at 1024 and 8192
      rays, the self-check's 512 rays; K2: the 1024-ray 'all' batch,
-     glass's shape, the self-check's 512 x 768 and 256 x 192): a sha256
+     glass's shape at 1024 rays and at an 8192-ray render chunk (the
+     real-scene eval's), the self-check's 512 x 768 and 256 x 192): a sha256
      digest of the outputs, the max abs error against the plain version,
      held at K1_ATOL or K2_ATOL (the arclength of 1536-step marches
      relative, as K2's at glass in 4),
@@ -88,17 +89,37 @@ Phases, each of which must pass or the script exits non-zero:
      one fused radiance step's loss and MLP gradients on 128 rays, fp32,
      on the CPU (plain K1, K4, K5) against the card, the CPU replaying the
      card's paths, samples and the ReLU masks of K4's activations.
+  8. real-scene path: glass's shipped configuration (configs/tpu/glass.*:
+     batch 1024 in 16x16 tiles, 128x128 env patch, 64 + 128 samples,
+     64x24 = 1536 march steps, far 14, prefilter 5/3, bf16 training MLPs,
+     the boundary cut) at full width on a synthetic OpenCV capture
+     (debug/real_scene.py: 8 train views, one val, one test, 320x240, an
+     off-centre principal point, a 384^3 blob of extent 3.5 that fills
+     the view), written to a
+     temporary directory, through the entry points: train.loop.main
+     --stage=radiance for 8 steps with one validation render, --stage=all
+     for 4 steps, then eval.main --stage=all on the test view. Losses and
+     so3 gradients must be finite and the so3 gradients non-zero (the
+     capture's object fills the view), the checkpoints written, eval's PSNR and
+     SSIM equal to those of the model train returned rendered here on the
+     same view with the same seeded jitter (eval read the checkpoint), the
+     cut's mask neither all ones nor all zeros over the view, and K1, K2
+     and K3 launched as the steps and chunks imply.
 The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from samplenerfro_torch import eval as eval_lib
+from samplenerfro_torch.data import datasets
 from samplenerfro_torch.data import rays as rays_lib
 from samplenerfro_torch.debug.march_parity import GLASS
 from samplenerfro_torch.debug.march_parity import RES
@@ -116,6 +137,7 @@ from samplenerfro_torch.debug.march_parity import so3_params_for
 from samplenerfro_torch.debug.march_parity import step_device_us
 from samplenerfro_torch.debug import mlp_rounding
 from samplenerfro_torch.debug import probe_so3_relu
+from samplenerfro_torch.debug import real_scene
 from samplenerfro_torch.eval import make_render_fn
 from samplenerfro_torch.models import convert
 from samplenerfro_torch.models import mlp as mlp_modules
@@ -127,10 +149,13 @@ from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mlp_kernel
 from samplenerfro_torch.ops import render as render_ops
+from samplenerfro_torch.train import loop as train_loop
 from samplenerfro_torch.train import selfcheck
 from samplenerfro_torch.train import step as step_lib
 from samplenerfro_torch.train.loop import annealed_alpha
 from samplenerfro_torch.train.loop import batch_to_device
+from samplenerfro_torch.utils import config as config_lib
+from samplenerfro_torch.utils import metrics
 from samplenerfro_torch.utils import probes
 from samplenerfro_torch.utils import render as render_lib
 
@@ -168,6 +193,11 @@ LONG_MARCH = 1536
 K3_ATOL_SCALE, K3_RTOL = 2e-4, 2e-3
 N_RADIANCE, N_ALL = 12, 4
 N_ALL_FUSED = 2  # 'all' steps with --mlp_kernel=pallas, which keep nn.Linear
+# The real-scene path: glass's shipped configuration on a synthetic OpenCV
+# capture of 8 train views (and one val, one test view) of 320x240.
+GLASS_CONFIG = "configs/tpu/glass"
+REAL_W, REAL_H, REAL_TRAIN = 320, 240, 8
+N_REAL_RADIANCE, N_REAL_ALL = 8, 4
 XCHECK_RAYS = 128
 # One 'all' step, card against CPU, fp32 MLPs, not randomized: the loss to
 # 1e-4 relative (K1's and K2's ulps moved through the MLPs), the so3
@@ -1288,6 +1318,166 @@ def fused_train_phase(args, scene, device, seed, host, xla_rate,
   return counts, rad, fargs
 
 
+class StepRecorder:
+  """Wraps step_lib.train_step (what train.loop calls) while entered:
+  after each step, its loss, the so3 head's gradient norm, whether every
+  gradient and the loss are finite, and the host time after a sync."""
+
+  def __init__(self):
+    self.losses, self.so3, self.finite, self.times = [], [], [], []
+
+  def __enter__(self):
+    self.orig = step_lib.train_step
+
+    def recording(model, *args, **kwargs):
+      stats = self.orig(model, *args, **kwargs)
+      grads = [p.grad for p in model.path_sampler.so3_mlp.parameters()
+               if p.grad is not None]
+      self.so3.append(torch.sqrt(sum((g**2).sum() for g in grads))
+                      if grads else None)
+      self.finite.append(_grads_finite(model) & torch.isfinite(stats.loss))
+      self.losses.append(stats.loss)
+      torch.cuda.synchronize()
+      self.times.append(time.time())
+      return stats
+
+    step_lib.train_step = recording
+    return self
+
+  def __exit__(self, *exc):
+    step_lib.train_step = self.orig
+
+  def rate(self):
+    """Steps/s after the first step."""
+    return (len(self.times) - 1) / (self.times[-1] - self.times[0])
+
+
+def _zero_march_counts():
+  march_kernel.march_lean.launches = 0
+  march_kernel.march_full.launches = 0
+  eikonal_vjp.march_bwd.launches = 0
+
+
+def _march_counts():
+  return (march_kernel.march_lean.launches, march_kernel.march_full.launches,
+          eikonal_vjp.march_bwd.launches)
+
+
+def real_scene_phase(device, seed):
+  """Glass's shipped configuration on a synthetic OpenCV capture
+  (debug/real_scene.py: 8 train views of 320x240, an off-centre principal
+  point, a 384^3 blob of extent 3.5 filling the view, in
+  voxelize_uni384_bbox-3.5) through
+  the entry points: `train` radiance (N_REAL_RADIANCE steps and one
+  validation render), `train` all (N_REAL_ALL steps), then `eval` of the
+  all stage's checkpoint. Returns the K1, K2 and K3 launches of each."""
+  t0 = time.time()
+  with tempfile.TemporaryDirectory() as tmp:
+    data = real_scene.write_scene(os.path.join(tmp, "glass"), REAL_W,
+                                  REAL_H, REAL_TRAIN)
+    log(f"real scene: {REAL_TRAIN} train views of {REAL_W}x{REAL_H}, "
+        f"{real_scene.GLASS_GRID} (384^3, extent 3.5), written in "
+        f"{time.time() - t0:.1f} s")
+    common = [f"--data_dir={data}", f"--train_dir={os.path.join(tmp, 'logs')}",
+              f"--config={GLASS_CONFIG}", f"--gin_file={GLASS_CONFIG}.gin",
+              f"--seed={seed}", f"--device={device}"]
+    every = lambda n, render: [f"--max_steps={n}", f"--save_every={n}",
+                               f"--print_every={n}",
+                               f"--render_every={n if render else 0}"]
+    counts = {}
+    _zero_march_counts()
+    with StepRecorder() as rad_rec:
+      rad = train_loop.main(common + ["--stage=radiance"]
+                            + every(N_REAL_RADIANCE, True))
+    counts["radiance"] = _march_counts()
+    cut_box = rad.cut_box
+    del rad
+    _zero_march_counts()
+    with StepRecorder() as all_rec:
+      allm = train_loop.main(common + ["--stage=all"]
+                             + every(N_REAL_ALL, False))
+    counts["all"] = _march_counts()
+    ckpts = {stage: sorted(os.listdir(os.path.join(tmp, "logs", stage)))
+             for stage in ("radiance", "all")}
+    _zero_march_counts()
+    t1 = time.time()
+    res = eval_lib.main(common + ["--stage=all"])
+    eval_secs = time.time() - t1
+    counts["eval"] = _march_counts()
+
+    # The model train returned, rendered here on eval's view with eval's
+    # jitter: eval must have rendered the checkpoint it wrote.
+    args, _, _ = config_lib.load_args(
+        GLASS_CONFIG, [GLASS_CONFIG + ".gin"], [], stage="all")
+    args.data_dir = data
+    rays, images = datasets.load_split(args, "test")
+    view, pixels = datasets.eval_view(args, rays, images, 0)
+    jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
+                              torch.Generator().manual_seed(seed))
+    cut = []
+    orig_cut = nerf.NerfModel._bd_cut_mask
+
+    def recording_cut(model, pos):
+      mask = orig_cut(model, pos)
+      cut.append((mask.sum(), mask.numel()))
+      return mask
+
+    nerf.NerfModel._bd_cut_mask = recording_cut
+    try:
+      torch.cuda.synchronize()
+      t1 = time.time()
+      rgb, _, acc = render_lib.render_image(
+          make_render_fn(allm, jitter), view, False, chunk=args.chunk,
+          device=device)
+      torch.cuda.synchronize()
+      render_secs = time.time() - t1
+    finally:
+      nerf.NerfModel._bd_cut_mask = orig_cut
+  psnr = metrics.compute_psnr(((rgb - pixels)**2).mean())
+  ssim = float(metrics.compute_ssim(rgb, pixels, 1.0))
+  ones = float(sum(c[0] for c in cut))
+  total = sum(c[1] for c in cut)
+  n_rays = view.origins.shape[0] * view.origins.shape[1]
+  n_chunks = -(-n_rays // args.chunk)
+  want = {"radiance": (N_REAL_RADIANCE + n_chunks, 0, 0),
+          "all": (0, N_REAL_ALL, N_REAL_ALL), "eval": (0, n_chunks, 0)}
+  so3 = [float(x) for x in all_rec.so3]
+  losses = ([float(x) for x in rad_rec.losses],
+            [float(x) for x in all_rec.losses])
+  finite = bool(all(bool(f) for f in rad_rec.finite + all_rec.finite))
+  log(f"real-scene path ({GLASS_CONFIG}, {time.time() - t0:.1f} s): "
+      f"radiance {N_REAL_RADIANCE} steps {rad_rec.rate():.3f} steps/s, all "
+      f"{N_REAL_ALL} steps {all_rec.rate():.3f} steps/s (first step of each "
+      f"untimed); eval {eval_secs:.1f} s with its model build; the "
+      f"{view.origins.shape[1]}x{view.origins.shape[0]} test view "
+      f"{n_rays / render_secs:.1f} rays/s ({n_chunks} chunks)")
+  log(f"  radiance losses {losses[0]}")
+  log(f"  all losses {losses[1]}, so3 grad norms {so3}")
+  log(f"  eval: PSNR {res.psnrs}, SSIM {res.ssims}, step {res.step}; the "
+      f"returned model on the same view: PSNR {psnr}, SSIM {ssim}")
+  log(f"  cut box {cut_box}: {ones / total:.4f} of the fine samples kept "
+      f"by the cut; acc mean {float(acc.mean()):.6f}")
+  log(f"  launches K1/K2/K3: radiance {counts['radiance']}, all "
+      f"{counts['all']}, eval {counts['eval']} (expected {want})")
+  log(f"  checkpoints {ckpts}")
+  if not (finite and np.all(np.isfinite(losses[0] + losses[1]))):
+    raise SystemExit("real-scene path: non-finite loss or gradient")
+  if not all(np.isfinite(so3)) or min(so3) <= 0:
+    raise SystemExit("real-scene path: so3 gradients are zero or non-finite")
+  if ckpts != {"radiance": [f"checkpoint_{N_REAL_RADIANCE}"],
+               "all": [f"checkpoint_{N_REAL_ALL}"]}:
+    raise SystemExit(f"real-scene path: checkpoints {ckpts}")
+  if res.step != N_REAL_ALL or res.psnrs != [psnr] or res.ssims != [ssim]:
+    raise SystemExit("real-scene path: eval did not render the trained "
+                     "checkpoint")
+  if not 0 < ones < total:
+    raise SystemExit(f"real-scene path: the cut mask is all "
+                     f"{'ones' if ones else 'zeros'} over the view")
+  if counts != want:
+    raise SystemExit(f"real-scene path: launches {counts}, expected {want}")
+  return counts
+
+
 def allstep_cross_check(model, args, host, device, seed):
   """One 'all' step's loss and so3 gradients on XCHECK_RAYS rays, fp32
   MLPs, not randomized: the card (K2, K3) against the CPU (plain)."""
@@ -1563,6 +1753,7 @@ def main():
                            (k2, "so3", "ship 'all' batch")):
     row["device_ms"] = times[(kind, shape)][1]
     row["glass_device_ms"] = times[(kind, "glass")][1]
+  k2["glass_chunk_device_ms"] = times[("so3", "glass chunk")][1]
   k1["radiance_batch_ms"], k1["radiance_batch_device_ms"] = times[
       ("lean", "radiance batch")]
   k1["ball_batch_device_ms"] = times[("lean", "ball batch")][1]
@@ -1595,6 +1786,12 @@ def main():
                                           device, ns.seed)
   del fused_model
   cross_check_phase(model, view, jitter, rgb, acc)
+  del model
+  torch.cuda.empty_cache()
+  real = real_scene_phase(device, ns.seed)
+  k1["real_scene_launches"] = real["radiance"][0]
+  k2["real_scene_launches"] = real["all"][1] + real["eval"][1]
+  k3["real_scene_launches"] = real["all"][2]
 
   report = probe_rows + [k1, k2, k3, k4, k4_pe, k4_bf16, k5_bf16, k5_fp32]
   log(f"total: {time.time() - t_start:.1f} s")

@@ -1,13 +1,15 @@
-"""Blender scenes: the test split and the training batches.
+"""Blender and OpenCV scenes: the val/test splits and the training batches.
 
-Counterpart of samplenerfro_tpu/data/datasets.py:112-283 for the Blender
-format: transforms_<split>.json + images -> rays and pixels, and the
-training split's `all_images`, `single_image` (with precrop) and `tile`
-batching with the `bg_patch_size` env-ray patch. Batches are drawn on the
-host from an explicit np.random.RandomState, with the same calls in the
-same order as the JAX loader draws them from numpy's global state, and
+Counterpart of samplenerfro_tpu/data/datasets.py:112-283 (the Blender
+format) and :312-357 (OpenCV, the calibrated real scenes): transforms_
+<split>.json + images -> rays and pixels; the test split's central crop of
+OpenCV views (`eval_view`); and the training split's `all_images`,
+`single_image` (with precrop) and `tile` batching with the `bg_patch_size`
+env-ray patch, the JAX base class's for both formats. Batches are drawn on
+the host from an explicit np.random.RandomState, with the same calls in
+the same order as the JAX loader draws them from numpy's global state, and
 are built synchronously (the JAX loader's prefetch thread is not ported).
-The other dataset formats are not ported yet.
+The LLFF, NSVF and Grid formats are not ported yet.
 """
 
 import json
@@ -20,8 +22,8 @@ from samplenerfro_torch.data.rays import namedtuple_map
 
 
 # The dataset formats the port loads; samplenerfro_tpu/data/datasets.py:519
-# (dataset_dict) has opencv, llff, nsvf and grid besides, which wait.
-PORTED = ("blender",)
+# (dataset_dict) has llff, nsvf and grid besides, which wait.
+PORTED = ("blender", "opencv")
 
 
 def check_dataset(args):
@@ -54,6 +56,12 @@ def _downsample(image, factor):
   return blocks.mean(axis=(1, 3), dtype=np.float32)
 
 
+def _composite_white(images, white_bkgd):
+  if white_bkgd:
+    return images[..., :3] * images[..., -1:] + (1.0 - images[..., -1:])
+  return images[..., :3]
+
+
 def load_blender(data_dir, split, factor, use_pixel_centers, white_bkgd,
                  skip_frames=1):
   """Load one split of a Blender scene.
@@ -71,11 +79,7 @@ def load_blender(data_dir, split, factor, use_pixel_centers, white_bkgd,
     image = _load_image(os.path.join(data_dir, frame["file_path"] + ".png"))
     images.append(_downsample(image, factor))
     cams.append(np.array(frame["transform_matrix"], dtype=np.float32))
-  images = np.stack(images, axis=0)
-  if white_bkgd:
-    images = images[..., :3] * images[..., -1:] + (1.0 - images[..., -1:])
-  else:
-    images = images[..., :3]
+  images = _composite_white(np.stack(images, axis=0), white_bkgd)
   h, w = images.shape[1:3]
   focal = 0.5 * w / np.tan(0.5 * float(meta["camera_angle_x"]))
   rays = rays_lib.generate_pinhole_rays(w, h, focal, np.stack(cams, axis=0),
@@ -83,8 +87,80 @@ def load_blender(data_dir, split, factor, use_pixel_centers, white_bkgd,
   return rays, images
 
 
-class BlenderTrain:
-  """Iterator of training batches {"pixels", "rays", "env_rays"}.
+def load_opencv(data_dir, split, use_pixel_centers, white_bkgd,
+                skip_frames=1, eval_train=False):
+  """Load one split of an OpenCV (calibrated real) scene.
+
+  Frames name their image file with its extension; the intrinsics are the
+  meta's `cam_mat`, and the camera looks down +z. eval_train reads the
+  train split whatever `split` says, as samplenerfro_tpu/data/
+  datasets.py:318 does.
+
+  Returns:
+    (rays, images, cam_mat): Rays of [n, h, w, C] float32 numpy fields,
+    [n, h, w, 3] float32 pixels and the 3x3 intrinsics as the json holds
+    them.
+  """
+  if eval_train:
+    split = "train"
+  with open(os.path.join(data_dir, f"transforms_{split}.json")) as fp:
+    meta = json.load(fp)
+  images, cams = [], []
+  for i in range(0, len(meta["frames"]), skip_frames):
+    frame = meta["frames"][i]
+    images.append(_load_image(os.path.join(data_dir, frame["file_path"])))
+    cams.append(np.array(frame["transform_matrix"], dtype=np.float32))
+  images = _composite_white(np.stack(images, axis=0), white_bkgd)
+  h, w = images.shape[1:3]
+  cam_mat = meta["cam_mat"]
+  rays = rays_lib.generate_opencv_rays(w, h, cam_mat, np.stack(cams, axis=0),
+                                       use_pixel_centers)
+  return rays, images, cam_mat
+
+
+def load_split(args, split):
+  """(rays, images) of a split of args.data_dir in args.dataset's format;
+  --eval_train reads the train split instead."""
+  check_dataset(args)
+  if args.dataset == "opencv":
+    if args.factor > 0:
+      raise ValueError(
+          f"Opencv dataset does not support factor, {args.factor} set.")
+    rays, images, _ = load_opencv(args.data_dir, split,
+                                  args.use_pixel_centers, args.white_bkgd,
+                                  args.skip_frames, args.eval_train)
+    return rays, images
+  return load_blender(args.data_dir, "train" if args.eval_train else split,
+                      args.factor, args.use_pixel_centers, args.white_bkgd,
+                      args.skip_frames)
+
+
+def central_crop(h, w, precrop_iters, precrop_frac):
+  """The slice of an OpenCV test view that is rendered and scored
+  (samplenerfro_tpu/data/datasets.py:338-353): the precrop window when
+  precrop_iters > 0, else h//2 - h//2 : h//2 + h//2 (and so for w), which
+  drops the last row (column) of an odd-sized view."""
+  if precrop_iters > 0:
+    dh = int(h // 2 * precrop_frac)
+    dw = int(w // 2 * precrop_frac)
+  else:
+    dh, dw = h // 2, w // 2
+  return np.s_[(h // 2 - dh):(h // 2 + dh), (w // 2 - dw):(w // 2 + dw)]
+
+
+def eval_view(args, rays, images, idx):
+  """(rays [h', w', C], pixels [h', w', 3]) of view idx of a val or test
+  split: OpenCV views centrally cropped, Blender views whole."""
+  sl = np.s_[:, :]
+  if args.dataset == "opencv":
+    sl = central_crop(images.shape[1], images.shape[2], args.precrop_iters,
+                      args.precrop_frac)
+  return namedtuple_map(lambda r: r[idx][sl], rays), images[idx][sl]
+
+
+class TrainBatches:
+  """Iterator of training batches {"pixels", "rays", "env_rays"} of a
+  Blender or OpenCV scene (load_split's train split).
 
   Each batch holds `batch_size` rays with their [batch, 3] pixels, and,
   when `bg_patch_size` > 0, a [p, p] patch of rays of one training image
@@ -94,9 +170,7 @@ class BlenderTrain:
   """
 
   def __init__(self, args, rng):
-    rays, images = load_blender(args.data_dir, "train", args.factor,
-                                args.use_pixel_centers, args.white_bkgd,
-                                args.skip_frames)
+    rays, images = load_split(args, "train")
     self.n_examples, self.h, self.w = images.shape[:3]
     res = self.h * self.w
     self.images = images.reshape(self.n_examples, res, 3)

@@ -1,7 +1,8 @@
 """Ray containers and host-side pinhole camera ray generation.
 
 Copy of samplenerfro_tpu/data/rays.py (Rays, namedtuple_map,
-generate_pinhole_rays): numpy on the host, moved to the device per chunk.
+generate_pinhole_rays, generate_opencv_rays): numpy on the host, moved to
+the device per chunk.
 """
 
 import collections
@@ -50,4 +51,25 @@ def generate_pinhole_rays(w, h, focal, camtoworlds, use_pixel_centers):
   camera_dirs = np.stack(
       [(x - w * 0.5) / focal, -(y - h * 0.5) / focal, -np.ones_like(x)],
       axis=-1)
+  return _finalize_rays(camera_dirs, camtoworlds)
+
+
+def generate_opencv_rays(w, h, cam_mat, camtoworlds, use_pixel_centers):
+  """OpenCV convention: a 3x3 intrinsics matrix, camera looks down +z.
+
+  As samplenerfro_tpu/data/rays.py:61-77, pixel_center is added to the
+  principal-point offset while the meshgrid is built without it.
+
+  Returns Rays with [num_images, h, w, C] fields.
+  """
+  pixel_center = 0.5 if use_pixel_centers else 0.0
+  x, y = np.meshgrid(
+      np.arange(w, dtype=np.float32),
+      np.arange(h, dtype=np.float32),
+      indexing="xy")
+  camera_dirs = np.stack([
+      (x - cam_mat[0][2] + pixel_center) / cam_mat[0][0],
+      (y - cam_mat[1][2] + pixel_center) / cam_mat[1][1],
+      np.ones_like(x),
+  ], axis=-1)
   return _finalize_rays(camera_dirs, camtoworlds)

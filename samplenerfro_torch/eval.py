@@ -1,20 +1,30 @@
-"""Render the test split of a Blender scene on the GPU and score it.
+"""Render the test split of a Blender or OpenCV scene on the GPU and score it.
 
     python -m samplenerfro_torch.eval --data_dir=<scene> \
         --config=configs/tpu/<scene> --gin_file=configs/tpu/<scene>.gin \
         --train_dir=<out> [--params_npz=<weights.npz>] [--device=cuda] \
         [--stage=all] [--<flag>=<value> ...]
 
-Writes <train_dir>/<stage>/test_preds/NNN.png and psnr.txt (mean PSNR).
-Any flag of utils/config.py may be given as --name=value; an `all*` stage
-marches with the so3 head (K2), a radiance stage with K1.
-Weights come from --params_npz (models/convert.py's flat format) or, without
-it, are drawn from --seed. Rendering is deterministic (randomized=False);
-the jittered coarse subsample is drawn once per run from --seed and shared
-by every chunk, as the JAX renderer shares one key across chunks.
+Writes <train_dir>/<stage>/test_preds/NNN.png, psnrs_<step>.txt and
+ssims_<step>.txt (one value a view), psnr.txt and ssim.txt (their means);
+with --eval_train it renders the train split into train_preds/. OpenCV
+views are centrally cropped as the JAX loader crops them. Any flag of
+utils/config.py may be given as --name=value; an `all*` stage marches with
+the so3 head (K2), a radiance stage with K1.
+The weights are the stage's trained ones: the newest checkpoint under
+<train_dir>/<Config.radiance_weight_name> (radiance stages) or
+<train_dir>/<Config.all_weight_name> (`all` stages), as the JAX eval's
+load_stage_variables takes them; eval raises when there is none. Or they
+come from --params_npz (models/convert.py's flat format), whose step is
+written as 0. Rendering is deterministic (randomized=False); the jittered
+coarse subsample is drawn once per run from --seed and shared by every
+chunk, as the JAX renderer shares one key across chunks. The JAX eval's
+checkpoint-watching loop, depth and disparity images and summaries are
+not ported.
 """
 
 import argparse
+import collections
 import os
 
 import numpy as np
@@ -24,6 +34,7 @@ from samplenerfro_torch import resolve_device
 from samplenerfro_torch.data import datasets
 from samplenerfro_torch.models import convert
 from samplenerfro_torch.models import nerf
+from samplenerfro_torch.train import checkpoints
 from samplenerfro_torch.utils import config as config_lib
 from samplenerfro_torch.utils import grid_io
 from samplenerfro_torch.utils import metrics
@@ -42,9 +53,13 @@ def make_render_fn(model, jitter):
   return render_fn
 
 
+EvalResult = collections.namedtuple("EvalResult", ("psnrs", "ssims", "step"))
+
+
 def build_model(args, cfg, bindings, data_dir, device, seed=0,
                 params_npz=None):
-  """Grid from the scene's mesh.pkl + NerfModel with loaded or seeded weights."""
+  """Grid from the scene's mesh.pkl + NerfModel with the weights of
+  params_npz or, without it, drawn from `seed`."""
   grid, ndim, nmin, nmax = grid_io.load_ior_grid(data_dir, cfg, args.config,
                                                  device)
   model = nerf.construct_nerf(args, ndim, nmin, nmax, grid, bindings,
@@ -68,41 +83,51 @@ def main(argv=None):
                  help="flag overlay path without .yaml")
   p.add_argument("--gin_file", action="append", default=[])
   p.add_argument("--gin_param", action="append", default=[])
-  p.add_argument("--params_npz", default=None)
+  p.add_argument("--params_npz", default=None,
+                 help="weights to render instead of the stage's checkpoint")
   p.add_argument("--device", default=None, help="cuda (default) or cpu")
-  p.add_argument("--seed", type=int, default=0)
+  p.add_argument("--seed", type=int, default=0,
+                 help="seed of the coarse subsample's jitter")
   ns, rest = p.parse_known_args(argv)
 
   device = resolve_device(ns.device)
   args, cfg, bindings = config_lib.load_args(
       ns.config, ns.gin_file, ns.gin_param,
       **config_lib.parse_flag_overrides(rest))
+  args.data_dir, args.train_dir = ns.data_dir, ns.train_dir
   datasets.check_dataset(args)
-  rays, images = datasets.load_blender(
-      ns.data_dir, "test", args.factor, args.use_pixel_centers,
-      args.white_bkgd, args.skip_frames)
+  rays, images = datasets.load_split(args, "test")
   model = build_model(args, cfg, bindings, ns.data_dir, device, ns.seed,
                       ns.params_npz)
+  step = 0
+  if not ns.params_npz:
+    step = checkpoints.load_stage_weights(model, ns.train_dir, cfg,
+                                          args.stage)
   gen = torch.Generator().manual_seed(ns.seed)
   jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
                             gen)
   render_fn = make_render_fn(model, jitter)
 
-  out_dir = os.path.join(ns.train_dir, args.stage, "test_preds")
+  out_dir = os.path.join(ns.train_dir, args.stage,
+                         "train_preds" if args.eval_train else "test_preds")
   os.makedirs(out_dir, exist_ok=True)
-  psnrs = []
+  psnrs, ssims = [], []
   for idx in range(images.shape[0]):
-    view = type(rays)(*[r[idx] for r in rays])
+    view, pixels = datasets.eval_view(args, rays, images, idx)
     rgb, _, _ = render_lib.render_image(render_fn, view,
                                         args.dataset == "llff",
                                         chunk=args.chunk, device=device)
-    psnr = metrics.compute_psnr(((rgb - images[idx])**2).mean())
-    psnrs.append(psnr)
-    print(f"Evaluating {idx + 1}/{images.shape[0]}: PSNR = {psnr:.4f}")
+    psnrs.append(metrics.compute_psnr(((rgb - pixels)**2).mean()))
+    ssims.append(float(metrics.compute_ssim(rgb, pixels, 1.0)))
+    print(f"Evaluating {idx + 1}/{images.shape[0]}: PSNR = {psnrs[-1]:.4f}, "
+          f"SSIM = {ssims[-1]:.4f}")
     save_img(rgb, os.path.join(out_dir, f"{idx:03d}.png"))
-  with open(os.path.join(out_dir, "psnr.txt"), "w") as f:
-    f.write(f"{np.mean(psnrs)}")
-  return psnrs
+  for name, values in (("psnr", psnrs), ("ssim", ssims)):
+    with open(os.path.join(out_dir, f"{name}s_{step}.txt"), "w") as f:
+      f.write(" ".join(str(v) for v in values))
+    with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
+      f.write(f"{np.mean(values)}")
+  return EvalResult(psnrs, ssims, step)
 
 
 if __name__ == "__main__":

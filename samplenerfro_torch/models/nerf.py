@@ -7,10 +7,11 @@ backward ('all'; models/path_sampler.py); the MLPs are nn.Linear stacks in
 fp32 or, with `mlp_dtype=bfloat16`, bf16. With `mlp_kernel=pallas` or
 `pallas_pe` the coarse and fine NerfMLPs of a non-'all' stage run fused,
 K4 forward and K5 backward (ops/mlp_kernel.py), under the gates of
-samplenerfro_tpu/models/nerf.py:277-306. Options the JAX model has and
-this one does not yet (SH colour, online sparsity, the proxy-bbox mask,
-the boundary cut, IPE, the non-shipped VoxMLP heads) raise
-NotImplementedError.
+samplenerfro_tpu/models/nerf.py:277-306. The real scenes' boundary cut
+(`NerfModel.bd_cut_dist`, :256-275 and :463-476) re-renders the fine
+level's transmittance and background. Options the JAX model has and this
+one does not yet (SH colour, online sparsity, the proxy-bbox mask, IPE,
+the non-shipped VoxMLP heads) raise NotImplementedError.
 """
 
 import numpy as np
@@ -33,6 +34,27 @@ def activation(name):
   if fn is None:
     raise ValueError(f"unknown activation {name!r}")
   return fn
+
+
+def bd_cut_box(cfg_name, nmin, nmax):
+  """The boundary-cut box of a real scene, chosen by substring of the
+  config path in this order (samplenerfro_tpu/models/nerf.py:256-268):
+  `pen` lowers the grid's top by 0.6, `ball` is an absolute box, `glass`
+  lowers the top by 0.7. Returns (box min, box max)."""
+  nmin, nmax = list(nmin), list(nmax)
+  name = cfg_name or ""
+  if "pen" in name:
+    nmax[1] -= 0.6
+  elif "ball" in name:
+    nmin = [-1, 0.03597, -1]
+    nmax = [1, 2.03597, 1]
+  elif "glass" in name:
+    nmax[1] -= 0.7
+  else:
+    raise NotImplementedError(
+        f"the boundary cut has no box for config {cfg_name!r} (pen, ball or "
+        "glass)")
+  return nmin, nmax
 
 
 def make_jitter(num_coarse_samples, num_path_samples, generator=None):
@@ -64,8 +86,12 @@ class NerfModel(nn.Module):
                min_deg_point, max_deg_point, deg_view, rgb_activation,
                sigma_activation, legacy_posenc_order, rgb_padding=0.001,
                sigma_bias=-1.0, mlp_dtype=torch.float32, mlp_kernel="xla",
-               generator=None):
+               cfg_name=None, bd_cut_dist=None, generator=None):
     super().__init__()
+    # The cut applies at the fine level only, as in the JAX model.
+    self.cut_box = (bd_cut_box(cfg_name, spec.nmin, spec.nmax)
+                    if bd_cut_dist is not None and num_fine_samples > 0
+                    else None)
     self.stage = stage
     self.mlp_dtype = mlp_dtype
     self.mlp_kernel = mlp_kernel
@@ -169,6 +195,17 @@ class NerfModel(nn.Module):
     sigma = self.sigma_activation(raw_sigma + self.sigma_bias)
     return rgb, sigma
 
+  def _bd_cut_mask(self, pos):
+    """[B, S] float mask of the cut: 1 from a path's first sample inside
+    cut_box to its end (a cumsum from the far side,
+    samplenerfro_tpu/models/nerf.py:269-275)."""
+    lo, hi = self.cut_box
+    inside = torch.ones(pos.shape[:-1], dtype=torch.bool, device=pos.device)
+    for a in range(3):
+      inside = inside & (pos[..., a] >= lo[a]) & (pos[..., a] <= hi[a])
+    kept = torch.cumsum(inside.flip(-1).to(torch.int32), dim=-1) > 0
+    return kept.flip(-1).to(pos.dtype)
+
   def forward(self, rays, jitter, randomized=False, generator=None,
               annealed_alpha=1.0, mlp_dtype=None):
     """Render a batch of rays.
@@ -231,6 +268,17 @@ class NerfModel(nn.Module):
       comp_rgb, disp, acc, _, _, trans, trans_rgb_bkgd = (
           render_ops.volumetric_rendering(rgb, sigma, ray_dist_c, ray_dir_c,
                                           self.white_bkgd, bkgd))
+      if self.cut_box is not None:
+        # The boundary cut: transmittance through the cut's part of the
+        # path alone, times the colour (with the background) of the part
+        # before it; comp_rgb stays uncut.
+        cut = self._bd_cut_mask(ray_pos_c)
+        trans = render_ops.volumetric_rendering(
+            rgb, sigma, ray_dist_c, ray_dir_c, self.white_bkgd, None,
+            cut)[5]
+        trans_rgb_bkgd = trans * render_ops.volumetric_rendering(
+            rgb, sigma, ray_dist_c, ray_dir_c, self.white_bkgd, bkgd,
+            1.0 - cut)[0]
       ret.append((comp_rgb, disp, acc, trans, trans_rgb_bkgd))
     return ret
 
@@ -271,7 +319,6 @@ def construct_nerf(args, ndim, nmin, nmax, grid, gin_overrides=None,
       "sh_direnc_deg > 0": args.sh_direnc_deg > 0,
       "use_online_sparsity": bool(args.use_online_sparsity),
       "NerfModel.use_mask_bbox": bool(g.get("NerfModel.use_mask_bbox", False)),
-      "NerfModel.bd_cut_dist": g.get("NerfModel.bd_cut_dist") is not None,
       "NerfModel.use_ipe": bool(g.get("NerfModel.use_ipe", False)),
   }
   for what, on in unsupported.items():
@@ -331,5 +378,6 @@ def construct_nerf(args, ndim, nmin, nmax, grid, gin_overrides=None,
       rgb_activation=rgb_activation, sigma_activation=sigma_activation,
       legacy_posenc_order=args.legacy_posenc_order,
       mlp_dtype=getattr(torch, mlp_dtype), mlp_kernel=mlp_kernel,
+      cfg_name=args.config, bd_cut_dist=g.get("NerfModel.bd_cut_dist"),
       generator=generator)
   return model.to(device).eval()

@@ -4,7 +4,9 @@ Counterpart of samplenerfro_tpu/train/checkpoints.py's save/restore, with
 the same on-disk naming (`<stage_dir>/checkpoint_<step>`, the newest
 `keep` kept) but in torch's format: the model's weights (not the IOR grid
 buffer, which is rebuilt from the scene), the optimizer's state and the
-step. Restoring flax checkpoints is not ported yet.
+step. `load_stage_weights` is the counterpart of load_stage_variables,
+eval's per-stage surgery over these checkpoints. Restoring flax
+checkpoints is not ported yet.
 """
 
 import os
@@ -60,3 +62,56 @@ def restore_checkpoint(stage_dir, model, optimizer):
                      f"{missing}, unexpected {unexpected}")
   optimizer.load_state_dict(state["optimizer"])
   return int(state["step"])
+
+
+# The modules a stage's eval takes from a trained checkpoint
+# (samplenerfro_tpu/train/checkpoints.py:148-170); the IOR grid buffer is
+# rebuilt from the scene.
+_RADIANCE_MODULES = ("bkgd_mlp", "coarse_mlp", "fine_mlp")
+
+
+def load_stage_weights(model, train_dir, cfg, stage):
+  """Copy a stage's trained weights into `model`; returns the checkpoint's
+  step.
+
+  `radiance*` takes bkgd_mlp, coarse_mlp and (when the model has one)
+  fine_mlp from <train_dir>/<cfg.radiance_weight_name>; `all*` takes
+  those and path_sampler from <train_dir>/<cfg.all_weight_name>, each
+  from its newest checkpoint_<step>. `ior*` is not ported.
+
+  Raises:
+    ValueError: the stage's weight name is None (every shipped gin sets
+      Config.radiance_weight_name = None), or the stage is unknown.
+    FileNotFoundError: the directory holds no checkpoint.
+  """
+  if stage.startswith("ior"):
+    raise NotImplementedError("the 'ior' stage is not ported yet")
+  if stage.startswith("radiance"):
+    binding, modules = "radiance_weight_name", _RADIANCE_MODULES
+  elif stage.startswith("all"):
+    binding = "all_weight_name"
+    modules = _RADIANCE_MODULES + ("path_sampler",)
+  else:
+    raise ValueError(f"unknown stage {stage}")
+  name = getattr(cfg, binding)
+  if name is None:
+    raise ValueError(f"Config.{binding} is None: stage {stage!r} takes its "
+                     f"weights from <train_dir>/<Config.{binding}>; bind it "
+                     "(--gin_param) or pass --params_npz")
+  stage_dir = os.path.join(train_dir, name)
+  step = latest_step(stage_dir)
+  if step is None:
+    raise FileNotFoundError(f"no checkpoint found under {stage_dir}")
+  device = next(model.parameters()).device
+  saved = torch.load(os.path.join(stage_dir, f"checkpoint_{step}"),
+                     map_location=device, weights_only=True)["model"]
+  own = model.state_dict()
+  wanted = [k for k in own if k != _GRID
+            and k.split(".", 1)[0] in modules]
+  missing = [k for k in wanted if k not in saved]
+  if missing:
+    raise ValueError(f"{stage_dir}/checkpoint_{step} lacks {missing}")
+  with torch.no_grad():
+    for k in wanted:
+      own[k].copy_(saved[k])
+  return int(step)

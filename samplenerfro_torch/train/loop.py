@@ -1,4 +1,4 @@
-"""Train a stage of the refractive NeRF on a Blender scene on the GPU.
+"""Train a stage of the refractive NeRF on a Blender or OpenCV scene on a GPU.
 
     python -m samplenerfro_torch.train --data_dir=<scene> \\
         --train_dir=<out> --config=configs/tpu/<scene> \\
@@ -11,12 +11,16 @@ be given as --name=value and wins over the --config overlay. Stages
 (K2 forward, K3 backward). Checkpoints go to <train_dir>/<stage>/
 checkpoint_<step> every --save_every steps and at the end; a rerun resumes
 from the newest. Every --print_every steps one line reports the loss and
-rays/s; every --render_every steps a validation view is rendered through
-samplenerfro_torch.eval's render function and its PSNR printed.
+rays/s; every --render_every steps a view of the val split (OpenCV views
+centrally cropped, as eval crops its test views) is rendered through
+samplenerfro_torch.eval's render function and its PSNR and SSIM printed.
+The `all` stage starts from --params_npz or weights drawn from --seed, as
+train.py starts it from its initialisation; eval then reads what this
+writes.
 
 Not ported from train.py: the TPU march calibration and out-of-window
 ladder (the CUDA marches have no window), multi-step dispatch, threaded
-prefetch, tensorboard summaries and SSIM.
+prefetch and tensorboard summaries.
 """
 
 import argparse
@@ -82,7 +86,7 @@ def main(argv=None):
   step_lib.check_supported(args)
 
   rng = np.random.RandomState(DATA_SEED)
-  dataset = datasets.BlenderTrain(args, rng)
+  dataset = datasets.TrainBatches(args, rng)
   model = build_model(args, cfg, bindings, ns.data_dir, device, ns.seed,
                       ns.params_npz)
   optimizer, lr_fn, _ = step_lib.create_optimizer(model, args)
@@ -95,9 +99,7 @@ def main(argv=None):
 
   val = None
   if args.render_every > 0:
-    val = datasets.load_blender(ns.data_dir, "val", args.factor,
-                                args.use_pixel_centers, args.white_bkgd,
-                                args.skip_frames)
+    val = datasets.load_split(args, "val")
   val_it = init_step // args.render_every if args.render_every > 0 else 0
 
   stats_trace = []
@@ -131,15 +133,16 @@ def main(argv=None):
       t0 = time.time()
       jitter = nerf.make_jitter(args.num_coarse_samples,
                                 args.num_path_samples, jitter_gen)
-      view = namedtuple_map(lambda r: r[idx], rays)
+      view, pixels = datasets.eval_view(args, rays, images, idx)
       rgb, _, _ = render_lib.render_image(
           make_render_fn(model, jitter), view, args.dataset == "llff",
           chunk=args.chunk, device=device)
       secs = time.time() - t0
-      psnr = metrics.compute_psnr(((rgb - images[idx])**2).mean())
+      psnr = metrics.compute_psnr(((rgb - pixels)**2).mean())
+      ssim = float(metrics.compute_ssim(rgb, pixels, 1.0))
       rays_per_sec = rgb.shape[0] * rgb.shape[1] / secs
       print(f"Eval {step}: {secs:0.3f}s., {rays_per_sec:0.0f} rays/sec, "
-            f"PSNR = {psnr:.4f}", flush=True)
+            f"PSNR = {psnr:.4f}, SSIM = {ssim:.4f}", flush=True)
       t_loop += secs
   if args.max_steps % args.save_every != 0:
     checkpoints.save_checkpoint(stage_dir, model, optimizer, args.max_steps)

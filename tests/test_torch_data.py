@@ -12,6 +12,7 @@ import yaml
 from samplenerfro_torch import eval as t_eval
 from samplenerfro_torch.data import datasets as t_datasets
 from samplenerfro_torch.data import rays as t_rays
+from samplenerfro_torch.train import checkpoints as t_ckpt
 from samplenerfro_torch.utils import config as t_config
 from samplenerfro_torch.utils import grid_io as t_grid_io
 from samplenerfro_torch.utils import metrics as t_metrics
@@ -122,16 +123,29 @@ def test_psnr_matches_jax():
 
 
 def test_eval_entry_point_on_cpu(scene, tmp_path):
+  """Eval renders the radiance stage's checkpoint, a seeded model's saved
+  at step 5, and writes its scores beside the images."""
   cfg = fixtures.write_tiny_config(str(tmp_path / "cfg"))
-  psnrs = t_eval.main([
+  args, gcfg, bindings = t_config.load_args(cfg, [cfg + ".gin"])
+  model = t_eval.build_model(args, gcfg, bindings, scene, "cpu", seed=7)
+  t_ckpt.save_checkpoint(str(tmp_path / "out" / "radiance"), model,
+                         torch.optim.Adam(model.parameters()), 5)
+  res = t_eval.main([
       f"--data_dir={scene}", f"--train_dir={tmp_path / 'out'}",
       f"--config={cfg}", f"--gin_file={cfg}.gin", "--device=cpu",
       "--chunk=128"])
   out = tmp_path / "out" / "radiance" / "test_preds"
-  assert sorted(os.listdir(out)) == ["000.png", "001.png", "psnr.txt"]
-  assert len(psnrs) == 2 and all(np.isfinite(psnrs))
+  assert sorted(os.listdir(out)) == ["000.png", "001.png", "psnr.txt",
+                                     "psnrs_5.txt", "ssim.txt", "ssims_5.txt"]
+  assert res.step == 5
+  assert len(res.psnrs) == 2 and all(np.isfinite(res.psnrs))
+  assert len(res.ssims) == 2 and all(np.isfinite(res.ssims))
   assert float((out / "psnr.txt").read_text()) == pytest.approx(
-      np.mean(psnrs))
+      np.mean(res.psnrs))
+  assert float((out / "ssim.txt").read_text()) == pytest.approx(
+      np.mean(res.ssims))
+  assert [float(v) for v in (out / "ssims_5.txt").read_text().split()] == (
+      res.ssims)
 
 
 def test_eval_chunks_agree_with_one_batch(scene, tmp_path):
@@ -150,18 +164,20 @@ def test_eval_chunks_agree_with_one_batch(scene, tmp_path):
     np.testing.assert_allclose(a, b, atol=1e-6)
 
 
-def test_eval_refuses_an_unported_dataset(tmp_path, monkeypatch):
-  """An OpenCV config stops with NotImplementedError naming the dataset,
+def test_eval_refuses_an_unported_dataset(scene, tmp_path, monkeypatch):
+  """An LLFF config stops with NotImplementedError naming the dataset,
   before eval reads any scene file."""
-  scene = fixtures.make_opencv_scene(str(tmp_path / "scene"), num_train=1,
-                                     res=16)
-  cfg = fixtures.write_opencv_config(str(tmp_path / "cfg"))
+  cfg = fixtures.write_tiny_config(str(tmp_path / "cfg"))
+  with open(cfg + ".yaml") as f:
+    text = f.read().replace("dataset: blender", "dataset: llff")
+  with open(cfg + ".yaml", "w") as f:
+    f.write(text)
 
   def untouched(*args, **kwargs):
     raise AssertionError("a scene file was read")
 
-  monkeypatch.setattr(t_datasets, "load_blender", untouched)
+  monkeypatch.setattr(t_datasets, "load_split", untouched)
   monkeypatch.setattr(t_eval, "build_model", untouched)
-  with pytest.raises(NotImplementedError, match="'opencv'"):
+  with pytest.raises(NotImplementedError, match="'llff'"):
     t_eval.main([f"--data_dir={scene}", f"--train_dir={tmp_path / 'out'}",
                  f"--config={cfg}", f"--gin_file={cfg}.gin", "--device=cpu"])

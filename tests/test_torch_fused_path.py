@@ -218,9 +218,9 @@ def test_entry_points_run_the_fused_path(tmp_path, monkeypatch):
   npz = tmp_path / "w.npz"
   np.savez(npz, **convert.flatten({"params": convert.params_to_flax(model)}))
   del calls[:]
-  psnrs = t_eval.main(common + [f"--train_dir={tmp_path / 'ev'}",
-                                f"--params_npz={npz}", "--chunk=128"])
-  assert len(psnrs) == 1 and np.isfinite(psnrs[0])
+  res = t_eval.main(common + [f"--train_dir={tmp_path / 'ev'}",
+                              f"--params_npz={npz}", "--chunk=128"])
+  assert len(res.psnrs) == 1 and np.isfinite(res.psnrs[0])
   assert len(calls) == 2 * 2  # two chunks of the 16x16 view, two levels
   with pytest.raises(ValueError, match="mlp_kernel"):
     t_loop.main(common[:-3] + [f"--train_dir={tmp_path / 'x'}",

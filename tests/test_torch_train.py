@@ -266,7 +266,7 @@ def test_batches_match_blender_next_train(scene, batching, extra):
   kw.update(extra)
   args = helpers.tiny_args(**kw)
   j_ds = _NoThread("train", args)
-  t_ds = t_datasets.BlenderTrain(args, np.random.RandomState(11))
+  t_ds = t_datasets.TrainBatches(args, np.random.RandomState(11))
   np.random.seed(11)
   for _ in range(3):
     want, got = j_ds._next_train(), next(t_ds)
@@ -305,28 +305,30 @@ def test_train_entry_point_writes_and_resumes(scene, tmp_path):
   # The trained 'all' model, carried as .npz, renders through eval.
   npz = tmp_path / "all.npz"
   np.savez(npz, **convert.flatten({"params": convert.params_to_flax(model)}))
-  psnrs = t_eval.main([f"--data_dir={scene}", f"--train_dir={tmp_path / 'ev'}",
-                       f"--config={cfg}", f"--gin_file={cfg}.gin",
-                       "--device=cpu", "--stage=all", f"--params_npz={npz}",
-                       "--chunk=256"])
-  assert len(psnrs) == 1 and np.isfinite(psnrs[0])
+  res = t_eval.main([f"--data_dir={scene}", f"--train_dir={tmp_path / 'ev'}",
+                     f"--config={cfg}", f"--gin_file={cfg}.gin",
+                     "--device=cpu", "--stage=all", f"--params_npz={npz}",
+                     "--chunk=256"])
+  assert len(res.psnrs) == 1 and np.isfinite(res.psnrs[0]) and res.step == 0
   assert os.path.exists(tmp_path / "ev" / "all" / "test_preds" / "000.png")
 
 
-def test_train_refuses_an_unported_dataset(tmp_path, monkeypatch):
-  """An OpenCV config stops with NotImplementedError naming the dataset,
+def test_train_refuses_an_unported_dataset(scene, tmp_path, monkeypatch):
+  """An LLFF config stops with NotImplementedError naming the dataset,
   before training reads any scene file."""
-  scene = fixtures.make_opencv_scene(str(tmp_path / "scene"), num_train=1,
-                                     res=16)
-  cfg = fixtures.write_opencv_config(str(tmp_path / "cfg"))
+  cfg = fixtures.write_tiny_config(str(tmp_path / "cfg"))
+  with open(cfg + ".yaml") as f:
+    text = f.read().replace("dataset: blender", "dataset: llff")
+  with open(cfg + ".yaml", "w") as f:
+    f.write(text)
 
   def untouched(*args, **kwargs):
     raise AssertionError("a scene file was read")
 
-  monkeypatch.setattr(t_datasets, "BlenderTrain", untouched)
-  monkeypatch.setattr(t_datasets, "load_blender", untouched)
+  monkeypatch.setattr(t_datasets, "TrainBatches", untouched)
+  monkeypatch.setattr(t_datasets, "load_split", untouched)
   monkeypatch.setattr(t_loop, "build_model", untouched)
-  with pytest.raises(NotImplementedError, match="'opencv'"):
+  with pytest.raises(NotImplementedError, match="'llff'"):
     t_loop.main([f"--data_dir={scene}", f"--train_dir={tmp_path / 'out'}",
                  f"--config={cfg}", f"--gin_file={cfg}.gin", "--device=cpu",
                  "--stage=radiance"])
