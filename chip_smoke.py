@@ -33,9 +33,10 @@ Phases, each of which must pass or the script exits non-zero:
      grid prefiltered 9/3 on the card.
   3b. forward marches: K1 and K2 at every shape this script runs them at
      (K1: the render's first 8192-ray chunk, the 1024-ray radiance batch,
-     glass's shape, ball's (256^3 grid, 1536 steps) at 1024 and 8192
-     rays, the self-check's 512 rays; K2: the 1024-ray 'all' batch,
      glass's shape at 1024 rays and at an 8192-ray render chunk (the
+     real-scene validation render's), ball's (256^3 grid, 1536 steps) at
+     1024 and 8192 rays, the self-check's 512 rays; K2: the 1024-ray 'all'
+     batch, glass's shape at 1024 rays and at an 8192-ray render chunk (the
      real-scene eval's), the self-check's 512 x 768 and 256 x 192): a sha256
      digest of the outputs, the max abs error against the plain version,
      held at K1_ATOL or K2_ATOL (the arclength of 1536-step marches
@@ -104,7 +105,13 @@ Phases, each of which must pass or the script exits non-zero:
      SSIM equal to those of the model train returned rendered here on the
      same view with the same seeded jitter (eval read the checkpoint), the
      cut's mask neither all ones nor all zeros over the view, and K1, K2
-     and K3 launched as the steps and chunks imply.
+     and K3 launched as the steps and chunks imply. Between the two
+     stages, one radiance step of the trained model on a train batch at
+     annealed alpha 0.5, its density lowered (sigma_bias -4) so that the
+     cut's transmittance passes 0.5 and the background loss counts, on the
+     card and on the CPU (plain K1), fp32 MLPs: loss and loss_bg to 1e-4
+     relative, loss_bg > 0, the same rays over trans 0.5, bkgd_mlp's
+     gradients at the K5 fp32 tolerance.
 The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
@@ -196,13 +203,20 @@ N_ALL_FUSED = 2  # 'all' steps with --mlp_kernel=pallas, which keep nn.Linear
 # The real-scene path: glass's shipped configuration on a synthetic OpenCV
 # capture of 8 train views (and one val, one test view) of 320x240.
 GLASS_CONFIG = "configs/tpu/glass"
-REAL_W, REAL_H, REAL_TRAIN = 320, 240, 8
 N_REAL_RADIANCE, N_REAL_ALL = 8, 4
 XCHECK_RAYS = 128
 # One 'all' step, card against CPU, fp32 MLPs, not randomized: the loss to
 # 1e-4 relative (K1's and K2's ulps moved through the MLPs), the so3
 # gradients at the K3 tolerance.
 XCHECK_LOSS_RTOL = 1e-4
+# The real-scene cross-check's annealing progress: past anneal_delay_steps,
+# where the background losses count (train/step.py's gate).
+CUT_ALPHA = 0.5
+# A barely trained model's density, softplus(raw - 1) ~ 0.3 over the ~10
+# units of path inside glass's box, leaves the cut's transmittance at ~0.04
+# on every ray, and trans > 0.5 selects none: at a sigma_bias of -4 the
+# density is ~0.02 and every ray passes 0.5, so the background loss counts.
+CUT_SIGMA_BIAS = -4.0
 # P2: CUDA documents sinf at 2 ulp, <= 1e-6 of a value in [-1, 1] at these
 # arguments.
 P2_ATOL = 1e-6
@@ -1373,9 +1387,8 @@ def real_scene_phase(device, seed):
   all stage's checkpoint. Returns the K1, K2 and K3 launches of each."""
   t0 = time.time()
   with tempfile.TemporaryDirectory() as tmp:
-    data = real_scene.write_scene(os.path.join(tmp, "glass"), REAL_W,
-                                  REAL_H, REAL_TRAIN)
-    log(f"real scene: {REAL_TRAIN} train views of {REAL_W}x{REAL_H}, "
+    data = real_scene.write_scene(os.path.join(tmp, "glass"))
+    log(f"real scene: {real_scene.NUM_TRAIN} train views of 320x240, "
         f"{real_scene.GLASS_GRID} (384^3, extent 3.5), written in "
         f"{time.time() - t0:.1f} s")
     common = [f"--data_dir={data}", f"--train_dir={os.path.join(tmp, 'logs')}",
@@ -1391,6 +1404,7 @@ def real_scene_phase(device, seed):
                             + every(N_REAL_RADIANCE, True))
     counts["radiance"] = _march_counts()
     cut_box = rad.cut_box
+    cut_cross_check(rad, data, device, seed)
     del rad
     _zero_march_counts()
     with StepRecorder() as all_rec:
@@ -1476,6 +1490,64 @@ def real_scene_phase(device, seed):
   if counts != want:
     raise SystemExit(f"real-scene path: launches {counts}, expected {want}")
   return counts
+
+
+def cut_cross_check(model, data, device, seed):
+  """One radiance step's loss on a train batch of the real scene with the
+  boundary cut, at annealed alpha CUT_ALPHA so that the background loss
+  (trans > 0.5 from the cut's re-render) counts: the card (K1) against the
+  CPU (plain K1), fp32 MLPs, not randomized, the density lowered to
+  sigma_bias CUT_SIGMA_BIAS. The loss and loss_bg agree to
+  XCHECK_LOSS_RTOL, loss_bg > 0, the rays over trans 0.5 are the same on
+  both, and bkgd_mlp's gradients (loss_bg's way into training) agree at
+  the K5 fp32 tolerance. Leaves the model on the CPU, its density
+  lowered."""
+  args, _, _ = config_lib.load_args(GLASS_CONFIG, [GLASS_CONFIG + ".gin"],
+                                    [], stage="radiance")
+  args.data_dir, args.randomized = data, False
+  host = next(datasets.TrainBatches(args, np.random.RandomState(seed)))
+  model.mlp_dtype, model.sigma_bias = torch.float32, CUT_SIGMA_BIAS
+  jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
+                            torch.Generator().manual_seed(seed))
+  trans = []
+
+  def record(module, inputs, out):
+    trans.append(out[-1][3].detach().cpu())
+
+  def run(dev):
+    model.zero_grad(set_to_none=True)
+    handle = model.register_forward_hook(record)
+    try:
+      total, stats = step_lib.loss_fn(
+          model, batch_to_device(host, CUT_ALPHA, dev), args, jitter)
+    finally:
+      handle.remove()
+    total.backward()
+    return (float(total.detach()), float(stats.loss_bg),
+            [p.grad.detach().cpu().clone()
+             for p in model.bkgd_mlp.parameters()])
+
+  loss_gpu, bg_gpu, g_gpu = run(device)
+  model.to("cpu")
+  t0 = time.time()
+  loss_cpu, bg_cpu, g_cpu = run(torch.device("cpu"))
+  secs = time.time() - t0
+  rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+  rel_bg = abs(bg_gpu - bg_cpu) / max(abs(bg_cpu), 1e-30)
+  over = [t > 0.5 for t in trans]
+  same = bool(torch.equal(over[0], over[1]))
+  worst = _worst_against(g_gpu, g_cpu)
+  log(f"real-scene cut cpu cross-check: radiance step, {over[0].numel()} "
+      f"rays, alpha {CUT_ALPHA}, in {secs:.1f} s on the CPU: loss "
+      f"{loss_gpu:.8f} vs {loss_cpu:.8f} (rel {rel:.3e}), loss_bg "
+      f"{bg_gpu:.8f} vs {bg_cpu:.8f} (rel {rel_bg:.3e}; tolerance "
+      f"{XCHECK_LOSS_RTOL}); {int(over[0].sum())} rays over trans 0.5 on "
+      f"the card, {int(over[1].sum())} on the CPU, the same rays: {same}; "
+      f"trans max abs err {float((trans[0] - trans[1]).abs().max()):.3e}; "
+      f"bkgd_mlp grads at {worst:.3f} of the K5 tolerance")
+  if not (bg_gpu > 0 and rel <= XCHECK_LOSS_RTOL
+          and rel_bg <= XCHECK_LOSS_RTOL and same and worst <= 1.0):
+    raise SystemExit("real-scene cut cpu cross-check failed")
 
 
 def allstep_cross_check(model, args, host, device, seed):
@@ -1753,6 +1825,7 @@ def main():
                            (k2, "so3", "ship 'all' batch")):
     row["device_ms"] = times[(kind, shape)][1]
     row["glass_device_ms"] = times[(kind, "glass")][1]
+  k1["glass_chunk_device_ms"] = times[("lean", "glass chunk")][1]
   k2["glass_chunk_device_ms"] = times[("so3", "glass chunk")][1]
   k1["radiance_batch_ms"], k1["radiance_batch_device_ms"] = times[
       ("lean", "radiance batch")]

@@ -247,8 +247,8 @@ def march_cases(device, seed, model, first, batch_rays, jitter):
   """Every shape at which chip_smoke.py runs K1 and K2, with its inputs:
   [(shape, "lean" or "so3", wrapper args)]. The ship chunk (the render's
   first 8192 rays), the radiance / 'all' batch (1024 rays), glass's
-  shape (1024 rays; K2 also at an 8192-ray render chunk, the `all`
-  eval's shape on the real scenes), ball's (a 256^3 grid, 1536 steps) at
+  shape (1024 rays, and an 8192-ray render chunk: the real scenes'
+  validation render and radiance eval (K1), their `all` eval (K2)), ball's (a 256^3 grid, 1536 steps) at
   the radiance batch and a render chunk, and the self-check's (its 128^3
   blob, 512 rays of 768 steps; the 'all' arm's 256 rays of 192
   steps)."""
@@ -272,9 +272,11 @@ def march_cases(device, seed, model, first, batch_rays, jitter):
                               so3_params_for(seed, device), SO3_ALPHA,
                               SO3_MAX_DEG))]
   o, d = scene_rays(device, seed, 8192)
-  cases.append(("glass chunk", "so3", (spec, grid, o, d, near, step_size,
-                                       steps, so3_params_for(seed, device),
-                                       SO3_ALPHA, SO3_MAX_DEG)))
+  cases += [("glass chunk", "lean", (spec, grid, o, d, near, step_size,
+                                     steps, gjit)),
+            ("glass chunk", "so3", (spec, grid, o, d, near, step_size, steps,
+                                    so3_params_for(seed, device), SO3_ALPHA,
+                                    SO3_MAX_DEG))]
   spec, grid, near, step_size, steps, bjit = scene_grid(device, seed, BALL)
   for shape, count in (("ball batch", 1024), ("ball chunk", 8192)):
     o, d = scene_rays(device, seed, count)

@@ -468,11 +468,12 @@ def test_real_scene_writer_loads(tmp_path):
   """The chip smoke's OpenCV capture, at a small size: it loads through the
   port's loader, with an off-centre principal point and a blob grid."""
   data = real_scene.write_scene(str(tmp_path / "cap"), width=20, height=12,
-                                num_train=3, grid_n=16, extent=3.5)
+                                grid_n=16)
   with open(os.path.join(data, "transforms_train.json")) as f:
     meta = json.load(f)
   assert meta["cam_mat"][0][2] != 10.0 and meta["cam_mat"][1][2] != 6.0
-  for split, n in (("train", 3), ("val", 1), ("test", 1)):
+  for split, n in (("train", real_scene.NUM_TRAIN), ("val", 1),
+                   ("test", 1)):
     rays, images, _ = t_datasets.load_opencv(data, split, True, False)
     assert images.shape == (n, 12, 20, 3) and images.dtype == np.float32
     assert all(np.isfinite(r).all() for r in rays)
