@@ -44,7 +44,15 @@ Phases, each of which must pass or the script exits non-zero:
      the call's time (CUDA events) and the kernel's device time alone
      (torch.profiler), the launch geometry. Then one march_lean and one
      march_full call under torch.cuda.set_sync_debug_mode("error"):
-     neither may read back from the card.
+     neither may read back from the card. Then K2 with the so3 head off
+     (march_full_plain, K1's template with the full emit) the same way at
+     one ray of the ship's march (extract_mesh's path dump), synth's
+     ground-truth chunk (8192 rays x 768 steps, its 64^3 grid), glass's
+     shape and ball's 8192-ray chunk, held at K2_ATOL (the arclength of
+     1536-step marches relative), with its bound (the bytes it writes,
+     B x S x 44, and reads); and its positions, directions and arclength
+     against K1's dense outputs at the 1024-ray radiance batch, bit for
+     bit.
   4. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes its path gives it, timed beside its bound: K1 at the
      render's first 8192-ray chunk; K2 (so3 march) and K3 (its reverse
@@ -112,22 +120,47 @@ Phases, each of which must pass or the script exits non-zero:
      card and on the CPU (plain K1), fp32 MLPs: loss and loss_bg to 1e-4
      relative, loss_bg > 0, the same rays over trans 0.5, bkgd_mlp's
      gradients at the K5 fp32 tolerance.
+  9. the Quickstart (README.md) through the port's entry points, on a copy
+     of example_data in a temporary directory: voxelize_mesh with the
+     README's flags (128^3 voxels x 4^3 containment queries on the host;
+     mesh.pkl's values in [1, 1.33], its occupied fraction at 1.165 within
+     10% of the icosphere's volume share of the (2 x 1.5)^3 box), 200
+     `radiance` steps of configs/example.* at full width (factor 2:
+     400x400 views), eval of the test view (its PSNR and SSIM those of the
+     returned model on that view; the colour, disp and depth-suite PNGs
+     written), then extract_mesh at resolution 128, range 1.2 and a
+     threshold the trained density crosses (the 99th percentile of the
+     alpha of a 33^3 lattice): the debug view (K1), the path dump of S
+     vertices (K2 with the head off, one launch), a surface with faces.
+     Prints each step's seconds and the density query's points/s.
+  10. the first quality figure: tools/synth.make_scene at its defaults (16 /
+     2 / 2 views of 128^2, a 64^3 grid, 768 steps; its ground truth marched
+     by the head-off kernel, 40 launches), then 2000 `radiance` steps with
+     single_image batching and fp32 MLPs through tools/validate_quality and
+     eval of the 2 test views: the test PSNR must reach 29.5 dB, 1 dB under
+     the JAX package's 30.49 dB for that budget and batching.
 The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
 import argparse
 import json
 import os
+import pickle
+import shutil
 import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+from PIL import Image
 
 from samplenerfro_torch import eval as eval_lib
+from samplenerfro_torch import extract_mesh
+from samplenerfro_torch import voxelize_mesh
 from samplenerfro_torch.data import datasets
 from samplenerfro_torch.data import rays as rays_lib
+from samplenerfro_torch.debug.march_parity import BALL
 from samplenerfro_torch.debug.march_parity import GLASS
 from samplenerfro_torch.debug.march_parity import RES
 from samplenerfro_torch.debug.march_parity import SO3_ALPHA
@@ -138,6 +171,8 @@ from samplenerfro_torch.debug.march_parity import glass_inputs
 from samplenerfro_torch.debug.march_parity import march_call
 from samplenerfro_torch.debug.march_parity import march_cases
 from samplenerfro_torch.debug.march_parity import march_report
+from samplenerfro_torch.debug.march_parity import scene_grid
+from samplenerfro_torch.debug.march_parity import scene_rays
 from samplenerfro_torch.debug.march_parity import ship_inputs
 from samplenerfro_torch.debug.march_parity import ship_model
 from samplenerfro_torch.debug.march_parity import so3_params_for
@@ -152,10 +187,14 @@ from samplenerfro_torch.models import nerf
 from samplenerfro_torch.models.path_sampler import SO3_MAX_DEG
 from samplenerfro_torch.ops import cuda_build
 from samplenerfro_torch.ops import eikonal_vjp
+from samplenerfro_torch.ops import grid as grid_ops
 from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mlp_kernel
 from samplenerfro_torch.ops import render as render_ops
+from samplenerfro_torch.tools import objio
+from samplenerfro_torch.tools import synth
+from samplenerfro_torch.tools import validate_quality
 from samplenerfro_torch.train import loop as train_loop
 from samplenerfro_torch.train import selfcheck
 from samplenerfro_torch.train import step as step_lib
@@ -204,6 +243,25 @@ N_ALL_FUSED = 2  # 'all' steps with --mlp_kernel=pallas, which keep nn.Linear
 # capture of 8 train views (and one val, one test view) of 320x240.
 GLASS_CONFIG = "configs/tpu/glass"
 N_REAL_RADIANCE, N_REAL_ALL = 8, 4
+# The Quickstart (README.md): example_data voxelized with the README's
+# flags, then `radiance` steps with configs/example.* at full width
+# (factor 2: 400x400 views), eval, and extract_mesh at this resolution.
+EXAMPLE_CONFIG = "configs/example"
+VOXELIZE_FLAGS = ["--num_samples=4", "--num_voxels=128", "--extent=1.5",
+                  "--threshold=1.165"]
+N_QUICK_STEPS = 200
+EXTRACT_RESOLUTION, EXTRACT_RANGE = 128, 1.2
+EXTRACT_PERCENTILE = 99
+# The icosphere's volume share of the (2 * 1.5)^3 box: the voxelized
+# grid's occupied fraction at the threshold is held within this relative
+# distance of it.
+OCCUPIED_RTOL = 0.1
+# The first quality figure: 2000 radiance steps, single_image batching,
+# fp32 MLPs on the synthetic exact-ground-truth scene; the JAX package's
+# anchor for the same budget and batching is 30.49 dB (STATUS.md:398-405),
+# and the port is held 1 dB under it.
+N_QUALITY_STEPS = 2000
+QUALITY_MIN_PSNR = 29.5
 XCHECK_RAYS = 128
 # One 'all' step, card against CPU, fp32 MLPs, not randomized: the loss to
 # 1e-4 relative (K1's and K2's ulps moved through the MLPs), the so3
@@ -1370,11 +1428,14 @@ def _zero_march_counts():
   march_kernel.march_lean.launches = 0
   march_kernel.march_full.launches = 0
   eikonal_vjp.march_bwd.launches = 0
+  march_kernel.march_full_plain.launches = 0
 
 
 def _march_counts():
+  """Launches of K1, K2, K3 and K2 with the head off."""
   return (march_kernel.march_lean.launches, march_kernel.march_full.launches,
-          eikonal_vjp.march_bwd.launches)
+          eikonal_vjp.march_bwd.launches,
+          march_kernel.march_full_plain.launches)
 
 
 def real_scene_phase(device, seed):
@@ -1453,8 +1514,8 @@ def real_scene_phase(device, seed):
   total = sum(c[1] for c in cut)
   n_rays = view.origins.shape[0] * view.origins.shape[1]
   n_chunks = -(-n_rays // args.chunk)
-  want = {"radiance": (N_REAL_RADIANCE + n_chunks, 0, 0),
-          "all": (0, N_REAL_ALL, N_REAL_ALL), "eval": (0, n_chunks, 0)}
+  want = {"radiance": (N_REAL_RADIANCE + n_chunks, 0, 0, 0),
+          "all": (0, N_REAL_ALL, N_REAL_ALL, 0), "eval": (0, n_chunks, 0, 0)}
   so3 = [float(x) for x in all_rec.so3]
   losses = ([float(x) for x in rad_rec.losses],
             [float(x) for x in all_rec.losses])
@@ -1471,7 +1532,7 @@ def real_scene_phase(device, seed):
       f"returned model on the same view: PSNR {psnr}, SSIM {ssim}")
   log(f"  cut box {cut_box}: {ones / total:.4f} of the fine samples kept "
       f"by the cut; acc mean {float(acc.mean()):.6f}")
-  log(f"  launches K1/K2/K3: radiance {counts['radiance']}, all "
+  log(f"  launches K1/K2/K3/head-off: radiance {counts['radiance']}, all "
       f"{counts['all']}, eval {counts['eval']} (expected {want})")
   log(f"  checkpoints {ckpts}")
   if not (finite and np.all(np.isfinite(losses[0] + losses[1]))):
@@ -1790,6 +1851,261 @@ def fused_cross_check(model, args, host, device, seed):
   return launches
 
 
+def head_off_cases(device, seed, model, batch_rays):
+  """K2 with the head off at the shapes its paths give it: one ray of the
+  ship's 768-step march (extract_mesh's path dump), synth's ground-truth
+  chunk (8192 rays x 768 steps on its 64^3 grid), glass's 1024 rays x 1536
+  steps on the 384^3 grid and ball's 8192 x 1536 on the 256^3 grid."""
+  ps = model.path_sampler
+  cases = [("dump", (ps.spec, ps.grid, batch_rays.origins[:1].contiguous(),
+                     batch_rays.viewdirs[:1].contiguous(), ps.near,
+                     ps.step_size, ps.num_samples))]
+  values = torch.from_numpy(synth.blob_ior_grid()).to(device)
+  n = round(values.shape[0] ** (1 / 3))
+  spec = grid_ops.GridSpec([n] * 3, [-1.5] * 3, [1.5] * 3)
+  grid = torch.cat([values, grid_ops.central_difference_grad(
+      spec, values)], -1).contiguous()
+  o, d = scene_rays(device, seed, synth.GT_CHUNK)
+  cases.append(("synth chunk", (spec, grid, o, d, 2.0, 4.0 / 767, 768)))
+  spec, grid, o, d, near, step_size, steps, _ = glass_inputs(device, seed)
+  cases.append(("glass", (spec, grid, o, d, near, step_size, steps)))
+  spec, grid, near, step_size, steps, _ = scene_grid(device, seed, BALL)
+  o, d = scene_rays(device, seed, 8192)
+  cases.append(("ball chunk", (spec, grid, o, d, near, step_size, steps)))
+  return cases
+
+
+def head_off_phase(device, seed, model, batch_rays, jitter):
+  """K2 with the head off (march_full_plain) against its plain version at
+  every shape of head_off_cases, at K2_ATOL (the arclength of 1536-step
+  marches relative to its largest value), with its call and device time
+  and its bound; then its positions, directions and arclength against
+  K1's dense outputs, bit for bit, at the ship radiance batch. Returns
+  the kernel's report row (its times at synth's chunk, its worst error
+  over the four shapes)."""
+  times = {}
+  for shape, args in head_off_cases(device, seed, model, batch_rays):
+    report = march_report(shape, "plain", args)
+    err = report["err"]
+    scale = (max(1.0, report["dist_max"]) if args[6] >= LONG_MARCH
+             else 1.0)
+    worst = max(max(err[:6] + err[7:]), err[6] / scale)
+    log(f"  head-off {shape}: worst error {worst:.3e} against {K2_ATOL} "
+        f"(arclength over {scale:.4f}); geometry "
+        f"{march_kernel.full_plain_launch_geometry(args[2].shape[0])}")
+    if not (np.all(np.isfinite(err)) and worst <= K2_ATOL):
+      raise SystemExit(f"head-off march {shape} disagrees with its plain "
+                       f"version: {err} against {K2_ATOL}")
+    times[shape] = (report["call_ms"], report["kernel_ms"], worst, args)
+  ps = model.path_sampler
+  args = (ps.spec, ps.grid, batch_rays.origins, batch_rays.viewdirs, ps.near,
+          ps.step_size, ps.num_samples)
+  with torch.no_grad():
+    full = march_kernel.march_full_plain(*args)
+    lean = march_kernel.march_lean(*args, jitter)
+  same = {"pos": torch.equal(lean[0], full[..., 0:3]),
+          "dir": torch.equal(lean[1],
+                             math_ops.safe_l2_normalize(full[..., 3:6])),
+          "dist": torch.equal(lean[2], full[..., 6])}
+  log(f"  head-off against K1's dense outputs at the radiance batch "
+      f"({args[2].shape[0]} rays x {args[6]} steps), bit for bit: {same}")
+  if not all(same.values()):
+    raise SystemExit(f"head-off march: not K1's path bit for bit: {same}")
+  del full, lean
+  err = max(t[2] for t in times.values())
+  call_ms, device_ms, _, args = times["synth chunk"]
+  with torch.no_grad():
+    plain_ms = cuda_ms(lambda: march_kernel.march_full_plain_reference(*args),
+                       reps=3)
+    pos = march_kernel.march_full_plain(*args)[..., 0:3]
+  batch, steps = args[2].shape[0], args[6]
+  distinct = distinct_voxels(args[0], pos)
+  nbytes = (4 * march_kernel.FULL_ROW * batch * steps + 4 * 6 * batch
+            + 16 * distinct)
+  bound_ms, bound_by = bound(nbytes, 120 * batch * steps)
+  log(f"  head-off synth chunk: {call_ms:.4f} ms a call, {device_ms:.4f} ms "
+      f"of device time, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+      f"{bound_by} ({nbytes / 1e6:.1f} MB incl. {distinct} distinct voxels)")
+  row = report_row("march_full_plain", MARCH_KERNEL + " (march_tiled_pallas, "
+                   "so3_params=None, :763)", err, call_ms, plain_ms,
+                   bound_ms, bound_by,
+                   source="samplenerfro_torch/ops/csrc/march_lean.cu")
+  row["device_ms"] = device_ms
+  for shape in ("dump", "glass", "ball chunk"):
+    key = shape.replace(" ", "_")
+    row[f"{key}_ms"], row[f"{key}_device_ms"] = times[shape][:2]
+  return row
+
+
+def _icosphere_share(mesh, extent):
+  """The closed mesh's volume (divergence theorem) over the box's."""
+  v = mesh.vertices[mesh.faces]
+  volume = abs(np.einsum("ij,ij->i", v[:, 0], np.cross(v[:, 1], v[:, 2]))
+               .sum()) / 6.0
+  return volume / (2 * extent) ** 3
+
+
+def quickstart_phase(device, seed):
+  """README.md's Quickstart through the port's entry points on a copy of
+  example_data: voxelize_mesh with the README's flags, N_QUICK_STEPS
+  radiance steps with configs/example.* at full width, eval of the test
+  view, then extract_mesh at EXTRACT_RESOLUTION. Returns the launches of
+  K1 (train, eval and the debug view) and of the head-off march (the path
+  dump) and the steps' seconds."""
+  secs, counts = {}, {}
+  with tempfile.TemporaryDirectory() as tmp:
+    data = os.path.join(tmp, "example_data")
+    shutil.copytree("example_data", data)
+    t0 = time.time()
+    voxelize_mesh.main([f"--data_dir={data}"] + VOXELIZE_FLAGS)
+    secs["voxelize"] = time.time() - t0
+    with open(os.path.join(data, "voxelize", "mesh.pkl"), "rb") as f:
+      grid = pickle.load(f)
+    values = np.asarray(grid["data"])
+    occupied = float(np.mean(values > 1.165))
+    share = _icosphere_share(objio.load(os.path.join(data, "mesh.obj")),
+                             grid["extent"])
+    log(f"quickstart: voxelize_mesh {secs['voxelize']:.1f} s "
+        f"({grid['num_voxels']}^3 voxels x 4^3 samples), values in "
+        f"[{values.min()}, {values.max()}], occupied {occupied:.5f} against "
+        f"the icosphere's share {share:.5f} of the box")
+    if not (values.dtype == np.float64 and values.min() >= 1.0
+            and values.max() <= 1.33):
+      raise SystemExit("quickstart: mesh.pkl's values outside [1, 1.33]")
+    if abs(occupied - share) > OCCUPIED_RTOL * share:
+      raise SystemExit(f"quickstart: occupied fraction {occupied} is not "
+                       f"within {OCCUPIED_RTOL} of {share}")
+
+    logs = os.path.join(tmp, "logs")
+    common = [f"--data_dir={data}", f"--train_dir={logs}",
+              f"--config={EXAMPLE_CONFIG}",
+              f"--gin_file={EXAMPLE_CONFIG}.gin", f"--device={device}",
+              "--stage=radiance"]
+    _zero_march_counts()
+    t0 = time.time()
+    with StepRecorder() as rec:
+      model = train_loop.main(common + [
+          f"--max_steps={N_QUICK_STEPS}", f"--save_every={N_QUICK_STEPS}",
+          "--print_every=100", "--render_every=0", f"--seed={seed}"])
+    secs["train"] = time.time() - t0
+    counts["train"] = _march_counts()
+    named = common + ["--gin_param=Config.radiance_weight_name='radiance'"]
+    _zero_march_counts()
+    t0 = time.time()
+    res = eval_lib.main(named + [f"--seed={seed}"])
+    secs["eval"] = time.time() - t0
+    counts["eval"] = _march_counts()
+    preds = os.path.join(logs, "radiance", "test_preds")
+    images = {k: os.path.join(preds, f"{k}000.png") for k in (
+        "", "disp_", "depth_", "depth_mod_", "depth_normals_")}
+
+    args, _, _ = config_lib.load_args(EXAMPLE_CONFIG,
+                                      [EXAMPLE_CONFIG + ".gin"])
+    args.data_dir = data
+    rays, views = datasets.load_split(args, "test")
+    view, pixels = datasets.eval_view(args, rays, views, 0)
+    jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
+                              torch.Generator().manual_seed(seed))
+    rgb, disp, acc = render_lib.render_image(
+        make_render_fn(model, jitter), view, False, chunk=args.chunk,
+        device=device)
+    psnr = metrics.compute_psnr(((rgb - pixels)**2).mean())
+    ssim = float(metrics.compute_ssim(rgb, pixels, 1.0))
+    # A threshold the trained density crosses: the 99th percentile of the
+    # alpha of a coarse lattice over the extraction's box (at the median
+    # a barely trained density puts a surface in half the cells: 20M
+    # faces, minutes of marching tetrahedra on the host).
+    coarse = extract_mesh.density_grid(model, 32, EXTRACT_RANGE, args.chunk,
+                                       device)
+    threshold = float(f"{np.percentile(coarse, EXTRACT_PERCENTILE):.4g}")
+    del model
+    _zero_march_counts()
+    t0 = time.time()
+    out = extract_mesh.main(named + [
+        f"--resolution={EXTRACT_RESOLUTION}", f"--range={EXTRACT_RANGE}",
+        f"--threshold={threshold}", f"--seed={seed}"])
+    secs["extract"] = time.time() - t0
+    counts["extract"] = _march_counts()
+    with open(out["dump"], "rb") as f:
+      dump = pickle.load(f)
+    found = {k: os.path.exists(v) and os.path.getsize(v) > 0
+             for k, v in images.items()}
+    pngs = {k: np.asarray(Image.open(v)) for k, v in images.items()
+            if found[k]}
+  steps = args.num_coarse_samples * args.num_path_samples
+  n_rays = view.origins.shape[0] * view.origins.shape[1]
+  n_chunks = -(-n_rays // args.chunk)
+  log(f"  train {N_QUICK_STEPS} steps {secs['train']:.1f} s "
+      f"({rec.rate():.3f} steps/s after the first), losses "
+      f"{[round(float(x), 5) for x in rec.losses[::50]]}; eval "
+      f"{secs['eval']:.1f} s: PSNR {res.psnrs}, SSIM {res.ssims}; the "
+      f"returned model on the same view: PSNR {psnr}, SSIM {ssim}")
+  log(f"  extract_mesh {secs['extract']:.1f} s at {EXTRACT_RESOLUTION} "
+      f"(threshold {threshold}): {out['times']}; "
+      f"{out['times']['points_per_s']:.1f} points/s; mesh "
+      f"{len(out['vertices'])} vertices, {len(out['faces'])} faces; path "
+      f"dump {dump['ray_pos'].shape}; eval images {found}")
+  log(f"  launches K1/K2/K3/head-off: {counts}")
+  if not rec.finite or not all(bool(f) for f in rec.finite):
+    raise SystemExit("quickstart: non-finite loss or gradient")
+  if res.psnrs[:1] != [psnr] or res.ssims[:1] != [ssim]:
+    raise SystemExit("quickstart: eval did not render the trained "
+                     "checkpoint")
+  if not all(found.values()) or not all(
+      np.all(np.isfinite(v)) and v.size for v in pngs.values()):
+    raise SystemExit(f"quickstart: eval's images {found}")
+  if not (np.all(np.isfinite(disp)) and np.all(np.isfinite(acc))):
+    raise SystemExit("quickstart: non-finite distance or opacity")
+  if dump["ray_pos"].shape != (1, steps, 3) or not np.all(
+      np.isfinite(dump["idx_grad"])):
+    raise SystemExit(f"quickstart: path dump {dump['ray_pos'].shape}, "
+                     f"expected (1, {steps}, 3)")
+  if len(out["faces"]) == 0:
+    raise SystemExit(f"quickstart: no surface at threshold {threshold}")
+  want = {"train": (N_QUICK_STEPS, 0, 0, 0),
+          "eval": (n_chunks, 0, 0, 0), "extract": (n_chunks, 0, 0, 1)}
+  if counts != want:
+    raise SystemExit(f"quickstart: launches {counts}, expected {want}")
+  return counts, secs
+
+
+def quality_phase(device):
+  """The synthetic exact-ground-truth scene (tools/synth.make_scene at its
+  defaults: 16/2/2 views of 128^2, a 64^3 grid, 768 steps, its ground
+  truth marched by the head-off kernel) and N_QUALITY_STEPS radiance steps
+  with single_image batching and fp32 MLPs through
+  tools/validate_quality; the test PSNR must reach QUALITY_MIN_PSNR.
+  Returns the head-off launches of the scene and the result."""
+  with tempfile.TemporaryDirectory() as tmp:
+    _zero_march_counts()
+    t0 = time.time()
+    synth.make_scene(os.path.join(tmp, "scene"), device=device)
+    scene_s = time.time() - t0
+    scene_counts = _march_counts()
+    _zero_march_counts()
+    t0 = time.time()
+    res = validate_quality.main([
+        f"--steps={N_QUALITY_STEPS}", "--batching=single_image",
+        f"--workdir={tmp}", f"--device={device}"])
+    secs = time.time() - t0
+    counts = _march_counts()
+  r = res[validate_quality.RADIANCE_STAGE]
+  views = 20 * 128 * 128
+  want_plain = -(-128 * 128 // synth.GT_CHUNK) * 20
+  log(f"quality: scene {scene_s:.1f} s (launches K1/K2/K3/head-off "
+      f"{scene_counts}), {N_QUALITY_STEPS} radiance steps single_image fp32 "
+      f"{r['train_s']:.1f} s, eval {r['eval_s']:.1f} s, {secs:.1f} s in "
+      f"all: test PSNR {r['psnr']} (gate {QUALITY_MIN_PSNR}), SSIM "
+      f"{r['ssim']}; launches {counts}")
+  if scene_counts != (0, 0, 0, want_plain):
+    raise SystemExit(f"quality: the scene's {views} rays took launches "
+                     f"{scene_counts}, expected {want_plain} head-off")
+  if not r["psnr"] >= QUALITY_MIN_PSNR:
+    raise SystemExit(f"quality: test PSNR {r['psnr']} under "
+                     f"{QUALITY_MIN_PSNR}")
+  return scene_counts, r
+
+
 def main():
   p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   p.add_argument("--seed", type=int, default=0)
@@ -1832,6 +2148,9 @@ def main():
   k1["ball_batch_device_ms"] = times[("lean", "ball batch")][1]
   k1["ball_chunk_device_ms"] = times[("lean", "ball chunk")][1]
   torch.cuda.empty_cache()
+  log("K2 with the head off (march_full_plain):")
+  head_off = head_off_phase(device, ns.seed, model, batch_rays, jitter)
+  torch.cuda.empty_cache()
   k4, k4_pe, k4_bf16, k5_bf16, k5_fp32 = fused_kernel_phases(
       model, first, batch_rays, jitter, ns.seed)
   wide_mlp_phase(device, ns.seed)
@@ -1865,8 +2184,19 @@ def main():
   k1["real_scene_launches"] = real["radiance"][0]
   k2["real_scene_launches"] = real["all"][1] + real["eval"][1]
   k3["real_scene_launches"] = real["all"][2]
+  torch.cuda.empty_cache()
+  quick, quick_secs = quickstart_phase(device, ns.seed)
+  k1["quickstart_launches"] = sum(c[0] for c in quick.values())
+  torch.cuda.empty_cache()
+  synth_counts, quality = quality_phase(device)
+  head_off["quickstart_launches"] = quick["extract"][3]
+  head_off["synth_launches"] = synth_counts[3]
+  head_off["launches"] = quick["extract"][3] + synth_counts[3]
+  log(f"quickstart seconds {quick_secs}; quality PSNR {quality['psnr']}, "
+      f"SSIM {quality['ssim']}")
 
-  report = probe_rows + [k1, k2, k3, k4, k4_pe, k4_bf16, k5_bf16, k5_fp32]
+  report = probe_rows + [k1, k2, k3, head_off, k4, k4_pe, k4_bf16, k5_bf16,
+                         k5_fp32]
   log(f"total: {time.time() - t_start:.1f} s")
   log(f"card: {card}")
   print(json.dumps({"kernels": report}))

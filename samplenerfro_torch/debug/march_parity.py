@@ -302,10 +302,16 @@ def march_cases(device, seed, model, first, batch_rays, jitter):
 
 
 def march_call(kind):
-  """(wrapper, plain version, kernel name) of a march kind."""
+  """(wrapper, plain version, kernel name) of a march kind: "lean" (K1),
+  "so3" (K2) or "plain" (K2 with the head off; chip_smoke.py's cases, not
+  march_cases', so that this file still runs in a checkout without it)."""
   if kind == "lean":
     return (march_kernel.march_lean, march_kernel.march_lean_reference,
             "march_lean_kernel")
+  if kind == "plain":
+    return (march_kernel.march_full_plain,
+            march_kernel.march_full_plain_reference,
+            "march_full_plain_kernel")
   return (march_kernel.march_full, march_kernel.march_full_reference,
           "march_so3_kernel")
 

@@ -5,8 +5,11 @@
         --train_dir=<out> [--params_npz=<weights.npz>] [--device=cuda] \
         [--stage=all] [--<flag>=<value> ...]
 
-Writes <train_dir>/<stage>/test_preds/NNN.png, psnrs_<step>.txt and
-ssims_<step>.txt (one value a view), psnr.txt and ssim.txt (their means);
+Writes <train_dir>/<stage>/test_preds/NNN.png, disp_NNN.png (the
+rendered distance, clipped to [0, 1] as the JAX eval writes it) and the
+depth suite depth_NNN.png, depth_mod_NNN.png and depth_normals_NNN.png
+(utils/vis.visualize_suite), psnrs_<step>.txt and ssims_<step>.txt (one
+value a view), psnr.txt and ssim.txt (their means);
 with --eval_train it renders the train split into train_preds/. OpenCV
 views are centrally cropped as the JAX loader crops them. Any flag of
 utils/config.py may be given as --name=value; an `all*` stage marches with
@@ -19,8 +22,7 @@ come from --params_npz (models/convert.py's flat format), whose step is
 written as 0. Rendering is deterministic (randomized=False); the jittered
 coarse subsample is drawn once per run from --seed and shared by every
 chunk, as the JAX renderer shares one key across chunks. The JAX eval's
-checkpoint-watching loop, depth and disparity images and summaries are
-not ported.
+checkpoint-watching loop and summaries are not ported.
 """
 
 import argparse
@@ -39,6 +41,7 @@ from samplenerfro_torch.utils import config as config_lib
 from samplenerfro_torch.utils import grid_io
 from samplenerfro_torch.utils import metrics
 from samplenerfro_torch.utils import render as render_lib
+from samplenerfro_torch.utils import vis
 
 
 def make_render_fn(model, jitter):
@@ -114,14 +117,17 @@ def main(argv=None):
   psnrs, ssims = [], []
   for idx in range(images.shape[0]):
     view, pixels = datasets.eval_view(args, rays, images, idx)
-    rgb, _, _ = render_lib.render_image(render_fn, view,
-                                        args.dataset == "llff",
-                                        chunk=args.chunk, device=device)
+    rgb, disp, acc = render_lib.render_image(render_fn, view,
+                                             args.dataset == "llff",
+                                             chunk=args.chunk, device=device)
     psnrs.append(metrics.compute_psnr(((rgb - pixels)**2).mean()))
     ssims.append(float(metrics.compute_ssim(rgb, pixels, 1.0)))
     print(f"Evaluating {idx + 1}/{images.shape[0]}: PSNR = {psnrs[-1]:.4f}, "
           f"SSIM = {ssims[-1]:.4f}")
     save_img(rgb, os.path.join(out_dir, f"{idx:03d}.png"))
+    save_img(disp[..., 0], os.path.join(out_dir, f"disp_{idx:03d}.png"))
+    for k, v in vis.visualize_suite(disp[..., 0], acc[..., 0]).items():
+      save_img(v.numpy(), os.path.join(out_dir, f"{k}_{idx:03d}.png"))
   for name, values in (("psnr", psnrs), ("ssim", ssims)):
     with open(os.path.join(out_dir, f"{name}s_{step}.txt"), "w") as f:
       f.write(" ".join(str(v) for v in values))

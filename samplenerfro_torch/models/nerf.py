@@ -144,6 +144,22 @@ class NerfModel(nn.Module):
     bkgd = self.rgb_activation(raw_bkgd)
     return bkgd * (1 + 2 * self.rgb_padding) - self.rgb_padding
 
+  def sample_points(self, pts, viewdirs):
+    """(rgb, alpha) of the fine MLP (the coarse one without fine samples)
+    at arbitrary [..., 3] points seen along [..., 3] directions
+    (samplenerfro_tpu/models/nerf.py:227-242); nn.Linear, or K4 under
+    --mlp_kernel. alpha is 1 - exp(-step * sigma) at that level's step."""
+    use_fine = self.num_fine_samples > 0
+    mlp = self.fine_mlp if use_fine else self.coarse_mlp
+    step_size = (self.far - self.near) / (
+        self.num_coarse_samples + (self.num_fine_samples if use_fine else 0))
+    encode = not (self._use_fused_mlp() and self._fused_pe() is not None)
+    samples_enc = self._encode_points(pts) if encode else None
+    viewdirs_enc = self._encode_dirs(viewdirs) if encode else None
+    rgb, sigma = self._decode(mlp, samples_enc, viewdirs_enc, False, None,
+                              self.mlp_dtype, pts, viewdirs)
+    return rgb, 1 - torch.exp(-step_size * sigma)
+
   def _use_fused_mlp(self):
     """Whether _decode takes the fused MLP (K4/K5): the gate of
     samplenerfro_tpu/models/nerf.py:277-289. Its TPU-backend test has no

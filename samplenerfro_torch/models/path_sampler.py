@@ -45,7 +45,10 @@ class PathSampler(nn.Module):
 
     Radiance stages: K1 (ops/march_kernel.march_lean); returns
     (pos, dirs, dist, None, None, (sub_pos, sub_dir, sub_dist)), the lean
-    return of path_sampler.py:237-249.
+    return of path_sampler.py:237-249. Without a jitter (a path dump,
+    extract_mesh) K2 with the head off (march_full_plain), as the JAX
+    sampler runs march_tiled_pallas(so3_params=None) there
+    (path_sampler.py:317-323): (pos, unit dirs, dist, n, grad n, None).
     'all' stages: K2 forward and K3 backward (ops/eikonal_vjp), the march
     differentiable in the so3 weights and the ray inputs; returns
     (pos, unit dirs, dist, n, grad n, None) and the caller gathers the
@@ -53,6 +56,13 @@ class PathSampler(nn.Module):
     (path_sampler.py:305).
     """
     origins, directions = origins.contiguous(), directions.contiguous()
+    if not self.use_pred_grad and jitter is None:
+      traj = march_kernel.march_full_plain(
+          self.spec, self.grid, origins, directions, self.near,
+          self.step_size, self.num_samples)
+      pos, dirs_raw, dist, n, g = march_kernel.split_trajectory(traj)
+      return (pos, math_ops.safe_l2_normalize(dirs_raw), dist.detach(), n, g,
+              None)
     if not self.use_pred_grad:
       pos, dirs, dist, sub_pos, sub_dir, sub_dist = march_kernel.march_lean(
           self.spec, self.grid, origins, directions, self.near,

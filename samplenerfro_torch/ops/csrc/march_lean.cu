@@ -1,8 +1,15 @@
-// K1: lean eikonal march, hand-written for Hopper (sm_90a).
+// K1: lean eikonal march, hand-written for Hopper (sm_90a); and K2 with
+// the head off: the same march emitting the full trajectory.
 //
-// Replaces samplenerfro_tpu/ops/pallas/march_kernel.py:_march_kernel in
+// K1 replaces samplenerfro_tpu/ops/pallas/march_kernel.py:_march_kernel in
 // lean-emit mode (emit_rows=7, in-kernel jittered subsample, no so3 head),
-// reached there through march_tiled_pallas_lean.
+// reached there through march_tiled_pallas_lean. The full-emit variant
+// (march_full_plain_launch) replaces the same kernel in full-emit mode
+// with so3_params=None (march_tiled_pallas, march_kernel.py:763-790): rows
+// of 11 floats (p, raw d, t, n, grad n), no subsample, stepping with the
+// grid's own gradient. It is the one template below with kFull set, so its
+// p, d and t are K1's bit for bit; its bound is the bytes it writes,
+// B * S * 44.
 //
 // What it computes, per ray, for s = 0 .. S-1 (ops/eikonal.march:95-97):
 //   (n, grad n) = trilinear(grid, p)          clamp-to-edge, fp32
@@ -53,15 +60,16 @@ constexpr int kRays = 8;                  // rays a block
 constexpr int kThreads = kRays * kLanes;  // 64
 constexpr int kStage = 32;                // steps staged before a store
 constexpr int kRow = 7;                   // floats a row: p, d, t
+constexpr int kFullRow = 11;              // + n, grad n (full emit)
 constexpr int kAhead = 6;                 // steps a gather is loaded ahead
 
 struct MarchArgs {
   const float* origins;  // [B, 3]
   const float* dirs;     // [B, 3]
   march::Grid grid;
-  const int* jitter;     // [Nc]
-  float* dense;          // [B, S, 7]
-  float* sub;            // [B, Nc, 7]
+  const int* jitter;     // [Nc]; unused by the full emit
+  float* dense;          // [B, S, 7], or [B, S, 11] for the full emit
+  float* sub;            // [B, Nc, 7]; unused by the full emit
   int batch, num_samples, num_coarse, num_path;
   float near, step;
 };
@@ -82,9 +90,13 @@ __device__ __forceinline__ void flush(const float* src, float* dst, int n,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-march_lean_kernel(const MarchArgs a) {
-  // [kRays][kStage][7] staged dense rows, then [kRays][Nc][7] subsample.
+// The march of one block. kFull: emit [B, S, 11] rows and no subsample
+// (K2 with the head off); else K1's lean rows and subsample.
+template <bool kFull>
+__device__ __forceinline__ void march_block(const MarchArgs& a) {
+  constexpr int kOut = kFull ? kFullRow : kRow;  // floats a dense row
+  // [kRays][kStage][kOut] staged dense rows, then (lean) [kRays][Nc][7]
+  // subsample.
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int lane = threadIdx.x % kLanes, local = threadIdx.x / kLanes;
@@ -93,8 +105,8 @@ march_lean_kernel(const MarchArgs a) {
   // so that every lane of the warp takes every shuffle.
   const bool valid = want < a.batch;
   const int ray = valid ? want : a.batch - 1;
-  float* stage = smem + local * kStage * kRow;
-  float* subs = smem + kRays * kStage * kRow + local * a.num_coarse * kRow;
+  float* stage = smem + local * kStage * kOut;
+  float* subs = smem + kRays * kStage * kOut + local * a.num_coarse * kRow;
 
   float dx = a.dirs[3 * ray], dy = a.dirs[3 * ray + 1],
         dz = a.dirs[3 * ray + 2];
@@ -102,7 +114,7 @@ march_lean_kernel(const MarchArgs a) {
   float py = a.origins[3 * ray + 1] + a.near * dy;
   float pz = a.origins[3 * ray + 2] + a.near * dz;
   float t = a.near;
-  float* dense = a.dense + (long long)ray * a.num_samples * kRow;
+  float* dense = a.dense + (long long)ray * a.num_samples * kOut;
 
   // Slot u holds the corner loaded ahead for the steps s with s % kAhead
   // == u: its address and value. Before the march the guesses assume
@@ -118,7 +130,7 @@ march_lean_kernel(const MarchArgs a) {
   }
 
   int bin = 0, in_bin = 0, s0 = 0;
-  int pick = __ldg(a.jitter);
+  int pick = kFull ? -1 : __ldg(a.jitter);
   for (int base = 0; base < a.num_samples; base += kAhead) {
 #pragma unroll
     for (int u = 0; u < kAhead; ++u) {
@@ -130,9 +142,12 @@ march_lean_kernel(const MarchArgs a) {
       if (lane < kRow) {
         const float x = lane == 0 ? px : lane == 1 ? py : lane == 2 ? pz
                       : lane == 3 ? dx : lane == 4 ? dy : lane == 5 ? dz : t;
-        stage[(s - s0) * kRow + lane] = x;
-        if (s == pick) subs[bin * kRow + lane] = x;
+        stage[(s - s0) * kOut + lane] = x;
+        if (!kFull && s == pick) subs[bin * kRow + lane] = x;
       }
+      if (kFull && lane < 4)
+        stage[(s - s0) * kOut + kRow + lane] =
+            lane == 0 ? v.x : lane == 1 ? v.y : lane == 2 ? v.z : v.w;
       float qx, qy, qz;
       march::next_position(a.step, v.x, px, py, pz, dx, dy, dz, qx, qy, qz);
       march::finish_step(a.step, v.y, v.z, v.w, qx, qy, qz, px, py, pz, dx,
@@ -144,23 +159,41 @@ march_lean_kernel(const MarchArgs a) {
                                  pz + f * dz, lane);
       ahead_v[u] = march::load_now(ahead_a[u]);
 
-      if (++in_bin == a.num_path && s + 1 < a.num_samples) {
+      if (!kFull && ++in_bin == a.num_path && s + 1 < a.num_samples) {
         in_bin = 0;
         ++bin;
         pick = __ldg(a.jitter + bin);
       }
       if (s + 1 - s0 == kStage || s + 1 == a.num_samples) {
         __syncwarp();
-        if (valid) flush(stage, dense + (long long)s0 * kRow,
-                         (s + 1 - s0) * kRow, lane);
+        if (valid) flush(stage, dense + (long long)s0 * kOut,
+                         (s + 1 - s0) * kOut, lane);
         __syncwarp();
         s0 = s + 1;
       }
     }
   }
-  if (valid)
+  if (!kFull && valid)
     flush(subs, a.sub + (long long)ray * a.num_coarse * kRow,
           a.num_coarse * kRow, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+march_lean_kernel(const MarchArgs a) {
+  march_block<false>(a);
+}
+
+__global__ void __launch_bounds__(kThreads)
+march_full_plain_kernel(const MarchArgs a) {
+  march_block<true>(a);
+}
+
+march::Grid make_grid(const float* grid, int nx, int ny, int nz,
+                      float nmin_x, float nmin_y, float nmin_z, float nd_x,
+                      float nd_y, float nd_z) {
+  return {reinterpret_cast<const float4*>(grid), nx, ny, nz,
+          nmin_x, nmin_y, nmin_z, nd_x, nd_y, nd_z,
+          1.0f / nd_x, 1.0f / nd_y, 1.0f / nd_z};
 }
 
 }  // namespace
@@ -192,9 +225,8 @@ extern "C" int march_lean_launch(
   MarchArgs a;
   a.origins = origins;
   a.dirs = dirs;
-  a.grid = {reinterpret_cast<const float4*>(grid), nx, ny, nz,
-            nmin_x, nmin_y, nmin_z, nd_x, nd_y, nd_z,
-            1.0f / nd_x, 1.0f / nd_y, 1.0f / nd_z};
+  a.grid = make_grid(grid, nx, ny, nz, nmin_x, nmin_y, nmin_z, nd_x, nd_y,
+                     nd_z);
   a.jitter = jitter;
   a.dense = dense;
   a.sub = sub;
@@ -207,5 +239,37 @@ extern "C" int march_lean_launch(
   const int blocks = (batch + kRays - 1) / kRays;
   march_lean_kernel<<<blocks, kThreads, smem_bytes,
                       static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 with the head off: [B, S, 11] rows into `traj`. The launch geometry
+// is march_kernel.full_plain_launch_geometry's (K1's blocks, 11-float rows
+// and no subsample: 11,264 shared bytes a block), checked here again.
+extern "C" int march_full_plain_launch(
+    const float* origins, const float* dirs, const float* grid, float* traj,
+    int batch, int num_samples, int nx, int ny, int nz, float near,
+    float step, float nmin_x, float nmin_y, float nmin_z, float nd_x,
+    float nd_y, float nd_z, int rays_per_block, int threads,
+    int smem_bytes, void* stream) {
+  if (batch < 1 || num_samples < 1 || rays_per_block != kRays ||
+      threads != kThreads || smem_bytes != 4 * kRays * kStage * kFullRow)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MarchArgs a;
+  a.origins = origins;
+  a.dirs = dirs;
+  a.grid = make_grid(grid, nx, ny, nz, nmin_x, nmin_y, nmin_z, nd_x, nd_y,
+                     nd_z);
+  a.jitter = nullptr;
+  a.dense = traj;
+  a.sub = nullptr;
+  a.batch = batch;
+  a.num_samples = num_samples;
+  a.num_coarse = 0;
+  a.num_path = 0;
+  a.near = near;
+  a.step = step;
+  const int blocks = (batch + kRays - 1) / kRays;
+  march_full_plain_kernel<<<blocks, kThreads, smem_bytes,
+                            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

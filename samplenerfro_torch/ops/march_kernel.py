@@ -5,11 +5,16 @@ samplenerfro_tpu/ops/pallas/march_kernel.py:_march_kernel in lean mode
 (march_tiled_pallas_lean): the radiance stage and eval.
 K2, the so3-refined march (csrc/march_so3.cu), replaces the same kernel in
 full-emit mode with the so3 head (march_tiled_pallas(so3_params=...)): the
-'all' stage's forward. Each source comment says what bounds it on the
+'all' stage's forward. K2 with the head off (march_tiled_pallas(
+so3_params=None)), the full trajectory stepping with the grid's own
+gradient, is K1's template in csrc/march_lean.cu with the full emit: the
+radiance stage's path dump (extract_mesh) and the synthetic scene's ground
+truth (tools/synth.py). Each source comment says what bounds it on the
 card.
 
-`march_lean` and `march_full` launch their kernel for CUDA tensors and use
-`march_lean_reference` / `march_full_reference` only for CPU tensors.
+`march_lean`, `march_full` and `march_full_plain` launch their kernel for
+CUDA tensors and use `march_lean_reference` / `march_full_reference` /
+`march_full_plain_reference` only for CPU tensors.
 Unlike the TPU kernel they march straight out of the grid in device
 memory, so they take no window, refetch, interpolation-precision or skip
 settings and report no out-of-window count.
@@ -171,12 +176,88 @@ march_lean.launches = 0
 
 def _library():
   lib = cuda_build.load("march_lean")
-  fn = lib.march_lean_launch
-  if fn.restype is not ctypes.c_int or not fn.argtypes:
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 6 + [ci] * 6 + [cf] * 8 + [ci] * 3 + [vp]
-    fn.restype = ci
+  vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+  for fn, argtypes in (
+      (lib.march_lean_launch, [vp] * 6 + [ci] * 6 + [cf] * 8 + [ci] * 3),
+      (lib.march_full_plain_launch, [vp] * 4 + [ci] * 5 + [cf] * 8
+       + [ci] * 3)):
+    if fn.restype is not ci or not fn.argtypes:
+      fn.argtypes = argtypes + [vp]
+      fn.restype = ci
   return lib
+
+
+# K2 with the head off runs K1's blocks with rows of FULL_ROW floats (p,
+# raw d, t, n, grad n) and no subsample.
+FULL_ROW = 11
+
+
+def full_plain_launch_geometry(batch):
+  """The head-off full emit's launch for `batch` rays: K1's 8 lanes a ray
+  and 8 rays a block, each ray's rows staged for LEAN_STAGE steps."""
+  if batch < 1:
+    raise ValueError(f"march_full_plain: batch must be at least 1, got "
+                     f"{batch}")
+  return {"lanes": LEAN_LANES, "rays_per_block": LEAN_RAYS,
+          "threads": LEAN_LANES * LEAN_RAYS,
+          "blocks": -(-batch // LEAN_RAYS), "stage_steps": LEAN_STAGE,
+          "smem_bytes": 4 * FULL_ROW * LEAN_RAYS * LEAN_STAGE}
+
+
+def march_full_plain_reference(spec, data, origins, directions, near,
+                               step_size, num_samples):
+  """Plain PyTorch version of the head-off full emit: ops/eikonal.march
+  with the grid's gradient and raw directions, as [B, S, 11]."""
+  pos, dirs, dist, n, g = eik_ops.march(spec, data, origins, directions,
+                                        near, step_size, num_samples,
+                                        use_pred_grad=False,
+                                        normalize_dirs=False)
+  return torch.cat([pos, dirs, dist[..., None], n, g], dim=-1)
+
+
+def march_full_plain(spec, data, origins, directions, near, step_size,
+                     num_samples):
+  """The march without the so3 head, emitting the full trajectory.
+
+  Args: as march_lean, without the jitter.
+
+  Returns:
+    [B, S, 11] float32 trajectory as march_full's (split_trajectory), each
+    row the state before that step's update; its positions, directions
+    and arclength are K1's bit for bit. The call reads nothing back from
+    the card.
+  """
+  dev = origins.device
+  if dev.type == "cpu":
+    return march_full_plain_reference(spec, data, origins, directions, near,
+                                      step_size, num_samples)
+  if dev.type != "cuda":
+    raise ValueError(f"march_full_plain runs on CUDA or CPU tensors, not "
+                     f"{dev}")
+  check_march_inputs("march_full_plain", spec, data, origins, directions)
+  if num_samples < 1:
+    raise ValueError(f"march_full_plain: num_samples must be at least 1, "
+                     f"got {num_samples}")
+  batch = origins.shape[0]
+  geom = full_plain_launch_geometry(batch)
+  lib = _library()
+  traj = torch.empty((batch, num_samples, FULL_ROW), dtype=torch.float32,
+                     device=dev)
+  with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.march_full_plain_launch(
+        origins.data_ptr(), directions.data_ptr(), data.data_ptr(),
+        traj.data_ptr(), batch, num_samples, *spec.ndim, near, step_size,
+        *spec.nmin, *spec.ndelta, geom["rays_per_block"], geom["threads"],
+        geom["smem_bytes"], stream)
+  if err != 0:
+    raise RuntimeError(f"march_full_plain: kernel launch failed with CUDA "
+                       f"error {err}")
+  march_full_plain.launches += 1
+  return traj
+
+
+march_full_plain.launches = 0
 
 
 # K2's launch geometry (csrc/march_so3.cu): a cluster of SO3_CLUSTER CTAs

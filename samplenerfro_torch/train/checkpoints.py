@@ -47,9 +47,40 @@ def save_checkpoint(stage_dir, model, optimizer, step, keep=100):
   return final
 
 
+def _load_optimizer(optimizer, saved):
+  """Load a saved optimizer state whose groups may be another stage's.
+
+  A stage seeded from another stage's checkpoint (tools/validate_quality's
+  `all` arm starts in a copy of the radiance stage's directory) has other
+  groups: each group of both keeps its Adam state, matched by name, and a
+  group the checkpoint lacks (the path sampler's) starts fresh.
+  """
+  own = optimizer.state_dict()
+  names = [g.get("name") for g in own["param_groups"]]
+  saved_groups = {g.get("name"): g for g in saved["param_groups"]}
+  if names == [g.get("name") for g in saved["param_groups"]]:
+    optimizer.load_state_dict(saved)
+    return
+  state = {}
+  for group in own["param_groups"]:
+    old = saved_groups.get(group["name"])
+    if old is None:
+      continue
+    if len(old["params"]) != len(group["params"]):
+      raise ValueError(f"optimizer group {group['name']} has "
+                       f"{len(group['params'])} tensors, the checkpoint's "
+                       f"{len(old['params'])}")
+    for mine, theirs in zip(group["params"], old["params"]):
+      if theirs in saved["state"]:
+        state[mine] = saved["state"][theirs]
+  optimizer.load_state_dict({"state": state,
+                             "param_groups": own["param_groups"]})
+
+
 def restore_checkpoint(stage_dir, model, optimizer):
   """Load the newest checkpoint into model and optimizer; returns its step,
-  or 0 when the dir holds none."""
+  or 0 when the dir holds none. The checkpoint may be another stage's
+  (_load_optimizer)."""
   step = latest_step(stage_dir)
   if step is None:
     return 0
@@ -60,7 +91,7 @@ def restore_checkpoint(stage_dir, model, optimizer):
   if [k for k in missing if k != _GRID] or unexpected:
     raise ValueError(f"checkpoint_{step} does not fit the model: missing "
                      f"{missing}, unexpected {unexpected}")
-  optimizer.load_state_dict(state["optimizer"])
+  _load_optimizer(optimizer, state["optimizer"])
   return int(state["step"])
 
 

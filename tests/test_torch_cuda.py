@@ -83,6 +83,28 @@ def test_cuda_kernel_matches_plain_version(cuda_device, nrays):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nrays", [1, 100, 1024, 8192])
+def test_cuda_head_off_march_matches_plain_and_k1(cuda_device, nrays):
+  """K2 with the head off against its plain version, and its positions,
+  directions and arclength against K1's, bit for bit (one template)."""
+  spec, data, o, d, jitter = _march_inputs(nrays)
+  data, o, d = [torch.from_numpy(a).to(cuda_device) for a in (data, o, d)]
+  before = march_kernel.march_full_plain.launches
+  got = march_kernel.march_full_plain(spec, data, o, d, NEAR, H, S)
+  torch.cuda.synchronize()
+  assert march_kernel.march_full_plain.launches == before + 1
+  want = march_kernel.march_full_plain_reference(spec, data, o, d, NEAR, H, S)
+  torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+  lean = march_kernel.march_lean(spec, data, o, d, NEAR, H, S,
+                                 torch.from_numpy(jitter))
+  assert torch.equal(lean[0], got[..., 0:3])
+  assert torch.equal(lean[1], math_ops.safe_l2_normalize(got[..., 3:6]))
+  assert torch.equal(lean[2], got[..., 6])
+  with pytest.raises(ValueError):
+    march_kernel.march_full_plain(spec, data, o.double(), d, NEAR, H, S)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
   spec, data, o, d, jitter = _march_inputs(8, n=8)
   data, o, d = [torch.from_numpy(a).to(cuda_device) for a in (data, o, d)]

@@ -135,8 +135,10 @@ def test_eval_entry_point_on_cpu(scene, tmp_path):
       f"--config={cfg}", f"--gin_file={cfg}.gin", "--device=cpu",
       "--chunk=128"])
   out = tmp_path / "out" / "radiance" / "test_preds"
-  assert sorted(os.listdir(out)) == ["000.png", "001.png", "psnr.txt",
-                                     "psnrs_5.txt", "ssim.txt", "ssims_5.txt"]
+  images = [f"{k}{i:03d}.png" for i in range(2)
+            for k in ("", "depth_", "depth_mod_", "depth_normals_", "disp_")]
+  assert sorted(os.listdir(out)) == sorted(
+      images + ["psnr.txt", "psnrs_5.txt", "ssim.txt", "ssims_5.txt"])
   assert res.step == 5
   assert len(res.psnrs) == 2 and all(np.isfinite(res.psnrs))
   assert len(res.ssims) == 2 and all(np.isfinite(res.ssims))

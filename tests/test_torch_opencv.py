@@ -460,8 +460,9 @@ def test_train_then_eval_renders_the_checkpoint(tmp_path, stage, capsys,
   assert res.psnrs == [t_metrics.compute_psnr(((rgb - pixels)**2).mean())]
   assert res.ssims == [float(t_metrics.compute_ssim(rgb, pixels, 1.0))]
   out = tmp_path / "logs" / stage / "test_preds"
-  assert sorted(os.listdir(out)) == ["000.png", "psnr.txt", "psnrs_3.txt",
-                                     "ssim.txt", "ssims_3.txt"]
+  assert sorted(os.listdir(out)) == [
+      "000.png", "depth_000.png", "depth_mod_000.png", "depth_normals_000.png",
+      "disp_000.png", "psnr.txt", "psnrs_3.txt", "ssim.txt", "ssims_3.txt"]
 
 
 def test_real_scene_writer_loads(tmp_path):
