@@ -90,6 +90,22 @@ Phases, each of which must pass or the script exits non-zero:
      radiance steps with --mlp_kernel=pallas (bf16): K4 and K5 twice a
      step, the loss falling; and 'all' steps with the flag set, which must
      launch neither (the 'all' stage keeps nn.Linear).
+  6b. dispatch: each stage of the ship configuration at full width from
+     step 80000 (the annealing alpha non-zero and changing every step),
+     30 steps through train.step.make_train_step_multi one at a time and
+     10 a dispatch (its steps_per_dispatch: an eager window, then a CUDA
+     graph of 10 steps captured and replayed twice), on distinct seeded
+     batches through data/prefetch.py, from the same weights, jitters and
+     generator seeds. Every Stats field of every step, every parameter,
+     Adam moment and count must be equal bit for bit; the wrappers must
+     count K1 (radiance), K2 and K3 ('all') once a step run in Python
+     (at K=10: the eager window and the capture), and a replay after
+     them, traced by torch.profiler, must launch each 10 times, as 10
+     eager steps traced the same way do (up to 3 windows are traced, one
+     at a time, since the profiler can drop a record; none may show more).
+     Prints the steps/s of steps 21-30 (K=10: a replay) and the device ms
+     a step of the last traced window both ways, with the card's name and
+     power limit.
   7. CPU cross-checks: 256 rays of the view rendered on the CPU (the plain
      march) against the card; one 'all' step's loss and so3 gradients on
      128 rays, fp32 MLPs, on the CPU (plain K2 and K3) against the card,
@@ -105,15 +121,20 @@ Phases, each of which must pass or the script exits non-zero:
      (debug/real_scene.py: 8 train views, one val, one test, 320x240, an
      off-centre principal point, a 384^3 blob of extent 3.5 that fills
      the view), written to a
-     temporary directory, through the entry points: train.loop.main
-     --stage=radiance for 8 steps with one validation render, --stage=all
-     for 4 steps, then eval.main --stage=all on the test view. Losses and
+     temporary directory, through the entry points, at its shipped
+     dispatch (10 steps a dispatch, 4 render chunks a dispatch):
+     train.loop.main --stage=radiance for 20 steps with one validation
+     render, --stage=all for 20 steps (each stage an eager window, then a
+     replayed one), then eval.main --stage=all on the test view. Losses and
      so3 gradients must be finite and the so3 gradients non-zero (the
-     capture's object fills the view), the checkpoints written, eval's PSNR and
+     capture's object fills the view; the gradients checked after each
+     eager step and after each replay), the checkpoints written, eval's PSNR and
      SSIM equal to those of the model train returned rendered here on the
-     same view with the same seeded jitter (eval read the checkpoint), the
+     same view with the same seeded jitter (eval read the checkpoint), and
+     that render bit for bit the same view rendered one chunk a call, the
      cut's mask neither all ones nor all zeros over the view, and K1, K2
-     and K3 launched as the steps and chunks imply. Between the two
+     and K3 launched through their wrappers as the steps run in Python
+     (eager and captured) and the chunks imply. Between the two
      stages, one radiance step of the trained model on a train batch at
      annealed alpha 0.5, its density lowered (sigma_bias -4) so that the
      cut's transmittance passes 0.5 and the background loss counts, on the
@@ -159,6 +180,7 @@ from samplenerfro_torch import eval as eval_lib
 from samplenerfro_torch import extract_mesh
 from samplenerfro_torch import voxelize_mesh
 from samplenerfro_torch.data import datasets
+from samplenerfro_torch.data import prefetch
 from samplenerfro_torch.data import rays as rays_lib
 from samplenerfro_torch.debug.march_parity import BALL
 from samplenerfro_torch.debug.march_parity import GLASS
@@ -168,6 +190,7 @@ from samplenerfro_torch.debug.march_parity import TRAIN_FROM
 from samplenerfro_torch.debug.march_parity import card_name
 from samplenerfro_torch.debug.march_parity import cuda_ms
 from samplenerfro_torch.debug.march_parity import glass_inputs
+from samplenerfro_torch.debug.march_parity import kernel_launches
 from samplenerfro_torch.debug.march_parity import march_call
 from samplenerfro_torch.debug.march_parity import march_cases
 from samplenerfro_torch.debug.march_parity import march_report
@@ -177,6 +200,7 @@ from samplenerfro_torch.debug.march_parity import ship_inputs
 from samplenerfro_torch.debug.march_parity import ship_model
 from samplenerfro_torch.debug.march_parity import so3_params_for
 from samplenerfro_torch.debug.march_parity import step_device_us
+from samplenerfro_torch.debug.march_parity import synthetic_batch
 from samplenerfro_torch.debug import mlp_rounding
 from samplenerfro_torch.debug import probe_so3_relu
 from samplenerfro_torch.debug import real_scene
@@ -199,7 +223,7 @@ from samplenerfro_torch.train import loop as train_loop
 from samplenerfro_torch.train import selfcheck
 from samplenerfro_torch.train import step as step_lib
 from samplenerfro_torch.train.loop import annealed_alpha
-from samplenerfro_torch.train.loop import batch_to_device
+from samplenerfro_torch.train.loop import step_batch
 from samplenerfro_torch.utils import config as config_lib
 from samplenerfro_torch.utils import metrics
 from samplenerfro_torch.utils import probes
@@ -239,10 +263,17 @@ LONG_MARCH = 1536
 K3_ATOL_SCALE, K3_RTOL = 2e-4, 2e-3
 N_RADIANCE, N_ALL = 12, 4
 N_ALL_FUSED = 2  # 'all' steps with --mlp_kernel=pallas, which keep nn.Linear
+# The dispatch phase: each stage's first N_DISPATCH steps from TRAIN_FROM
+# one at a time and K (the ship configuration's steps_per_dispatch) a
+# dispatch, held bit for bit; then windows of K steps each way under
+# torch.profiler (up to TRACE_TRIES) for the launches and the device time
+# of a step.
+N_DISPATCH = 30
 # The real-scene path: glass's shipped configuration on a synthetic OpenCV
-# capture of 8 train views (and one val, one test view) of 320x240.
+# capture of 8 train views (and one val, one test view) of 320x240; its
+# K = 10 steps a dispatch, so each stage's second window is a replay.
 GLASS_CONFIG = "configs/tpu/glass"
-N_REAL_RADIANCE, N_REAL_ALL = 8, 4
+N_REAL_RADIANCE, N_REAL_ALL = 20, 20
 # The Quickstart (README.md): example_data voxelized with the README's
 # flags, then `radiance` steps with configs/example.* at full width
 # (factor 2: 400x400 views), eval, and extract_mesh at this resolution.
@@ -1240,12 +1271,13 @@ def profile_train_step(model, args, host, device, step, generators):
   from torch.profiler import ProfilerActivity
   from torch.profiler import profile as tprofile
   optimizer, _, _ = step_lib.create_optimizer(model, args)
-  batch = batch_to_device(host, annealed_alpha(step, args), device)
+  batch = prefetch.to_device(step_batch(
+      host, annealed_alpha(step, args),
+      step_lib.learning_rates(optimizer, step - 1), jitter, args), device)
   torch.cuda.synchronize()
   with tprofile(activities=[ProfilerActivity.CPU,
                             ProfilerActivity.CUDA]) as prof:
-    step_lib.train_step(model, optimizer, batch, step, args, generator,
-                        jitter)
+    step_lib.train_step(model, optimizer, batch, args, generator)
     torch.cuda.synchronize()
   total = step_device_us(prof)
   log(f"profile of one {args.stage} train step: {total / 1e3:.3f} ms of "
@@ -1273,11 +1305,12 @@ def _train_steps(model, args, host, device, first_step, n, generators):
     if i == 1:
       torch.cuda.synchronize()
       t0 = time.time()
-    batch = batch_to_device(host, annealed_alpha(step, args), device)
     jitter = nerf.make_jitter(args.num_coarse_samples,
                               args.num_path_samples, jitter_gen)
-    stats = step_lib.train_step(model, optimizer, batch, step, args,
-                                generator, jitter)
+    batch = prefetch.to_device(step_batch(
+        host, annealed_alpha(step, args),
+        step_lib.learning_rates(optimizer, step - 1), jitter, args), device)
+    stats = step_lib.train_step(model, optimizer, batch, args, generator)
     ok = _grads_finite(model) & torch.isfinite(stats.loss)
     finite = ok if finite is None else finite & ok
     losses.append(stats.loss)
@@ -1391,37 +1424,243 @@ def fused_train_phase(args, scene, device, seed, host, xla_rate,
 
 
 class StepRecorder:
-  """Wraps step_lib.train_step (what train.loop calls) while entered:
-  after each step, its loss, the so3 head's gradient norm, whether every
-  gradient and the loss are finite, and the host time after a sync."""
+  """While entered, wraps step_lib.train_step and make_train_step_multi
+  (train.loop's dispatch). Counts the steps run in Python (`calls`: the
+  eager ones and those a capture records, each launching its kernels
+  through their wrappers); after each eager step, and after each replay
+  for the replay's last step, whether every gradient and the loss are
+  finite and the so3 head's gradient norm; each window's losses and the
+  host time after a sync. `runs` keeps the dispatches (their `replays`)."""
 
   def __init__(self):
     self.losses, self.so3, self.finite, self.times = [], [], [], []
+    self.runs, self.calls = [], 0
+
+  def _check(self, model, loss):
+    grads = [p.grad for p in model.path_sampler.so3_mlp.parameters()
+             if p.grad is not None]
+    self.so3.append(torch.sqrt(sum((g**2).sum() for g in grads))
+                    if grads else None)
+    self.finite.append(_grads_finite(model) & torch.isfinite(loss))
 
   def __enter__(self):
-    self.orig = step_lib.train_step
+    self.orig_step = step_lib.train_step
+    self.orig_multi = step_lib.make_train_step_multi
 
-    def recording(model, *args, **kwargs):
-      stats = self.orig(model, *args, **kwargs)
-      grads = [p.grad for p in model.path_sampler.so3_mlp.parameters()
-               if p.grad is not None]
-      self.so3.append(torch.sqrt(sum((g**2).sum() for g in grads))
-                      if grads else None)
-      self.finite.append(_grads_finite(model) & torch.isfinite(stats.loss))
-      self.losses.append(stats.loss)
-      torch.cuda.synchronize()
-      self.times.append(time.time())
+    def stepping(model, optimizer, batch, args, generator=None):
+      stats = self.orig_step(model, optimizer, batch, args, generator)
+      self.calls += 1
+      if not torch.cuda.is_current_stream_capturing():
+        self._check(model, stats.loss)
       return stats
 
-    step_lib.train_step = recording
+    def making(*args, **kwargs):
+      run = self.orig_multi(*args, **kwargs)
+      self.runs.append(run)
+
+      def recording(batch):
+        replays = run.replays
+        stats = run(batch)
+        if run.replays > replays:
+          self._check(run.model, stats.loss[-1])
+        self.losses += list(stats.loss.unbind(0))
+        torch.cuda.synchronize()
+        self.times.append((time.time(), stats.loss.shape[0]))
+        return stats
+
+      return recording
+
+    step_lib.train_step = stepping
+    step_lib.make_train_step_multi = making
     return self
 
   def __exit__(self, *exc):
-    step_lib.train_step = self.orig
+    step_lib.train_step = self.orig_step
+    step_lib.make_train_step_multi = self.orig_multi
 
   def rate(self):
-    """Steps/s after the first step."""
-    return (len(self.times) - 1) / (self.times[-1] - self.times[0])
+    """Steps/s after the first window."""
+    steps = sum(n for _, n in self.times[1:])
+    return steps / (self.times[-1][0] - self.times[0][0])
+
+  def replays(self):
+    return sum(run.replays for run in self.runs)
+
+
+def _dispatch_state(model, optimizer):
+  """Parameters and Adam state (moments, counts), cloned."""
+  out = {f"param {n}": p.detach().clone()
+         for n, p in model.named_parameters()}
+  for i, st in optimizer.state_dict()["state"].items():
+    out.update({f"adam {i} {n}": torch.as_tensor(t).clone()
+                for n, t in st.items()})
+  return out
+
+
+# The kernels of K1, K2, K3 (its five launches) and K2 with the head off,
+# by function name, as torch.profiler records them. The profiler can drop
+# a kernel's record (kernel_device_ms), so a window's launches are traced
+# in up to TRACE_TRIES windows, each profiled on its own.
+K3_KERNELS = ("k3_pieces", "k3_jacobians", "k3_sweep", "k3_params",
+              "k3_reduce")
+MARCH_KERNELS = ("march_lean_kernel", "march_so3_kernel",
+                 "march_full_plain_kernel") + K3_KERNELS
+TRACE_TRIES = 3
+
+
+def _march_kernels(counts):
+  """{kernel name: launches} for K1/K2/K3/head-off launch counts, K3's
+  count standing for each of its five kernels."""
+  k1, k2, k3, head_off = counts
+  return {"march_lean_kernel": k1, "march_so3_kernel": k2,
+          "march_full_plain_kernel": head_off,
+          **{name: k3 for name in K3_KERNELS}}
+
+
+def _dispatch_run(sargs, scene, device, seed, hosts, k, span, want):
+  """N_DISPATCH + up to TRACE_TRIES * span steps of sargs' stage from
+  TRAIN_FROM + 1, k a dispatch (span a multiple of k), through
+  loop.host_window and data/prefetch.py as train.loop takes them, from
+  weights, noise and jitters drawn from `seed`. After the first
+  N_DISPATCH steps, windows of `span` steps (a replay when k = span) are
+  traced by torch.profiler one at a time until one holds `want`
+  ({kernel name: launches}) or TRACE_TRIES were. Returns the first
+  N_DISPATCH steps' Stats (floats), the state after them, the
+  K1/K2/K3/head-off wrapper launches during them (the steps run in
+  Python: eager and captured), the steps/s of their last `span`, the
+  traced windows' {kernel name: launches}, the device ms a step of the
+  last one, and the dispatch."""
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as tprofile
+  ndim, nmin, nmax, grid, bindings = scene
+  model = nerf.construct_nerf(sargs, ndim, nmin, nmax, grid, bindings,
+                              device=device, seed=seed)
+  optimizer, _, _ = step_lib.create_optimizer(model, sargs)
+  run = step_lib.make_train_step_multi(
+      model, optimizer, sargs, k,
+      torch.Generator(device=device).manual_seed(seed))
+  jitter_gen = torch.Generator().manual_seed(seed)
+  first = TRAIN_FROM + 1
+  traced_from = TRAIN_FROM + N_DISPATCH
+  windows = list(train_loop.dispatch_windows(
+      first, traced_from + TRACE_TRIES * span, k))
+  dataset, pending = iter(hosts), iter(windows)
+
+  def next_window():
+    w = next(pending, None)
+    return None if w is None else train_loop.host_window(
+        dataset, w[0], w[1], sargs, optimizer, jitter_gen)
+
+  batches = prefetch.device_prefetch(next_window, device, stacked=True)
+  stats, prof, traced = [], None, []
+  torch.cuda.synchronize()
+  _zero_march_counts()
+  try:
+    for (w0, w1), batch in zip(windows, batches):
+      if w0 == traced_from - span + 1:
+        torch.cuda.synchronize()
+        t0 = time.time()
+      if w0 > traced_from and (w0 - traced_from - 1) % span == 0:
+        torch.cuda.synchronize()
+        prof = tprofile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+        prof.__enter__()
+      out = run(batch)
+      if w1 <= traced_from:
+        stats += out.per_step()
+      if w1 == traced_from:
+        torch.cuda.synchronize()
+        rate = span / (time.time() - t0)
+        counts = _march_counts()
+        state = _dispatch_state(model, optimizer)
+      if prof is not None and (w1 - traced_from) % span == 0:
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        traced.append(kernel_launches(prof, MARCH_KERNELS))
+        device_ms = step_device_us(prof) / 1e3 / span
+        prof = None
+        if traced[-1] == want:
+          break
+    torch.cuda.synchronize()
+  finally:
+    batches.close()
+    if prof is not None:
+      prof.__exit__(None, None, None)
+  del model, optimizer
+  return stats, state, counts, rate, traced, device_ms, run
+
+
+def dispatch_phase(args, scene, device, seed, card):
+  """Each stage of the ship configuration at full width, resumed at
+  TRAIN_FROM (the annealing alpha non-zero and changing every step): the
+  first N_DISPATCH steps one at a time and K = args.steps_per_dispatch a
+  dispatch (an eager window, then a CUDA graph replayed twice), from the
+  same weights, batches, jitters and generator seeds. Every Stats field
+  of every step, every parameter and Adam moment and count must be equal
+  bit for bit. The wrappers must count K1 (radiance) or K2 and K3 ('all')
+  once a step run in Python (all N_DISPATCH at K = 1; the eager window
+  and the capture at K). A replay after them, traced by torch.profiler,
+  must launch each K times, as K eager steps traced the same way do, and
+  no traced window may launch more. Prints steps/s and the device ms of
+  a step both ways. Returns {stage: (the wrapper launches of
+  K1/K2/K3/head-off with K, those of one replay in the trace)}."""
+  k = args.steps_per_dispatch
+  if k < 2 or N_DISPATCH < 2 * k:
+    raise SystemExit(f"dispatch: the ship configuration sets "
+                     f"steps_per_dispatch {k}; the phase needs an eager "
+                     f"window and a replay in {N_DISPATCH} steps")
+  hosts = [synthetic_batch(args, seed + i)
+           for i in range(N_DISPATCH + TRACE_TRIES * k)]
+  out = {}
+  for stage in ("radiance", "all"):
+    sargs = argparse.Namespace(**{**vars(args), "stage": stage})
+    per = lambda n: (n, 0, 0, 0) if stage == "radiance" else (0, n, n, 0)
+    want_traced = _march_kernels(per(k))
+    eager = _dispatch_run(sargs, scene, device, seed, hosts, 1, k,
+                          want_traced)
+    graph = _dispatch_run(sargs, scene, device, seed, hosts, k, k,
+                          want_traced)
+    torch.cuda.empty_cache()
+    want_eager, want_graph = per(N_DISPATCH), per(2 * k)
+    differ = [key for key in eager[1] if not torch.equal(eager[1][key],
+                                                         graph[1][key])]
+    steps_differ = [i for i, (a, b) in enumerate(zip(eager[0], graph[0]))
+                    if a != b]
+    log(f"dispatch ({stage}, ship at full width from step {TRAIN_FROM}, "
+        f"{card}): K=1 {eager[3]:.3f} steps/s, {eager[5]:.3f} device ms a "
+        f"step; K={k} {graph[3]:.3f} steps/s (a replay), {graph[5]:.3f} "
+        f"device ms a step; device share {eager[3] * eager[5] / 1e3:.3f} "
+        f"and {graph[3] * graph[5] / 1e3:.3f}; replays {graph[6].replays}")
+    log(f"  wrapper launches K1/K2/K3/head-off in {N_DISPATCH} steps: K=1 "
+        f"{eager[2]} (expected {want_eager}), K={k} {graph[2]} (the eager "
+        f"window and the capture; expected {want_graph})")
+    for name, run in (("K=1", eager), (f"K={k} (a replay each)", graph)):
+      log(f"  traced windows of {k} steps after them, {name}: "
+          f"{[list(t.values()) for t in run[4]]} for {list(want_traced)} "
+          f"(expected {list(want_traced.values())})")
+    log(f"  losses {[s.loss for s in graph[0][::10]]} (steps 1, 11, 21); "
+        f"{len(eager[1])} tensors of state, {len(differ)} differ; "
+        f"{len(steps_differ)} of {N_DISPATCH} steps' Stats differ")
+    if differ or steps_differ or len(graph[0]) != N_DISPATCH:
+      raise SystemExit(f"dispatch: K={k} is not K=1 bit for bit in "
+                       f"{stage}: state {differ[:5]}, steps "
+                       f"{steps_differ[:5]}")
+    if eager[2] != want_eager or graph[2] != want_graph:
+      raise SystemExit(f"dispatch: wrapper launches {eager[2]} and "
+                       f"{graph[2]}, expected {want_eager} and {want_graph}")
+    for run in (eager, graph):
+      if run[4][-1] != want_traced or any(
+          t[n] > want_traced[n] for t in run[4] for n in t):
+        raise SystemExit(f"dispatch: traced launches {run[4]}, expected "
+                         f"{want_traced}")
+    if graph[6].replays != N_DISPATCH // k - 1 + len(graph[4]):
+      raise SystemExit(f"dispatch: {graph[6].replays} replays")
+    if len({s.loss for s in graph[0]}) != N_DISPATCH:
+      raise SystemExit("dispatch: two steps gave the same loss")
+    t = graph[4][-1]
+    out[stage] = (graph[2], (t["march_lean_kernel"], t["march_so3_kernel"],
+                             t["k3_sweep"], t["march_full_plain_kernel"]))
+  return out
 
 
 def _zero_march_counts():
@@ -1501,39 +1740,60 @@ def real_scene_phase(device, seed):
     try:
       torch.cuda.synchronize()
       t1 = time.time()
-      rgb, _, acc = render_lib.render_image(
+      rgb, disp, acc = render_lib.render_image(
           make_render_fn(allm, jitter), view, False, chunk=args.chunk,
-          device=device)
+          device=device,
+          chunks_per_dispatch=args.render_chunks_per_dispatch)
       torch.cuda.synchronize()
       render_secs = time.time() - t1
     finally:
       nerf.NerfModel._bd_cut_mask = orig_cut
+    # The same view one chunk a call: bit for bit the grouped render.
+    one = render_lib.render_image(make_render_fn(allm, jitter), view, False,
+                                  chunk=args.chunk, device=device)
+    grouped_exact = all(np.array_equal(a, b)
+                        for a, b in zip((rgb, disp, acc), one))
   psnr = metrics.compute_psnr(((rgb - pixels)**2).mean())
   ssim = float(metrics.compute_ssim(rgb, pixels, 1.0))
   ones = float(sum(c[0] for c in cut))
   total = sum(c[1] for c in cut)
   n_rays = view.origins.shape[0] * view.origins.shape[1]
   n_chunks = -(-n_rays // args.chunk)
-  want = {"radiance": (N_REAL_RADIANCE + n_chunks, 0, 0, 0),
-          "all": (0, N_REAL_ALL, N_REAL_ALL, 0), "eval": (0, n_chunks, 0, 0)}
+  # The wrappers count the steps run in Python (the eager ones and the
+  # capture's) and the render's chunks; a replay launches through none.
+  k = args.steps_per_dispatch
+  want = {"radiance": (rad_rec.calls + n_chunks, 0, 0, 0),
+          "all": (0, all_rec.calls, all_rec.calls, 0),
+          "eval": (0, n_chunks, 0, 0)}
+  python_steps = [n - k * rec.replays() + k * min(rec.replays(), 1)
+                  for n, rec in ((N_REAL_RADIANCE, rad_rec),
+                                 (N_REAL_ALL, all_rec))]
   so3 = [float(x) for x in all_rec.so3]
   losses = ([float(x) for x in rad_rec.losses],
             [float(x) for x in all_rec.losses])
   finite = bool(all(bool(f) for f in rad_rec.finite + all_rec.finite))
-  log(f"real-scene path ({GLASS_CONFIG}, {time.time() - t0:.1f} s): "
-      f"radiance {N_REAL_RADIANCE} steps {rad_rec.rate():.3f} steps/s, all "
-      f"{N_REAL_ALL} steps {all_rec.rate():.3f} steps/s (first step of each "
-      f"untimed); eval {eval_secs:.1f} s with its model build; the "
+  log(f"real-scene path ({GLASS_CONFIG}, {time.time() - t0:.1f} s, "
+      f"{args.steps_per_dispatch} steps a dispatch): radiance "
+      f"{N_REAL_RADIANCE} steps {rad_rec.rate():.3f} steps/s, all "
+      f"{N_REAL_ALL} steps {all_rec.rate():.3f} steps/s (the windows after "
+      f"the first, the capture included); replays radiance "
+      f"{rad_rec.replays()}, all {all_rec.replays()}; eval "
+      f"{eval_secs:.1f} s with its model build; the "
       f"{view.origins.shape[1]}x{view.origins.shape[0]} test view "
-      f"{n_rays / render_secs:.1f} rays/s ({n_chunks} chunks)")
+      f"{n_rays / render_secs:.1f} rays/s ({n_chunks} chunks, "
+      f"{args.render_chunks_per_dispatch} a dispatch; bit for bit one a "
+      f"call: {grouped_exact})")
   log(f"  radiance losses {losses[0]}")
   log(f"  all losses {losses[1]}, so3 grad norms {so3}")
   log(f"  eval: PSNR {res.psnrs}, SSIM {res.ssims}, step {res.step}; the "
       f"returned model on the same view: PSNR {psnr}, SSIM {ssim}")
   log(f"  cut box {cut_box}: {ones / total:.4f} of the fine samples kept "
       f"by the cut; acc mean {float(acc.mean()):.6f}")
-  log(f"  launches K1/K2/K3/head-off: radiance {counts['radiance']}, all "
-      f"{counts['all']}, eval {counts['eval']} (expected {want})")
+  log(f"  wrapper launches K1/K2/K3/head-off: radiance "
+      f"{counts['radiance']}, all {counts['all']}, eval {counts['eval']} "
+      f"(expected {want}); steps run in Python (eager and captured): "
+      f"radiance {rad_rec.calls}, all {all_rec.calls} (expected "
+      f"{python_steps})")
   log(f"  checkpoints {ckpts}")
   if not (finite and np.all(np.isfinite(losses[0] + losses[1]))):
     raise SystemExit("real-scene path: non-finite loss or gradient")
@@ -1548,8 +1808,16 @@ def real_scene_phase(device, seed):
   if not 0 < ones < total:
     raise SystemExit(f"real-scene path: the cut mask is all "
                      f"{'ones' if ones else 'zeros'} over the view")
-  if counts != want:
-    raise SystemExit(f"real-scene path: launches {counts}, expected {want}")
+  if counts != want or [rad_rec.calls, all_rec.calls] != python_steps:
+    raise SystemExit(f"real-scene path: launches {counts}, expected {want}; "
+                     f"steps run in Python {rad_rec.calls}, "
+                     f"{all_rec.calls}, expected {python_steps}")
+  if args.steps_per_dispatch < 2 or min(rad_rec.replays(),
+                                        all_rec.replays()) < 1:
+    raise SystemExit("real-scene path: a stage replayed no window")
+  if args.render_chunks_per_dispatch < 2 or not grouped_exact:
+    raise SystemExit("real-scene path: the grouped render is not the "
+                     "one-chunk render bit for bit")
   return counts
 
 
@@ -1579,8 +1847,8 @@ def cut_cross_check(model, data, device, seed):
     model.zero_grad(set_to_none=True)
     handle = model.register_forward_hook(record)
     try:
-      total, stats = step_lib.loss_fn(
-          model, batch_to_device(host, CUT_ALPHA, dev), args, jitter)
+      total, stats = step_lib.loss_fn(model, prefetch.to_device(
+          step_batch(host, CUT_ALPHA, None, jitter, args), dev), args)
     finally:
       handle.remove()
     total.backward()
@@ -1632,8 +1900,8 @@ def allstep_cross_check(model, args, host, device, seed):
     model.zero_grad(set_to_none=True)
     handle = model.path_sampler.register_forward_hook(record)
     try:
-      total, _ = step_lib.loss_fn(model, batch_to_device(sub, alpha, dev),
-                                  xargs, jitter.to(dev))
+      total, _ = step_lib.loss_fn(model, prefetch.to_device(
+          step_batch(sub, alpha, None, jitter, xargs), dev), xargs)
     finally:
       handle.remove()
     total.backward()
@@ -1809,9 +2077,8 @@ def fused_cross_check(model, args, host, device, seed):
       mlp_kernel.mlp_bwd = bwd_replaying
     try:
       model.zero_grad(set_to_none=True)
-      # The host jitter: march_lean checks it there.
-      total, _ = step_lib.loss_fn(model, batch_to_device(sub, alpha, dev),
-                                  xargs, jitter)
+      total, _ = step_lib.loss_fn(model, prefetch.to_device(
+          step_batch(sub, alpha, None, jitter, xargs), dev), xargs)
       total.backward()
     finally:
       handle.remove()
@@ -2170,6 +2437,10 @@ def main():
   fcounts, fused_model, fused_args = fused_train_phase(
       args, scene, device, ns.seed, host, rate_r, ns.profile)
   k4_bf16["launches"], k5_bf16["launches"] = fcounts
+  dispatch = dispatch_phase(args, scene, device, ns.seed, card)
+  for row, stage, i in ((k1, "radiance", 0), (k2, "all", 1), (k3, "all", 2)):
+    row["dispatch_launches"] = dispatch[stage][0][i]
+    row["dispatch_replay_launches"] = dispatch[stage][1][i]
   del scene
   torch.cuda.empty_cache()
   allstep_cross_check(all_model, all_args, host, device, ns.seed)

@@ -9,16 +9,18 @@ version, the call's time (CUDA events) and the kernel's device time
 (torch.profiler). Then, for each stage, one train step's device time and
 the steps/s of `--steps` steps through train.step.train_step.
 
-It calls only what the march wrappers and the train step have taken since
-the port began (march_lean with a host jitter, march_full, train_step), so
-a copy of this file in an earlier checkout of the port measures that
-checkout's kernels on the same inputs: equal digests show the kernels bit
-for bit equal, and runs in the order parent, change, change, parent in one
-call compare their times. chip_smoke.py builds its inputs here.
+Its marches call only what the march wrappers have taken since the port
+began (march_lean with a host jitter, march_full), so a copy of this file
+in an earlier checkout of the port measures that checkout's kernels on
+the same inputs: equal digests show the kernels bit for bit equal, and
+runs in the order parent, change, change, parent in one call compare
+their times. Its train steps take their batches as train/loop.step_batch
+assembles them. chip_smoke.py builds its inputs here.
 """
 
 import argparse
 import hashlib
+import re
 import subprocess
 import time
 
@@ -35,7 +37,6 @@ from samplenerfro_torch.ops import mlp as mlp_ops
 from samplenerfro_torch.train import selfcheck
 from samplenerfro_torch.train import step as step_lib
 from samplenerfro_torch.train.loop import annealed_alpha
-from samplenerfro_torch.train.loop import batch_to_device
 from samplenerfro_torch.utils import config as config_lib
 from samplenerfro_torch.utils import grid_io
 from samplenerfro_torch.utils import render as render_lib
@@ -116,6 +117,21 @@ def step_device_us(prof):
              and not getattr(e, "is_user_annotation", False))
 
 
+def kernel_launches(prof, names):
+  """{name: launches of the kernel `name` in a profile}: its device
+  records, kernels captured in a CUDA graph included (each replay records
+  its kernels), matched by the function's name."""
+  pats = {n: re.compile(r"(^|[\s:])" + n + r"[(<]") for n in names}
+  out = dict.fromkeys(names, 0)
+  for e in prof.key_averages():
+    if e.device_type != DeviceType.CUDA:
+      continue
+    for n, pat in pats.items():
+      if pat.search(e.key):
+        out[n] += e.count
+  return out
+
+
 def kernel_device_ms(fn, kernel, reps=5, tries=4):
   """(mean device ms of one launch of the kernel whose name holds
   `kernel`, its launches the profiler recorded a call): torch.profiler
@@ -194,7 +210,9 @@ def ship_inputs(args, seed, device):
           r.reshape(-1, r.shape[-1])[perm[:args.chunk]].copy()).to(device),
       view)
   host = synthetic_batch(args, seed)
-  batch_rays = batch_to_device(host, 1.0, device)["rays"]
+  batch_rays = rays_lib.namedtuple_map(
+      lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device),
+      host["rays"])
   return view, jitter, first, host, batch_rays
 
 
@@ -361,9 +379,13 @@ def march_report(shape, kind, args):
 def step_rates(args, scene, device, seed, host, steps):
   """For each stage, one train step's device time (torch.profiler) after
   two untimed steps, then the steps/s of `steps` more (and of each
-  quarter of them), on the repeated host batch. Each step goes through
-  train_step with jitter=None, so each checkout draws and passes the
-  jitter as its own train_step does."""
+  quarter of them), on the repeated host batch. Each step's jitter comes
+  from torch's default host generator, and its batch goes to the card
+  with it, as loop.step_batch assembles it."""
+  # Imported here, so that the marches run from a copy of this file in a
+  # checkout that predates them.
+  from samplenerfro_torch.data import prefetch
+  from samplenerfro_torch.train.loop import step_batch
   from torch.profiler import ProfilerActivity
   from torch.profiler import profile as tprofile
   ndim, nmin, nmax, grid, bindings = scene
@@ -376,8 +398,13 @@ def step_rates(args, scene, device, seed, host, steps):
 
     def run(first, n):
       for step in range(first, first + n):
-        batch = batch_to_device(host, annealed_alpha(step, sargs), device)
-        step_lib.train_step(model, optimizer, batch, step, sargs, gen)
+        jitter = nerf.make_jitter(sargs.num_coarse_samples,
+                                  sargs.num_path_samples)
+        batch = prefetch.to_device(step_batch(
+            host, annealed_alpha(step, sargs),
+            step_lib.learning_rates(optimizer, step - 1), jitter, sargs),
+            device)
+        step_lib.train_step(model, optimizer, batch, sargs, gen)
 
     run(TRAIN_FROM + 1, 2)
     torch.cuda.synchronize()

@@ -117,9 +117,9 @@ def main(argv=None):
   psnrs, ssims = [], []
   for idx in range(images.shape[0]):
     view, pixels = datasets.eval_view(args, rays, images, idx)
-    rgb, disp, acc = render_lib.render_image(render_fn, view,
-                                             args.dataset == "llff",
-                                             chunk=args.chunk, device=device)
+    rgb, disp, acc = render_lib.render_image(
+        render_fn, view, args.dataset == "llff", chunk=args.chunk,
+        device=device, chunks_per_dispatch=args.render_chunks_per_dispatch)
     psnrs.append(metrics.compute_psnr(((rgb - pixels)**2).mean()))
     ssims.append(float(metrics.compute_ssim(rgb, pixels, 1.0)))
     print(f"Evaluating {idx + 1}/{images.shape[0]}: PSNR = {psnrs[-1]:.4f}, "

@@ -22,6 +22,7 @@ from torch import nn
 from samplenerfro_torch.models import mlp as mlp_modules
 from samplenerfro_torch.models import path_sampler as ps_module
 from samplenerfro_torch.ops import grid as grid_ops
+from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mlp_kernel as fused_ops
 from samplenerfro_torch.ops import render as render_ops
@@ -63,7 +64,8 @@ def make_jitter(num_coarse_samples, num_path_samples, generator=None):
   jitter[c] = c*num_path + U{0..num_path-1}, as models/nerf.py:387-392
   draws it, but from a torch.Generator on the host (None: torch's default
   one). It stays on the host, where march_lean checks it, and goes to the
-  card with the rays without a wait.
+  card with the rays without a wait; the train loop checks it there
+  itself (march_kernel.checked_jitter) and copies it with its batch.
   """
   if generator is not None and generator.device.type != "cpu":
     raise ValueError(f"make_jitter draws on the host: pass a CPU generator, "
@@ -229,10 +231,12 @@ class NerfModel(nn.Module):
     Args:
       rays: Rays (data/rays.py) of [batch, ...] tensors on the model's device.
       jitter: [num_coarse] dense indices of the coarse subsample
-        (make_jitter).
+        (make_jitter, on the host), or a march_kernel.CheckedJitter on the
+        model's device.
       randomized: stratified fine sampling and density noise.
       generator: torch.Generator on the model's device for that noise.
-      annealed_alpha: PE annealing progress of the so3 head ('all' stage).
+      annealed_alpha: PE annealing progress of the so3 head ('all' stage),
+        a float or a 0-d float32 tensor on the model's device.
       mlp_dtype: the radiance MLPs' compute type; None is the model's.
 
     Returns:
@@ -245,8 +249,10 @@ class NerfModel(nn.Module):
     if sub is not None:
       ray_pos_c, ray_dir_c, ray_dist_c = sub
     else:
-      jitter = jitter.to(device=ray_pos.device, dtype=torch.int64,
-                         non_blocking=True)
+      jitter = (jitter.indices
+                if isinstance(jitter, march_kernel.CheckedJitter) else
+                jitter.to(device=ray_pos.device, dtype=torch.int64,
+                          non_blocking=True))
       ray_pos_c, ray_dir_c, ray_dist_c = (ray_pos[:, jitter],
                                           ray_dir[:, jitter],
                                           ray_dist[:, jitter])

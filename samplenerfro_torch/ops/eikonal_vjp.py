@@ -372,7 +372,9 @@ def march_allstage(cfg, data, origins, directions, alpha, so3_params):
   """Differentiable 'all'-stage march: the [B, S, 11] trajectory.
 
   Channels: pos 0:3, raw dir 3:6, arclength 6, n 7, grad n 8:11
-  (ops/march_kernel.split_trajectory).
+  (ops/march_kernel.split_trajectory). alpha is a float or a 0-d float32
+  tensor on the rays' device; the train step passes its batch's tensor,
+  since a float is copied from the host, which a CUDA graph cannot capture.
   """
   alpha = torch.as_tensor(alpha, dtype=torch.float32, device=origins.device)
   return _AllStageMarch.apply(cfg, data, origins.contiguous(),

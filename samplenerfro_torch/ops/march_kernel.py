@@ -21,6 +21,7 @@ settings and report no out-of-window count.
 """
 
 import ctypes
+import typing
 
 import torch
 
@@ -113,11 +114,39 @@ def check_jitter(jitter, num_samples):
   return nc
 
 
+class CheckedJitter(typing.NamedTuple):
+  """A jitter (or a [K, Nc] stack of them, one a step) whose values
+  check_jitter read on the host, as int64 `indices` on any device.
+
+  Made by checked_jitter; a copy or a stack keeps the type
+  (data/prefetch.py stacks a window's and copies them to the card with
+  the batch). K1 and the coarse gather take it where it lies, with no
+  check and no copy, so that a CUDA graph can capture them.
+  """
+  indices: torch.Tensor
+
+
+def checked_jitter(jitter, num_samples):
+  """check_jitter on a [Nc] host jitter; returns it as a CheckedJitter of
+  int64 indices."""
+  check_jitter(jitter, num_samples)
+  return CheckedJitter(jitter.to(torch.int64))
+
+
 def _check_inputs(spec, data, origins, directions, num_samples, jitter):
   """K1's launch geometry for these inputs; raises ValueError unless K1
-  can take them. Reads no value on the card."""
+  can take them. Reads no value on the card: a CheckedJitter was checked
+  on the host, and only its shape is checked here."""
   check_march_inputs("march_lean", spec, data, origins, directions)
-  nc = check_jitter(jitter, num_samples)
+  if isinstance(jitter, CheckedJitter):
+    idx = jitter.indices
+    if idx.device != origins.device or idx.dim() != 1:
+      raise ValueError(f"march_lean: a checked jitter must be one step's "
+                       f"[Nc] on {origins.device}, got "
+                       f"{tuple(idx.shape)} on {idx.device}")
+    nc = idx.shape[0]
+  else:
+    nc = check_jitter(jitter, num_samples)
   return lean_launch_geometry(origins.shape[0], num_samples, nc)
 
 
@@ -134,7 +163,9 @@ def march_lean(spec, data, origins, directions, near, step_size, num_samples,
     num_samples: S, path vertices per ray.
     jitter: [Nc] integer indices on the host, jitter[c] in
       [c*S/Nc, (c+1)*S/Nc) (nerf.make_jitter); checked there and copied to
-      the card without a wait. The call reads nothing back from the card.
+      the card without a wait. Or a CheckedJitter on the card, taken as
+      it is (the form a CUDA graph captures). The call reads nothing back
+      from the card.
 
   Returns:
     (pos [B, S, 3], unit dirs [B, S, 3], dist [B, S],
@@ -142,11 +173,15 @@ def march_lean(spec, data, origins, directions, near, step_size, num_samples,
   """
   dev = origins.device
   if dev.type == "cpu":
+    if isinstance(jitter, CheckedJitter):
+      jitter = jitter.indices
     return march_lean_reference(spec, data, origins, directions, near,
                                 step_size, num_samples, jitter)
   if dev.type != "cuda":
     raise ValueError(f"march_lean runs on CUDA or CPU tensors, not {dev}")
   geom = _check_inputs(spec, data, origins, directions, num_samples, jitter)
+  if isinstance(jitter, CheckedJitter):
+    jitter = jitter.indices
   batch, nc = origins.shape[0], jitter.shape[0]
   lib = _library()
   dense = torch.empty((batch, num_samples, ROW), dtype=torch.float32,

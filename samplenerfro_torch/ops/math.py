@@ -4,6 +4,7 @@ Counterpart of samplenerfro_tpu/ops/math.py:16-106 and 133-150, and of
 the fused MLP's encoding (pe_cols).
 """
 
+import functools
 import math
 
 import numpy as np
@@ -31,8 +32,7 @@ def pos_enc(x, min_deg, max_deg, legacy_posenc_order=False, amp=1.0):
   """
   if min_deg == max_deg:
     return x
-  scales = torch.tensor([2.0**i for i in range(min_deg, max_deg)],
-                        dtype=x.dtype, device=x.device)
+  scales = _scales(min_deg, max_deg, x.dtype, x.device)
   lead = list(x.shape[:-1])
   if legacy_posenc_order:
     xb = x[..., None, :] * scales[:, None]
@@ -42,6 +42,15 @@ def pos_enc(x, min_deg, max_deg, legacy_posenc_order=False, amp=1.0):
     xb = (x[..., None, :] * scales[:, None]).reshape(lead + [-1])
     four_feat = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
   return torch.cat([x, amp * four_feat], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _scales(min_deg, max_deg, dtype, device):
+  """The [2^min_deg, ..., 2^(max_deg-1)] of pos_enc on `device`, made once
+  per device by the first (eager) call: a CUDA graph cannot capture the
+  copy from the host that makes them."""
+  return torch.tensor([2.0**i for i in range(min_deg, max_deg)], dtype=dtype,
+                      device=device)
 
 
 def pe_cols(p, deg):

@@ -13,17 +13,35 @@ checkpoint_<step> every --save_every steps and at the end; a rerun resumes
 from the newest. Every --print_every steps one line reports the loss and
 rays/s; every --render_every steps a view of the val split (OpenCV views
 centrally cropped, as eval crops its test views) is rendered through
-samplenerfro_torch.eval's render function and its PSNR and SSIM printed.
+samplenerfro_torch.eval's render function, with a jitter of its own
+generator's (the train jitters are drawn ahead on the prefetch thread),
+and its PSNR and SSIM printed.
 The `all` stage starts from --params_npz or weights drawn from --seed, as
 train.py starts it from its initialisation; eval then reads what this
 writes.
 
+--steps_per_dispatch=K runs K steps a dispatch, as train.py:115-128 and
+181-221 do: dispatch windows align to the K grid (a resume from an
+off-grid checkpoint gets one shorter first window, max_steps one shorter
+last window), and --print_every, --save_every, --gc_every and
+--render_every must be multiples of K. On the card each full window is
+one replay of a CUDA graph of K steps (train/step.make_train_step_multi),
+after a first full window run step by step; windows shorter than K run
+step by step, which is bit for bit the same; on the CPU every window
+does. A daemon thread assembles each window's batches (with their
+annealing alpha, learning rates and jitter, drawn on the host in step
+order and checked there) and copies them to the card ahead of the steps
+(data/prefetch.py). --render_chunks_per_dispatch groups the validation
+render's chunks (utils/render.render_image). The garbage collector runs
+every --gc_every steps only, as in train.py.
+
 Not ported from train.py: the TPU march calibration and out-of-window
-ladder (the CUDA marches have no window), multi-step dispatch, threaded
-prefetch and tensorboard summaries.
+ladder (the CUDA marches have no window) and tensorboard summaries (the
+card's machine has no tensorboard package).
 """
 
 import argparse
+import gc
 import os
 import time
 
@@ -32,10 +50,11 @@ import torch
 
 from samplenerfro_torch import resolve_device
 from samplenerfro_torch.data import datasets
-from samplenerfro_torch.data.rays import namedtuple_map
+from samplenerfro_torch.data import prefetch
 from samplenerfro_torch.eval import build_model
 from samplenerfro_torch.eval import make_render_fn
 from samplenerfro_torch.models import nerf
+from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.train import checkpoints
 from samplenerfro_torch.train import step as step_lib
 from samplenerfro_torch.utils import config as config_lib
@@ -44,22 +63,65 @@ from samplenerfro_torch.utils import render as render_lib
 
 DATA_SEED = 20201473   # train.py:47 seeds numpy's global state with it
 NOISE_SEED = 20200823  # train.py:46's PRNGKey
-
-
-def batch_to_device(batch, alpha, device):
-  """A host batch of numpy arrays -> the train step's tensors."""
-  move = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-  return {"pixels": move(batch["pixels"]),
-          "rays": namedtuple_map(move, batch["rays"]),
-          "env_rays": (namedtuple_map(move, batch["env_rays"])
-                       if batch["env_rays"] is not None else None),
-          "annealed_alpha": alpha}
+VAL_SEED = NOISE_SEED + 1  # the validation renders' jitters
+PREFETCH = 3           # windows held ready (train.py:211, 214)
+CADENCES = ("print_every", "save_every", "gc_every", "render_every")
 
 
 def annealed_alpha(step, args):
   """PE annealing progress of a step (train.py:189-191), in float32."""
   return float(np.float32(max(step - args.anneal_delay_steps, 0))
                / np.float32(args.anneal_max_steps - args.anneal_delay_steps))
+
+
+def dispatch_windows(init_step, max_steps, k):
+  """(first, last) step of each dispatch, aligned to the K grid
+  (train.py:216-221)."""
+  s = init_step
+  while s <= max_steps:
+    e = min(max_steps, ((s - 1) // k + 1) * k)
+    yield s, e
+    s = e + 1
+
+
+def check_cadences(args, k):
+  """Raise unless each cadence is a multiple of K (train.py:115-121)."""
+  for name in CADENCES:
+    val = getattr(args, name)
+    if k > 1 and val > 0 and val % k != 0:
+      raise ValueError(f"--{name}={val} must be a multiple of "
+                       f"--steps_per_dispatch={k}.")
+
+
+def step_batch(host, alpha, lr, jitter, args):
+  """One train step's host batch, as train/step.train_step reads it.
+
+  Args:
+    host: a dataset batch: "pixels", "rays" and "env_rays" (numpy).
+    alpha: the step's annealing alpha.
+    lr: the [groups] learning rates of its update (step.learning_rates),
+      or None for a batch that only loss_fn reads.
+    jitter: its coarse subsample (nerf.make_jitter), checked here.
+    args: flags namespace.
+  """
+  batch = {k: host[k] for k in ("pixels", "rays", "env_rays")}
+  batch["annealed_alpha"] = np.float32(alpha)
+  if lr is not None:
+    batch["lr"] = np.asarray(lr, np.float32)
+  batch["jitter"] = march_kernel.checked_jitter(
+      jitter, args.num_coarse_samples * args.num_path_samples)
+  return batch
+
+
+def host_window(dataset, first, last, args, optimizer, jitter_gen):
+  """The stacked host batch of steps first..last: step_batch of each,
+  its jitter drawn from jitter_gen in step order."""
+  return prefetch.stack([
+      step_batch(next(dataset), annealed_alpha(s, args),
+                 step_lib.learning_rates(optimizer, s - 1),
+                 nerf.make_jitter(args.num_coarse_samples,
+                                  args.num_path_samples, jitter_gen), args)
+      for s in range(first, last + 1)])
 
 
 def main(argv=None):
@@ -85,6 +147,9 @@ def main(argv=None):
   datasets.check_dataset(args)
   step_lib.check_supported(args)
 
+  k = max(1, args.steps_per_dispatch)
+  check_cadences(args, k)
+
   rng = np.random.RandomState(DATA_SEED)
   dataset = datasets.TrainBatches(args, rng)
   model = build_model(args, cfg, bindings, ns.data_dir, device, ns.seed,
@@ -96,54 +161,78 @@ def main(argv=None):
   dataset.train_it = init_step - 1
   generator = torch.Generator(device=device).manual_seed(NOISE_SEED)
   jitter_gen = torch.Generator().manual_seed(NOISE_SEED)
+  val_gen = torch.Generator().manual_seed(VAL_SEED)
+  train_step = step_lib.make_train_step_multi(model, optimizer, args, k,
+                                              generator)
 
   val = None
   if args.render_every > 0:
     val = datasets.load_split(args, "val")
   val_it = init_step // args.render_every if args.render_every > 0 else 0
 
+  windows = list(dispatch_windows(init_step, args.max_steps, k))
+  pending = iter(windows)
+
+  def next_window():
+    first, last = next(pending, (None, None))
+    if first is None:
+      return None
+    return host_window(dataset, first, last, args, optimizer, jitter_gen)
+
+  batches = prefetch.device_prefetch(next_window, device, size=PREFETCH,
+                                     stacked=True)
+  gc_was_enabled = gc.isenabled()
+  gc.disable()
+  gc.collect()
   stats_trace = []
   t_loop = time.time()
-  for step in range(init_step, args.max_steps + 1):
-    batch = batch_to_device(next(dataset), annealed_alpha(step, args),
-                            device)
-    jitter = nerf.make_jitter(args.num_coarse_samples,
-                              args.num_path_samples, jitter_gen)
-    stats_trace.append(step_lib.train_step(model, optimizer, batch, step,
-                                           args, generator, jitter))
-    if step % args.print_every == 0:
-      trace = [s.as_floats() for s in stats_trace]
-      avg = lambda name: float(np.mean([getattr(s, name) for s in trace]))
-      rays_per_sec = (len(trace) * args.batch_size) / (time.time() - t_loop)
-      width = int(np.ceil(np.log10(args.max_steps))) + 1
-      print(f"{step:{width}d}/{args.max_steps:d}: "
-            f"i_loss={trace[-1].loss:0.4f}, avg_loss={avg('loss'):0.4f}, "
-            f"avg_loss_c={avg('loss_c'):0.4f}, "
-            f"avg_loss_bg={avg('loss_bg'):0.4f}, "
-            f"weight_l2={trace[-1].weight_l2:0.2e}, lr={lr_fn(step):0.2e}, "
-            f"{rays_per_sec:0.0f} rays/sec", flush=True)
-      stats_trace = []
-      t_loop = time.time()
-    if step % args.save_every == 0:
-      checkpoints.save_checkpoint(stage_dir, model, optimizer, step)
-    if args.render_every > 0 and step % args.render_every == 0:
-      rays, images = val
-      idx = val_it % images.shape[0]
-      val_it += 1
-      t0 = time.time()
-      jitter = nerf.make_jitter(args.num_coarse_samples,
-                                args.num_path_samples, jitter_gen)
-      view, pixels = datasets.eval_view(args, rays, images, idx)
-      rgb, _, _ = render_lib.render_image(
-          make_render_fn(model, jitter), view, args.dataset == "llff",
-          chunk=args.chunk, device=device)
-      secs = time.time() - t0
-      psnr = metrics.compute_psnr(((rgb - pixels)**2).mean())
-      ssim = float(metrics.compute_ssim(rgb, pixels, 1.0))
-      rays_per_sec = rgb.shape[0] * rgb.shape[1] / secs
-      print(f"Eval {step}: {secs:0.3f}s., {rays_per_sec:0.0f} rays/sec, "
-            f"PSNR = {psnr:.4f}, SSIM = {ssim:.4f}", flush=True)
-      t_loop += secs
+  try:
+    for (_, step), batch in zip(windows, batches):
+      # Stacked [n] Stats of the window, left on the device until printed.
+      stats_trace.append(train_step(batch))
+      del batch
+      if step % args.gc_every == 0:
+        gc.collect()
+      if step % args.print_every == 0:
+        trace = [s for st in stats_trace for s in st.per_step()]
+        avg = lambda name: float(np.mean([getattr(s, name) for s in trace]))
+        rays_per_sec = (len(trace) * args.batch_size) / (time.time()
+                                                         - t_loop)
+        width = int(np.ceil(np.log10(args.max_steps))) + 1
+        print(f"{step:{width}d}/{args.max_steps:d}: "
+              f"i_loss={trace[-1].loss:0.4f}, avg_loss={avg('loss'):0.4f}, "
+              f"avg_loss_c={avg('loss_c'):0.4f}, "
+              f"avg_loss_bg={avg('loss_bg'):0.4f}, "
+              f"weight_l2={trace[-1].weight_l2:0.2e}, "
+              f"lr={lr_fn(step):0.2e}, {rays_per_sec:0.0f} rays/sec",
+              flush=True)
+        stats_trace = []
+        t_loop = time.time()
+      if step % args.save_every == 0:
+        checkpoints.save_checkpoint(stage_dir, model, optimizer, step)
+      if args.render_every > 0 and step % args.render_every == 0:
+        rays, images = val
+        idx = val_it % images.shape[0]
+        val_it += 1
+        t0 = time.time()
+        jitter = nerf.make_jitter(args.num_coarse_samples,
+                                  args.num_path_samples, val_gen)
+        view, pixels = datasets.eval_view(args, rays, images, idx)
+        rgb, _, _ = render_lib.render_image(
+            make_render_fn(model, jitter), view, args.dataset == "llff",
+            chunk=args.chunk, device=device,
+            chunks_per_dispatch=args.render_chunks_per_dispatch)
+        secs = time.time() - t0
+        psnr = metrics.compute_psnr(((rgb - pixels)**2).mean())
+        ssim = float(metrics.compute_ssim(rgb, pixels, 1.0))
+        rays_per_sec = rgb.shape[0] * rgb.shape[1] / secs
+        print(f"Eval {step}: {secs:0.3f}s., {rays_per_sec:0.0f} rays/sec, "
+              f"PSNR = {psnr:.4f}, SSIM = {ssim:.4f}", flush=True)
+        t_loop += secs
+  finally:
+    batches.close()
+    if gc_was_enabled:
+      gc.enable()
   if args.max_steps % args.save_every != 0:
     checkpoints.save_checkpoint(stage_dir, model, optimizer, args.max_steps)
   return model

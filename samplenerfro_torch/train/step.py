@@ -13,6 +13,14 @@ Param groups follow `param_labels_for_stage`: a "zero" group is left out
 of the optimizer (optax.set_to_zero), every other group is an Adam group
 whose learning rate for update k is its schedule at k, as optax's
 scale_by_schedule reads its count before incrementing it.
+
+`make_train_step_multi` is the counterpart of :274-297, K steps a
+dispatch: on the card one CUDA graph of K steps, replayed for each window
+of K, which runs the same kernels on the same values as K eager steps.
+So every per-step value the step reads lives on the device: the batch
+carries its annealing alpha, its checked jitter and its learning rates,
+the optimizer keeps its counts there, and the noise generator is
+registered with the graph.
 """
 
 import dataclasses
@@ -21,7 +29,7 @@ import math
 
 import torch
 
-from samplenerfro_torch.models import nerf
+from samplenerfro_torch.data import prefetch
 from samplenerfro_torch.ops import math as math_ops
 
 
@@ -53,6 +61,26 @@ class Stats:
     return Stats(**{f.name: float(getattr(self, f.name))
                     for f in dataclasses.fields(self)})
 
+  def per_step(self):
+    """The Stats of floats of each step of a stacked Stats (pack_stats),
+    fetched from the device in one copy."""
+    rows = torch.stack(_fields(self)).cpu()
+    return [Stats(*[float(v) for v in col]) for col in rows.t()]
+
+
+def _fields(stats):
+  return [getattr(stats, f.name) for f in dataclasses.fields(stats)]
+
+
+def pack_stats(stats):
+  """K steps' Stats -> one [fields, K] float32 tensor (a Python number
+  as its value); Stats(*packed.unbind(0)) is their stacked Stats."""
+  dev = stats[0].loss.device
+  as_t = lambda v: (v.float() if torch.is_tensor(v) else
+                    torch.full((), v, dtype=torch.float32, device=dev))
+  return torch.stack([torch.stack([as_t(v) for v in _fields(s)])
+                      for s in stats], dim=1)
+
 
 def param_labels_for_stage(stage, num_fine_samples):
   """Trainable-module labels per stage (train.py:286-310)."""
@@ -78,12 +106,116 @@ def param_labels_for_stage(stage, num_fine_samples):
   return labels
 
 
+class Adam:
+  """optax.adam (samplenerfro_tpu/train/step.py:73-95) over param groups,
+  its state on the parameters' device.
+
+  Each update computes, as optax does,
+      mu = b1 mu + (1 - b1) g,  nu = b2 nu + (1 - b2) g^2,  count += 1,
+      p += -lr * (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) + eps)
+  with torch._foreach ops, each group's count a 0-d float32 tensor and its
+  rate a float32 tensor on the device. So an eager update and one replayed
+  from a CUDA graph run the same kernels on the same values.
+  torch.optim.Adam rounds its bias corrections as host doubles eagerly and
+  as device floats with capturable=True, which would set the two apart.
+
+  A group is a dict of "params", "name" and "label". state_dict() has
+  torch.optim's layout (a "step", "exp_avg" and "exp_avg_sq" per
+  parameter, "step" the group's count), so checkpoints of either load
+  into the other's groups by name.
+  """
+
+  def __init__(self, groups, b1=0.9, b2=0.999, eps=1e-8):
+    self.param_groups = groups
+    self.b1, self.b2, self.eps = b1, b2, eps
+    self.state = {}
+    self.counts = []
+    for group in groups:
+      for p in group["params"]:
+        self.state[p] = {"exp_avg": torch.zeros_like(p),
+                         "exp_avg_sq": torch.zeros_like(p)}
+      self.counts.append(torch.zeros((), dtype=torch.float32,
+                                     device=group["params"][0].device))
+
+  def zero_grad(self):
+    """Drop the gradients (the next backward allocates them anew)."""
+    for group in self.param_groups:
+      for p in group["params"]:
+        p.grad = None
+
+  @torch.no_grad()
+  def step(self, lrs):
+    """One update of every parameter with a gradient.
+
+    Args:
+      lrs: [groups] float32 tensor of the groups' rates on the parameters'
+        device (learning_rates).
+    """
+    b1, b2 = self.b1, self.b2
+    for i, group in enumerate(self.param_groups):
+      params = [p for p in group["params"] if p.grad is not None]
+      if not params:
+        continue
+      count, lr = self.counts[i], lrs[i]
+      grads = [p.grad for p in params]
+      mu = [self.state[p]["exp_avg"] for p in params]
+      nu = [self.state[p]["exp_avg_sq"] for p in params]
+      torch._foreach_mul_(mu, b1)
+      torch._foreach_add_(mu, grads, alpha=1 - b1)
+      sq = torch._foreach_mul(grads, grads)
+      torch._foreach_mul_(nu, b2)
+      torch._foreach_add_(nu, sq, alpha=1 - b2)
+      count.add_(1)
+      update = torch._foreach_div(mu, 1 - torch.pow(b1, count))
+      denom = torch._foreach_div(nu, 1 - torch.pow(b2, count))
+      torch._foreach_sqrt_(denom)
+      torch._foreach_add_(denom, self.eps)
+      torch._foreach_div_(update, denom)
+      torch._foreach_mul_(update, -lr)
+      torch._foreach_add_(params, update)
+
+  def state_dict(self):
+    index, state, groups = 0, {}, []
+    for group, count in zip(self.param_groups, self.counts):
+      ids = []
+      for p in group["params"]:
+        state[index] = {"step": count, **self.state[p]}
+        ids.append(index)
+        index += 1
+      groups.append({**{k: v for k, v in group.items() if k != "params"},
+                     "params": ids})
+    return {"state": state, "param_groups": groups}
+
+  def load_state_dict(self, saved):
+    """Load a state_dict() of these groups; a group none of whose
+    parameters has saved state starts fresh."""
+    if len(saved["param_groups"]) != len(self.param_groups):
+      raise ValueError(f"{len(saved['param_groups'])} saved groups, "
+                       f"{len(self.param_groups)} here")
+    for group, count, old in zip(self.param_groups, self.counts,
+                                 saved["param_groups"]):
+      if len(old["params"]) != len(group["params"]):
+        raise ValueError(f"group {group['name']}: {len(old['params'])} "
+                         f"saved tensors, {len(group['params'])} here")
+      count.zero_()
+      for p, idx in zip(group["params"], old["params"]):
+        mine = self.state[p]
+        theirs = saved["state"].get(idx)
+        if theirs is None:
+          mine["exp_avg"].zero_()
+          mine["exp_avg_sq"].zero_()
+          continue
+        mine["exp_avg"].copy_(theirs["exp_avg"])
+        mine["exp_avg_sq"].copy_(theirs["exp_avg_sq"])
+        count.copy_(torch.as_tensor(theirs["step"], dtype=torch.float32))
+
+
 def create_optimizer(model, args):
   """Adam over the stage's trainable modules (train.py:286-317).
 
   Returns (optimizer, learning_rate_fn, learning_rate_fn1). Each param
-  group carries its label; `set_learning_rates` sets the groups' rates
-  for an update from its count.
+  group carries its label; `learning_rates` lists the groups' rates of an
+  update from its count.
   """
   check_supported(args)
   lr_fn = functools.partial(
@@ -105,16 +237,15 @@ def create_optimizer(model, args):
                    "label": label})
   rates = {"adam": lambda _: args.lr_init, "adam_lr_scheduler": lr_fn,
            "adam_lr_scheduler1": lr_fn1}
-  # optax.adam's defaults; eps is added outside the square root in both.
-  optimizer = torch.optim.Adam(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+  optimizer = Adam(groups)
   optimizer.rates = rates
   return optimizer, lr_fn, lr_fn1
 
 
-def set_learning_rates(optimizer, count):
-  """Rates of update number `count` (0 for the first update)."""
-  for group in optimizer.param_groups:
-    group["lr"] = optimizer.rates[group["label"]](count)
+def learning_rates(optimizer, count):
+  """The groups' rates of update number `count` (0 for the first), in
+  group order, as floats."""
+  return [optimizer.rates[g["label"]](count) for g in optimizer.param_groups]
 
 
 def _psnr(mse):
@@ -143,26 +274,29 @@ def check_supported(args):
                               "(Grid) dataset, which is not ported yet")
 
 
-def loss_fn(model, batch, args, jitter, generator=None):
+def loss_fn(model, batch, args, generator=None):
   """(total loss, Stats) of one batch (samplenerfro_tpu/train/step.py:118-227).
 
   Args:
     model: NerfModel of a radiance or 'all' stage.
-    batch: dict of tensors on the model's device: "rays" (Rays of
-      [batch, C]), "pixels" [batch, >=3], "env_rays" (Rays of [p, p, C]
-      or None) and "annealed_alpha" (float).
+    batch: one step's batch (train/loop.step_batch) on the model's device:
+      "rays" (Rays of [batch, C]), "pixels" [batch, >=3], "env_rays"
+      (Rays of [p, p, C] or None), "annealed_alpha" (a 0-d float32
+      tensor) and "jitter" (a march_kernel.CheckedJitter, the coarse
+      subsample's dense indices).
     args: flags namespace.
-    jitter: [num_coarse] dense indices of the coarse subsample.
     generator: torch.Generator for the randomized sampling and noise.
   """
-  alpha = float(batch["annealed_alpha"])
-  gate = 1.0 if alpha > 0 else 0.0
-  ret = model(batch["rays"], jitter, randomized=args.randomized,
+  pixels = batch["pixels"][..., :3]
+  alpha = batch["annealed_alpha"]
+  # The background terms count once annealing has begun; a device tensor,
+  # so that deciding reads nothing back.
+  gate = (alpha > 0).to(torch.float32)
+  ret = model(batch["rays"], batch["jitter"], randomized=args.randomized,
               generator=generator, annealed_alpha=alpha)
   if len(ret) not in (1, 2):
     raise ValueError("ret should contain 1 (coarse) or 2 (coarse+fine) sets "
                      "of outputs.")
-  pixels = batch["pixels"][..., :3]
   rgb, _, _, trans, trans_rgb_bkgd = ret[-1]
   loss = ((rgb - pixels)**2).mean()
   zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
@@ -216,25 +350,104 @@ def clip_gradients(params, args):
       g.mul_(mult)
 
 
-def train_step(model, optimizer, batch, step, args, generator=None,
-               jitter=None):
+def train_step(model, optimizer, batch, args, generator=None):
   """One optimizer step; returns its Stats.
 
   Args:
-    model, batch, args, generator: as loss_fn.
+    model, args, generator: as loss_fn.
     optimizer: create_optimizer's.
-    step: the 1-based training step; its update uses the learning rates
-      at count step - 1.
-    jitter: the coarse subsample (nerf.make_jitter, on the host), as the
-      JAX model draws it from its per-step key; None draws it from torch's
-      default host generator.
+    batch: as loss_fn's, with "lr", the [groups] rates of this update
+      (learning_rates) as a float32 tensor on the model's device.
   """
-  if jitter is None:
-    jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples)
-  optimizer.zero_grad(set_to_none=True)
-  total, stats = loss_fn(model, batch, args, jitter, generator)
+  optimizer.zero_grad()
+  total, stats = loss_fn(model, batch, args, generator)
   total.backward()
   clip_gradients(list(model.parameters()), args)
-  set_learning_rates(optimizer, step - 1)
-  optimizer.step()
+  optimizer.step(batch["lr"])
   return stats
+
+
+class MultiStep:
+  """K optimizer steps a dispatch (make_train_step_multi)."""
+
+  def __init__(self, model, optimizer, args, k, generator=None):
+    if k < 1:
+      raise ValueError(f"steps_per_dispatch must be at least 1, got {k}")
+    self.model, self.optimizer, self.args = model, optimizer, args
+    self.k, self.generator = k, generator
+    self.warm = False
+    self.graph = self.static = self.out = self.stream = None
+    self.replays = 0
+
+  def _steps(self, batch):
+    """The window's steps one by one; their packed Stats (pack_stats)."""
+    return pack_stats([
+        train_step(self.model, self.optimizer,
+                   prefetch.map_tensors(lambda t, i=i: t[i], batch),
+                   self.args, self.generator)
+        for i in range(batch["pixels"].shape[0])])
+
+  def _capture(self, batch):
+    """Capture K steps reading `static`, a copy of `batch`, into a graph.
+    Nothing runs; the kernel wrappers count the launches they record."""
+    self.static = prefetch.map_tensors(torch.clone, batch)
+    graph = torch.cuda.CUDAGraph()
+    if self.generator is not None:
+      graph.register_generator_state(self.generator)
+    # thread_local: the prefetch thread may pin and copy meanwhile.
+    with torch.cuda.graph(graph, stream=self.stream,
+                          capture_error_mode="thread_local"):
+      out = self._steps(self.static)
+    self.graph, self.out = graph, out
+
+  def __call__(self, batch):
+    """Run the window of steps that the stacked batch holds ([n, ...]
+    leaves, n <= K, as train/loop.host_window makes them); returns their
+    Stats stacked ([n] fields)."""
+    n = batch["pixels"].shape[0]
+    dev = batch["pixels"].device
+    if dev.type != "cuda":
+      return Stats(*self._steps(batch).unbind(0))
+    current = torch.cuda.current_stream(dev)
+    if self.stream is None:
+      self.stream = torch.cuda.Stream(dev)
+    self.stream.wait_stream(current)
+    prefetch.map_tensors(lambda t: t.record_stream(self.stream), batch)
+    with torch.cuda.stream(self.stream):
+      if self.k == 1 or n != self.k or not self.warm:
+        # A window shorter than K, and the first full one, which warms
+        # every kernel, cache and workspace the capture will meet, run
+        # step by step: bit for bit what the graph runs.
+        packed = self._steps(batch)
+        self.warm = self.warm or n == self.k
+      else:
+        if self.graph is None:
+          self._capture(batch)
+        prefetch.map_tensors(lambda s, t: s.copy_(t), self.static, batch)
+        self.graph.replay()
+        self.replays += 1
+        packed = self.out.clone()
+    current.wait_stream(self.stream)
+    packed.record_stream(current)
+    return Stats(*packed.unbind(0))
+
+
+def make_train_step_multi(model, optimizer, args, k, generator=None):
+  """K optimizer steps a dispatch: step(stacked batch) -> stacked Stats.
+
+  Counterpart of samplenerfro_tpu/train/step.py:make_train_step_multi. The
+  batch's leaves carry a leading step axis (train/loop.host_window); the
+  returned Stats' fields are [n] per-step values. On the card the first
+  window of K runs eagerly, step by step, and the next one captures K
+  steps as one torch.cuda.CUDAGraph that reads its window from a static
+  copy of the stacked batch and writes the [K] Stats; each later window of
+  K copies its batch in and replays the graph (the lax.scan over the
+  stacked batch). `generator`, the noise generator, is registered with the
+  graph, so a replay draws fresh numbers in the eager order. A capture
+  that fails raises. A window shorter than K (a resume off the K grid, the
+  last one before max_steps), and every window on the CPU, runs step by
+  step: bit for bit the same steps. The kernel wrappers count the
+  launches of the eager steps and those a capture records, not a replay's:
+  `replays` counts the replays.
+  """
+  return MultiStep(model, optimizer, args, k, generator)

@@ -7,7 +7,7 @@ YAML package) and the `Class.param = literal` gin subset.
 
 Flags the port reads and ignores are IGNORED_FLAGS, each with its reason:
 they tune the TPU kernels' VMEM windows, interpolation precision,
-free-space skip, marcher choice and dispatch grouping. The Hopper march
+free-space skip and marcher choice. The Hopper march
 kernels gather straight from the grid in device memory and interpolate in
 fp32, so none of them applies.
 """
@@ -70,9 +70,6 @@ IGNORED_FLAGS = {
     "march_bwd_dtype": "K3 runs in fp32; the bf16 sweep is not honoured",
     "march_bwd_impl": "K3 is the one reverse sweep",
     "matmul_precision": "fp32 products with TF32 off",
-    # Dispatch amortisation of a remote TPU: PyTorch runs eagerly.
-    "steps_per_dispatch": "one step per Python call",
-    "render_chunks_per_dispatch": "one chunk per Python call",
     # Rematerialisation of the MLPs under jax.checkpoint: autograd keeps
     # the nn.Linear activations, and K5 recomputes its own.
     "mlp_remat": "autograd keeps the activations; K5 recomputes its own",

@@ -35,7 +35,7 @@ def tile_order(height, width, tile):
 
 
 def render_image(render_fn, rays, normalize_disp, chunk=8192, device=None,
-                 tile=TILE):
+                 tile=TILE, chunks_per_dispatch=1):
   """Render all pixels of an image in chunks.
 
   Args:
@@ -46,6 +46,11 @@ def render_image(render_fn, rays, normalize_disp, chunk=8192, device=None,
     chunk: rays per render_fn call.
     device: where the chunks are rendered.
     tile: pixel-tile side of the render order; 0 keeps raster order.
+    chunks_per_dispatch: chunks whose rays go to `device` in one copy
+      (--render_chunks_per_dispatch; samplenerfro_tpu/utils/render.py's
+      groups). Each chunk renders on its own, in order, at its own size
+      (a ragged last chunk too, where the JAX package pads it), so the
+      image is bit for bit the same whatever the grouping.
 
   Returns:
     (rgb [h, w, 3], distance [h, w, 1], acc [h, w, 1]) numpy arrays.
@@ -58,14 +63,16 @@ def render_image(render_fn, rays, normalize_disp, chunk=8192, device=None,
     perm, inv_perm = tile_order(height, width, tile)
     rays = namedtuple_map(lambda r: r[perm], rays)
 
+  group = chunk * max(1, int(chunks_per_dispatch))
   results = []
   with torch.no_grad():
-    for i in range(0, num_rays, chunk):
-      chunk_rays = namedtuple_map(
-          lambda r: torch.from_numpy(np.ascontiguousarray(r[i:i + chunk])).to(
+    for g in range(0, num_rays, group):
+      group_rays = namedtuple_map(
+          lambda r: torch.from_numpy(np.ascontiguousarray(r[g:g + group])).to(
               device, non_blocking=True), rays)
-      out = render_fn(chunk_rays)
-      results.append((out[0], out[1], out[2]))
+      for i in range(0, group_rays.origins.shape[0], chunk):
+        out = render_fn(namedtuple_map(lambda r: r[i:i + chunk], group_rays))
+        results.append((out[0], out[1], out[2]))
   rgb, distance, acc = [torch.cat(r, dim=0).cpu().numpy()
                         for r in zip(*results)]
   if inv_perm is not None:

@@ -734,3 +734,118 @@ def test_cuda_k5_recomputes_k4_activations(cuda_device, width, deg, pe):
   stored = mlp_kernel.stored_values(spec, stash, n)
   for name, value in acts.items():
     assert torch.equal(stored[name], value), name
+
+
+DISPATCH_KERNELS = ("march_lean_kernel", "march_so3_kernel", "k3_sweep",
+                    "mlp_fwd_kernel", "mlp_bwd_kernel")
+
+
+def _dispatch_run(device, stage, k, mlp_kernel_name, want, steps=9,
+                  tries=3):
+  """`steps` train steps from step 4 of a tiny seeded model, K a dispatch
+  (train/step.make_train_step_multi) on loop.host_window's batches, then
+  windows of 3 steps, each under torch.profiler on its own, until one
+  launches `want` (K1, K2, K3, K4, K5; the profiler can drop a record)
+  or `tries` were traced: (the first `steps` steps' Stats, parameters and
+  Adam state and the wrappers' launches after them, the launches traced
+  in each window, the dispatch)."""
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as tprofile
+  from samplenerfro_torch.data import prefetch
+  from samplenerfro_torch.debug.march_parity import kernel_launches
+  from samplenerfro_torch.ops import eikonal_vjp
+  from samplenerfro_torch.ops import march_kernel
+  from samplenerfro_torch.ops import mlp_kernel
+  from samplenerfro_torch.train import loop
+  from samplenerfro_torch.train import step as step_lib
+  width = 128 if mlp_kernel_name != "xla" else 32
+  args, _, _ = config_lib.load_args(
+      None, stage=stage, net_depth=2, net_width=width,
+      net_width_condition=width, num_coarse_samples=8, num_path_samples=4,
+      num_fine_samples=16, max_deg_point=4, use_online_sparsity=False,
+      white_bkgd=False, bg_weight=0.025, bg_smooth_weight=1.0,
+      bg_patch_size=4, anneal_delay_steps=1, anneal_max_steps=20,
+      lr_delay_steps=2, mlp_kernel=mlp_kernel_name, mlp_dtype="bfloat16")
+  values, ndim, nmin, nmax = grid_io.synthetic_blob_grid(32, 1.5, 0.33)
+  model = nerf.construct_nerf(args, ndim, nmin, nmax, values, device=device,
+                              seed=0)
+  optimizer, _, _ = step_lib.create_optimizer(model, args)
+  run = step_lib.make_train_step_multi(
+      model, optimizer, args, k,
+      torch.Generator(device=device).manual_seed(3))
+  jitter_gen = torch.Generator().manual_seed(4)
+
+  def host(i):
+    _, _, o, d, _ = _march_inputs(64, seed=i)
+    env = d[:16].reshape(4, 4, 3).copy()
+    return {"pixels": np.random.RandomState(i).rand(64, 3).astype(
+                np.float32),
+            "rays": Rays(o, d, d, np.full((64, 1), 1e-3, np.float32)),
+            "env_rays": Rays(env, env, env,
+                             np.full((4, 4, 1), 1e-3, np.float32))}
+
+  first = 4  # on the grid of 3: windows 4-6, 7-9, 10-12, ...
+  last = first + steps - 1
+  dataset = iter([host(i) for i in range(steps + 3 * tries)])
+  wrappers = (march_kernel.march_lean, march_kernel.march_full,
+              eikonal_vjp.march_bwd, mlp_kernel.mlp_fwd, mlp_kernel.mlp_bwd)
+  before = [w.launches for w in wrappers]
+  stats, prof, traced = [], None, []
+  for w0, w1 in loop.dispatch_windows(first, last + 3 * tries, k):
+    batch = prefetch.to_device(
+        loop.host_window(dataset, w0, w1, args, optimizer, jitter_gen),
+        device)
+    if w0 > last and (w0 - last - 1) % 3 == 0:
+      torch.cuda.synchronize()
+      prof = tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+      prof.__enter__()
+    out = run(batch).per_step()
+    if w1 <= last:
+      stats += out
+    if w1 == last:
+      state = {f"p.{n}": p.detach().clone()
+               for n, p in model.named_parameters()}
+      for i, s in optimizer.state_dict()["state"].items():
+        state.update({f"{i}.{n}": torch.as_tensor(t).clone()
+                      for n, t in s.items()})
+      launches = [w.launches - b for w, b in zip(wrappers, before)]
+    if prof is not None and (w1 - last) % 3 == 0:
+      torch.cuda.synchronize()
+      prof.__exit__(None, None, None)
+      traced.append(list(kernel_launches(prof, DISPATCH_KERNELS).values()))
+      prof = None
+      if traced[-1] == want:
+        break
+  return stats, state, launches, traced, run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage,mlp", [("radiance", "xla"), ("all", "xla"),
+                                       ("radiance", "pallas")])
+def test_cuda_graph_dispatch_matches_eager_steps(cuda_device, stage, mlp):
+  """9 randomized steps: 3 a dispatch (an eager window, then a captured
+  graph replayed twice) against one at a time, bit for bit: every Stats
+  field of every step (the replays drew fresh numbers, in the eager
+  order), every parameter and Adam moment and count. The wrappers count
+  the steps run in Python (3 eager, 3 captured). A replay after them,
+  traced by torch.profiler, launches each kernel as 3 eager steps traced
+  the same way do, and no traced window launches more."""
+  per_step = {"radiance": [1, 0, 0], "all": [0, 1, 1]}[stage]
+  per_step += [2, 2] if mlp != "xla" else [0, 0]
+  want = [3 * n for n in per_step]
+  eager, e_state, e_launches, e_traced, _ = _dispatch_run(
+      cuda_device, stage, 1, mlp, want)
+  graph, g_state, g_launches, g_traced, run = _dispatch_run(
+      cuda_device, stage, 3, mlp, want)
+  assert run.replays == 2 + len(g_traced) and run.graph is not None
+  assert graph == eager
+  assert len({s.loss for s in graph}) == 9
+  assert e_state.keys() == g_state.keys()
+  for key in e_state:
+    assert torch.equal(e_state[key], g_state[key]), key
+  assert e_launches == [9 * n for n in per_step]
+  assert g_launches == [6 * n for n in per_step]
+  for traced in (e_traced, g_traced):
+    assert traced[-1] == want
+    assert all(t <= w for window in traced for t, w in zip(window, want))

@@ -150,8 +150,10 @@ def test_fused_train_step_matches_jax(jax_fused):
   assert len(jax_fused) == 2
 
   optimizer, _, _ = t_step.create_optimizer(port, args)
-  stats = t_step.train_step(port, optimizer, ttt._torch_batch(b), 1, args,
-                            jitter=ttt._jitter(rng, args)).as_floats()
+  stats = t_step.train_step(
+      port, optimizer,
+      ttt._step_batch(b, args, optimizer, 0, ttt._jitter(rng, args)),
+      args).as_floats()
   for name in ttt.STATS:
     np.testing.assert_allclose(getattr(stats, name),
                                float(getattr(j_stats, name)), rtol=1e-5,

@@ -25,6 +25,7 @@ from jax import random
 
 from samplenerfro_torch import eval as t_eval
 from samplenerfro_torch.data import datasets as t_datasets
+from samplenerfro_torch.data import prefetch
 from samplenerfro_torch.data import rays as t_rays
 from samplenerfro_torch.debug import real_scene
 from samplenerfro_torch.models import convert
@@ -333,9 +334,10 @@ def test_train_step_with_cut_matches_jax(low_scene, stage):
   convert.load_into(port, convert.params_from_flax(
       jax.tree_util.tree_map(np.asarray, variables["params"])))
   optimizer, _, _ = t_step.create_optimizer(port, args)
-  tbatch = t_loop.batch_to_device(host, 0.5, "cpu")
-  stats = t_step.train_step(port, optimizer, tbatch, 1, args,
-                            jitter=_jitter(rng, args)).as_floats()
+  tbatch = prefetch.to_device(t_loop.step_batch(
+      host, 0.5, t_step.learning_rates(optimizer, 0), _jitter(rng, args),
+      args), "cpu")
+  stats = t_step.train_step(port, optimizer, tbatch, args).as_floats()
   assert float(j_stats.loss_bg) > 0
   for name in STATS:
     np.testing.assert_allclose(getattr(stats, name),

@@ -31,6 +31,7 @@ from jax import random
 
 from samplenerfro_torch import eval as t_eval
 from samplenerfro_torch.data import datasets as t_datasets
+from samplenerfro_torch.data import prefetch
 from samplenerfro_torch.data.rays import Rays as TRays
 from samplenerfro_torch.models import convert
 from samplenerfro_torch.models import nerf as t_nerf
@@ -94,6 +95,16 @@ def _torch_batch(b):
           "annealed_alpha": float(b["annealed_alpha"])}
 
 
+def _step_batch(b, args, optimizer, count, jitter):
+  """b as train_step takes it (loop.step_batch), with the rates of update
+  number `count` and the jitter."""
+  host = {"pixels": b["pixels"], "rays": TRays(*b["rays"]),
+          "env_rays": TRays(*b["env"])}
+  return prefetch.to_device(t_loop.step_batch(
+      host, b["annealed_alpha"], t_step.learning_rates(optimizer, count),
+      jitter, args), "cpu")
+
+
 def _jitter(rng, args):
   """The jitter the JAX train step draws from `rng` (step.py:242)."""
   key_0 = random.split(rng, 4)[1]
@@ -140,9 +151,9 @@ def test_train_step_matches_jax(stage, march_mode):
   state2, _, _ = tstep(rng2, state1, jbatch)
 
   optimizer, _, _ = t_step.create_optimizer(port, args)
-  tbatch = _torch_batch(b)
-  stats = t_step.train_step(port, optimizer, tbatch, 1, args,
-                            jitter=_jitter(rng, args)).as_floats()
+  stats = t_step.train_step(
+      port, optimizer, _step_batch(b, args, optimizer, 0, _jitter(rng, args)),
+      args).as_floats()
   for name in STATS + ("march_oow",):
     np.testing.assert_allclose(getattr(stats, name),
                                float(getattr(j_stats, name)), rtol=1e-5,
@@ -166,8 +177,9 @@ def test_train_step_matches_jax(stage, march_mode):
   assert all(k.startswith("path_sampler.") == (stage == "radiance")
              for k in set(got) - set(want))
 
-  t_step.train_step(port, optimizer, tbatch, 2, args,
-                    jitter=_jitter(rng2, args))
+  t_step.train_step(
+      port, optimizer, _step_batch(b, args, optimizer, 1, _jitter(rng2, args)),
+      args)
   want = {k: v.numpy() for k, v in convert.params_from_flax(
       jax.tree_util.tree_map(np.asarray, state2.params)).items()}
   got = {k: v.detach().numpy() for k, v in port.named_parameters()}
@@ -190,9 +202,9 @@ def test_adam_schedule_matches_optax():
     params = optax.apply_updates(params, updates)
     for key, g in convert.params_from_flax(grads).items():
       port.get_parameter(key).grad = g
-    t_step.set_learning_rates(optimizer, k)
-    assert optimizer.param_groups[0]["lr"] == pytest.approx(lr_fn(k))
-    optimizer.step()
+    lrs = t_step.learning_rates(optimizer, k)
+    assert lrs[0] == pytest.approx(lr_fn(k))
+    optimizer.step(torch.tensor(lrs, dtype=torch.float32))
   for key, want in convert.params_from_flax(params).items():
     np.testing.assert_allclose(port.get_parameter(key).detach().numpy(),
                                want.numpy(), rtol=1e-5, atol=1e-8,
