@@ -160,10 +160,34 @@ Phases, each of which must pass or the script exits non-zero:
      single_image batching and fp32 MLPs through tools/validate_quality and
      eval of the 2 test views: the test PSNR must reach 29.5 dB, 1 dB under
      the JAX package's 30.49 dB for that budget and batching.
+  11. the `ior` stage at ship width (phase 6b's model, its 512^3 grid;
+     the so3 head 4x128; the shipped extra_batch_size 16): the Grid
+     (data/datasets.Grid) built on the host from the model's grid, timed;
+     30 steps from step 80000 at K=1 and at K=10 (a CUDA graph) on the
+     same Grid batches, offsets and weights, with weight_decay_mult 0 as
+     shipped (every parameter and Adam moment bit for bit where it
+     started, loss_nrm 0) and 1e-2 (the so3 head moves, the radiance MLPs
+     do not, K=1 and K=10 bit for bit); no march kernel launches; steps/s
+     of the last 10 and the device ms a step of 10 more, traced. Then the
+     ungated smoothness and its so3 gradients on a Grid batch, card
+     against CPU (the value within 1e-6 of its terms' size; the
+     gradients printed against the K3 form per tensor, not held), and
+     the val render the loop runs at --render_every, in the `ior` stage,
+     of the ship view: K1 once per chunk.
+  12. LLFF: a forward-facing capture (debug/llff_scene.py: 16 views of
+     160x136 in images_2, a 128^3 blob) in the ship configuration at full
+     width with --dataset=llff (NDC rays, near 0, far 1) through the
+     entry points: train.loop.main --stage=radiance for 20 steps at K=10
+     with a val render, --stage=ior for 20 steps with a val render, eval
+     --render_path=True of the radiance stage (the 120-frame spiral into
+     path_renders/, five images a frame, no score file), eval of the
+     `ior` stage's test views; K1 as the steps and chunks imply; eval
+     --render_path=True on a Blender scene must raise ValueError.
 The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
 import argparse
+import copy
 import json
 import os
 import pickle
@@ -190,6 +214,7 @@ from samplenerfro_torch.debug.march_parity import TRAIN_FROM
 from samplenerfro_torch.debug.march_parity import card_name
 from samplenerfro_torch.debug.march_parity import cuda_ms
 from samplenerfro_torch.debug.march_parity import glass_inputs
+from samplenerfro_torch.debug.march_parity import kernel_device_ms
 from samplenerfro_torch.debug.march_parity import kernel_launches
 from samplenerfro_torch.debug.march_parity import march_call
 from samplenerfro_torch.debug.march_parity import march_cases
@@ -201,6 +226,7 @@ from samplenerfro_torch.debug.march_parity import ship_model
 from samplenerfro_torch.debug.march_parity import so3_params_for
 from samplenerfro_torch.debug.march_parity import step_device_us
 from samplenerfro_torch.debug.march_parity import synthetic_batch
+from samplenerfro_torch.debug import llff_scene
 from samplenerfro_torch.debug import mlp_rounding
 from samplenerfro_torch.debug import probe_so3_relu
 from samplenerfro_torch.debug import real_scene
@@ -309,6 +335,17 @@ CUT_SIGMA_BIAS = -4.0
 # P2: CUDA documents sinf at 2 ulp, <= 1e-6 of a value in [-1, 1] at these
 # arguments.
 P2_ATOL = 1e-6
+# The ior stage (phase 11): N_IOR steps from TRAIN_FROM a run, each way,
+# then a traced window of IOR_SPAN steps; the second run of each way at
+# this weight decay (the shipped configs set 0). The ungated smoothness,
+# card against CPU, within SMOOTH_TOL of the size of its terms.
+N_IOR, IOR_SPAN = 30, 10
+IOR_WEIGHT_DECAY = 1e-2
+SMOOTH_TOL = 1e-6
+# The LLFF path (phase 12): a forward-facing capture of LLFF_VIEWS views,
+# N_LLFF radiance and N_LLFF ior steps at the ship's K, each a capture
+# and a replay.
+LLFF_VIEWS, N_LLFF = 16, 20
 # P3 against its plain version, max abs error over the largest
 # |pre-activation|: both sum the same fp32 products, in other orders.
 P3_ATOL = 1e-5
@@ -326,6 +363,10 @@ K4_BF16_MAX, K4_BF16_MEAN = 4e-3, 3e-5
 # moves one row's contribution).
 K5_ATOL_SCALE, K5_RTOL = 2e-4, 2e-3
 K5_BF16_SCALE = 2e-3
+# K4's and K5's device time: a CUDA graph of this many calls with the
+# weights packed (torch.profiler recorded no mlp_fwd_kernel launch in four
+# windows of K4 at the render's fine call, NVIDIA H100 80GB HBM3).
+MLP_GRAPH_CALLS = 5
 
 
 def log(msg):
@@ -909,6 +950,9 @@ def p3_case(what, pos, so3, alpha, time_plain=True):
     raise SystemExit(f"P3 ({what}) disagrees with its plain version: {err} "
                      f"> {P3_ATOL} * {scale}")
   ms = cuda_ms(lambda: probes.so3_preacts(pos, so3, alpha))
+  dev, per = kernel_device_ms(lambda: probes.so3_preacts(pos, so3, alpha),
+                              "so3_preacts_kernel", reps=3)
+  device_ms = dev * per
   plain = (cuda_ms(lambda: probes.so3_preacts_reference(pos, so3, alpha))
            if time_plain else float("nan"))
   # Least work: the PE (~20 operations a sine) and the three layers'
@@ -920,11 +964,11 @@ def p3_case(what, pos, so3, alpha, time_plain=True):
   weights = macs + 3 * width
   nbytes = 12 * n + 4 * weights + 12 * n * width
   bound_ms, by = bound(nbytes, n * (2 * macs + 20 * in_dim))
-  log(f"  P3 so3_preacts {what} ({n} points): {ms:.4f} ms, plain "
-      f"{plain:.4f} ms, bound {bound_ms:.4f} ms by {by} "
-      f"({2 * macs * n / 1e9:.3f} GFLOP of products, {nbytes / 1e6:.1f} "
-      f"MB)")
-  return err, ms, plain, bound_ms, by
+  log(f"  P3 so3_preacts {what} ({n} points): {ms:.4f} ms ({device_ms:.4f} "
+      f"ms of kernel device time), plain {plain:.4f} ms, bound "
+      f"{bound_ms:.4f} ms by {by} ({2 * macs * n / 1e9:.3f} GFLOP of "
+      f"products, {nbytes / 1e6:.1f} MB)")
+  return err, ms, plain, bound_ms, by, device_ms
 
 
 def p3_phase(device):
@@ -932,8 +976,8 @@ def p3_phase(device):
   path with P3's count zeroed; returns P3's report row."""
   pos = probe_so3_relu.probe_positions(device).reshape(-1, 3)
   so3 = selfcheck.default_so3_params(device)
-  err, ms, plain, bound_ms, by = p3_case("probe points", pos, so3,
-                                         selfcheck.ALPHA)
+  err, ms, plain, bound_ms, by, device_ms = p3_case(
+      "probe points", pos, so3, selfcheck.ALPHA)
   del pos
   probes.so3_preacts.launches = 0
   layers = probe_so3_relu.probe()
@@ -944,7 +988,8 @@ def p3_phase(device):
     raise SystemExit(f"P3 probe path: {launches} launches, expected 1")
   row = report_row("so3_preacts", "scripts/debug/probe_so3_relu.py:102",
                    err, ms, plain, bound_ms, by,
-                   source="samplenerfro_torch/ops/csrc/march_bwd.cu")
+                   source="samplenerfro_torch/ops/csrc/march_bwd.cu",
+                   device_ms=device_ms)
   row["launches"] = launches
   return row
 
@@ -1063,6 +1108,8 @@ def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
     ms = cuda_ms(lambda: mlp_kernel.mlp_fwd(spec, params, x, c, dtype,
                                             pack=pack))
     call_ms = cuda_ms(lambda: mlp_kernel.mlp_fwd(spec, params, x, c, dtype))
+    device_ms = graph_ms(lambda: mlp_kernel.mlp_fwd(
+        spec, params, x, c, dtype, pack=pack), count=MLP_GRAPH_CALLS)
     plain = cuda_ms(lambda: mlp_kernel.fused_nerf_mlp_reference(
         spec, params, x, c, dtype), 3)
     with torch.no_grad():
@@ -1072,13 +1119,15 @@ def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
         unfused = cuda_ms(lambda: mlp(*encode(raw), dtype=dtype))
     bound_ms, by, tflop = mlp_bound(spec, x.shape[0], dtype)
     log(f"  K4 mlp_fwd {what}: {ms:.4f} ms with the weights packed "
-        f"({call_ms:.4f} ms as a call that packs them), "
+        f"({call_ms:.4f} ms as a call that packs them, {device_ms:.4f} ms "
+        f"of device time, a CUDA graph of {MLP_GRAPH_CALLS} calls), "
         f"{tflop / ms * 1e3:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the "
         f"bound {bound_ms:.4f} ms by {by} ({tflop:.3f} TFLOP); plain "
         f"{plain:.3f} ms, unfused (nn.Linear) {unfused:.3f} ms")
     rows.append(report_row("mlp_fwd", MLP_KERNEL + ":219", e_max, ms, plain,
                            bound_ms, by, case=what, unfused_ms=unfused,
-                           call_ms=call_ms, tflops=tflop / ms * 1e3))
+                           call_ms=call_ms, device_ms=device_ms,
+                           tflops=tflop / ms * 1e3))
 
   x, c = encode(train_raw)
   spec = mlp_kernel.mlp_spec(mlp)
@@ -1127,6 +1176,8 @@ def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
     pack = mlp_kernel.pack_params(params, dtype)
     ms = cuda_ms(lambda: mlp_kernel.mlp_bwd(*args, pack=pack))
     call_ms = cuda_ms(lambda: mlp_kernel.mlp_bwd(*args))
+    device_ms = graph_ms(lambda: mlp_kernel.mlp_bwd(*args, pack=pack),
+                         count=MLP_GRAPH_CALLS)
     if dtype == torch.bfloat16:
       sweep = {r: cuda_ms(lambda: mlp_kernel.mlp_bwd(*args, pack=pack,
                                                      super_rows=r))
@@ -1151,14 +1202,16 @@ def fused_kernel_phases(model, chunk_rays, batch_rays, jitter, seed):
         f"(PR 4's design: {parent_b / 1e9:.3f} GB), scratch "
         f"{scratch_b / 1e9:.3f} GB per call")
     log(f"  K5 mlp_bwd {what}: {ms:.4f} ms with the weights packed "
-        f"({call_ms:.4f} ms as a call that packs them), "
+        f"({call_ms:.4f} ms as a call that packs them, {device_ms:.4f} ms "
+        f"of device time, a CUDA graph of {MLP_GRAPH_CALLS} calls), "
         f"{tflop / ms * 1e3:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the "
         f"bound {bound_ms:.4f} ms by {by} ({tflop:.3f} TFLOP); plain "
         f"{plain:.3f} ms, unfused (nn.Linear forward + autograd to the "
         f"weights) {unfused:.3f} ms; two runs agree bit for bit")
     rows.append(report_row("mlp_bwd", MLP_KERNEL + ":246", err, ms, plain,
                            bound_ms, by, case=what, unfused_ms=unfused,
-                           call_ms=call_ms, tflops=tflop / ms * 1e3))
+                           call_ms=call_ms, device_ms=device_ms,
+                           tflops=tflop / ms * 1e3))
   return rows
 
 
@@ -1451,7 +1504,7 @@ class StepRecorder:
       stats = self.orig_step(model, optimizer, batch, args, generator)
       self.calls += 1
       if not torch.cuda.is_current_stream_capturing():
-        self._check(model, stats.loss)
+        self._check(model, torch.as_tensor(stats.loss))
       return stats
 
     def making(*args, **kwargs):
@@ -2373,6 +2426,355 @@ def quality_phase(device):
   return scene_counts, r
 
 
+class RenderTimer:
+  """While entered, times utils/render.render_image's calls (after a sync)
+  and records their views' count and shape."""
+
+  def __enter__(self):
+    self.orig = render_lib.render_image
+    self.secs, self.views, self.shape = 0.0, 0, None
+
+    def timed(render_fn, rays, *a, **kw):
+      torch.cuda.synchronize()
+      t0 = time.time()
+      out = self.orig(render_fn, rays, *a, **kw)
+      torch.cuda.synchronize()
+      self.secs += time.time() - t0
+      self.views += 1
+      self.shape = tuple(rays.origins.shape[:2])
+      return out
+
+    render_lib.render_image = timed
+    return self
+
+  def __exit__(self, *exc):
+    render_lib.render_image = self.orig
+
+
+def _so3_cpu_copy(ps):
+  """The path sampler on the CPU without its grid (the smoothness reads
+  only the so3 head, the grid's spec and normal_radius_scale)."""
+  grid = ps.grid
+  ps.grid = torch.empty(0, 4, device=grid.device)
+  try:
+    out = copy.deepcopy(ps).to("cpu")
+  finally:
+    ps.grid = grid
+  return out
+
+
+def smoothness_cross_check(model, host, seed):
+  """The ungated normal smoothness and its so3 gradients at the ship
+  head's width on a Grid batch of the ship grid, with so3 weights drawn
+  at output std 1e-2 (debug/march_parity.so3_params_for) so that the head
+  bends the gradient: the card (cuBLAS) against the CPU on the same
+  points and offsets. No kernel of the port is on this path. The value
+  is held at SMOOTH_TOL of the size of its terms (|pred| / |grad n|,
+  about 1 a point); the gradients are printed against the K3 form per
+  tensor (worst error over its bound), not held: the two BLAS sum in
+  other orders, and a pre-activation near 0 that rounds to the other side
+  of the ReLU on one device moves its point's share of every gradient
+  (ROADMAP Queue 3's card-against-CPU hazard). Returns (card value, CPU
+  value, worst gradient error over its bound)."""
+  ps = model.path_sampler
+  cpu = _so3_cpu_copy(ps)
+  with torch.no_grad():
+    for p, q in zip(ps.so3_mlp.params(), so3_params_for(seed, "cpu")):
+      p.copy_(q.to(p.device))
+    for p, q in zip(cpu.so3_mlp.params(), so3_params_for(seed, "cpu")):
+      p.copy_(q)
+  pts = torch.from_numpy(host["pts"])
+  grads = torch.from_numpy(host["grads"])
+  noise = torch.randn(pts.shape, generator=torch.Generator().manual_seed(seed))
+  alpha = torch.tensor(SO3_ALPHA)
+  out = []
+  for sampler, dev in ((ps, torch.device("cuda")), (cpu, torch.device("cpu"))):
+    args = [t.to(dev) for t in (pts, grads, alpha, noise)]
+    _, smooth = sampler.compute_normal_loss_and_smooth(*args)
+    g = torch.autograd.grad(smooth, sampler.so3_mlp.params())
+    with torch.no_grad():
+      pred = sampler.wrapper_grad_mlp(args[0], args[1], args[2])
+      terms = float((pred.abs().sum(-1) / args[1].norm(dim=-1)).mean())
+    out.append((float(smooth.detach()), [x.cpu() for x in g], terms))
+  (card, g_card, terms), (host_v, g_cpu, _) = out
+  names = [n for n, _ in ps.so3_mlp.named_parameters()]
+  ratios = {n: float(((a - b).abs() / (K3_ATOL_SCALE * b.abs().max()
+                                       + K3_RTOL * b.abs())).max())
+            for n, a, b in zip(names, g_card, g_cpu)}
+  worst = max(ratios.values())
+  log(f"  smoothness (ungated) at {pts.shape[0]} Grid points, so3 output std "
+      f"1e-2, alpha {SO3_ALPHA}: card {card!r}, CPU {host_v!r}, difference "
+      f"{abs(card - host_v):.3e} (tolerance {SMOOTH_TOL * terms:.3e}: "
+      f"{SMOOTH_TOL} of its terms' size {terms:.4f}); so3 gradients, card "
+      f"against CPU, worst error over the K3 form's bound per tensor "
+      f"(printed, not held): "
+      + ", ".join(f"{n} {r:.3f}" for n, r in ratios.items()))
+  if not (np.isfinite(card) and card > 0):
+    raise SystemExit(f"ior: smoothness {card} on the card")
+  if abs(card - host_v) > SMOOTH_TOL * terms:
+    raise SystemExit("ior: the smoothness, card against CPU, outside the "
+                     "tolerance")
+  if not all(bool(torch.isfinite(x).all()) for x in g_card):
+    raise SystemExit("ior: non-finite so3 gradients of the smoothness")
+  return card, host_v, worst
+
+
+def _ior_run(sargs, scene, device, seed, hosts, k):
+  """N_IOR steps of the `ior` stage from TRAIN_FROM + 1, k a dispatch,
+  then a traced window of IOR_SPAN steps, through loop.host_window and
+  data/prefetch.py as train.loop takes them, on the Grid batches `hosts`,
+  from weights and an offsets generator drawn from `seed`. Returns the
+  first N_IOR steps' Stats (floats), the state before and after them, the
+  wrapper launches of K1/K2/K3/head-off in them, the steps/s of their last
+  IOR_SPAN, the traced window's device ms a step, and the dispatch."""
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as tprofile
+  ndim, nmin, nmax, grid, bindings = scene
+  model = nerf.construct_nerf(sargs, ndim, nmin, nmax, grid, bindings,
+                              device=device, seed=seed)
+  optimizer, _, _ = step_lib.create_optimizer(model, sargs)
+  start = _dispatch_state(model, optimizer)
+  run = step_lib.make_train_step_multi(
+      model, optimizer, sargs, k,
+      torch.Generator(device=device).manual_seed(seed))
+  first, end = TRAIN_FROM + 1, TRAIN_FROM + N_IOR
+  windows = list(train_loop.dispatch_windows(first, end + IOR_SPAN, k))
+  dataset, pending = iter(hosts), iter(windows)
+
+  def next_window():
+    w = next(pending, None)
+    return None if w is None else train_loop.host_window(
+        dataset, w[0], w[1], sargs, optimizer, None)
+
+  batches = prefetch.device_prefetch(next_window, device, stacked=True)
+  stats, prof = [], None
+  torch.cuda.synchronize()
+  _zero_march_counts()
+  try:
+    for (w0, w1), batch in zip(windows, batches):
+      if w0 == end - IOR_SPAN + 1:
+        torch.cuda.synchronize()
+        t0 = time.time()
+      if w0 == end + 1:
+        prof = tprofile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+        prof.__enter__()
+      out = run(batch)
+      if w1 <= end:
+        stats += out.per_step()
+      if w1 == end:
+        torch.cuda.synchronize()
+        rate = IOR_SPAN / (time.time() - t0)
+        counts = _march_counts()
+        state = _dispatch_state(model, optimizer)
+    torch.cuda.synchronize()
+    prof.__exit__(None, None, None)
+    device_ms = step_device_us(prof) / 1e3 / IOR_SPAN
+    prof = None
+  finally:
+    batches.close()
+    if prof is not None:
+      prof.__exit__(None, None, None)
+  del model, optimizer
+  return stats, start, state, counts, rate, device_ms, run
+
+
+def ior_phase(args, scene, device, seed, card, view, jitter):
+  """The `ior` stage at ship width (so3 head 4x128, extra_batch_size
+  args.extra_batch_size) on the Grid of the ship's 512^3 grid, built on
+  the host from the model's grid: N_IOR steps from TRAIN_FROM at K = 1
+  and K = args.steps_per_dispatch (a CUDA graph), with weight_decay_mult
+  0 as shipped (every parameter and Adam moment bit for bit where it
+  started, loss_nrm 0) and IOR_WEIGHT_DECAY (the so3 head moves, the
+  radiance MLPs do not, K = 1 and K bit for bit); no march kernel runs.
+  Then the smoothness card against CPU, and the val render the loop runs
+  at --render_every (eval's render function) of the ship view in the
+  `ior` stage: K1 once per chunk. Returns the render's K1 launches and
+  the figures."""
+  k = args.steps_per_dispatch
+  ndim, nmin, nmax, grid, bindings = scene
+  sargs = argparse.Namespace(**{**vars(args), "stage": "ior"})
+  model = nerf.construct_nerf(sargs, ndim, nmin, nmax, grid, bindings,
+                              device=device, seed=seed)
+  t0 = time.time()
+  grid_ds = train_loop.model_grid(model, sargs,
+                                  np.random.RandomState(train_loop.DATA_SEED))
+  build_s = time.time() - t0
+  hosts = [next(grid_ds) for _ in range(N_IOR + IOR_SPAN)]
+  candidates = len(grid_ds.candidate_indices)
+  del grid_ds
+  log(f"ior ({card}): Grid of the {ndim[0]}^3 grid built on the host in "
+      f"{build_s:.2f} s, {candidates} candidate voxels of "
+      f"{int(np.prod(ndim))}; {args.extra_batch_size} points a batch")
+  figures = {"grid_build_s": build_s, "candidates": candidates}
+  runs = {}
+  for wdm in (0.0, IOR_WEIGHT_DECAY):
+    wargs = argparse.Namespace(**{**vars(sargs), "weight_decay_mult": wdm})
+    for kk in (1, k):
+      runs[(wdm, kk)] = _ior_run(wargs, scene, device, seed, hosts, kk)
+      torch.cuda.empty_cache()
+    eager, graph = runs[(wdm, 1)], runs[(wdm, k)]
+    differ = [key for key in eager[2] if not torch.equal(eager[2][key],
+                                                         graph[2][key])]
+    steps_differ = [i for i, (a, b) in enumerate(zip(eager[0], graph[0]))
+                    if a != b]
+    moved = {key for key in eager[2] if not key.endswith(" step")
+             and not torch.equal(eager[1][key], eager[2][key])}
+    so3_moved = {key for key in moved if "so3_mlp" in key
+                 and key.startswith("param")}
+    radiance_moved = {key for key in moved if key.startswith("param")
+                      and "path_sampler" not in key}
+    nrm = {s.loss_nrm for s in eager[0] + graph[0]}
+    log(f"  weight_decay_mult {wdm}: K=1 {eager[4]:.3f} steps/s, "
+        f"{eager[5]:.4f} device ms a step; K={k} {graph[4]:.3f} steps/s (a "
+        f"replay), {graph[5]:.4f} device ms a step; device share "
+        f"{eager[4] * eager[5] / 1e3:.3f} and {graph[4] * graph[5] / 1e3:.3f}"
+        f"; replays {graph[6].replays}; {len(eager[2])} tensors of state, "
+        f"{len(moved)} parameters and moments moved ({len(so3_moved)} so3 "
+        f"parameters, "
+        f"{len(radiance_moved)} radiance parameters), {len(differ)} differ "
+        f"between K=1 and K={k}, {len(steps_differ)} steps' Stats differ; "
+        f"loss_nrm {sorted(nrm)}; weight_l2 {eager[0][-1].weight_l2!r}; "
+        f"march launches K=1 {eager[3]}, K={k} {graph[3]}")
+    figures[f"wdm {wdm}"] = {"k1_steps_s": eager[4], "k_steps_s": graph[4],
+                             "k1_device_ms": eager[5],
+                             "k_device_ms": graph[5]}
+    if differ or steps_differ or len(graph[0]) != N_IOR:
+      raise SystemExit(f"ior: K={k} is not K=1 bit for bit: state "
+                       f"{differ[:5]}, steps {steps_differ[:5]}")
+    if nrm != {0.0}:
+      raise SystemExit(f"ior: loss_nrm {nrm}, the gate keeps it 0")
+    if eager[3] != (0, 0, 0, 0) or graph[3] != (0, 0, 0, 0):
+      raise SystemExit(f"ior: the step launched march kernels {eager[3]}, "
+                       f"{graph[3]}")
+    if graph[6].replays < 1:
+      raise SystemExit("ior: no window was replayed")
+    if wdm == 0.0 and moved:
+      raise SystemExit(f"ior: as shipped, {sorted(moved)[:5]} moved")
+    if wdm > 0 and (not so3_moved or radiance_moved):
+      raise SystemExit(f"ior: weight decay moved so3 {len(so3_moved)}, "
+                       f"radiance {sorted(radiance_moved)[:5]}")
+  del runs
+  torch.cuda.empty_cache()
+  figures["smoothness"] = smoothness_cross_check(model, hosts[0], seed)
+  _zero_march_counts()
+  torch.cuda.synchronize()
+  t0 = time.time()
+  rgb, _, acc = render_lib.render_image(
+      make_render_fn(model, jitter), view, False, chunk=args.chunk,
+      device=device, chunks_per_dispatch=args.render_chunks_per_dispatch)
+  torch.cuda.synchronize()
+  secs = time.time() - t0
+  counts = _march_counts()
+  n_rays = view.origins.shape[0] * view.origins.shape[1]
+  n_chunks = -(-n_rays // args.chunk)
+  log(f"  val render in the ior stage: {n_rays} rays in {secs:.3f} s "
+      f"({n_rays / secs:.1f} rays/s), launches K1/K2/K3/head-off {counts} "
+      f"(expected ({n_chunks}, 0, 0, 0)); rgb finite "
+      f"{bool(np.isfinite(rgb).all())}, acc mean {float(acc.mean()):.6f}")
+  if counts != (n_chunks, 0, 0, 0) or not np.isfinite(rgb).all():
+    raise SystemExit(f"ior: the val render launched {counts}")
+  del model
+  torch.cuda.empty_cache()
+  return counts[0], figures
+
+
+def llff_phase(device, seed, card):
+  """An LLFF capture (debug/llff_scene.py: LLFF_VIEWS forward-facing views
+  of 160x136 in images_2, a 128^3 blob in voxelize/) through the entry
+  points in the ship configuration at full width with --dataset=llff,
+  near 0 and far 1 (NDC), Config.voxel_grid 'voxelize': train.loop.main
+  --stage=radiance for N_LLFF steps at its K with a val render, then
+  --stage=ior for IOR_SPAN steps with a val render (the Grid batches of
+  the scene's grid), eval --render_path (the 120-frame spiral into
+  path_renders/, no score file: K1 once per chunk) and eval of the test
+  views; then eval --render_path on a Blender scene must raise
+  ValueError. Returns K1's launches and the figures."""
+  ship = "configs/tpu/ship_skydome-bkgd_no-partial-reflect_cycles"
+  t0 = time.time()
+  with tempfile.TemporaryDirectory() as tmp:
+    data = llff_scene.write_scene(os.path.join(tmp, "llff"),
+                                  views=LLFF_VIEWS)
+    write_s = time.time() - t0
+    common = [f"--data_dir={data}", f"--train_dir={os.path.join(tmp, 'logs')}",
+              f"--config={ship}", f"--gin_file={ship}.gin", f"--seed={seed}",
+              f"--device={device}", "--dataset=llff", "--near=0.0",
+              "--far=1.0", "--gin_param=Config.voxel_grid='voxelize'",
+              "--gin_param=Config.radiance_weight_name='radiance'",
+              "--gin_param=Config.ior_weight_name='ior'"]
+    every = lambda n: [f"--max_steps={n}", f"--save_every={n}",
+                       f"--print_every={n}", f"--render_every={n}",
+                       f"--gc_every={n}"]
+    args, _, _ = config_lib.load_args(ship, [ship + ".gin"], [],
+                                      dataset="llff", near=0.0, far=1.0)
+    args.data_dir = data
+    val_rays, _ = datasets.load_split(args, "val")
+    n_val = val_rays.origins.shape[1] * val_rays.origins.shape[2]
+    counts = {}
+    _zero_march_counts()
+    with StepRecorder() as rec:
+      train_loop.main(common + ["--stage=radiance"] + every(N_LLFF))
+    counts["radiance"] = _march_counts()
+    _zero_march_counts()
+    with StepRecorder() as ior_rec:
+      train_loop.main(common + ["--stage=ior"] + every(N_LLFF))
+    counts["ior"] = _march_counts()
+    _zero_march_counts()
+    with RenderTimer() as timer:
+      path = eval_lib.main(common + ["--stage=radiance", "--render_path=True"])
+    counts["path"] = _march_counts()
+    out = os.path.join(tmp, "logs", "radiance", "path_renders")
+    names = sorted(os.listdir(out))
+    _zero_march_counts()
+    test = eval_lib.main(common + ["--stage=ior"])
+    counts["test"] = _march_counts()
+    try:
+      eval_lib.main(["--data_dir=example_data", f"--train_dir={tmp}",
+                     "--config=configs/example",
+                     "--gin_file=configs/example.gin", f"--device={device}",
+                     "--render_path=True"])
+      blender_raised = None
+    except ValueError as e:
+      blender_raised = str(e)
+  frames, (h, w) = timer.views, timer.shape
+  chunks = -(-h * w // args.chunk)
+  n_val_chunks = -(-n_val // args.chunk)
+  k = args.steps_per_dispatch
+  want = {"radiance": (rec.calls + n_val_chunks, 0, 0, 0),
+          "ior": (n_val_chunks, 0, 0, 0),
+          "path": (frames * chunks, 0, 0, 0),
+          "test": (len(test.psnrs) * chunks, 0, 0, 0)}
+  rate = rec.rate()
+  path_rate = frames * h * w / timer.secs
+  log(f"llff ({card}): {LLFF_VIEWS} views of {w}x{h} written in "
+      f"{write_s:.1f} s; radiance {N_LLFF} steps at K={k} {rate:.3f} steps/s "
+      f"(the windows after the first, the capture included), replays "
+      f"{rec.replays()}; ior {N_LLFF} steps, replays {ior_rec.replays()}; "
+      f"render path {frames} frames of {w}x{h}, {timer.secs:.2f} s in "
+      f"render_image, {path_rate:.1f} rays/s; {len(names)} files in "
+      f"path_renders, scores {[n for n in names if n.endswith('.txt')]}; "
+      f"eval of the ior stage's test views: PSNR {test.psnrs}, step "
+      f"{test.step}; render_path on Blender raised: {blender_raised!r}")
+  log(f"  wrapper launches K1/K2/K3/head-off {counts} (expected {want})")
+  losses = [float(x) for x in rec.losses]
+  if not np.all(np.isfinite(losses)) or not all(bool(f) for f in rec.finite):
+    raise SystemExit("llff: non-finite loss or gradient")
+  if len(names) != 5 * frames or any(n.endswith(".txt") for n in names):
+    raise SystemExit(f"llff: path_renders holds {len(names)} files")
+  if path.psnrs or path.step != N_LLFF or test.step != N_LLFF:
+    raise SystemExit(f"llff: render path scored {path.psnrs}, steps "
+                     f"{path.step}, {test.step}")
+  if not test.psnrs or not np.all(np.isfinite(test.psnrs)):
+    raise SystemExit(f"llff: test PSNR {test.psnrs}")
+  if counts != want:
+    raise SystemExit(f"llff: launches {counts}, expected {want}")
+  if min(rec.replays(), ior_rec.replays()) < 1:
+    raise SystemExit("llff: a stage replayed no window")
+  if blender_raised != "render_path cannot be used for the blender dataset.":
+    raise SystemExit(f"llff: render_path on Blender gave {blender_raised!r}")
+  return counts, {"radiance_steps_s": rate, "path_rays_s": path_rate}
+
+
 def main():
   p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   p.add_argument("--seed", type=int, default=0)
@@ -2441,6 +2843,8 @@ def main():
   for row, stage, i in ((k1, "radiance", 0), (k2, "all", 1), (k3, "all", 2)):
     row["dispatch_launches"] = dispatch[stage][0][i]
     row["dispatch_replay_launches"] = dispatch[stage][1][i]
+  k1["ior_val_render_launches"], ior = ior_phase(args, scene, device,
+                                                 ns.seed, card, view, jitter)
   del scene
   torch.cuda.empty_cache()
   allstep_cross_check(all_model, all_args, host, device, ns.seed)
@@ -2465,6 +2869,10 @@ def main():
   head_off["launches"] = quick["extract"][3] + synth_counts[3]
   log(f"quickstart seconds {quick_secs}; quality PSNR {quality['psnr']}, "
       f"SSIM {quality['ssim']}")
+  torch.cuda.empty_cache()
+  llff_counts, llff = llff_phase(device, ns.seed, card)
+  k1["llff_launches"] = sum(c[0] for c in llff_counts.values())
+  log(f"ior figures {ior}; llff figures {llff}")
 
   report = probe_rows + [k1, k2, k3, head_off, k4, k4_pe, k4_bf16, k5_bf16,
                          k5_fp32]

@@ -1,39 +1,51 @@
-"""Blender and OpenCV scenes: the val/test splits and the training batches.
+"""Scene loaders, the training batches, and the boundary-point batches.
 
-Counterpart of samplenerfro_tpu/data/datasets.py:112-283 (the Blender
-format) and :312-357 (OpenCV, the calibrated real scenes): transforms_
-<split>.json + images -> rays and pixels; the test split's central crop of
-OpenCV views (`eval_view`); and the training split's `all_images`,
-`single_image` (with precrop) and `tile` batching with the `bg_patch_size`
-env-ray patch, the JAX base class's for both formats. Batches are drawn on
-the host from an explicit np.random.RandomState, with the same calls in
-the same order as the JAX loader draws them from numpy's global state, and
-are built synchronously (the JAX loader's prefetch thread is not ported).
-The LLFF, NSVF and Grid formats are not ported yet.
+Counterpart of samplenerfro_tpu/data/datasets.py: the Blender format
+(:112-283), NSVF (:284-311), OpenCV, the calibrated real scenes
+(:312-357), and LLFF forward-facing captures with NDC rays and their
+render paths (:360-469) -> rays and pixels; the test split's central crop
+of OpenCV views (`eval_view`); the training split's `all_images`,
+`single_image` (with precrop) and `tile` batching with the
+`bg_patch_size` env-ray patch, the JAX base class's for every format; and
+`Grid` (:471-513), the boundary points of the IOR grid with their
+gradient targets that the `ior` stage trains on and the sparsity and
+normal terms read. Batches are drawn on the host from an explicit
+np.random.RandomState, with the same calls in the same order as the JAX
+loaders draw them from numpy's global state, and are built synchronously
+(data/prefetch.py runs them on its thread). The JAX train loop draws its
+Grid batches from the same global state as its image batches, on a second
+thread; the port gives the Grid a RandomState of its own, so the image
+batches stay bit for bit the JAX loader's whether a Grid is drawn or not.
 """
 
+import glob
 import json
 import os
 
 import numpy as np
 
+from samplenerfro_torch.data import pose_paths
 from samplenerfro_torch.data import rays as rays_lib
+from samplenerfro_torch.data.rays import Rays
 from samplenerfro_torch.data.rays import namedtuple_map
+from samplenerfro_torch.ops import grid as grid_ops
 
 
-# The dataset formats the port loads; samplenerfro_tpu/data/datasets.py:519
-# (dataset_dict) has llff, nsvf and grid besides, which wait.
-PORTED = ("blender", "opencv")
+# Every scene format of samplenerfro_tpu/data/datasets.py:519 (dataset_dict).
+PORTED = ("blender", "llff", "nsvf", "opencv")
 
 
 def check_dataset(args):
-  """Raise NotImplementedError unless args.dataset is a ported format; the
-  entry points call it before they read any scene file."""
+  """Raise ValueError unless args.dataset is a known scene format, and for
+  --render_path on a format without a render path; the entry points call
+  it before they read any scene file."""
   name = getattr(args, "dataset", "blender")
   if name not in PORTED:
-    raise NotImplementedError(
-        f"dataset {name!r} is not ported yet: samplenerfro_torch loads "
-        f"{', '.join(PORTED)} scenes only")
+    raise ValueError(f"unknown dataset {name!r}: the scene formats are "
+                     f"{', '.join(PORTED)}")
+  if getattr(args, "render_path", False) and name != "llff":
+    # The JAX loaders' message (datasets.py:262,289,316).
+    raise ValueError(f"render_path cannot be used for the {name} dataset.")
 
 
 def _load_image(fname):
@@ -118,9 +130,129 @@ def load_opencv(data_dir, split, use_pixel_centers, white_bkgd,
   return rays, images, cam_mat
 
 
+def load_nsvf(data_dir, split, factor, use_pixel_centers, white_bkgd):
+  """Load one split of an NSVF scene: intrinsics.txt's focal length,
+  rgb/<k>_*.png and pose/<k>_*.txt with k 0, 1, 2 for train, val, test,
+  the poses' y and z axes flipped (samplenerfro_tpu/data/datasets.py:
+  287-311).
+
+  Returns:
+    (rays, images) as load_blender's.
+  """
+  prefix = {"train": 0, "val": 1, "test": 2}[split]
+  with open(os.path.join(data_dir, "intrinsics.txt")) as fp:
+    f = float(fp.readline().split()[0])
+  imgfiles = sorted(glob.glob(os.path.join(data_dir, "rgb", f"{prefix}_*.png")))
+  camfiles = sorted(glob.glob(os.path.join(data_dir, "pose",
+                                           f"{prefix}_*.txt")))
+  images, cams = [], []
+  for imgfile, camfile in zip(imgfiles, camfiles):
+    images.append(_downsample(_load_image(imgfile), factor))
+    cam = np.loadtxt(camfile, dtype=np.float32)
+    cam[:3, 1:3] *= -1
+    cams.append(cam)
+  images = _composite_white(np.stack(images, axis=0), white_bkgd)
+  h, w = images.shape[1:3]
+  focal = f * (0.5 if factor == 2 else 1.0)
+  rays = rays_lib.generate_pinhole_rays(w, h, focal, np.stack(cams, axis=0),
+                                        use_pixel_centers)
+  return rays, images
+
+
+def _ndc_rays(rays, focal, w, h):
+  """LLFF's NDC rays: origins and directions projected, radii from the
+  mean spacing of neighbouring NDC origins, viewdirs the world directions
+  (samplenerfro_tpu/data/datasets.py:447-462)."""
+  ndc_origins, ndc_directions = rays_lib.convert_to_ndc(
+      rays.origins, rays.directions, focal, w, h)
+  mat = ndc_origins
+  dx = np.sqrt(np.sum((mat[:, :-1, :, :] - mat[:, 1:, :, :])**2, -1))
+  dx = np.concatenate([dx, dx[:, -2:-1, :]], 1)
+  dy = np.sqrt(np.sum((mat[:, :, :-1, :] - mat[:, :, 1:, :])**2, -1))
+  dy = np.concatenate([dy, dy[:, :, -2:-1]], 2)
+  radii = (0.5 * (dx + dy))[..., None] * 2 / np.sqrt(12)
+  return Rays(origins=ndc_origins, directions=ndc_directions,
+              viewdirs=rays.directions, radii=radii)
+
+
+def load_llff(data_dir, split, factor, spherify, llffhold, use_pixel_centers):
+  """Load one split of an LLFF capture (samplenerfro_tpu/data/datasets.py:
+  360-469): images<_factor>/*.jpg and poses_bounds.npy, poses scaled so the
+  nearest bound is 4/3 and recentred; a capture of 200 or more images
+  splits by index (100-199 train, 0-99 test), a smaller one holds out
+  every llffhold-th view for the test split. Rays are NDC rays unless
+  `spherify`.
+
+  Returns:
+    (rays, images, render_rays): Rays of [n, h, w, C] float32 fields, [n,
+    h, w, 3] float32 pixels, and on the test split the Rays of the render
+    path (the 120-frame spiral, or the orbit when `spherify`), else None.
+  """
+  suffix = f"_{factor}" if factor > 0 else ""
+  factor = factor if factor > 0 else 1
+  imgdir = os.path.join(data_dir, "images" + suffix)
+  if not os.path.exists(imgdir):
+    raise ValueError(f"Image folder {imgdir} doesn't exist.")
+  imgfiles = [os.path.join(imgdir, f) for f in sorted(os.listdir(imgdir))
+              if f.endswith("JPG") or f.endswith("jpg")]
+  images = np.stack([_load_image(f) for f in imgfiles], axis=-1)
+
+  with open(os.path.join(data_dir, "poses_bounds.npy"), "rb") as fp:
+    poses_arr = np.load(fp)
+  poses = poses_arr[:, :-2].reshape([-1, 3, 5]).transpose([1, 2, 0])
+  bds = poses_arr[:, -2:].transpose([1, 0])
+  if poses.shape[-1] != images.shape[-1]:
+    raise RuntimeError(f"Mismatch between imgs {images.shape[-1]} and poses "
+                       f"{poses.shape[-1]}")
+  poses[:2, 4, :] = np.array(images.shape[:2]).reshape([2, 1])
+  poses[2, 4, :] = poses[2, 4, :] * 1.0 / factor
+  poses = np.concatenate(
+      [poses[:, 1:2, :], -poses[:, 0:1, :], poses[:, 2:, :]], 1)
+  poses = np.moveaxis(poses, -1, 0).astype(np.float32)
+  images = np.moveaxis(images, -1, 0)
+  bds = np.moveaxis(bds, -1, 0).astype(np.float32)
+
+  scale = 1.0 / (bds.min() * 0.75)
+  poses[:, :3, 3] *= scale
+  bds *= scale
+  poses = pose_paths.recenter_poses(poses)
+  render_poses = None
+  if spherify:
+    poses, render_poses, bds = pose_paths.spherify_poses(poses, bds)
+  elif split == "test":
+    render_poses = pose_paths.spiral_path(poses, bds)
+
+  if images.shape[0] >= 200:
+    indices = np.arange(100, 200) if split == "train" else np.arange(0, 100)
+  else:
+    i_test = np.arange(images.shape[0])[::llffhold]
+    indices = (np.array([i for i in np.arange(images.shape[0])
+                         if i not in i_test])
+               if split == "train" else i_test)
+  images = images[indices]
+  poses = poses[indices]
+  camtoworlds = poses[:, :3, :4]
+  focal = poses[0, -1, -1]
+  h, w = images.shape[1:3]
+
+  n_path = 0
+  if split == "test":
+    n_path = render_poses.shape[0]
+    camtoworlds = np.concatenate([render_poses, camtoworlds], axis=0)
+  rays = rays_lib.generate_pinhole_rays(w, h, focal, camtoworlds,
+                                        use_pixel_centers)
+  if not spherify:
+    rays = _ndc_rays(rays, focal, w, h)
+  if split != "test":
+    return rays, images, None
+  path_rays, view_rays = zip(*[np.split(r, [n_path], 0) for r in rays])
+  return Rays(*view_rays), images, Rays(*path_rays)
+
+
 def load_split(args, split):
   """(rays, images) of a split of args.data_dir in args.dataset's format;
-  --eval_train reads the train split instead."""
+  --eval_train reads the train split instead (Blender and OpenCV, as the
+  JAX loaders honour it)."""
   check_dataset(args)
   if args.dataset == "opencv":
     if args.factor > 0:
@@ -130,9 +262,28 @@ def load_split(args, split):
                                   args.use_pixel_centers, args.white_bkgd,
                                   args.skip_frames, args.eval_train)
     return rays, images
+  if args.dataset == "llff":
+    rays, images, _ = load_llff(args.data_dir, split, args.factor,
+                                args.spherify, args.llffhold,
+                                args.use_pixel_centers)
+    return rays, images
+  if args.dataset == "nsvf":
+    return load_nsvf(args.data_dir, split, args.factor,
+                     args.use_pixel_centers, args.white_bkgd)
   return load_blender(args.data_dir, "train" if args.eval_train else split,
                       args.factor, args.use_pixel_centers, args.white_bkgd,
                       args.skip_frames)
+
+
+def load_render_path(args):
+  """Rays [frames, h, w, C] of the test split's render path, what eval
+  renders under --render_path: LLFF's spiral (or orbit, with --spherify);
+  every other format raises ValueError (check_dataset)."""
+  check_dataset(args)
+  _, _, path_rays = load_llff(args.data_dir, "test", args.factor,
+                              args.spherify, args.llffhold,
+                              args.use_pixel_centers)
+  return path_rays
 
 
 def central_crop(h, w, precrop_iters, precrop_frac):
@@ -160,7 +311,7 @@ def eval_view(args, rays, images, idx):
 
 class TrainBatches:
   """Iterator of training batches {"pixels", "rays", "env_rays"} of a
-  Blender or OpenCV scene (load_split's train split).
+  scene (load_split's train split).
 
   Each batch holds `batch_size` rays with their [batch, 3] pixels, and,
   when `bg_patch_size` > 0, a [p, p] patch of rays of one training image
@@ -261,3 +412,49 @@ class TrainBatches:
         lambda r: np.concatenate(
             [r[im][idx] for im, idx in zip(img_list, idx_list)]), self.rays)
     return pixels, rays
+
+
+class Grid:
+  """Iterator of boundary-point batches {"pts", "grads"} of an IOR grid
+  (samplenerfro_tpu/data/datasets.py:471-513).
+
+  The candidates are the voxels whose central-difference gradient is
+  longer than 1e-3; a batch takes `extra_batch_size` of them with
+  replacement, jitters each uniformly within a voxel's extent and
+  interpolates the gradient grid there (ops/grid.trilinear_numpy): pts
+  and grads [batch, 1, 3] float32. The grid is [N^3, 1] IOR values on the
+  host (the model's grid: train/loop.py builds it from the path sampler's
+  buffer).
+  """
+
+  def __init__(self, args, grid, ndim, nmax, nmin, rng):
+    self.spec = grid_ops.GridSpec(ndim, nmin, nmax)
+    self.ndim, self.nmax, self.nmin = ndim, nmax, nmin
+    self.ndelta = self.spec.ndelta
+    grad = grid_ops.central_difference_grad_numpy(self.spec, grid)
+    self.candidate_indices = np.stack(
+        np.where(np.linalg.norm(grad.reshape(*ndim, 3), axis=-1) > 1e-3),
+        axis=-1)
+    self.grid = grad
+    self.extra_batch_size = args.extra_batch_size
+    self.rng = rng
+
+  def __iter__(self):
+    return self
+
+  def __next__(self):
+    return self._next_train()
+
+  def _next_train(self):
+    batch_indices = self.rng.choice(self.candidate_indices.shape[0],
+                                    self.extra_batch_size)
+    batch_pts = (self.candidate_indices[batch_indices]
+                 / np.array(self.ndim)[None])
+    batch_pts = (batch_pts * (np.array(self.nmax)[None]
+                              - np.array(self.nmin)[None])
+                 + np.array(self.nmin)[None])
+    batch_pts += (self.rng.uniform(low=-1.0, high=1.0, size=batch_pts.shape)
+                  * np.array(self.ndelta)[None])
+    batch_grads = grid_ops.trilinear_numpy(self.spec, self.grid, batch_pts)
+    return {"pts": batch_pts[:, None].astype(np.float32),
+            "grads": batch_grads[:, None].astype(np.float32)}

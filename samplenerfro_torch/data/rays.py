@@ -1,8 +1,8 @@
 """Ray containers and host-side pinhole camera ray generation.
 
 Copy of samplenerfro_tpu/data/rays.py (Rays, namedtuple_map,
-generate_pinhole_rays, generate_opencv_rays): numpy on the host, moved to
-the device per chunk.
+generate_pinhole_rays, generate_opencv_rays, convert_to_ndc): numpy on the
+host, moved to the device per chunk.
 """
 
 import collections
@@ -73,3 +73,23 @@ def generate_opencv_rays(w, h, cam_mat, camtoworlds, use_pixel_centers):
       np.ones_like(x),
   ], axis=-1)
   return _finalize_rays(camera_dirs, camtoworlds)
+
+
+def convert_to_ndc(origins, directions, focal, w, h, near=1.0):
+  """Shift rays to the near plane and project them to NDC (LLFF's
+  forward-facing scenes, samplenerfro_tpu/data/rays.py:80-96)."""
+  t = -(near + origins[..., 2]) / directions[..., 2]
+  origins = origins + t[..., None] * directions
+
+  dx, dy, dz = tuple(np.moveaxis(directions, -1, 0))
+  ox, oy, oz = tuple(np.moveaxis(origins, -1, 0))
+
+  o0 = -((2 * focal) / w) * (ox / oz)
+  o1 = -((2 * focal) / h) * (oy / oz)
+  o2 = 1 + 2 * near / oz
+
+  d0 = -((2 * focal) / w) * (dx / dz - ox / oz)
+  d1 = -((2 * focal) / h) * (dy / dz - oy / oz)
+  d2 = -2 * near / oz
+
+  return np.stack([o0, o1, o2], -1), np.stack([d0, d1, d2], -1)

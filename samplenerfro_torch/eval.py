@@ -1,4 +1,4 @@
-"""Render the test split of a Blender or OpenCV scene on the GPU and score it.
+"""Render the test split of a scene on the GPU and score it.
 
     python -m samplenerfro_torch.eval --data_dir=<scene> \
         --config=configs/tpu/<scene> --gin_file=configs/tpu/<scene>.gin \
@@ -13,27 +13,38 @@ value a view), psnr.txt and ssim.txt (their means);
 with --eval_train it renders the train split into train_preds/. OpenCV
 views are centrally cropped as the JAX loader crops them. Any flag of
 utils/config.py may be given as --name=value; an `all*` stage marches with
-the so3 head (K2), a radiance stage with K1.
+the so3 head (K2), a radiance or `ior` stage with K1.
+--render_path renders the test split's camera path instead, LLFF's
+spiral (or orbit, with --spherify), into path_renders/ and scores nothing;
+on the other datasets it raises ValueError, as the JAX loaders do.
+--save_output=False writes no file. --eval_once=False runs the JAX eval's
+checkpoint-watching loop: it reloads the stage's newest checkpoint, sleeps
+while its step is no later than the last one evaluated, and stops after
+evaluating a step at or past --max_steps; it writes no tensorboard
+summaries (the card's machine has no tensorboard package).
 The weights are the stage's trained ones: the newest checkpoint under
-<train_dir>/<Config.radiance_weight_name> (radiance stages) or
-<train_dir>/<Config.all_weight_name> (`all` stages), as the JAX eval's
-load_stage_variables takes them; eval raises when there is none. Or they
-come from --params_npz (models/convert.py's flat format), whose step is
-written as 0. Rendering is deterministic (randomized=False); the jittered
-coarse subsample is drawn once per run from --seed and shared by every
-chunk, as the JAX renderer shares one key across chunks. The JAX eval's
-checkpoint-watching loop and summaries are not ported.
+<train_dir>/<Config.radiance_weight_name> (radiance stages),
+<train_dir>/<Config.all_weight_name> (`all` stages), or those radiance
+weights and the path sampler of <train_dir>/<Config.ior_weight_name>
+(`ior` stages), as the JAX eval's load_stage_variables takes them; eval
+raises when there is none. Or they come from --params_npz
+(models/convert.py's flat format), whose step is written as 0 and which
+is evaluated once. Rendering is deterministic (randomized=False); the
+jittered coarse subsample is drawn once per run from --seed and shared by
+every chunk, as the JAX renderer shares one key across chunks.
 """
 
 import argparse
 import collections
 import os
+import time
 
 import numpy as np
 import torch
 
 from samplenerfro_torch import resolve_device
 from samplenerfro_torch.data import datasets
+from samplenerfro_torch.data.rays import namedtuple_map
 from samplenerfro_torch.models import convert
 from samplenerfro_torch.models import nerf
 from samplenerfro_torch.train import checkpoints
@@ -57,6 +68,7 @@ def make_render_fn(model, jitter):
 
 
 EvalResult = collections.namedtuple("EvalResult", ("psnrs", "ssims", "step"))
+POLL_SECONDS = 10  # eval.py:110's wait for a newer checkpoint
 
 
 def build_model(args, cfg, bindings, data_dir, device, seed=0,
@@ -99,40 +111,71 @@ def main(argv=None):
       **config_lib.parse_flag_overrides(rest))
   args.data_dir, args.train_dir = ns.data_dir, ns.train_dir
   datasets.check_dataset(args)
-  rays, images = datasets.load_split(args, "test")
+  if args.render_path:
+    rays, images = datasets.load_render_path(args), None
+  else:
+    rays, images = datasets.load_split(args, "test")
   model = build_model(args, cfg, bindings, ns.data_dir, device, ns.seed,
                       ns.params_npz)
-  step = 0
-  if not ns.params_npz:
-    step = checkpoints.load_stage_weights(model, ns.train_dir, cfg,
-                                          args.stage)
   gen = torch.Generator().manual_seed(ns.seed)
   jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
                             gen)
   render_fn = make_render_fn(model, jitter)
 
-  out_dir = os.path.join(ns.train_dir, args.stage,
-                         "train_preds" if args.eval_train else "test_preds")
-  os.makedirs(out_dir, exist_ok=True)
+  out_dir = os.path.join(
+      ns.train_dir, args.stage,
+      "train_preds" if args.eval_train else
+      "path_renders" if args.render_path else "test_preds")
+  last_step = 0
+  while True:
+    step = 0
+    if not ns.params_npz:
+      step = checkpoints.load_stage_weights(model, ns.train_dir, cfg,
+                                            args.stage)
+      if step <= last_step:
+        time.sleep(POLL_SECONDS)
+        continue
+    result = evaluate(args, render_fn, rays, images, step, device,
+                      out_dir if args.save_output else None)
+    if args.eval_once or ns.params_npz or step >= args.max_steps:
+      return result
+    last_step = step
+
+
+def evaluate(args, render_fn, rays, images, step, device, out_dir):
+  """Render every view of `rays` ([n, h, w, C]) and score it against
+  `images` (None: a render path, scored against nothing); writes the
+  images and scores into out_dir unless it is None."""
+  if out_dir is not None:
+    os.makedirs(out_dir, exist_ok=True)
   psnrs, ssims = [], []
-  for idx in range(images.shape[0]):
-    view, pixels = datasets.eval_view(args, rays, images, idx)
+  n = rays.origins.shape[0]
+  for idx in range(n):
+    if images is None:
+      view, pixels = namedtuple_map(lambda r: r[idx], rays), None
+    else:
+      view, pixels = datasets.eval_view(args, rays, images, idx)
     rgb, disp, acc = render_lib.render_image(
         render_fn, view, args.dataset == "llff", chunk=args.chunk,
         device=device, chunks_per_dispatch=args.render_chunks_per_dispatch)
-    psnrs.append(metrics.compute_psnr(((rgb - pixels)**2).mean()))
-    ssims.append(float(metrics.compute_ssim(rgb, pixels, 1.0)))
-    print(f"Evaluating {idx + 1}/{images.shape[0]}: PSNR = {psnrs[-1]:.4f}, "
-          f"SSIM = {ssims[-1]:.4f}")
-    save_img(rgb, os.path.join(out_dir, f"{idx:03d}.png"))
-    save_img(disp[..., 0], os.path.join(out_dir, f"disp_{idx:03d}.png"))
-    for k, v in vis.visualize_suite(disp[..., 0], acc[..., 0]).items():
-      save_img(v.numpy(), os.path.join(out_dir, f"{k}_{idx:03d}.png"))
-  for name, values in (("psnr", psnrs), ("ssim", ssims)):
-    with open(os.path.join(out_dir, f"{name}s_{step}.txt"), "w") as f:
-      f.write(" ".join(str(v) for v in values))
-    with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
-      f.write(f"{np.mean(values)}")
+    if pixels is None:
+      print(f"Rendering {idx + 1}/{n}")
+    else:
+      psnrs.append(metrics.compute_psnr(((rgb - pixels)**2).mean()))
+      ssims.append(float(metrics.compute_ssim(rgb, pixels, 1.0)))
+      print(f"Evaluating {idx + 1}/{n}: PSNR = {psnrs[-1]:.4f}, "
+            f"SSIM = {ssims[-1]:.4f}")
+    if out_dir is not None:
+      save_img(rgb, os.path.join(out_dir, f"{idx:03d}.png"))
+      save_img(disp[..., 0], os.path.join(out_dir, f"disp_{idx:03d}.png"))
+      for k, v in vis.visualize_suite(disp[..., 0], acc[..., 0]).items():
+        save_img(v.numpy(), os.path.join(out_dir, f"{k}_{idx:03d}.png"))
+  if out_dir is not None and images is not None:
+    for name, values in (("psnr", psnrs), ("ssim", ssims)):
+      with open(os.path.join(out_dir, f"{name}s_{step}.txt"), "w") as f:
+        f.write(" ".join(str(v) for v in values))
+      with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
+        f.write(f"{np.mean(values)}")
   return EvalResult(psnrs, ssims, step)
 
 

@@ -1,8 +1,8 @@
 """The refractive NeRF model: curved-path sampling + coarse/fine radiance.
 
 Counterpart of samplenerfro_tpu/models/nerf.py:367-482 (NerfModel.__call__),
-:219-225 (forward_envmap) and :513-651 (construct_nerf) for the radiance
-and 'all' stages. The march runs in K1 (radiance) or in K2 with K3 as its
+:175-225 (the boundary-point losses and forward_envmap) and :513-651
+(construct_nerf) for the radiance, `ior` and 'all' stages. The march runs in K1 (radiance) or in K2 with K3 as its
 backward ('all'; models/path_sampler.py); the MLPs are nn.Linear stacks in
 fp32 or, with `mlp_dtype=bfloat16`, bf16. With `mlp_kernel=pallas` or
 `pallas_pe` the coarse and fine NerfMLPs of a non-'all' stage run fused,
@@ -88,7 +88,8 @@ class NerfModel(nn.Module):
                min_deg_point, max_deg_point, deg_view, rgb_activation,
                sigma_activation, legacy_posenc_order, rgb_padding=0.001,
                sigma_bias=-1.0, mlp_dtype=torch.float32, mlp_kernel="xla",
-               cfg_name=None, bd_cut_dist=None, generator=None):
+               cfg_name=None, bd_cut_dist=None, use_fine_sparsity=False,
+               normal_radius_scale=0.1, generator=None):
     super().__init__()
     # The cut applies at the fine level only, as in the JAX model.
     self.cut_box = (bd_cut_box(cfg_name, spec.nmin, spec.nmax)
@@ -111,6 +112,10 @@ class NerfModel(nn.Module):
     self.sigma_activation = sigma_activation
     self.rgb_padding = rgb_padding
     self.sigma_bias = sigma_bias
+    self.use_fine_sparsity = use_fine_sparsity
+    self.coarse_step_size = (far - near) / num_coarse_samples
+    self.fine_step_size = (far - near) / (num_coarse_samples
+                                          + num_fine_samples)
 
     pts_dim = 3 + 6 * (max_deg_point - min_deg_point)
     dir_dim = 3 + 6 * deg_view
@@ -131,7 +136,7 @@ class NerfModel(nn.Module):
         num_out_channels=num_rgb_channels, generator=generator)
     self.path_sampler = ps_module.PathSampler(
         spec, grid_data, near, far, num_coarse_samples * num_path_samples,
-        stage, generator=generator)
+        stage, normal_radius_scale=normal_radius_scale, generator=generator)
 
   def _encode_dirs(self, dirs):
     return math_ops.pos_enc(dirs, 0, self.deg_view, self.legacy_posenc_order)
@@ -139,6 +144,37 @@ class NerfModel(nn.Module):
   def _encode_points(self, pts):
     return math_ops.pos_enc(pts, self.min_deg_point, self.max_deg_point,
                             self.legacy_posenc_order)
+
+  def wrapper_compute_normal_loss_and_smooth(self, ray_pos, idx_grad,
+                                             annealed_alpha, noise):
+    """PathSampler.compute_normal_loss_and_smooth (models/nerf.py:175-181)."""
+    return self.path_sampler.compute_normal_loss_and_smooth(
+        ray_pos, idx_grad, annealed_alpha, noise)
+
+  def compute_sparsity_loss(self, ray_pos, coarse_alpha_target,
+                            fine_alpha_target):
+    """Offline sparsity of the density at boundary points [B, 1, 3] seen
+    along a zero direction (samplenerfro_tpu/models/nerf.py:192-217):
+    mean |alpha - target| of the coarse MLP, plus the fine MLP's with
+    use_fine_sparsity; returns (loss, the coarse alpha's mean, the fine
+    alpha's mean or 0.0). The MLPs run in nn.Linear at the model's dtype,
+    as the JAX method calls its flax modules."""
+    samples_enc = self._encode_points(ray_pos)
+    viewdirs_enc = self._encode_dirs(torch.zeros_like(ray_pos))
+    levels = [(self.coarse_mlp, self.coarse_step_size, coarse_alpha_target)]
+    if self.num_fine_samples > 0 and self.use_fine_sparsity:
+      levels.append((self.fine_mlp, self.fine_step_size, fine_alpha_target))
+    loss_sp, means = 0.0, [0.0, 0.0]
+    for i, (mlp, step_size, target) in enumerate(levels):
+      if self.use_viewdirs:
+        _, raw_sigma = mlp(samples_enc, viewdirs_enc, dtype=self.mlp_dtype)
+      else:
+        _, raw_sigma = mlp(samples_enc, dtype=self.mlp_dtype)
+      sigma = self.sigma_activation(raw_sigma + self.sigma_bias)
+      alpha = 1 - torch.exp(-step_size * sigma)
+      loss_sp = loss_sp + (alpha - target).abs().mean()
+      means[i] = alpha.mean()
+    return loss_sp, means[0], means[1]
 
   def forward_envmap(self, viewdirs):
     """Background colour of [N, 3] directions (models/nerf.py:219-225)."""
@@ -401,5 +437,8 @@ def construct_nerf(args, ndim, nmin, nmax, grid, gin_overrides=None,
       legacy_posenc_order=args.legacy_posenc_order,
       mlp_dtype=getattr(torch, mlp_dtype), mlp_kernel=mlp_kernel,
       cfg_name=args.config, bd_cut_dist=g.get("NerfModel.bd_cut_dist"),
+      use_fine_sparsity=bool(args.use_fine_sparsity),
+      normal_radius_scale=float(g.get("PathSampler.normal_radius_scale",
+                                      0.1)),
       generator=generator)
   return model.to(device).eval()

@@ -5,7 +5,8 @@ VoxMLP branch (annealed PE from degree 0, Rodrigues residual head). The
 [N^3, 4] grid of [n, grad n] is a registered buffer, so it follows the
 module across devices; it is never trained. The so3 head's weights exist
 in every stage, as in the JAX model, and only the 'all' stage marches with
-them.
+them; the `ior` stage trains them on the smoothness of the refined
+gradient at the boundary points (compute_normal_loss_and_smooth).
 """
 
 import torch
@@ -23,8 +24,9 @@ class PathSampler(nn.Module):
   """Marches curved eikonal ray paths: K1 in radiance, K2/K3 in 'all'."""
 
   def __init__(self, spec, grid_data, near, far, num_samples, stage,
-               generator=None):
+               normal_radius_scale=0.1, generator=None):
     super().__init__()
+    self.normal_radius_scale = float(normal_radius_scale)
     self.spec = spec
     self.near = float(near)
     self.far = float(far)
@@ -36,9 +38,46 @@ class PathSampler(nn.Module):
       raise ValueError(f"grid_data must be [{nvox}, 4], got "
                        f"{tuple(grid_data.shape)}")
     self.register_buffer("grid", grid_data.to(torch.float32).contiguous())
+    # The voxel extent on the module's device, for the smoothness offsets
+    # (a CUDA graph cannot capture the copy from the host that makes it).
+    self.register_buffer("ndelta", torch.tensor(spec.ndelta,
+                                                dtype=torch.float32),
+                         persistent=False)
     self.so3_mlp = mlp_ops.So3MLP(6 * SO3_MAX_DEG, generator=generator)
     self.march_cfg = eikonal_vjp.MarchConfig(
         spec, self.near, self.step_size, self.num_samples, SO3_MAX_DEG)
+
+  def wrapper_grad_mlp(self, x, condition, annealed_alpha=1.0):
+    """The refined IOR gradient at points x [..., 3] with grid gradient
+    `condition` [..., 3]: the so3 head's annealed PE, skip-MLP and
+    Rodrigues residual (samplenerfro_tpu/models/path_sampler.py:180-183),
+    the head forward the plain marches call (march_kernel.so3_refine_fn)."""
+    return march_kernel.so3_refine_fn(self.so3_mlp.params(), annealed_alpha,
+                                      SO3_MAX_DEG)(x, condition)
+
+  def compute_normal_loss_and_smooth(self, ray_pos, idx_grad, annealed_alpha,
+                                     noise):
+    """(normal loss, smoothness) of the refined gradient field at boundary
+    points (samplenerfro_tpu/models/path_sampler.py:185-204).
+
+    The normal loss is 0.0, as in the JAX package. The smoothness is the
+    mean over points of sum |pred(p) - pred(p + offset)| / |grad n| with
+    offset = noise * normal_radius_scale * the voxel extent.
+
+    Args:
+      ray_pos: [B, 1, 3] points; idx_grad: [B, 1, 3] grid gradients there.
+      annealed_alpha: PE annealing progress, a float or a 0-d tensor.
+      noise: [B, 1, 3] standard normal draws (the JAX package draws them
+        from its key inside; the caller draws them here).
+    """
+    pred_grad = self.wrapper_grad_mlp(ray_pos, idx_grad, annealed_alpha)
+    factor = math_ops.safe_l2_norm(idx_grad)
+    offsets = noise * self.normal_radius_scale * self.ndelta[None, None]
+    pred_grad_rand = self.wrapper_grad_mlp(ray_pos + offsets, idx_grad,
+                                           annealed_alpha)
+    smoothness = torch.sum(torch.abs((pred_grad - pred_grad_rand) / factor),
+                           dim=-1, keepdim=True).mean()
+    return 0.0, smoothness
 
   def forward(self, origins, directions, jitter, annealed_alpha=1.0):
     """March paths.

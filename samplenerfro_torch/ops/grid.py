@@ -115,6 +115,43 @@ def central_difference_grad_numpy(spec, values):
   return np.stack([dx, dy, dz], axis=-1).reshape(-1, 3)
 
 
+def trilinear_numpy(spec, data, pts):
+  """NumPy twin of `trilinear` for host-side dataset code (the boundary-
+  point batches' gradient targets, data/datasets.Grid); the same numpy
+  expressions as samplenerfro_tpu/ops/grid.py:181-212, so float64 points
+  interpolate a float32 grid in float64."""
+  nx, ny, nz = spec.ndim
+  data = np.asarray(data)
+  pts = np.asarray(pts)
+  x = (pts[..., 0] - spec.nmin[0]) / spec.ndelta[0]
+  y = (pts[..., 1] - spec.nmin[1]) / spec.ndelta[1]
+  z = (pts[..., 2] - spec.nmin[2]) / spec.ndelta[2]
+  x0f, y0f, z0f = np.floor(x), np.floor(y), np.floor(z)
+  xd, yd, zd = (x - x0f)[..., None], (y - y0f)[..., None], (z - z0f)[..., None]
+  x0 = np.clip(x0f.astype(int), 0, nx - 1)
+  x1 = np.clip(x0f.astype(int) + 1, 0, nx - 1)
+  y0 = np.clip(y0f.astype(int), 0, ny - 1)
+  y1 = np.clip(y0f.astype(int) + 1, 0, ny - 1)
+  z0 = np.clip(z0f.astype(int), 0, nz - 1)
+  z1 = np.clip(z0f.astype(int) + 1, 0, nz - 1)
+  sy, sx = nz, ny * nz
+  c000 = data[sx * x0 + sy * y0 + z0]
+  c100 = data[sx * x1 + sy * y0 + z0]
+  c001 = data[sx * x0 + sy * y0 + z1]
+  c101 = data[sx * x1 + sy * y0 + z1]
+  c010 = data[sx * x0 + sy * y1 + z0]
+  c110 = data[sx * x1 + sy * y1 + z0]
+  c011 = data[sx * x0 + sy * y1 + z1]
+  c111 = data[sx * x1 + sy * y1 + z1]
+  c00 = c000 * (1 - xd) + c100 * xd
+  c01 = c001 * (1 - xd) + c101 * xd
+  c10 = c010 * (1 - xd) + c110 * xd
+  c11 = c011 * (1 - xd) + c111 * xd
+  c0 = c00 * (1 - yd) + c10 * yd
+  c1 = c01 * (1 - yd) + c11 * yd
+  return c0 * (1 - zd) + c1 * zd
+
+
 def gaussian_prefilter(grid, ndim, ws, sigma):
   """Blur a scalar voxel grid with an isotropic 3D Gaussian, edge-padded.
 

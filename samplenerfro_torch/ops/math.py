@@ -87,8 +87,7 @@ def annealed_pos_enc(x, min_deg, max_deg, alpha, amp=1.0):
   """
   if min_deg == max_deg:
     return x
-  scales = torch.tensor([2.0**i for i in range(min_deg, max_deg)],
-                        dtype=x.dtype, device=x.device)
+  scales = _scales(min_deg, max_deg, x.dtype, x.device)
   xb = x[..., None, :] * scales[:, None]
   window = cosine_easing_window(min_deg, max_deg - 1, max_deg - min_deg,
                                 alpha).to(x.device)[:, None]

@@ -1,8 +1,10 @@
 """ctypes binding of the port's sdfcore (native/sdfcore.cpp).
 
-The port's counterpart of samplenerfro_tpu/tools/sdf.py:24-160: the `SDF`
-class (containment, signed distance, nearest vertex, surface samples, the
-bounding box and the face normals) of a triangle mesh. The library is
+The port's counterpart of samplenerfro_tpu/tools/sdf.py: the `SDF` class
+(containment, signed distance, nearest vertex, surface samples, the
+bounding box and the face normals) of a triangle mesh, and `Renderer`,
+the raycast depth, mask and nearest-vertex images of a mesh seen by a
+pinhole camera at the origin looking down +z. The library is
 built with g++ at first use into build/sdfcore/libsdfcore-<hash>.so in the
 checkout, keyed by a hash of the source and the flags as
 ops/cuda_build.py keys the CUDA kernels; a failed build raises. This is
@@ -64,7 +66,11 @@ def _load():
         (lib.sdf_nn, [vp, fp, i64, ctypes.POINTER(ctypes.c_int32)]),
         (lib.sdf_sample_surface, [vp, i64, ctypes.c_uint64, fp]),
         (lib.sdf_aabb, [vp, fp]),
-        (lib.sdf_face_normals, [vp, fp])):
+        (lib.sdf_face_normals, [vp, fp]),
+        (lib.sdf_render_depth, [vp, ctypes.c_int, ctypes.c_int] + [
+            ctypes.c_float] * 4 + [fp]),
+        (lib.sdf_render_nn, [vp, ctypes.c_int, ctypes.c_int] + [
+            ctypes.c_float] * 4 + [ctypes.POINTER(ctypes.c_int32)])):
       fn.argtypes, fn.restype = argtypes, None
     _lib = lib
     return lib
@@ -82,16 +88,16 @@ class SDF:
   """Containment, signed distance and sampling queries of a watertight
   triangle mesh (pysdf's SDF)."""
 
-  def __init__(self, verts, faces):
+  def __init__(self, verts, faces, robust=True):
     self._lib = _load()
     self.verts = np.ascontiguousarray(verts, np.float32)
     self.faces = np.ascontiguousarray(faces, np.int32)
-    # robust=1: containment by a majority over several rays, as the JAX
-    # binding's default.
+    # robust: containment by a majority over several rays (the default of
+    # both bindings); Renderer's mesh needs ray hits only.
     self._h = self._lib.sdf_create(
         _fptr(self.verts), len(self.verts),
         self.faces.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        len(self.faces), 1)
+        len(self.faces), int(robust))
     self._seed = 0
 
   def __del__(self):
@@ -142,4 +148,45 @@ class SDF:
     """[F, 3] float32 unit normals of the faces."""
     out = np.empty((len(self.faces), 3), np.float32)
     self._lib.sdf_face_normals(self._h, _fptr(out))
+    return out
+
+
+class Renderer:
+  """Raycast images of a mesh in camera space (pysdf's Renderer): a pinhole
+  camera at the origin looking down +z, the ray of pixel (u, v) along
+  ((u - cx) / fx, (v - cy) / fy, 1)."""
+
+  def __init__(self, verts, faces, width=1080, height=1080, fx=2600.0,
+               fy=2600.0, cx=540.0, cy=540.0):
+    self._sdf = SDF(verts, faces, robust=False)
+    self.width, self.height = int(width), int(height)
+    self.fx, self.fy, self.cx, self.cy = fx, fy, cx, cy
+
+  def render_depth(self):
+    """[height, width] float32 distance of each pixel's first hit along its
+    ray (in units of the ray's length at z = 1), 0 where it hits nothing."""
+    out = np.empty(self.height * self.width, np.float32)
+    self._sdf._lib.sdf_render_depth(
+        self._sdf._h, self.width, self.height, self.fx, self.fy, self.cx,
+        self.cy, _fptr(out))
+    return out.reshape(self.height, self.width)
+
+  def render_mask(self):
+    """[height, width] bool: where a ray hits the mesh."""
+    return self.render_depth() > 0
+
+  def render_nn(self, fill_outside=False):
+    """[height, width] int32 index of the hit face's vertex nearest to the
+    hit, -1 where nothing is hit; `fill_outside` gives such a pixel the
+    value of its nearest hit pixel."""
+    out = np.empty(self.height * self.width, np.int32)
+    self._sdf._lib.sdf_render_nn(
+        self._sdf._h, self.width, self.height, self.fx, self.fy, self.cx,
+        self.cy, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    out = out.reshape(self.height, self.width)
+    if fill_outside and (out < 0).any() and (out >= 0).any():
+      ys, xs = np.nonzero(out >= 0)
+      ey, ex = np.nonzero(out < 0)
+      d2 = (ey[:, None] - ys[None, :])**2 + (ex[:, None] - xs[None, :])**2
+      out[ey, ex] = out[ys, xs][np.argmin(d2, axis=1)]
     return out

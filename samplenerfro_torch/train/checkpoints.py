@@ -101,29 +101,9 @@ def restore_checkpoint(stage_dir, model, optimizer):
 _RADIANCE_MODULES = ("bkgd_mlp", "coarse_mlp", "fine_mlp")
 
 
-def load_stage_weights(model, train_dir, cfg, stage):
-  """Copy a stage's trained weights into `model`; returns the checkpoint's
-  step.
-
-  `radiance*` takes bkgd_mlp, coarse_mlp and (when the model has one)
-  fine_mlp from <train_dir>/<cfg.radiance_weight_name>; `all*` takes
-  those and path_sampler from <train_dir>/<cfg.all_weight_name>, each
-  from its newest checkpoint_<step>. `ior*` is not ported.
-
-  Raises:
-    ValueError: the stage's weight name is None (every shipped gin sets
-      Config.radiance_weight_name = None), or the stage is unknown.
-    FileNotFoundError: the directory holds no checkpoint.
-  """
-  if stage.startswith("ior"):
-    raise NotImplementedError("the 'ior' stage is not ported yet")
-  if stage.startswith("radiance"):
-    binding, modules = "radiance_weight_name", _RADIANCE_MODULES
-  elif stage.startswith("all"):
-    binding = "all_weight_name"
-    modules = _RADIANCE_MODULES + ("path_sampler",)
-  else:
-    raise ValueError(f"unknown stage {stage}")
+def _load_modules(model, train_dir, cfg, binding, modules, stage):
+  """Copy `modules` of the newest checkpoint under <train_dir>/<cfg's
+  binding> into `model`; returns its step."""
   name = getattr(cfg, binding)
   if name is None:
     raise ValueError(f"Config.{binding} is None: stage {stage!r} takes its "
@@ -146,3 +126,33 @@ def load_stage_weights(model, train_dir, cfg, stage):
     for k in wanted:
       own[k].copy_(saved[k])
   return int(step)
+
+
+def load_stage_weights(model, train_dir, cfg, stage):
+  """Copy a stage's trained weights into `model`; returns the checkpoint's
+  step.
+
+  `radiance*` takes bkgd_mlp, coarse_mlp and (when the model has one)
+  fine_mlp from <train_dir>/<cfg.radiance_weight_name>; `ior*` takes
+  those from there too and path_sampler from <train_dir>/
+  <cfg.ior_weight_name>, and returns the latter's step; `all*` takes all
+  four from <train_dir>/<cfg.all_weight_name>; each from its newest
+  checkpoint_<step>.
+
+  Raises:
+    ValueError: a weight name the stage reads is None (every shipped gin
+      sets Config.radiance_weight_name = None and Config.ior_weight_name =
+      None), or the stage is unknown.
+    FileNotFoundError: a directory holds no checkpoint.
+  """
+  if stage.startswith(("radiance", "ior")):
+    step = _load_modules(model, train_dir, cfg, "radiance_weight_name",
+                         _RADIANCE_MODULES, stage)
+    if stage.startswith("ior"):
+      step = _load_modules(model, train_dir, cfg, "ior_weight_name",
+                           ("path_sampler",), stage)
+    return step
+  if stage.startswith("all"):
+    return _load_modules(model, train_dir, cfg, "all_weight_name",
+                         _RADIANCE_MODULES + ("path_sampler",), stage)
+  raise ValueError(f"unknown stage {stage}")

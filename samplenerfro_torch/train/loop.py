@@ -1,24 +1,29 @@
-"""Train a stage of the refractive NeRF on a Blender or OpenCV scene on a GPU.
+"""Train a stage of the refractive NeRF on a scene on a GPU.
 
     python -m samplenerfro_torch.train --data_dir=<scene> \\
         --train_dir=<out> --config=configs/tpu/<scene> \\
         --gin_file=configs/tpu/<scene>.gin --stage=radiance [--device=cuda]
 
 The flags and stage names are train.py's: any flag of utils/config.py may
-be given as --name=value and wins over the --config overlay. Stages
-`radiance*` train the radiance MLPs through the lean march (K1); stages
-`all*` train everything, the so3 head through the differentiable march
-(K2 forward, K3 backward). Checkpoints go to <train_dir>/<stage>/
-checkpoint_<step> every --save_every steps and at the end; a rerun resumes
-from the newest. Every --print_every steps one line reports the loss and
-rays/s; every --render_every steps a view of the val split (OpenCV views
-centrally cropped, as eval crops its test views) is rendered through
-samplenerfro_torch.eval's render function, with a jitter of its own
-generator's (the train jitters are drawn ahead on the prefetch thread),
-and its PSNR and SSIM printed.
-The `all` stage starts from --params_npz or weights drawn from --seed, as
-train.py starts it from its initialisation; eval then reads what this
-writes.
+be given as --name=value and wins over the --config overlay; --dataset is
+blender, llff, nsvf or opencv. Stages `radiance*` train the radiance MLPs
+through the lean march (K1); stages `ior*` train the so3 head alone on
+boundary points of the IOR grid (data/datasets.Grid), marching nothing;
+stages `all*` train everything, the so3 head through the differentiable
+march (K2 forward, K3 backward). Where a loss term reads boundary points
+(the sparsity term, the `all` stage's normal terms) each batch carries a
+Grid batch too, drawn from a RandomState of its own. Checkpoints go to
+<train_dir>/<stage>/checkpoint_<step> every --save_every steps and at the
+end; a rerun resumes from the newest. Every --print_every steps one line
+reports the loss and rays/s; every --render_every steps a view of the
+val split (OpenCV views centrally cropped, as eval crops its test views)
+is rendered through samplenerfro_torch.eval's render function (K1 in the
+radiance and `ior` stages), with a jitter of its own generator's (the
+train jitters are drawn ahead on the prefetch thread), and its PSNR and
+SSIM printed.
+The `ior` and `all` stages start from --params_npz or weights drawn from
+--seed, as train.py starts them from its initialisation; eval then reads
+what this writes.
 
 --steps_per_dispatch=K runs K steps a dispatch, as train.py:115-128 and
 181-221 do: dispatch windows align to the K grid (a resume from an
@@ -62,6 +67,7 @@ from samplenerfro_torch.utils import metrics
 from samplenerfro_torch.utils import render as render_lib
 
 DATA_SEED = 20201473   # train.py:47 seeds numpy's global state with it
+GRID_SEED = DATA_SEED + 1  # a Grid beside the image batches
 NOISE_SEED = 20200823  # train.py:46's PRNGKey
 VAL_SEED = NOISE_SEED + 1  # the validation renders' jitters
 PREFETCH = 3           # windows held ready (train.py:211, 214)
@@ -97,31 +103,53 @@ def step_batch(host, alpha, lr, jitter, args):
   """One train step's host batch, as train/step.train_step reads it.
 
   Args:
-    host: a dataset batch: "pixels", "rays" and "env_rays" (numpy).
+    host: a dataset batch (numpy): "pixels", "rays" and "env_rays" of an
+      image dataset, "pts" and "grads" of a Grid, or both.
     alpha: the step's annealing alpha.
     lr: the [groups] learning rates of its update (step.learning_rates),
       or None for a batch that only loss_fn reads.
-    jitter: its coarse subsample (nerf.make_jitter), checked here.
+    jitter: its coarse subsample (nerf.make_jitter), checked here; None in
+      the `ior` stage, which marches nothing.
     args: flags namespace.
   """
-  batch = {k: host[k] for k in ("pixels", "rays", "env_rays")}
+  batch = {k: host[k] for k in ("pixels", "rays", "env_rays", "pts", "grads")
+           if k in host}
   batch["annealed_alpha"] = np.float32(alpha)
   if lr is not None:
     batch["lr"] = np.asarray(lr, np.float32)
-  batch["jitter"] = march_kernel.checked_jitter(
-      jitter, args.num_coarse_samples * args.num_path_samples)
+  if jitter is not None:
+    batch["jitter"] = march_kernel.checked_jitter(
+        jitter, args.num_coarse_samples * args.num_path_samples)
   return batch
 
 
-def host_window(dataset, first, last, args, optimizer, jitter_gen):
+def host_window(dataset, first, last, args, optimizer, jitter_gen,
+                grid=None):
   """The stacked host batch of steps first..last: step_batch of each,
-  its jitter drawn from jitter_gen in step order."""
-  return prefetch.stack([
-      step_batch(next(dataset), annealed_alpha(s, args),
-                 step_lib.learning_rates(optimizer, s - 1),
-                 nerf.make_jitter(args.num_coarse_samples,
-                                  args.num_path_samples, jitter_gen), args)
-      for s in range(first, last + 1)])
+  its jitter drawn from jitter_gen in step order (none in the `ior`
+  stage, whose dataset is the Grid); a batch of `grid` merged into each
+  step's when given."""
+  ior = args.stage.startswith("ior")
+  batches = []
+  for s in range(first, last + 1):
+    host = dict(next(dataset))
+    if grid is not None:
+      host.update(next(grid))
+    jitter = None if ior else nerf.make_jitter(
+        args.num_coarse_samples, args.num_path_samples, jitter_gen)
+    batches.append(step_batch(host, annealed_alpha(s, args),
+                              step_lib.learning_rates(optimizer, s - 1),
+                              jitter, args))
+  return prefetch.stack(batches)
+
+
+def model_grid(model, args, rng):
+  """The boundary-point batches (data/datasets.Grid) of the model's IOR
+  grid, from `rng`."""
+  ps = model.path_sampler
+  values = ps.grid[:, 0].cpu().numpy()
+  return datasets.Grid(args, values, ps.spec.ndim, ps.spec.nmax,
+                       ps.spec.nmin, rng)
 
 
 def main(argv=None):
@@ -150,15 +178,21 @@ def main(argv=None):
   k = max(1, args.steps_per_dispatch)
   check_cadences(args, k)
 
-  rng = np.random.RandomState(DATA_SEED)
-  dataset = datasets.TrainBatches(args, rng)
   model = build_model(args, cfg, bindings, ns.data_dir, device, ns.seed,
                       ns.params_npz)
+  grid = None
+  if args.stage.startswith("ior"):
+    dataset = model_grid(model, args, np.random.RandomState(DATA_SEED))
+  else:
+    dataset = datasets.TrainBatches(args, np.random.RandomState(DATA_SEED))
+    if step_lib.needs_grid(args):
+      grid = model_grid(model, args, np.random.RandomState(GRID_SEED))
   optimizer, lr_fn, _ = step_lib.create_optimizer(model, args)
   stage_dir = os.path.join(ns.train_dir, args.stage)
   os.makedirs(stage_dir, exist_ok=True)
   init_step = checkpoints.restore_checkpoint(stage_dir, model, optimizer) + 1
-  dataset.train_it = init_step - 1
+  if isinstance(dataset, datasets.TrainBatches):
+    dataset.train_it = init_step - 1
   generator = torch.Generator(device=device).manual_seed(NOISE_SEED)
   jitter_gen = torch.Generator().manual_seed(NOISE_SEED)
   val_gen = torch.Generator().manual_seed(VAL_SEED)
@@ -177,7 +211,8 @@ def main(argv=None):
     first, last = next(pending, (None, None))
     if first is None:
       return None
-    return host_window(dataset, first, last, args, optimizer, jitter_gen)
+    return host_window(dataset, first, last, args, optimizer, jitter_gen,
+                       grid)
 
   batches = prefetch.device_prefetch(next_window, device, size=PREFETCH,
                                      stacked=True)

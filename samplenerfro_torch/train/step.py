@@ -1,13 +1,15 @@
 """Losses, Stats, the staged Adam optimizer and the train step.
 
-Counterpart of samplenerfro_tpu/train/step.py:28-259. The loss is the one
-the shipped configurations train: photometric MSE of both levels, the
-background boundary term, the background smoothness term over an env-ray
-patch and the weight-L2 term. The sparsity, beta and normal terms are
-gated off by `annealing_rate = 0.0` in the JAX step (:204-206); the port
-computes them only where that gate lets them through, which is nowhere,
-and refuses configurations whose non-zero weights would need the
-boundary-point dataset it does not have yet.
+Counterpart of samplenerfro_tpu/train/step.py:28-259. The radiance and
+'all' stages' loss is photometric MSE of both levels, the background
+boundary term, the background smoothness term over an env-ray patch and
+the weight-L2 term; the `ior` stage's is the weight-L2 term alone. The
+sparsity and normal terms, computed on the boundary points of
+data/datasets.Grid, are multiplied by `annealing_rate = 0.0` as in the
+JAX step (:204-206): they reach the total and Stats as zeros, and their
+gradients are zeros. The beta term is gated the same way and not
+computed. So an `ior` step with weight_decay_mult 0 (every shipped
+config) leaves every parameter and Adam moment where it was.
 
 Param groups follow `param_labels_for_stage`: a "zero" group is left out
 of the optimizer (optax.set_to_zero), every other group is an Adam group
@@ -75,7 +77,7 @@ def _fields(stats):
 def pack_stats(stats):
   """K steps' Stats -> one [fields, K] float32 tensor (a Python number
   as its value); Stats(*packed.unbind(0)) is their stacked Stats."""
-  dev = stats[0].loss.device
+  dev = stats[0].weight_l2.device
   as_t = lambda v: (v.float() if torch.is_tensor(v) else
                     torch.full((), v, dtype=torch.float32, device=dev))
   return torch.stack([torch.stack([as_t(v) for v in _fields(s)])
@@ -136,12 +138,6 @@ class Adam:
                          "exp_avg_sq": torch.zeros_like(p)}
       self.counts.append(torch.zeros((), dtype=torch.float32,
                                      device=group["params"][0].device))
-
-  def zero_grad(self):
-    """Drop the gradients (the next backward allocates them anew)."""
-    for group in self.param_groups:
-      for p in group["params"]:
-        p.grad = None
 
   @torch.no_grad()
   def step(self, lrs):
@@ -217,7 +213,6 @@ def create_optimizer(model, args):
   group carries its label; `learning_rates` lists the groups' rates of an
   update from its count.
   """
-  check_supported(args)
   lr_fn = functools.partial(
       math_ops.learning_rate_decay, lr_init=args.lr_init,
       lr_final=args.lr_final, max_steps=args.max_steps,
@@ -259,36 +254,83 @@ def weight_l2(model):
   return sum_sq / sum(p.numel() for p in params)
 
 
+# The JAX step's gate on the sparsity, beta and normal terms (:204-206).
+ANNEALING_RATE = 0.0
+
+
 def check_supported(args):
-  """Raise for the stages and loss terms the port does not train yet."""
-  if args.stage.startswith("ior"):
-    raise NotImplementedError("the 'ior' stage is not ported yet")
-  if not (args.stage.startswith("radiance") or args.stage.startswith("all")):
+  """Raise ValueError for an unknown stage."""
+  if not args.stage.startswith(("radiance", "ior", "all")):
     raise ValueError(f"unknown stage {args.stage}")
-  if args.sparsity_weight > 0 and not args.use_online_sparsity:
-    raise NotImplementedError("sparsity_weight > 0 needs the boundary-point "
-                              "(Grid) dataset, which is not ported yet")
-  if args.stage.startswith("all") and (
-      args.normal_loss_weight + args.normal_smooth_weight) > 0:
-    raise NotImplementedError("the normal losses need the boundary-point "
-                              "(Grid) dataset, which is not ported yet")
+
+
+def uses_sparsity(args):
+  """Whether loss_fn computes the offline sparsity term (its batch then
+  carries Grid points)."""
+  return (not args.stage.startswith("ior") and args.sparsity_weight > 0
+          and not args.use_online_sparsity)
+
+
+def uses_normals(args):
+  """Whether loss_fn computes the normal terms on Grid points."""
+  return args.stage.startswith("ior") or (
+      args.stage.startswith("all")
+      and (args.normal_loss_weight + args.normal_smooth_weight) > 0)
+
+
+def needs_grid(args):
+  """Whether a step's batch carries data/datasets.Grid's "pts" and
+  "grads": the `ior` stage, and the terms that read them."""
+  return uses_sparsity(args) or uses_normals(args)
+
+
+def _normal_noise(batch, generator):
+  """The smoothness offsets' standard normal draws: the batch's
+  "normal_noise" when it has them (a test passes the JAX package's),
+  else drawn on the points' device from `generator`."""
+  if "normal_noise" in batch:
+    return batch["normal_noise"]
+  pts = batch["pts"]
+  return torch.randn(pts.shape, generator=generator, dtype=pts.dtype,
+                     device=pts.device)
 
 
 def loss_fn(model, batch, args, generator=None):
   """(total loss, Stats) of one batch (samplenerfro_tpu/train/step.py:118-227).
 
   Args:
-    model: NerfModel of a radiance or 'all' stage.
+    model: NerfModel of args.stage.
     batch: one step's batch (train/loop.step_batch) on the model's device:
-      "rays" (Rays of [batch, C]), "pixels" [batch, >=3], "env_rays"
-      (Rays of [p, p, C] or None), "annealed_alpha" (a 0-d float32
-      tensor) and "jitter" (a march_kernel.CheckedJitter, the coarse
-      subsample's dense indices).
+      "annealed_alpha" (a 0-d float32 tensor); in the radiance and 'all'
+      stages "rays" (Rays of [batch, C]), "pixels" [batch, >=3],
+      "env_rays" (Rays of [p, p, C] or None) and "jitter" (a
+      march_kernel.CheckedJitter, the coarse subsample's dense indices);
+      where needs_grid(args), "pts" and "grads" ([B, 1, 3], a Grid batch),
+      and optionally "normal_noise" ([B, 1, 3] standard normal draws of
+      the smoothness offsets).
     args: flags namespace.
-    generator: torch.Generator for the randomized sampling and noise.
+    generator: torch.Generator on the model's device for the randomized
+      sampling, the density noise and the offsets' draws.
   """
-  pixels = batch["pixels"][..., :3]
   alpha = batch["annealed_alpha"]
+  wl2 = weight_l2(model)
+  zero = torch.zeros((), dtype=wl2.dtype, device=wl2.device)
+  d = lambda x: x.detach() if torch.is_tensor(x) else x
+  if args.stage.startswith("ior"):
+    # The JAX step computes the smoothness here and drops it; loss_nrm is
+    # the normal loss, 0.0.
+    normal_loss, _ = model.wrapper_compute_normal_loss_and_smooth(
+        batch["pts"], batch["grads"], alpha, _normal_noise(batch, generator))
+    total = ANNEALING_RATE * normal_loss + args.weight_decay_mult * wl2
+    stats = Stats(
+        loss=0.0, psnr=0.0, loss_c=0.0, psnr_c=0.0, weight_l2=d(wl2),
+        loss_nrm=ANNEALING_RATE * normal_loss, loss_sp=0.0,
+        annealing_rate=alpha, loss_bg=0.0, loss_bg_c=0.0,
+        loss_bg_smooth=0.0, coarse_alpha_target=0.0, fine_alpha_target=0.0,
+        march_oow=0)
+    return total, stats
+
+  pixels = batch["pixels"][..., :3]
   # The background terms count once annealing has begun; a device tensor,
   # so that deciding reads nothing back.
   gate = (alpha > 0).to(torch.float32)
@@ -299,7 +341,6 @@ def loss_fn(model, batch, args, generator=None):
                      "of outputs.")
   rgb, _, _, trans, trans_rgb_bkgd = ret[-1]
   loss = ((rgb - pixels)**2).mean()
-  zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
   if args.bg_weight > 0:
     mask_bg = trans > 0.5
     loss_bg = gate * ((mask_bg * (trans_rgb_bkgd - pixels).abs()).sum()
@@ -312,6 +353,17 @@ def loss_fn(model, batch, args, generator=None):
   else:
     loss_c, psnr_c = zero, zero
 
+  loss_sp, next_cat, next_fat = zero, 0.0, 0.0
+  if uses_sparsity(args):
+    loss_sp, next_cat, next_fat = model.compute_sparsity_loss(
+        batch["pts"], 0.0, 0.0)
+  loss_nrm = zero
+  if uses_normals(args):
+    normal_loss, normal_smooth = model.wrapper_compute_normal_loss_and_smooth(
+        batch["pts"], batch["grads"], alpha, _normal_noise(batch, generator))
+    loss_nrm = (args.normal_loss_weight * normal_loss
+                + args.normal_smooth_weight * normal_smooth)
+
   if args.bg_smooth_weight > 0:
     viewdirs = batch["env_rays"].viewdirs
     ps = viewdirs.shape[0]
@@ -323,17 +375,18 @@ def loss_fn(model, batch, args, generator=None):
   else:
     loss_bg_smooth = zero
 
-  wl2 = weight_l2(model)
-  total = (loss + loss_c + args.bg_weight * loss_bg
+  gated_sp = args.sparsity_weight * ANNEALING_RATE * loss_sp
+  gated_nrm = ANNEALING_RATE * loss_nrm
+  total = (loss + loss_c + args.bg_weight * loss_bg + gated_sp + gated_nrm
            + args.bg_smooth_weight * loss_bg_smooth
            + args.weight_decay_mult * wl2)
-  d = lambda x: x.detach()
   stats = Stats(
       loss=d(loss), psnr=_psnr(d(loss)), loss_c=d(loss_c), psnr_c=psnr_c,
-      weight_l2=d(wl2), loss_nrm=0.0, loss_sp=0.0, annealing_rate=alpha,
-      loss_bg=args.bg_weight * d(loss_bg), loss_bg_c=0.0,
-      loss_bg_smooth=d(loss_bg_smooth), coarse_alpha_target=0.0,
-      fine_alpha_target=0.0, march_oow=0)
+      weight_l2=d(wl2), loss_nrm=d(gated_nrm), loss_sp=d(gated_sp),
+      annealing_rate=alpha, loss_bg=args.bg_weight * d(loss_bg),
+      loss_bg_c=0.0, loss_bg_smooth=d(loss_bg_smooth),
+      coarse_alpha_target=d(next_cat), fine_alpha_target=d(next_fat),
+      march_oow=0)
   return total, stats
 
 
@@ -359,7 +412,9 @@ def train_step(model, optimizer, batch, args, generator=None):
     batch: as loss_fn's, with "lr", the [groups] rates of this update
       (learning_rates) as a float32 tensor on the model's device.
   """
-  optimizer.zero_grad()
+  # Every parameter's gradient is dropped, the frozen groups' too: the
+  # clipping reads them all, as the JAX step's fresh gradients.
+  model.zero_grad(set_to_none=True)
   total, stats = loss_fn(model, batch, args, generator)
   total.backward()
   clip_gradients(list(model.parameters()), args)
@@ -385,7 +440,7 @@ class MultiStep:
         train_step(self.model, self.optimizer,
                    prefetch.map_tensors(lambda t, i=i: t[i], batch),
                    self.args, self.generator)
-        for i in range(batch["pixels"].shape[0])])
+        for i in range(batch["annealed_alpha"].shape[0])])
 
   def _capture(self, batch):
     """Capture K steps reading `static`, a copy of `batch`, into a graph.
@@ -404,8 +459,8 @@ class MultiStep:
     """Run the window of steps that the stacked batch holds ([n, ...]
     leaves, n <= K, as train/loop.host_window makes them); returns their
     Stats stacked ([n] fields)."""
-    n = batch["pixels"].shape[0]
-    dev = batch["pixels"].device
+    n = batch["annealed_alpha"].shape[0]
+    dev = batch["annealed_alpha"].device
     if dev.type != "cuda":
       return Stats(*self._steps(batch).unbind(0))
     current = torch.cuda.current_stream(dev)

@@ -849,3 +849,63 @@ def test_cuda_graph_dispatch_matches_eager_steps(cuda_device, stage, mlp):
   for traced in (e_traced, g_traced):
     assert traced[-1] == want
     assert all(t <= w for window in traced for t, w in zip(window, want))
+
+
+def _ior_run(device, k, wdm, steps=9):
+  """`steps` `ior` steps from step 4 of a tiny seeded model, k a dispatch,
+  on Grid batches of a 32^3 blob: (their Stats, parameters and Adam state
+  after them, the state before, the dispatch)."""
+  from samplenerfro_torch.data import prefetch
+  from samplenerfro_torch.train import loop
+  from samplenerfro_torch.train import step as step_lib
+  args, _, _ = config_lib.load_args(
+      None, stage="ior", net_depth=2, net_width=32, net_width_condition=32,
+      num_coarse_samples=8, num_path_samples=4, num_fine_samples=16,
+      max_deg_point=4, use_online_sparsity=False, extra_batch_size=16,
+      anneal_delay_steps=1, anneal_max_steps=20, lr_delay_steps=2,
+      weight_decay_mult=wdm)
+  values, ndim, nmin, nmax = grid_io.synthetic_blob_grid(32, 1.5, 0.33)
+  model = nerf.construct_nerf(args, ndim, nmin, nmax, values, device=device,
+                              seed=0)
+  optimizer, _, _ = step_lib.create_optimizer(model, args)
+  grid = loop.model_grid(model, args, np.random.RandomState(5))
+
+  def state():
+    out = {f"p.{n}": p.detach().clone() for n, p in model.named_parameters()}
+    for i, s in optimizer.state_dict()["state"].items():
+      out.update({f"{i}.{n}": torch.as_tensor(t).clone()
+                  for n, t in s.items()})
+    return out
+
+  start = state()
+  run = step_lib.make_train_step_multi(
+      model, optimizer, args, k,
+      torch.Generator(device=device).manual_seed(3))
+  stats = []
+  for w0, w1 in loop.dispatch_windows(4, 3 + steps, k):
+    batch = prefetch.to_device(
+        loop.host_window(grid, w0, w1, args, optimizer, None), device)
+    stats += run(batch).per_step()
+  return stats, state(), start, run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdm", [0.0, 1e-2])
+def test_ior_graph_matches_eager_steps(cuda_device, wdm):
+  """9 `ior` steps, 3 a dispatch (an eager window, then a graph that draws
+  the smoothness offsets from the registered generator, replayed twice),
+  against one at a time, bit for bit; as shipped (weight_decay_mult 0)
+  nothing moves, with weight decay only the so3 head does."""
+  eager, e_state, start, _ = _ior_run(cuda_device, 1, wdm)
+  graph, g_state, _, run = _ior_run(cuda_device, 3, wdm)
+  assert run.replays == 2
+  assert eager == graph
+  for key, v in e_state.items():
+    assert torch.equal(v, g_state[key]), key
+  moved = {key for key, v in e_state.items()
+           if key.startswith("p.") and not torch.equal(v, start[key])}
+  if wdm == 0.0:
+    assert not moved
+  else:
+    assert moved and all("so3_mlp" in key for key in moved)
+  assert {s.loss_nrm for s in eager} == {0.0}

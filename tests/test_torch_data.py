@@ -167,11 +167,11 @@ def test_eval_chunks_agree_with_one_batch(scene, tmp_path):
 
 
 def test_eval_refuses_an_unported_dataset(scene, tmp_path, monkeypatch):
-  """An LLFF config stops with NotImplementedError naming the dataset,
-  before eval reads any scene file."""
+  """A config naming no scene format stops with ValueError naming the
+  dataset, before eval reads any scene file."""
   cfg = fixtures.write_tiny_config(str(tmp_path / "cfg"))
   with open(cfg + ".yaml") as f:
-    text = f.read().replace("dataset: blender", "dataset: llff")
+    text = f.read().replace("dataset: blender", "dataset: colmap")
   with open(cfg + ".yaml", "w") as f:
     f.write(text)
 
@@ -179,7 +179,73 @@ def test_eval_refuses_an_unported_dataset(scene, tmp_path, monkeypatch):
     raise AssertionError("a scene file was read")
 
   monkeypatch.setattr(t_datasets, "load_split", untouched)
+  monkeypatch.setattr(t_datasets, "load_render_path", untouched)
   monkeypatch.setattr(t_eval, "build_model", untouched)
-  with pytest.raises(NotImplementedError, match="'llff'"):
+  with pytest.raises(ValueError, match="'colmap'"):
     t_eval.main([f"--data_dir={scene}", f"--train_dir={tmp_path / 'out'}",
                  f"--config={cfg}", f"--gin_file={cfg}.gin", "--device=cpu"])
+
+
+def test_eval_render_path_raises_on_blender(scene, tmp_path, monkeypatch):
+  """--render_path on a Blender scene raises the JAX loader's ValueError
+  before any scene file is read (fault F5: eval scored the test views)."""
+  cfg = fixtures.write_tiny_config(str(tmp_path / "cfg"))
+
+  def untouched(*args, **kwargs):
+    raise AssertionError("a scene file was read")
+
+  monkeypatch.setattr(t_datasets, "load_split", untouched)
+  monkeypatch.setattr(t_eval, "build_model", untouched)
+  with pytest.raises(ValueError, match="render_path cannot be used for the "
+                     "blender dataset"):
+    t_eval.main([f"--data_dir={scene}", f"--train_dir={tmp_path / 'out'}",
+                 f"--config={cfg}", f"--gin_file={cfg}.gin", "--device=cpu",
+                 "--render_path=True"])
+  assert not os.path.exists(tmp_path / "out")
+
+
+def _saved_radiance(scene, tmp_path, steps):
+  cfg = fixtures.write_tiny_config(str(tmp_path / "cfg"))
+  args, gcfg, bindings = t_config.load_args(cfg, [cfg + ".gin"])
+  model = t_eval.build_model(args, gcfg, bindings, scene, "cpu", seed=7)
+  for step in steps:
+    t_ckpt.save_checkpoint(str(tmp_path / "out" / "radiance"), model,
+                           torch.optim.Adam(model.parameters()), step)
+  return cfg, model
+
+
+def test_eval_save_output_false_writes_nothing(scene, tmp_path):
+  """--save_output=False scores the views and writes no file (F5)."""
+  cfg, _ = _saved_radiance(scene, tmp_path, [5])
+  res = t_eval.main([
+      f"--data_dir={scene}", f"--train_dir={tmp_path / 'out'}",
+      f"--config={cfg}", f"--gin_file={cfg}.gin", "--device=cpu",
+      "--chunk=128", "--save_output=False"])
+  assert res.step == 5 and len(res.psnrs) == 2 and all(np.isfinite(res.psnrs))
+  assert os.listdir(tmp_path / "out" / "radiance") == ["checkpoint_5"]
+
+
+def test_eval_once_false_polls_until_max_steps(scene, tmp_path, monkeypatch):
+  """--eval_once=False evaluates the newest checkpoint, waits while no newer
+  one is written, and stops after one at --max_steps (F5); a checkpoint
+  already at max_steps is evaluated once."""
+  cfg, model = _saved_radiance(scene, tmp_path, [3])
+  stage_dir = str(tmp_path / "out" / "radiance")
+  sleeps = []
+
+  def trainer_writes_step_5(secs):
+    sleeps.append(secs)
+    t_ckpt.save_checkpoint(stage_dir, model,
+                           torch.optim.Adam(model.parameters()), 5)
+
+  monkeypatch.setattr(t_eval.time, "sleep", trainer_writes_step_5)
+  common = [f"--data_dir={scene}", f"--train_dir={tmp_path / 'out'}",
+            f"--config={cfg}", f"--gin_file={cfg}.gin", "--device=cpu",
+            "--chunk=128", "--eval_once=False", "--max_steps=5"]
+  res = t_eval.main(common)
+  assert res.step == 5 and sleeps == [t_eval.POLL_SECONDS]
+  out = sorted(os.listdir(os.path.join(stage_dir, "test_preds")))
+  assert {"psnrs_3.txt", "psnrs_5.txt", "psnr.txt"} <= set(out)
+  # Already at max_steps: one evaluation, no wait.
+  sleeps.clear()
+  assert t_eval.main(common).step == 5 and sleeps == []

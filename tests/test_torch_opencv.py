@@ -116,9 +116,14 @@ def test_load_split_dispatches_and_refuses_factor(scene):
     np.testing.assert_array_equal(g, w)
   with pytest.raises(ValueError, match="factor"):
     t_datasets.load_split(_loader_args(scene, factor=2), "test")
-  for name in ("llff", "nsvf", "grid"):
-    with pytest.raises(NotImplementedError, match=repr(name)):
-      t_datasets.load_split(_loader_args(scene, dataset=name), "test")
+  # LLFF and NSVF read their own files, which an OpenCV capture lacks; a
+  # name that is no scene format is refused before any read.
+  with pytest.raises(ValueError, match="Image folder"):
+    t_datasets.load_split(_loader_args(scene, dataset="llff"), "test")
+  with pytest.raises(FileNotFoundError, match="intrinsics.txt"):
+    t_datasets.load_split(_loader_args(scene, dataset="nsvf"), "test")
+  with pytest.raises(ValueError, match="'grid'"):
+    t_datasets.load_split(_loader_args(scene, dataset="grid"), "test")
 
 
 @pytest.mark.parametrize("batching,extra", [
@@ -414,7 +419,14 @@ def test_load_stage_weights_refusals(tmp_path):
   with pytest.raises(FileNotFoundError, match="radiance"):
     t_ckpt.load_stage_weights(model, train_dir, t_config.Config(),
                               "radiance")
-  with pytest.raises(NotImplementedError, match="ior"):
+  # The ior stage reads both names; the ior one unbound raises after the
+  # radiance weights load.
+  t_ckpt.save_checkpoint(os.path.join(train_dir, "radiance"), model,
+                         torch.optim.Adam(model.parameters()), 2)
+  with pytest.raises(ValueError, match="Config.ior_weight_name"):
+    t_ckpt.load_stage_weights(model, train_dir,
+                              t_config.Config(ior_weight_name=None), "ior")
+  with pytest.raises(FileNotFoundError, match=os.path.join(train_dir, "ior")):
     t_ckpt.load_stage_weights(model, train_dir, t_config.Config(), "ior")
   with pytest.raises(ValueError, match="unknown stage"):
     t_ckpt.load_stage_weights(model, train_dir, t_config.Config(), "nope")

@@ -222,12 +222,19 @@ def test_radiance_stage_freezes_path_sampler():
   optimizer, _, _ = t_step.create_optimizer(port, args_all)
   assert [g["name"] for g in optimizer.param_groups] == [
       "path_sampler", "bkgd_mlp", "coarse_mlp", "fine_mlp"]
+  # The ior stage trains the so3 head alone; the sparsity term trains
+  # nothing new.
   for stage in ("ior", "ior_x"):
-    with pytest.raises(NotImplementedError):
-      t_step.create_optimizer(port, _args(stage, "scan"))
-  with pytest.raises(NotImplementedError):
-    t_step.create_optimizer(port, _args("radiance", "scan",
-                                        sparsity_weight=0.1))
+    optimizer, _, _ = t_step.create_optimizer(port, _args(stage, "scan"))
+    assert [g["name"] for g in optimizer.param_groups] == ["path_sampler"]
+    assert optimizer.param_groups[0]["params"] == list(
+        port.path_sampler.so3_mlp.parameters())
+  optimizer, _, _ = t_step.create_optimizer(
+      port, _args("radiance", "scan", sparsity_weight=0.1))
+  assert [g["name"] for g in optimizer.param_groups] == [
+      "bkgd_mlp", "coarse_mlp", "fine_mlp"]
+  with pytest.raises(ValueError, match="unknown stage"):
+    t_step.create_optimizer(port, _args("nope", "scan"))
 
 
 def test_bf16_mlps_match_jax_bf16():
@@ -326,11 +333,11 @@ def test_train_entry_point_writes_and_resumes(scene, tmp_path):
 
 
 def test_train_refuses_an_unported_dataset(scene, tmp_path, monkeypatch):
-  """An LLFF config stops with NotImplementedError naming the dataset,
-  before training reads any scene file."""
+  """A config naming no scene format stops with ValueError naming the
+  dataset, before training reads any scene file."""
   cfg = fixtures.write_tiny_config(str(tmp_path / "cfg"))
   with open(cfg + ".yaml") as f:
-    text = f.read().replace("dataset: blender", "dataset: llff")
+    text = f.read().replace("dataset: blender", "dataset: colmap")
   with open(cfg + ".yaml", "w") as f:
     f.write(text)
 
@@ -340,7 +347,7 @@ def test_train_refuses_an_unported_dataset(scene, tmp_path, monkeypatch):
   monkeypatch.setattr(t_datasets, "TrainBatches", untouched)
   monkeypatch.setattr(t_datasets, "load_split", untouched)
   monkeypatch.setattr(t_loop, "build_model", untouched)
-  with pytest.raises(NotImplementedError, match="'llff'"):
+  with pytest.raises(ValueError, match="'colmap'"):
     t_loop.main([f"--data_dir={scene}", f"--train_dir={tmp_path / 'out'}",
                  f"--config={cfg}", f"--gin_file={cfg}.gin", "--device=cpu",
                  "--stage=radiance"])
