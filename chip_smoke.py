@@ -46,7 +46,8 @@ Phases, each of which must pass or the script exits non-zero:
      march_full call under torch.cuda.set_sync_debug_mode("error"):
      neither may read back from the card. Then K2 with the so3 head off
      (march_full_plain, K1's template with the full emit) the same way at
-     one ray of the ship's march (extract_mesh's path dump), synth's
+     one ray of the ship's march (extract_mesh's path dump), the ship's
+     radiance batch (a train step with online sparsity), synth's
      ground-truth chunk (8192 rays x 768 steps, its 64^3 grid), glass's
      shape and ball's 8192-ray chunk, held at K2_ATOL (the arclength of
      1536-step marches relative), with its bound (the bytes it writes,
@@ -183,6 +184,27 @@ Phases, each of which must pass or the script exits non-zero:
      path_renders/, five images a frame, no score file), eval of the
      `ior` stage's test views; K1 as the steps and chunks imply; eval
      --render_path=True on a Blender scene must raise ValueError.
+  13. the model options that no shipped config turns on, at ship width
+     (run after phase 11, on its scene): each of OPTION_PATHS (radiance
+     with online sparsity; with IPE on nn.Linear and on the fused MLP;
+     with SH colour and SH direction encoding; with SH direction encoding
+     on the fused MLP; 'all' with IPE and online sparsity; 'all' with
+     online sparsity) for 30 steps from step 80000 at K=1 and K=10 as
+     phase 6b runs them, bit for bit between the two, with steps/s and
+     device ms a step: K2 with the head off must run each online-sparsity
+     radiance step and K1 none, by wrapper and in a traced window; K4 and
+     K5 twice a fused step; with online sparsity gated at 0 (the
+     annealing rate), as shipped, every parameter and Adam moment of each
+     stage's 30 steps bit for bit phase 6b's. The radiance batch's coarse
+     subsample from K2 with the head off gathered at the jitter against
+     K1's in-kernel one (bit for bit, or within K1_ATOL with the largest
+     difference per channel printed); K4 and K5 at IPE's 60 features and
+     the SH direction encoding's 16 condition values against their plain
+     versions (K4 fp32 and bf16, K5 bf16 and fp32, twice, bit for bit);
+     one 'all' step with the spherical residual head on the plain march
+     under autograd (no K1, K2 or K3 launch), its loss card against CPU
+     on 128 rays at 1e-4 relative (its so3 gradients printed against the
+     K3 form, not held: no port kernel on that path).
 The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
@@ -622,7 +644,7 @@ def cross_check_phase(model, view, jitter, rgb_gpu, acc_gpu, n=256):
   t0 = time.time()
   with torch.no_grad():
     out = model(flat, jitter.cpu(), randomized=False,
-                mlp_dtype=torch.float32)[-1]
+                mlp_dtype=torch.float32)[0][-1]
   rgb_cpu, acc_cpu = out[0].numpy(), out[2].numpy()
   e_rgb = float(np.abs(rgb_cpu - rgb_gpu.reshape(-1, 3)[idx]).max())
   e_acc = float(np.abs(acc_cpu - acc_gpu.reshape(-1)[idx]).max())
@@ -1332,10 +1354,11 @@ def profile_train_step(model, args, host, device, step, generators):
                             ProfilerActivity.CUDA]) as prof:
     step_lib.train_step(model, optimizer, batch, args, generator)
     torch.cuda.synchronize()
-  total = step_device_us(prof)
+  events = prof.key_averages()
+  total = step_device_us(events)
   log(f"profile of one {args.stage} train step: {total / 1e3:.3f} ms of "
       f"device time")
-  log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+  log(events.table(sort_by="cuda_time_total", row_limit=15))
   return total / 1e3
 
 
@@ -1559,6 +1582,10 @@ K3_KERNELS = ("k3_pieces", "k3_jacobians", "k3_sweep", "k3_params",
 MARCH_KERNELS = ("march_lean_kernel", "march_so3_kernel",
                  "march_full_plain_kernel") + K3_KERNELS
 TRACE_TRIES = 3
+# What a traced window records: its launches and device time are read
+# from the kernels' records alone, and the host's operator records of
+# eager steps take seconds to gather.
+TRACE_ACTIVITIES = ("CUDA",)
 
 
 def _march_kernels(counts):
@@ -1582,7 +1609,7 @@ def _dispatch_run(sargs, scene, device, seed, hosts, k, span, want):
   K1/K2/K3/head-off wrapper launches during them (the steps run in
   Python: eager and captured), the steps/s of their last `span`, the
   traced windows' {kernel name: launches}, the device ms a step of the
-  last one, and the dispatch."""
+  last one, the dispatch, and the host seconds the traces took."""
   from torch.profiler import ProfilerActivity
   from torch.profiler import profile as tprofile
   ndim, nmin, nmax, grid, bindings = scene
@@ -1605,7 +1632,8 @@ def _dispatch_run(sargs, scene, device, seed, hosts, k, span, want):
         dataset, w[0], w[1], sargs, optimizer, jitter_gen)
 
   batches = prefetch.device_prefetch(next_window, device, stacked=True)
-  stats, prof, traced = [], None, []
+  stats, prof, traced, trace_s = [], None, [], 0.0
+  activities = [getattr(ProfilerActivity, a) for a in TRACE_ACTIVITIES]
   torch.cuda.synchronize()
   _zero_march_counts()
   try:
@@ -1615,8 +1643,8 @@ def _dispatch_run(sargs, scene, device, seed, hosts, k, span, want):
         t0 = time.time()
       if w0 > traced_from and (w0 - traced_from - 1) % span == 0:
         torch.cuda.synchronize()
-        prof = tprofile(activities=[ProfilerActivity.CPU,
-                                    ProfilerActivity.CUDA])
+        t_trace = time.time()
+        prof = tprofile(activities=activities)
         prof.__enter__()
       out = run(batch)
       if w1 <= traced_from:
@@ -1629,8 +1657,10 @@ def _dispatch_run(sargs, scene, device, seed, hosts, k, span, want):
       if prof is not None and (w1 - traced_from) % span == 0:
         torch.cuda.synchronize()
         prof.__exit__(None, None, None)
-        traced.append(kernel_launches(prof, MARCH_KERNELS))
-        device_ms = step_device_us(prof) / 1e3 / span
+        events = prof.key_averages()
+        traced.append(kernel_launches(events, MARCH_KERNELS))
+        device_ms = step_device_us(events) / 1e3 / span
+        trace_s += time.time() - t_trace
         prof = None
         if traced[-1] == want:
           break
@@ -1640,7 +1670,7 @@ def _dispatch_run(sargs, scene, device, seed, hosts, k, span, want):
     if prof is not None:
       prof.__exit__(None, None, None)
   del model, optimizer
-  return stats, state, counts, rate, traced, device_ms, run
+  return stats, state, counts, rate, traced, device_ms, run, trace_s
 
 
 def dispatch_phase(args, scene, device, seed, card):
@@ -1656,7 +1686,8 @@ def dispatch_phase(args, scene, device, seed, card):
   must launch each K times, as K eager steps traced the same way do, and
   no traced window may launch more. Prints steps/s and the device ms of
   a step both ways. Returns {stage: (the wrapper launches of
-  K1/K2/K3/head-off with K, those of one replay in the trace)}."""
+  K1/K2/K3/head-off with K, those of one replay in the trace, the state
+  after the N_DISPATCH steps at K)}."""
   k = args.steps_per_dispatch
   if k < 2 or N_DISPATCH < 2 * k:
     raise SystemExit(f"dispatch: the ship configuration sets "
@@ -1712,7 +1743,8 @@ def dispatch_phase(args, scene, device, seed, card):
       raise SystemExit("dispatch: two steps gave the same loss")
     t = graph[4][-1]
     out[stage] = (graph[2], (t["march_lean_kernel"], t["march_so3_kernel"],
-                             t["k3_sweep"], t["march_full_plain_kernel"]))
+                             t["k3_sweep"], t["march_full_plain_kernel"]),
+                  graph[1])
   return out
 
 
@@ -1894,7 +1926,7 @@ def cut_cross_check(model, data, device, seed):
   trans = []
 
   def record(module, inputs, out):
-    trans.append(out[-1][3].detach().cpu())
+    trans.append(out[0][-1][3].detach().cpu())
 
   def run(dev):
     model.zero_grad(set_to_none=True)
@@ -1932,9 +1964,16 @@ def cut_cross_check(model, data, device, seed):
     raise SystemExit("real-scene cut cpu cross-check failed")
 
 
-def allstep_cross_check(model, args, host, device, seed):
+def allstep_cross_check(model, args, host, device, seed, what="shipped",
+                        hold="cpu"):
   """One 'all' step's loss and so3 gradients on XCHECK_RAYS rays, fp32
-  MLPs, not randomized: the card (K2, K3) against the CPU (plain)."""
+  MLPs, not randomized: the card (K2, K3) against the CPU (plain), and
+  against the plain versions on the card. The loss is held card against
+  CPU; the so3 gradients at the K3 form against the CPU's (hold "cpu")
+  or, where the plain versions alone differ between the devices past it
+  (hold "card"; measured with IPE, whose features scale the paths by up
+  to 2^9), against the plain versions on the card. `what` names the
+  model's options."""
   sub = dict(host)
   sub["rays"] = rays_lib.namedtuple_map(lambda r: r[:XCHECK_RAYS],
                                         host["rays"])
@@ -1984,14 +2023,15 @@ def allstep_cross_check(model, args, host, device, seed):
   secs = time.time() - t0
   rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
   worst = _worst_against(g_gpu, g_cpu, K3_ATOL_SCALE, K3_RTOL)
-  log(f"all-step cpu cross-check: {XCHECK_RAYS} rays in {secs:.1f} s, loss "
+  on_card = _worst_against(g_gpu, g_plain, K3_ATOL_SCALE, K3_RTOL)
+  log(f"all-step cpu cross-check ({what}): {XCHECK_RAYS} rays in "
+      f"{secs:.1f} s, loss "
       f"{loss_gpu:.8f} vs {loss_cpu:.8f} (rel {rel:.3e}, tolerance "
       f"{XCHECK_LOSS_RTOL}), so3 grads at {worst:.3f} of the K3 tolerance")
-  log(f"  the plain versions on the card: so3 grads at "
-      f"{_worst_against(g_gpu, g_plain, K3_ATOL_SCALE, K3_RTOL):.3f} of the "
-      f"K3 tolerance from the kernels', "
+  log(f"  the plain versions on the card: so3 grads at {on_card:.3f} of "
+      f"the K3 tolerance from the kernels', "
       f"{_worst_against(g_plain, g_cpu, K3_ATOL_SCALE, K3_RTOL):.3f} from "
-      f"the CPU's")
+      f"the CPU's; held: {'card' if hold == 'card' else 'CPU'}")
   layers, card_pre, flipped = cross_check_flips(
       paths[0][1].cpu(), card_pre, *paths[1], [p.cpu() for p in so3], alpha)
   n_flips = sum(r["flips"] for r in layers)
@@ -2011,8 +2051,9 @@ def allstep_cross_check(model, args, host, device, seed):
         f" so3 grads at "
         f"{_worst_against(g_gpu, g_replayed, K3_ATOL_SCALE, K3_RTOL):.3f} of "
         f"the K3 tolerance")
-  if not (rel <= XCHECK_LOSS_RTOL and worst <= 1.0):
-    raise SystemExit("all-step cpu cross-check failed")
+  held = on_card if hold == "card" else worst
+  if not (rel <= XCHECK_LOSS_RTOL and held <= 1.0):
+    raise SystemExit(f"all-step cpu cross-check ({what}) failed")
 
 
 def cross_check_flips(g_card, card_pre, pos_cpu, g_cpu, so3_cpu, alpha):
@@ -2173,13 +2214,19 @@ def fused_cross_check(model, args, host, device, seed):
 
 def head_off_cases(device, seed, model, batch_rays):
   """K2 with the head off at the shapes its paths give it: one ray of the
-  ship's 768-step march (extract_mesh's path dump), synth's ground-truth
-  chunk (8192 rays x 768 steps on its 64^3 grid), glass's 1024 rays x 1536
-  steps on the 384^3 grid and ball's 8192 x 1536 on the 256^3 grid."""
+  ship's 768-step march (extract_mesh's path dump), the ship's radiance
+  batch (1024 rays x 768 steps on the 512^3 grid: a train step with
+  online sparsity), synth's ground-truth chunk (8192 rays x 768 steps on
+  its 64^3 grid), glass's 1024 rays x 1536 steps on the 384^3 grid and
+  ball's 8192 x 1536 on the 256^3 grid."""
   ps = model.path_sampler
   cases = [("dump", (ps.spec, ps.grid, batch_rays.origins[:1].contiguous(),
                      batch_rays.viewdirs[:1].contiguous(), ps.near,
-                     ps.step_size, ps.num_samples))]
+                     ps.step_size, ps.num_samples)),
+           ("radiance batch", (ps.spec, ps.grid,
+                               batch_rays.origins.contiguous(),
+                               batch_rays.viewdirs.contiguous(), ps.near,
+                               ps.step_size, ps.num_samples))]
   values = torch.from_numpy(synth.blob_ior_grid()).to(device)
   n = round(values.shape[0] ** (1 / 3))
   spec = grid_ops.GridSpec([n] * 3, [-1.5] * 3, [1.5] * 3)
@@ -2202,7 +2249,7 @@ def head_off_phase(device, seed, model, batch_rays, jitter):
   and its bound; then its positions, directions and arclength against
   K1's dense outputs, bit for bit, at the ship radiance batch. Returns
   the kernel's report row (its times at synth's chunk, its worst error
-  over the four shapes)."""
+  over the five shapes)."""
   times = {}
   for shape, args in head_off_cases(device, seed, model, batch_rays):
     report = march_report(shape, "plain", args)
@@ -2251,7 +2298,7 @@ def head_off_phase(device, seed, model, batch_rays, jitter):
                    bound_ms, bound_by,
                    source="samplenerfro_torch/ops/csrc/march_lean.cu")
   row["device_ms"] = device_ms
-  for shape in ("dump", "glass", "ball chunk"):
+  for shape in ("dump", "radiance batch", "glass", "ball chunk"):
     key = shape.replace(" ", "_")
     row[f"{key}_ms"], row[f"{key}_device_ms"] = times[shape][:2]
   return row
@@ -2569,7 +2616,7 @@ def _ior_run(sargs, scene, device, seed, hosts, k):
         state = _dispatch_state(model, optimizer)
     torch.cuda.synchronize()
     prof.__exit__(None, None, None)
-    device_ms = step_device_us(prof) / 1e3 / IOR_SPAN
+    device_ms = step_device_us(prof.key_averages()) / 1e3 / IOR_SPAN
     prof = None
   finally:
     batches.close()
@@ -2775,12 +2822,399 @@ def llff_phase(device, seed, card):
   return counts, {"radiance_steps_s": rate, "path_rays_s": path_rate}
 
 
+# The model options (phase 13): each path N_DISPATCH steps from TRAIN_FROM
+# at K = 1 and at the ship's K, as phase 6b runs the shipped ones.
+# (name, stage, flag overrides, gin bindings): online sparsity reads the
+# dense grad n (K2 with the head off in radiance); IPE featurizes with 60
+# features and the SH direction encoding gives 16 condition values (K4/K5
+# take both in one path with --mlp_kernel=pallas); SH colour at sh_deg 2
+# needs use_viewdirs off, and the SH direction encoding's width is not
+# the envmap's pos_enc's (the JAX model fails there on the shape), so the
+# paths with it train without the background smoothness term.
+NO_ENVMAP = {"bg_smooth_weight": 0.0}
+FUSED_OPTIONS = ("radiance IPE SH direction pallas", "radiance",
+                 {"mlp_kernel": "pallas", "sh_direnc_deg": 4, **NO_ENVMAP},
+                 {"NerfModel.use_ipe": True})
+IPE_ALL = ("all IPE online sparsity", "all", {"use_online_sparsity": True},
+           {"NerfModel.use_ipe": True})
+OPTION_PATHS = (
+    ("radiance online sparsity", "radiance",
+     {"use_online_sparsity": True}, {}),
+    ("radiance IPE", "radiance", {}, {"NerfModel.use_ipe": True}),
+    FUSED_OPTIONS,
+    ("radiance SH", "radiance",
+     {"sh_deg": 2, "sh_direnc_deg": 4, "use_viewdirs": False, **NO_ENVMAP},
+     {}),
+    IPE_ALL,
+    ("all online sparsity", "all", {"use_online_sparsity": True}, {}),
+)
+# Paths run at the ship's K only, and those whose state is held against
+# phase 6b's (online sparsity gated at 0).
+OPTION_K_ONLY = ("all online sparsity",)
+OPTION_HELD = ("radiance online sparsity", "all online sparsity")
+SPHERICAL = {"VoxMLP.use_direct_output": False}
+
+
+def _option_path(args, scene, device, seed, hosts, k, name, stage, flags,
+                 gin):
+  """One option path at K = 1 (unless in OPTION_K_ONLY) and K = k through
+  _dispatch_run; checks K = 1 bit for bit K = k, the march kernels'
+  wrapper launches and a traced window's, K4/K5's wrapper launches.
+  Returns {k: (steps/s, device ms a step, wrapper march launches, K4/K5
+  launches)} and the state after the N_DISPATCH steps at K = k."""
+  ndim, nmin, nmax, grid, bindings = scene
+  sargs = argparse.Namespace(**{**vars(args), "stage": stage, **flags})
+  oscene = (ndim, nmin, nmax, grid, {**bindings, **gin})
+  online = bool(flags.get("use_online_sparsity"))
+  fused = flags.get("mlp_kernel", "xla") != "xla"
+  if stage == "radiance":
+    per = lambda n: (0, 0, 0, n) if online else (n, 0, 0, 0)
+  else:
+    per = lambda n: (0, n, n, 0)
+  want_traced = _march_kernels(per(k))
+  out, runs = {}, {}
+  for kk in ((k,) if name in OPTION_K_ONLY else (1, k)):
+    mlp_kernel.mlp_fwd.launches = mlp_kernel.mlp_bwd.launches = 0
+    t0 = time.time()
+    run = _dispatch_run(sargs, oscene, device, seed, hosts, kk, k,
+                        want_traced)
+    mlp = (mlp_kernel.mlp_fwd.launches, mlp_kernel.mlp_bwd.launches)
+    torch.cuda.empty_cache()
+    python_steps = (N_DISPATCH + k * len(run[4]) if kk == 1 else 2 * k)
+    want_mlp = (2 * python_steps,) * 2 if fused else (0, 0)
+    want_run = per(N_DISPATCH if kk == 1 else 2 * k)
+    log(f"  {name}, K={kk}: {run[3]:.3f} steps/s, {run[5]:.3f} device ms a "
+        f"step (share {run[3] * run[5] / 1e3:.3f}); wrapper launches "
+        f"K1/K2/K3/head-off {run[2]} (expected {want_run}), K4/K5 {mlp} "
+        f"(expected {want_mlp}); traced windows of {k} steps "
+        f"{[list(t.values()) for t in run[4]]} for {list(want_traced)}; "
+        f"losses {[s.loss for s in run[0][::10]]}; {time.time() - t0:.1f} s "
+        f"({run[7]:.1f} s tracing)")
+    if not all(np.isfinite([s.loss for s in run[0]])):
+      raise SystemExit(f"options {name}: non-finite loss")
+    if run[2] != want_run or mlp != want_mlp:
+      raise SystemExit(f"options {name}: wrapper launches {run[2]}, K4/K5 "
+                       f"{mlp}")
+    if run[4][-1] != want_traced or any(
+        t[n] > want_traced[n] for t in run[4] for n in t):
+      raise SystemExit(f"options {name}: traced launches {run[4]}, "
+                       f"expected {want_traced}")
+    out[kk] = (run[3], run[5], run[2], mlp)
+    runs[kk] = run
+  if 1 in runs:
+    eager, graph = runs[1], runs[k]
+    differ = [key for key in eager[1] if not torch.equal(eager[1][key],
+                                                         graph[1][key])]
+    if differ or eager[0] != graph[0]:
+      raise SystemExit(f"options {name}: K={k} is not K=1 bit for bit: "
+                       f"{differ[:5]}")
+  return out, runs[k][1]
+
+
+def _same_state(name, got, want):
+  """Raise unless two phase-6b-shaped states are equal bit for bit."""
+  differ = [key for key in want if not torch.equal(got[key], want[key])]
+  log(f"  {name}: {len(want)} tensors of state, {len(differ)} differ from "
+      f"the shipped path's (phase 6b, K=10)")
+  if differ or got.keys() != want.keys():
+    raise SystemExit(f"options {name}: gated at 0, the state moved: "
+                     f"{differ[:5]}")
+
+
+def _gathered_subsample(model, rays, jitter):
+  """The coarse subsample two ways at the radiance batch: K1's in-kernel
+  one, and K2 with the head off's dense path gathered at the jitter (the
+  online-sparsity path); their largest difference per channel."""
+  ps = model.path_sampler
+  args = (ps.spec, ps.grid, rays.origins.contiguous(),
+          rays.viewdirs.contiguous(), ps.near, ps.step_size, ps.num_samples)
+  lean = march_kernel.march_lean(*args, jitter)[3:]
+  pos, dirs, dist, _, _ = march_kernel.split_trajectory(
+      march_kernel.march_full_plain(*args))
+  idx = jitter.to(pos.device)
+  full = (pos[:, idx], math_ops.safe_l2_normalize(dirs)[:, idx],
+          dist[:, idx])
+  return [(a - b).abs().reshape(-1, a.shape[-1] if a.dim() == 3 else 1)
+          .amax(dim=0).tolist() for a, b in zip(lean, full)], all(
+              torch.equal(a, b) for a, b in zip(lean, full))
+
+
+def _mlp_check(model, rays, jitter, what, seed):
+  """K4 and K5 against their plain versions at the fine call of the
+  training batch of a model whose MLP inputs are new widths (IPE's 60
+  features, the SH direction encoding's 16 condition values): K4 in fp32
+  and bf16, K5 in bf16 and fp32 (twice, bit for bit), at the K4/K5
+  tolerances, timed beside their bounds. Returns the report rows of the
+  bf16 calls, the train path's."""
+  mlp = model.fine_mlp
+  params = [p.detach() for p in mlp_kernel.mlp_params(mlp)]
+  x, c = capture_mlp_inputs(model, rays, jitter, "pallas")[1]
+  spec = mlp_kernel.mlp_spec(mlp)
+  rows = []
+  for dtype in (torch.float32, torch.bfloat16):
+    got = torch.cat(mlp_kernel.mlp_fwd(spec, params, x, c, dtype), -1)
+    want = torch.cat(mlp_kernel.fused_nerf_mlp_reference(spec, params, x, c,
+                                                         dtype), -1)
+    err = (got - want).abs()
+    e_max, e_mean = float(err.max()), float(err.mean())
+    ok = (e_max <= K4_FP32_ATOL if dtype == torch.float32 else
+          e_max <= K4_BF16_MAX and e_mean <= K4_BF16_MEAN)
+    pack = mlp_kernel.pack_params(params, dtype)
+    ms = cuda_ms(lambda: mlp_kernel.mlp_fwd(spec, params, x, c, dtype,
+                                            pack=pack))
+    plain = cuda_ms(lambda: mlp_kernel.fused_nerf_mlp_reference(
+        spec, params, x, c, dtype), 3)
+    with torch.no_grad():
+      unfused = cuda_ms(lambda: mlp(x, c, dtype=dtype))
+    bound_ms, by, tflop = mlp_bound(spec, x.shape[0], dtype)
+    log(f"  K4 {what} {str(dtype)[6:]} ({x.shape[0]} rows, {x.shape[1]} "
+        f"features, {c.shape[1]} condition): max abs err {e_max:.3e}, mean "
+        f"{e_mean:.3e}; {ms:.4f} ms, plain {plain:.3f} ms, nn.Linear "
+        f"{unfused:.3f} ms, bound {bound_ms:.4f} ms by {by}")
+    if not (ok and np.isfinite(e_max)):
+      raise SystemExit(f"K4 {what} {dtype} disagrees with its plain version")
+    if dtype == torch.bfloat16:  # the train path's
+      rows.append(report_row("mlp_fwd", MLP_KERNEL + ":219", e_max, ms,
+                             plain, bound_ms, by,
+                             case=f"{what}, {str(dtype)[6:]}",
+                             unfused_ms=unfused))
+  gen = torch.Generator().manual_seed(seed + 2)
+  n = x.shape[0]
+  drgb = (1e-3 * torch.randn((n, spec.num_rgb), generator=gen)).to(x.device)
+  dsigma = (1e-3 * torch.randn((n, 1), generator=gen)).to(x.device)
+  for dtype in (torch.bfloat16, torch.float32):
+    args = (spec, params, x, c, drgb, dsigma, dtype)
+    acts = {}
+    mlp_kernel.mlp_fwd(spec, params, x, c, dtype, acts=acts)
+    got = mlp_kernel.mlp_bwd(*args)
+    again = mlp_kernel.mlp_bwd(*args)
+    plain_acts = {}
+    own = k5_worst(got, mlp_kernel.fused_nerf_mlp_bwd_reference(
+        *args, stored=plain_acts), dtype)
+    flips = sum(int(((acts[key] > 0) != (plain_acts[key] > 0)).sum())
+                for key in acts)
+    worst = (k5_worst(got, mlp_kernel.fused_nerf_mlp_bwd_reference(
+        *args, at=acts), dtype) if flips else own)
+    err = max(float((g - w).abs().max()) for g, w in zip(
+        got, mlp_kernel.fused_nerf_mlp_bwd_reference(*args)))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    pack = mlp_kernel.pack_params(params, dtype)
+    ms = cuda_ms(lambda: mlp_kernel.mlp_bwd(*args, pack=pack))
+    plain = cuda_ms(lambda: mlp_kernel.fused_nerf_mlp_bwd_reference(*args),
+                    3)
+
+    def linear_backward():
+      out = mlp(x, c, dtype=dtype)
+      torch.autograd.grad(out, list(mlp.parameters()), (drgb, dsigma))
+
+    unfused = cuda_ms(linear_backward)
+    bound_ms, by, _ = mlp_bound(spec, n, dtype, backward=True)
+    log(f"  K5 {what} {str(dtype)[6:]}: within {worst:.3f} of its tolerance "
+        f"({own:.3f} without replaying K4's {flips} ReLU masks that the "
+        f"plain version sets apart), max abs err {err:.3e}, two runs "
+        f"{'bit for bit' if same else 'DIFFER'}; {ms:.4f} ms, plain "
+        f"{plain:.3f} ms, nn.Linear {unfused:.3f} ms, bound {bound_ms:.4f} "
+        f"ms by {by}")
+    if not (worst <= 1.0 and same):
+      raise SystemExit(f"K5 {what} {dtype} disagrees with its plain version")
+    if dtype == torch.bfloat16:
+      rows.append(report_row("mlp_bwd", MLP_KERNEL + ":246", err, ms,
+                             plain, bound_ms, by,
+                             case=f"{what}, {str(dtype)[6:]}",
+                             unfused_ms=unfused))
+  return rows
+
+
+def _spherical_step(args, scene, device, seed, host, profile=False):
+  """One 'all' step of the ship model with the spherical residual head
+  (VoxMLP.use_direct_output False) on the plain march under autograd
+  (PathSampler.march_all "plain"): a step's host seconds and, with
+  `profile`, the next one's device ms, traced (gathering its ~10^5
+  kernel records takes ~45 s); K1/K2/K3 must not launch. Then its loss and
+  so3 gradients on XCHECK_RAYS rays, fp32 MLPs, card against CPU: the
+  loss held at XCHECK_LOSS_RTOL, the gradients printed against the K3
+  form (no port kernel on the path: cuBLAS against the CPU's BLAS).
+  Returns its figures and the seconds of its pieces."""
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as tprofile
+  t_start = time.time()
+  ndim, nmin, nmax, grid, bindings = scene
+  sargs = argparse.Namespace(**{**vars(args), "stage": "all"})
+  model = nerf.construct_nerf(sargs, ndim, nmin, nmax, grid,
+                              {**bindings, **SPHERICAL}, device=device,
+                              seed=seed)
+  if model.path_sampler.march_all != "plain":
+    raise SystemExit("options: the spherical head must take the plain march")
+  optimizer, _, _ = step_lib.create_optimizer(model, sargs)
+  gen = train_generators(device, seed)
+  batches = [prefetch.to_device(step_batch(
+      host, annealed_alpha(TRAIN_FROM + i, sargs),
+      step_lib.learning_rates(optimizer, TRAIN_FROM + i - 1),
+      nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
+                       gen[1]), sargs), device) for i in (1, 2)]
+  _zero_march_counts()
+  torch.cuda.synchronize()
+  t0 = time.time()
+  stats = step_lib.train_step(model, optimizer, batches[0], sargs, gen[0])
+  torch.cuda.synchronize()
+  secs = time.time() - t0
+  seconds, device_ms = {"spherical step": secs}, None
+  if profile:
+    # Its ~10^5 kernels traced without the host's operator records.
+    t0 = time.time()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+      step_lib.train_step(model, optimizer, batches[1], sargs, gen[0])
+      torch.cuda.synchronize()
+    device_ms = step_device_us(prof.key_averages()) / 1e3
+    del prof
+    seconds["spherical traced step"] = time.time() - t0
+  counts = _march_counts()
+  so3 = float(torch.sqrt(sum((p.grad**2).sum() for p in
+                             model.path_sampler.so3_mlp.parameters())))
+  traced = ("not traced (--profile)" if device_ms is None
+            else f"{device_ms:.3f}")
+  log(f"  all, spherical head (plain march, autograd): {secs:.3f} s a step "
+      f"({1 / secs:.3f} steps/s), {traced} device ms a step; loss "
+      f"{float(stats.loss):.6f}, so3 grad norm {so3:.3e}; launches "
+      f"K1/K2/K3/head-off {counts} (expected (0, 0, 0, 0))")
+  if counts != (0, 0, 0, 0) or not (np.isfinite(so3) and so3 > 0):
+    raise SystemExit(f"options: the spherical head's step launched {counts}"
+                     f", so3 grad norm {so3}")
+  sub = dict(host)
+  sub["rays"] = rays_lib.namedtuple_map(lambda r: r[:XCHECK_RAYS],
+                                        host["rays"])
+  sub["pixels"] = host["pixels"][:XCHECK_RAYS]
+  xargs = argparse.Namespace(**{**vars(sargs), "randomized": False})
+  model.mlp_dtype = torch.float32
+  alpha = annealed_alpha(TRAIN_FROM + 2, sargs)
+  jitter = nerf.make_jitter(args.num_coarse_samples, args.num_path_samples,
+                            torch.Generator().manual_seed(seed))
+
+  def run(dev):
+    model.zero_grad(set_to_none=True)
+    total, _ = step_lib.loss_fn(model, prefetch.to_device(
+        step_batch(sub, alpha, None, jitter, xargs), dev), xargs)
+    total.backward()
+    return float(total.detach()), [
+        p.grad.detach().cpu().clone()
+        for p in model.path_sampler.so3_mlp.params()]
+
+  t0 = time.time()
+  loss_gpu, g_gpu = run(device)
+  seconds["spherical card check"] = time.time() - t0
+  model.to("cpu")
+  t0 = time.time()
+  loss_cpu, g_cpu = run(torch.device("cpu"))
+  cpu_s = seconds["spherical CPU check"] = time.time() - t0
+  del model
+  rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+  worst = _worst_against(g_gpu, g_cpu, K3_ATOL_SCALE, K3_RTOL)
+  log(f"  spherical head, card against CPU on {XCHECK_RAYS} rays ({cpu_s:.1f}"
+      f" s on the CPU): loss {loss_gpu:.8f} vs {loss_cpu:.8f} (rel "
+      f"{rel:.3e}, tolerance {XCHECK_LOSS_RTOL}); so3 grads at {worst:.3f} "
+      f"of the K3 form (printed, not held)")
+  if not rel <= XCHECK_LOSS_RTOL:
+    raise SystemExit("options: the spherical head's card-against-CPU loss")
+  seconds["spherical"] = time.time() - t_start
+  return {"steps_s": 1 / secs, "device_ms": device_ms, "xcheck_rel": rel,
+          "xcheck_so3_k3": worst, "seconds": seconds}
+
+
+def options_phase(args, scene, device, seed, card, dispatch, model, host,
+                  jitter, profile=False):
+  """Phase 13: the model options at ship width. Each of OPTION_PATHS
+  N_DISPATCH steps from TRAIN_FROM at K = 1 (but OPTION_K_ONLY) and
+  K = args.steps_per_dispatch (bit for bit), steps/s of the last 10 (a
+  replay at K) and device ms a step; K2 with the head off runs
+  the online-sparsity radiance step, K1 does not, counted by wrapper and
+  in traced windows; online sparsity, gated at 0 as shipped, leaves the
+  30 steps of each stage bit for bit phase 6b's (its state at K); the
+  head-off path's gathered subsample against K1's in-kernel one; K4/K5
+  at IPE's 60 features and the SH direction encoding's 16 condition
+  values against their plain versions; the IPE 'all' step from its
+  path's state, its loss card against CPU and its so3 gradients the
+  kernels against the plain versions on the card; one 'all' step
+  with the spherical head on the plain march (its device ms with
+  `profile`). Prints the seconds of each piece. Returns the new report rows, the head-off wrapper launches and
+  the figures."""
+  t_phase = time.time()
+  k = args.steps_per_dispatch
+  hosts = [synthetic_batch(args, seed + i)
+           for i in range(N_DISPATCH + TRACE_TRIES * k)]
+  log(f"options ({card}): each path {N_DISPATCH} steps from step "
+      f"{TRAIN_FROM} at K=1 and K={k} (K={k} only: {OPTION_K_ONLY})")
+  figures, seconds, head_off, mlp_launches = {}, {}, 0, {}
+  for name, stage, flags, gin in OPTION_PATHS:
+    t0 = time.time()
+    out, state = _option_path(args, scene, device, seed, hosts, k, name,
+                              stage, flags, gin)
+    figures[name] = {kk: v[:2] for kk, v in out.items()}
+    head_off += sum(v[2][3] for v in out.values())
+    mlp_launches[name] = [sum(v[3][i] for v in out.values())
+                          for i in (0, 1)]
+    if name in OPTION_HELD:
+      _same_state(name, state, dispatch[stage][2])
+    if name == IPE_ALL[0]:
+      ipe_state = state
+    del state
+    torch.cuda.empty_cache()
+    seconds[name] = time.time() - t0
+  ndim, nmin, nmax, grid, bindings = scene
+  batch_rays = rays_lib.namedtuple_map(
+      lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device),
+      host["rays"])
+  t0 = time.time()
+  with torch.no_grad():
+    per, same = _gathered_subsample(model, batch_rays, jitter)
+  log(f"  the radiance batch's coarse subsample, K1 in-kernel against K2 "
+      f"with the head off gathered: {'bit for bit' if same else 'differ'}; "
+      f"max abs err per channel (pos, dir, dist) {per}")
+  if not same and max(max(p) for p in per) > K1_ATOL:
+    raise SystemExit(f"options: the gathered subsample is {per} from K1's")
+  seconds["subsample"] = time.time() - t0
+  t0 = time.time()
+  name, _, flags, gin = FUSED_OPTIONS
+  margs = argparse.Namespace(**{**vars(args), "stage": "radiance", **flags})
+  fused = nerf.construct_nerf(margs, ndim, nmin, nmax, grid,
+                              {**bindings, **gin}, device=device, seed=seed)
+  rows = _mlp_check(fused, batch_rays, jitter,
+                    "train fine call, IPE and SH direction encoding", seed)
+  del fused
+  torch.cuda.empty_cache()
+  for row in rows:
+    row["launches"] = mlp_launches[name][0 if row["name"] == "mlp_fwd"
+                                         else 1]
+  seconds["K4/K5"] = time.time() - t0
+  t0 = time.time()
+  name, stage, flags, gin = IPE_ALL
+  iargs = argparse.Namespace(**{**vars(args), "stage": stage, **flags})
+  ipe = nerf.construct_nerf(iargs, ndim, nmin, nmax, grid,
+                            {**bindings, **gin}, device=device, seed=seed)
+  with torch.no_grad():
+    for n, p in ipe.named_parameters():
+      p.copy_(ipe_state[f"param {n}"])
+  del ipe_state
+  allstep_cross_check(ipe, iargs, host, device, seed, name, hold="card")
+  del ipe
+  torch.cuda.empty_cache()
+  seconds["IPE all-step cross-check"] = time.time() - t0
+  figures["spherical"] = _spherical_step(args, scene, device, seed, hosts[0],
+                                         profile)
+  seconds.update(figures["spherical"].pop("seconds"))
+  secs = time.time() - t_phase
+  log(f"options: {secs:.1f} s; by piece "
+      f"{ {n: round(v, 1) for n, v in seconds.items()} }; figures {figures}")
+  figures["seconds"] = secs
+  return rows, head_off, figures
+
+
 def main():
   p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   p.add_argument("--seed", type=int, default=0)
   p.add_argument("--profile", action="store_true",
                  help="print device time by kernel for one render chunk "
-                 "and one train step of each stage")
+                 "and one train step of each stage, and trace the "
+                 "spherical head's 'all' step")
   ns = p.parse_args()
 
   t_start = time.time()
@@ -2845,7 +3279,10 @@ def main():
     row["dispatch_replay_launches"] = dispatch[stage][1][i]
   k1["ior_val_render_launches"], ior = ior_phase(args, scene, device,
                                                  ns.seed, card, view, jitter)
-  del scene
+  option_rows, head_off["options_launches"], options = options_phase(
+      args, scene, device, ns.seed, card, dispatch, model, host, jitter,
+      ns.profile)
+  del scene, dispatch
   torch.cuda.empty_cache()
   allstep_cross_check(all_model, all_args, host, device, ns.seed)
   del all_model
@@ -2866,16 +3303,17 @@ def main():
   synth_counts, quality = quality_phase(device)
   head_off["quickstart_launches"] = quick["extract"][3]
   head_off["synth_launches"] = synth_counts[3]
-  head_off["launches"] = quick["extract"][3] + synth_counts[3]
+  head_off["launches"] = (quick["extract"][3] + synth_counts[3]
+                          + head_off["options_launches"])
   log(f"quickstart seconds {quick_secs}; quality PSNR {quality['psnr']}, "
       f"SSIM {quality['ssim']}")
   torch.cuda.empty_cache()
   llff_counts, llff = llff_phase(device, ns.seed, card)
   k1["llff_launches"] = sum(c[0] for c in llff_counts.values())
-  log(f"ior figures {ior}; llff figures {llff}")
+  log(f"ior figures {ior}; llff figures {llff}; options figures {options}")
 
   report = probe_rows + [k1, k2, k3, head_off, k4, k4_pe, k4_bf16, k5_bf16,
-                         k5_fp32]
+                         k5_fp32] + option_rows
   log(f"total: {time.time() - t_start:.1f} s")
   log(f"card: {card}")
   print(json.dumps({"kernels": report}))

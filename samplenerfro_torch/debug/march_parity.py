@@ -108,22 +108,24 @@ def device_us(event, self_only=False):
   raise SystemExit("torch.profiler reports no device time")
 
 
-def step_device_us(prof):
-  """The device time of a profile: its kernels' and copies' own time, as
-  the profiler's table sums it (user annotations on the device's
-  timeline, such as the optimizer's step, span kernels counted already)."""
-  return sum(device_us(e, self_only=True) for e in prof.key_averages()
+def step_device_us(events):
+  """The device time of a profile's `key_averages()`: its kernels' and
+  copies' own time, as the profiler's table sums it (user annotations on
+  the device's timeline, such as the optimizer's step, span kernels
+  counted already)."""
+  return sum(device_us(e, self_only=True) for e in events
              if e.device_type == DeviceType.CUDA
              and not getattr(e, "is_user_annotation", False))
 
 
-def kernel_launches(prof, names):
-  """{name: launches of the kernel `name` in a profile}: its device
-  records, kernels captured in a CUDA graph included (each replay records
-  its kernels), matched by the function's name."""
+def kernel_launches(events, names):
+  """{name: launches of the kernel `name` in a profile's
+  `key_averages()`}: its device records, kernels captured in a CUDA graph
+  included (each replay records its kernels), matched by the function's
+  name."""
   pats = {n: re.compile(r"(^|[\s:])" + n + r"[(<]") for n in names}
   out = dict.fromkeys(names, 0)
-  for e in prof.key_averages():
+  for e in events:
     if e.device_type != DeviceType.CUDA:
       continue
     for n, pat in pats.items():
@@ -420,7 +422,8 @@ def step_rates(args, scene, device, seed, host, steps):
       windows.append((n, time.time() - t0))
       first += n
     rate = steps / sum(t for _, t in windows)
-    log(f"{stage} step: {step_device_us(prof) / 1e3:.3f} ms of device time, "
+    step_ms = step_device_us(prof.key_averages()) / 1e3
+    log(f"{stage} step: {step_ms:.3f} ms of device time, "
         f"{rate:.3f} steps/s (wall, {steps} steps; by quarter "
         f"{[round(n / t, 3) for n, t in windows]})")
     del model, optimizer

@@ -63,7 +63,7 @@ def make_render_fn(model, jitter):
   """
   def render_fn(rays):
     return model(rays, jitter, randomized=False,
-                 mlp_dtype=torch.float32)[-1]
+                 mlp_dtype=torch.float32)[0][-1]
   return render_fn
 
 

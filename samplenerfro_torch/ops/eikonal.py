@@ -1,13 +1,17 @@
 """Eikonal curved-ray marching through a voxelized IOR field.
 
 Counterpart of samplenerfro_tpu/ops/eikonal.py:22-107: the grid gradient
-bends the ray and, in the 'all' stage, a learned so3 rotation refines it.
+bends the ray and, in the 'all' stage, the learned head refines it (the
+shipped so3 rotation, or the spherical residual).
 A Python loop over steps, differentiable by autograd; it is the plain
 version of the CUDA march kernels (ops/march_kernel.py) and of the
 reverse sweep (ops/eikonal_vjp.py).
 """
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from samplenerfro_torch.ops import grid as grid_ops
 from samplenerfro_torch.ops import math as math_ops
@@ -27,6 +31,20 @@ def rodrigues_rotate(raw_out, condition):
   cos_t = torch.cos(theta)
   return a * (cos_t * v + torch.sin(theta) * torch.cross(e, v, dim=-1)
               + (1 - cos_t) * (e * v).sum(dim=-1, keepdim=True) * e)
+
+
+def spherical_residual(raw_out, condition):
+  """The residual head without direct output: condition plus an offset of
+  radius softplus(raw_2 - 1) in the direction of spherical angles
+  theta = pi tanh(raw_0), phi = pi tanh(raw_1)
+  (samplenerfro_tpu/ops/eikonal.py:38-51)."""
+  theta = torch.tanh(raw_out[..., 0:1]) * math.pi
+  phi = torch.tanh(raw_out[..., 1:2]) * math.pi
+  r = F.softplus(raw_out[..., 2:3] - 1.0)
+  offset = torch.cat([torch.sin(phi) * torch.cos(theta),
+                      torch.sin(phi) * torch.sin(theta),
+                      torch.cos(phi)], dim=-1) * r
+  return offset + condition
 
 
 def march(spec, data, origins, directions, near, step_size, num_samples,
@@ -59,8 +77,9 @@ def march(spec, data, origins, directions, near, step_size, num_samples,
   rt = torch.full(origins.shape[:-1], near, dtype=origins.dtype,
                   device=origins.device)
   # `float / tensor` would compute step_size * reciprocal(n); a tensor
-  # numerator keeps the true division the kernel and JAX do.
-  h = torch.tensor(step_size, dtype=origins.dtype, device=origins.device)
+  # numerator keeps the true division the kernel and JAX do. A fill, not a
+  # copy from the host, so that a CUDA graph can capture the march.
+  h = torch.full((), step_size, dtype=origins.dtype, device=origins.device)
   outs = []
   for _ in range(num_samples):
     interp = grid_ops.trilinear(spec, data, rp)

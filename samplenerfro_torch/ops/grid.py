@@ -8,6 +8,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from samplenerfro_torch.ops import math as math_ops
+
 
 class GridSpec:
   """Static description of a voxel grid's domain."""
@@ -35,8 +37,8 @@ class GridSpec:
     turned into a multiply by its reciprocal, which rounds differently from
     the CUDA kernels and the JAX package.
     """
-    return (torch.tensor(self.nmin, dtype=torch.float32, device=device),
-            torch.tensor(self.ndelta, dtype=torch.float32, device=device))
+    return (math_ops.constant(self.nmin, torch.float32, device),
+            math_ops.constant(self.ndelta, torch.float32, device))
 
 
 def trilinear(spec, data, pts):
@@ -58,7 +60,7 @@ def trilinear(spec, data, pts):
   frac = c - c0f
   xd, yd, zd = frac[..., 0:1], frac[..., 1:2], frac[..., 2:3]
   c0 = c0f.to(torch.int64)
-  hi = torch.tensor([nx - 1, ny - 1, nz - 1], device=pts.device)
+  hi = math_ops.constant((nx - 1, ny - 1, nz - 1), torch.int64, pts.device)
   i0 = torch.minimum(torch.clamp(c0, min=0), hi)
   i1 = torch.minimum(torch.clamp(c0 + 1, min=0), hi)
   x0, y0, z0 = i0.unbind(-1)

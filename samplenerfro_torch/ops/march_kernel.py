@@ -315,12 +315,63 @@ def so3_window(alpha, max_deg):
                                        alpha * max_deg)
 
 
-def so3_refine_fn(so3_params, alpha, max_deg):
-  """(p, g) -> refined g of the shipped so3 head (annealed PE from degree
-  0, skip-MLP, Rodrigues residual), as the plain march calls it."""
+class So3Head(typing.NamedTuple):
+  """The so3 head's configuration (gin VoxMLP.*,
+  samplenerfro_tpu/models/path_sampler.py:161-180). The default is the
+  shipped head, the one K2 and K3 compute: the annealed PE from degree 0
+  and the Rodrigues residual."""
+  annealed: bool = True
+  use_residual: bool = True
+  use_direct_output: bool = True
+  normalized: bool = False
+
+  def in_dim(self, max_deg):
+    """The MLP's input width: the annealed PE's 6 max_deg, or the legacy
+    pos_enc's 3 + 6 max_deg."""
+    return 6 * max_deg if self.annealed else 3 + 6 * max_deg
+
+  def check(self):
+    """Raise NotImplementedError where the JAX head's _apply_head does."""
+    if self.use_residual and self.normalized:
+      raise NotImplementedError("VoxMLP.normalized = True with "
+                                "VoxMLP.use_residual = True has no head")
+    if not self.use_residual and not (self.normalized
+                                      and self.use_direct_output):
+      raise NotImplementedError(
+          "VoxMLP.use_residual = False needs VoxMLP.normalized = True and "
+          "VoxMLP.use_direct_output = True")
+
+
+SHIPPED_HEAD = So3Head()
+
+
+def so3_embed(head, p, alpha, max_deg):
+  """The head's input encoding of points p [..., 3] (_embed,
+  samplenerfro_tpu/models/path_sampler.py:161-167)."""
+  if head.annealed:
+    return math_ops.annealed_pos_enc(p, 0, max_deg, alpha * max_deg)
+  return math_ops.pos_enc(p, 0, max_deg, legacy_posenc_order=True)
+
+
+def so3_apply_head(head, raw, g):
+  """The refined gradient from the MLP's raw output and the grid gradient
+  g (_apply_head, samplenerfro_tpu/models/path_sampler.py:169-180)."""
+  head.check()
+  if head.use_residual:
+    if head.use_direct_output:
+      return eik_ops.rodrigues_rotate(raw, g)
+    return eik_ops.spherical_residual(raw, g)
+  return (torch.linalg.norm(g + 1e-6, dim=-1, keepdim=True)
+          * math_ops.safe_l2_normalize(raw))
+
+
+def so3_refine_fn(so3_params, alpha, max_deg, head=SHIPPED_HEAD):
+  """(p, g) -> refined g of the so3 head (its PE, the skip-MLP and its
+  output head), as the plain marches call it."""
   def refine(p, g):
-    x = math_ops.annealed_pos_enc(p, 0, max_deg, alpha * max_deg)
-    return eik_ops.rodrigues_rotate(mlp_ops.apply_params(so3_params, x), g)
+    raw = mlp_ops.apply_params(so3_params, so3_embed(head, p, alpha,
+                                                     max_deg))
+    return so3_apply_head(head, raw, g)
   return refine
 
 

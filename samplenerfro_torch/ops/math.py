@@ -24,6 +24,20 @@ def safe_log(x, eps=1e-6):
   return torch.log(torch.clamp(x, min=eps))
 
 
+def _safe_trig(x, fn, t=100 * math.pi):
+  return fn(torch.where(x.abs() < t, x, torch.remainder(x, t)))
+
+
+def safe_sin(x):
+  """sin with range reduction past 100 pi (samplenerfro_tpu/ops/math.py:
+  38-48)."""
+  return _safe_trig(x, torch.sin)
+
+
+def safe_cos(x):
+  return _safe_trig(x, torch.cos)
+
+
 def pos_enc(x, min_deg, max_deg, legacy_posenc_order=False, amp=1.0):
   """Concatenate x with sinusoidal features at scales 2^[min_deg, max_deg).
 
@@ -32,7 +46,7 @@ def pos_enc(x, min_deg, max_deg, legacy_posenc_order=False, amp=1.0):
   """
   if min_deg == max_deg:
     return x
-  scales = _scales(min_deg, max_deg, x.dtype, x.device)
+  scales = pe_scales(min_deg, max_deg, x.dtype, x.device)
   lead = list(x.shape[:-1])
   if legacy_posenc_order:
     xb = x[..., None, :] * scales[:, None]
@@ -45,12 +59,17 @@ def pos_enc(x, min_deg, max_deg, legacy_posenc_order=False, amp=1.0):
 
 
 @functools.lru_cache(maxsize=None)
-def _scales(min_deg, max_deg, dtype, device):
-  """The [2^min_deg, ..., 2^(max_deg-1)] of pos_enc on `device`, made once
-  per device by the first (eager) call: a CUDA graph cannot capture the
-  copy from the host that makes them."""
-  return torch.tensor([2.0**i for i in range(min_deg, max_deg)], dtype=dtype,
-                      device=device)
+def constant(values, dtype, device):
+  """The tensor of a tuple of numbers on `device`, made once per device by
+  the first (eager) call: a CUDA graph cannot capture the copy from the
+  host that makes it. Callers must not write to it."""
+  return torch.tensor(values, dtype=dtype, device=device)
+
+
+def pe_scales(min_deg, max_deg, dtype, device):
+  """The [2^min_deg, ..., 2^(max_deg-1)] of pos_enc on `device`."""
+  return constant(tuple(2.0**i for i in range(min_deg, max_deg)), dtype,
+                  device)
 
 
 def pe_cols(p, deg):
@@ -87,7 +106,7 @@ def annealed_pos_enc(x, min_deg, max_deg, alpha, amp=1.0):
   """
   if min_deg == max_deg:
     return x
-  scales = _scales(min_deg, max_deg, x.dtype, x.device)
+  scales = pe_scales(min_deg, max_deg, x.dtype, x.device)
   xb = x[..., None, :] * scales[:, None]
   window = cosine_easing_window(min_deg, max_deg - 1, max_deg - min_deg,
                                 alpha).to(x.device)[:, None]

@@ -3,14 +3,20 @@
     python -m samplenerfro_torch.tools.validate_quality [--steps 2000] \
         [--batching single_image|tile] [--tile_stride 1] [--tile_images] \
         [--batch_size 1024] [--mlp_dtype float32|bfloat16] \
-        [--all_steps 0] [--workdir DIR] [--skip_scene] [--device cuda]
+        [--all_steps 0] [--ipe] [--seed 0] [--workdir DIR] [--skip_scene] \
+        [--device cuda]
 
 The port's counterpart of scripts/validate_quality.py: writes the scene
 (tools/synth.make_scene at its defaults) unless it exists, trains the
 radiance stage for --steps through `python -m samplenerfro_torch.train`'s
 main, evaluates the test views through eval's main, and prints
-`RESULT <tag>: PSNR = <mean>, SSIM = <mean>`. With --all_steps the `all`
-stage starts from the radiance stage's checkpoint (a copy of its
+`RESULT <tag>: PSNR = <mean>, SSIM = <mean>`. --ipe featurizes the
+samples with mip-NeRF's integrated positional encoding
+(`NerfModel.use_ipe = True` in the gin file, as the JAX script writes it)
+and tags the run `_ipe`. --seed seeds the weights, the batches, the
+density noise and the jitters (train's and eval's --seed) and tags the
+run `_s<seed>`; 0 keeps the draws of a run without it. With --all_steps
+the `all` stage starts from the radiance stage's checkpoint (a copy of its
 directory), trains that many more steps, and is scored the same way. A
 finished radiance stage (its checkpoint and psnr.txt) is reused, as the JAX
 script reuses it. The config is the JAX script's text (CONFIG_YAML, GIN)
@@ -99,6 +105,10 @@ def parse_args(argv=None):
                                       "samplenerfro_quality"))
   p.add_argument("--skip_scene", action="store_true",
                  help="do not write the scene, even where it is missing")
+  p.add_argument("--ipe", action="store_true",
+                 help="mip-NeRF IPE featurization (NerfModel.use_ipe)")
+  p.add_argument("--seed", type=int, default=0,
+                 help="seed of the weights, batches, noise and jitters")
   p.add_argument("--device", default=None, help="cuda (default) or cpu")
   return p.parse_args(argv)
 
@@ -113,6 +123,10 @@ def run_tag(args):
     tag += f"_ts{args.tile_stride}"
   if args.tile_images:
     tag += "_timg"
+  if args.ipe:
+    tag += "_ipe"
+  if args.seed:
+    tag += f"_s{args.seed}"
   return tag
 
 
@@ -128,6 +142,8 @@ def write_config(args, cfg_base):
     f.write(f"mlp_dtype: {args.mlp_dtype}\n")
   with open(cfg_base + ".gin", "w") as f:
     f.write(GIN)
+    if args.ipe:
+      f.write("NerfModel.use_ipe = True\n")
 
 
 def _read(pth):
@@ -155,7 +171,8 @@ def main(argv=None):
   common = [f"--data_dir={data_dir}", f"--train_dir={train_dir}",
             f"--config={cfg_base}", f"--gin_file={cfg_base}.gin",
             f"--tile_stride={args.tile_stride}",
-            f"--tile_images={str(args.tile_images).lower()}"]
+            f"--tile_images={str(args.tile_images).lower()}",
+            f"--seed={args.seed}"]
   if args.device is not None:
     common.append(f"--device={args.device}")
 

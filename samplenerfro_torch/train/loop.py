@@ -23,7 +23,8 @@ train jitters are drawn ahead on the prefetch thread), and its PSNR and
 SSIM printed.
 The `ior` and `all` stages start from --params_npz or weights drawn from
 --seed, as train.py starts them from its initialisation; eval then reads
-what this writes.
+what this writes. --seed also offsets the seeds of the batches, the
+noise, the jitters and the validation renders (0 keeps train.py's).
 
 --steps_per_dispatch=K runs K steps a dispatch, as train.py:115-128 and
 181-221 do: dispatch windows align to the K grid (a resume from an
@@ -164,7 +165,8 @@ def main(argv=None):
                  help="initial weights (models/convert.py's format)")
   p.add_argument("--device", default=None, help="cuda (default) or cpu")
   p.add_argument("--seed", type=int, default=0,
-                 help="seed of the initial weights")
+                 help="seed of the initial weights, and offset of the "
+                 "batch, noise, jitter and validation seeds (0: train.py's)")
   ns, rest = p.parse_known_args(argv)
 
   device = resolve_device(ns.device)
@@ -182,20 +184,24 @@ def main(argv=None):
                       ns.params_npz)
   grid = None
   if args.stage.startswith("ior"):
-    dataset = model_grid(model, args, np.random.RandomState(DATA_SEED))
+    dataset = model_grid(model, args,
+                         np.random.RandomState(DATA_SEED + ns.seed))
   else:
-    dataset = datasets.TrainBatches(args, np.random.RandomState(DATA_SEED))
+    dataset = datasets.TrainBatches(
+        args, np.random.RandomState(DATA_SEED + ns.seed))
     if step_lib.needs_grid(args):
-      grid = model_grid(model, args, np.random.RandomState(GRID_SEED))
+      grid = model_grid(model, args,
+                        np.random.RandomState(GRID_SEED + ns.seed))
   optimizer, lr_fn, _ = step_lib.create_optimizer(model, args)
   stage_dir = os.path.join(ns.train_dir, args.stage)
   os.makedirs(stage_dir, exist_ok=True)
   init_step = checkpoints.restore_checkpoint(stage_dir, model, optimizer) + 1
   if isinstance(dataset, datasets.TrainBatches):
     dataset.train_it = init_step - 1
-  generator = torch.Generator(device=device).manual_seed(NOISE_SEED)
-  jitter_gen = torch.Generator().manual_seed(NOISE_SEED)
-  val_gen = torch.Generator().manual_seed(VAL_SEED)
+  generator = torch.Generator(device=device).manual_seed(
+      NOISE_SEED + ns.seed)
+  jitter_gen = torch.Generator().manual_seed(NOISE_SEED + ns.seed)
+  val_gen = torch.Generator().manual_seed(VAL_SEED + ns.seed)
   train_step = step_lib.make_train_step_multi(model, optimizer, args, k,
                                               generator)
 

@@ -7,9 +7,11 @@ the weight-L2 term; the `ior` stage's is the weight-L2 term alone. The
 sparsity and normal terms, computed on the boundary points of
 data/datasets.Grid, are multiplied by `annealing_rate = 0.0` as in the
 JAX step (:204-206): they reach the total and Stats as zeros, and their
-gradients are zeros. The beta term is gated the same way and not
-computed. So an `ior` step with weight_decay_mult 0 (every shipped
-config) leaves every parameter and Adam moment where it was.
+gradients are zeros. With use_online_sparsity the sparsity term is the
+model's online one (models/nerf.py), gated the same way. The beta term is
+gated the same way and not computed. So an `ior` step with
+weight_decay_mult 0 (every shipped config) leaves every parameter and
+Adam moment where it was.
 
 Param groups follow `param_labels_for_stage`: a "zero" group is left out
 of the optimizer (optax.set_to_zero), every other group is an Adam group
@@ -334,8 +336,9 @@ def loss_fn(model, batch, args, generator=None):
   # The background terms count once annealing has begun; a device tensor,
   # so that deciding reads nothing back.
   gate = (alpha > 0).to(torch.float32)
-  ret = model(batch["rays"], batch["jitter"], randomized=args.randomized,
-              generator=generator, annealed_alpha=alpha)
+  ret, online_sp = model(batch["rays"], batch["jitter"],
+                         randomized=args.randomized, generator=generator,
+                         annealed_alpha=alpha)
   if len(ret) not in (1, 2):
     raise ValueError("ret should contain 1 (coarse) or 2 (coarse+fine) sets "
                      "of outputs.")
@@ -353,8 +356,12 @@ def loss_fn(model, batch, args, generator=None):
   else:
     loss_c, psnr_c = zero, zero
 
+  # With online sparsity the model's own term (its samples' log alpha
+  # where |grad n| > 1e-6) takes the offline term's place, gated alike.
   loss_sp, next_cat, next_fat = zero, 0.0, 0.0
-  if uses_sparsity(args):
+  if args.use_online_sparsity:
+    loss_sp = online_sp
+  elif uses_sparsity(args):
     loss_sp, next_cat, next_fat = model.compute_sparsity_loss(
         batch["pts"], 0.0, 0.0)
   loss_nrm = zero

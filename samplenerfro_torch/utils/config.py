@@ -57,7 +57,9 @@ IGNORED_FLAGS = {
     # there is no VMEM window to size, refetch, calibrate or police, and no
     # choice between the scan, tiled and fused marchers to make.
     "march_mode": "one CUDA march per stage",
-    "march_emit": "K1 always emits lean in radiance, K2 the full path in all",
+    "march_emit": ("the consumer decides: radiance emits lean (K1) unless "
+                   "online sparsity reads the dense grad n (K2 with the "
+                   "head off), 'all' the full path"),
     "march_window": "no grid window",
     "march_refetch": "no grid window",
     "march_oow_action": "no grid window, so nothing is ever clamped",

@@ -320,7 +320,7 @@ def test_cuda_render_matches_cpu(cuda_device):
                                 seed=0)
     with torch.no_grad():
       # The jitter stays on the host, where march_lean checks it.
-      ret = model(Rays(*[r.to(dev) for r in rays]), jitter)
+      ret, _ = model(Rays(*[r.to(dev) for r in rays]), jitter)
     outs.append([[x.cpu() for x in level] for level in ret])
   for g_level, w_level in zip(*outs):
     for g, w in zip(g_level, w_level):
@@ -813,7 +813,8 @@ def _dispatch_run(device, stage, k, mlp_kernel_name, want, steps=9,
     if prof is not None and (w1 - last) % 3 == 0:
       torch.cuda.synchronize()
       prof.__exit__(None, None, None)
-      traced.append(list(kernel_launches(prof, DISPATCH_KERNELS).values()))
+      traced.append(list(kernel_launches(prof.key_averages(),
+                                         DISPATCH_KERNELS).values()))
       prof = None
       if traced[-1] == want:
         break
@@ -909,3 +910,158 @@ def test_ior_graph_matches_eager_steps(cuda_device, wdm):
   else:
     assert moved and all("so3_mlp" in key for key in moved)
   assert {s.loss_nrm for s in eager} == {0.0}
+
+
+# The model options on the card: (stage, flags, gin) of each path.
+OPTION_CASES = {
+    "radiance_online_sparsity": ("radiance", {"use_online_sparsity": True},
+                                 {}),
+    "radiance_ipe_pallas": ("radiance", {"mlp_kernel": "pallas"},
+                            {"NerfModel.use_ipe": True}),
+    "radiance_sh": ("radiance", {"sh_deg": 2, "sh_direnc_deg": 4,
+                                 "use_viewdirs": False,
+                                 "bg_smooth_weight": 0.0}, {}),
+    "all_ipe_online_sparsity": ("all", {"use_online_sparsity": True},
+                                {"NerfModel.use_ipe": True}),
+    "all_spherical_head": ("all", {}, {"VoxMLP.use_direct_output": False}),
+}
+
+
+def _option_run(device, stage, k, flags, gin, steps=6):
+  """`steps` train steps from step 4 of a tiny seeded model with the
+  option's flags and gin bindings, k a dispatch: (their Stats, parameters
+  and Adam state after them, the launches of K1, K2, K3, K2 with the
+  head off, K4 and K5 through their wrappers)."""
+  from samplenerfro_torch.data import prefetch
+  from samplenerfro_torch.ops import mlp_kernel
+  from samplenerfro_torch.train import loop
+  from samplenerfro_torch.train import step as step_lib
+  overrides = dict(
+      stage=stage, net_depth=2, net_width=128, net_width_condition=128,
+      num_coarse_samples=8, num_path_samples=4, num_fine_samples=16,
+      max_deg_point=4, use_online_sparsity=False, white_bkgd=False,
+      bg_weight=0.025, bg_smooth_weight=1.0, bg_patch_size=4,
+      anneal_delay_steps=1, anneal_max_steps=20, lr_delay_steps=2,
+      mlp_dtype="bfloat16")
+  overrides.update(flags)
+  args, _, _ = config_lib.load_args(None, **overrides)
+  values, ndim, nmin, nmax = grid_io.synthetic_blob_grid(32, 1.5, 0.33)
+  model = nerf.construct_nerf(args, ndim, nmin, nmax, values, gin,
+                              device=device, seed=0)
+  optimizer, _, _ = step_lib.create_optimizer(model, args)
+  run = step_lib.make_train_step_multi(
+      model, optimizer, args, k,
+      torch.Generator(device=device).manual_seed(3))
+  jitter_gen = torch.Generator().manual_seed(4)
+
+  def host(i):
+    _, _, o, d, _ = _march_inputs(64, seed=i)
+    env = d[:16].reshape(4, 4, 3).copy()
+    return {"pixels": np.random.RandomState(i).rand(64, 3).astype(
+                np.float32),
+            "rays": Rays(o, d, d, np.full((64, 1), 1e-3, np.float32)),
+            "env_rays": Rays(env, env, env,
+                             np.full((4, 4, 1), 1e-3, np.float32))}
+
+  dataset = iter([host(i) for i in range(steps)])
+  wrappers = (march_kernel.march_lean, march_kernel.march_full,
+              eikonal_vjp.march_bwd, march_kernel.march_full_plain,
+              mlp_kernel.mlp_fwd, mlp_kernel.mlp_bwd)
+  before = [w.launches for w in wrappers]
+  stats = []
+  for w0, w1 in loop.dispatch_windows(4, 3 + steps, k):
+    stats += run(prefetch.to_device(
+        loop.host_window(dataset, w0, w1, args, optimizer, jitter_gen),
+        device)).per_step()
+  torch.cuda.synchronize()
+  state = {f"p.{n}": p.detach().clone() for n, p in model.named_parameters()}
+  for i, s in optimizer.state_dict()["state"].items():
+    state.update({f"{i}.{n}": torch.as_tensor(t).clone()
+                  for n, t in s.items()})
+  return stats, state, [w.launches - b for w, b in zip(wrappers, before)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(OPTION_CASES))
+def test_cuda_option_path_graph_matches_eager_steps(cuda_device, case):
+  """Each option's train step, 3 a dispatch (an eager window, then a CUDA
+  graph) against one at a time, bit for bit; launched through the
+  kernels the JAX package would use: online sparsity's radiance step K2
+  with the head off and not K1, the spherical head's 'all' step neither
+  K2 nor K3 (its plain march), IPE with --mlp_kernel=pallas K4 and K5 at
+  60 features."""
+  stage, flags, gin = OPTION_CASES[case]
+  eager, e_state, e_launches = _option_run(cuda_device, stage, 1, flags, gin)
+  graph, g_state, g_launches = _option_run(cuda_device, stage, 3, flags, gin)
+  assert graph == eager
+  assert all(np.isfinite(s.loss) for s in graph)
+  assert e_state.keys() == g_state.keys()
+  for key in e_state:
+    assert torch.equal(e_state[key], g_state[key]), key
+  online = bool(flags.get("use_online_sparsity"))
+  fused = flags.get("mlp_kernel") == "pallas"
+  if stage == "radiance":
+    per = [0, 0, 0, 1] if online else [1, 0, 0, 0]
+  else:
+    shipped_head = "VoxMLP.use_direct_output" not in gin
+    per = [0, 1, 1, 0] if shipped_head else [0, 0, 0, 0]
+  per += [2, 2] if fused else [0, 0]
+  assert e_launches == [6 * n for n in per]
+  assert g_launches == [6 * n for n in per]  # 3 eager, 3 captured
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["radiance", "all"])
+def test_cuda_gated_online_sparsity_moves_no_bit(cuda_device, stage):
+  """Online sparsity, gated at 0 by the annealing rate as shipped, leaves
+  6 steps (3 a dispatch) bit for bit the steps without it; in radiance
+  its march is K2 with the head off, whose gathered subsample is K1's."""
+  _, off, _ = _option_run(cuda_device, stage, 3, {}, {})
+  _, on, _ = _option_run(cuda_device, stage, 3,
+                         {"use_online_sparsity": True,
+                          "sparsity_weight": 0.1}, {})
+  assert off.keys() == on.keys()
+  for key in off:
+    assert torch.equal(off[key], on[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("feat,cond", [(60, 27), (63, 16)])
+def test_cuda_fused_mlp_at_option_widths(cuda_device, feat, cond, dtype):
+  """K4 and K5 at the input widths the options give them: IPE's 60
+  features, the SH direction encoding's 16 condition values; against
+  their plain versions at the tolerances above, K5 twice, bit for bit."""
+  from samplenerfro_torch.models import mlp as mlp_modules
+  from samplenerfro_torch.ops import mlp_kernel
+  n = 4096
+  gen = torch.Generator().manual_seed(5)
+  mlp = mlp_modules.NerfMLP(feat, cond, net_depth=8, net_width=256,
+                            net_width_condition=128, skip_layer=4,
+                            generator=gen)
+  assert mlp_kernel.supports(feat, cond, 8, 256, 4, 1, 128, 3, 1)
+  spec = mlp_kernel.mlp_spec(mlp)
+  params = [p.detach().to(cuda_device) for p in mlp_kernel.mlp_params(mlp)]
+  x = torch.sin(3 * torch.randn((n, feat), generator=gen)).to(cuda_device)
+  c = torch.sin(3 * torch.randn((n, cond), generator=gen)).to(cuda_device)
+  got = torch.cat(mlp_kernel.mlp_fwd(spec, params, x, c, dtype), -1)
+  want = torch.cat(mlp_kernel.fused_nerf_mlp_reference(spec, params, x, c,
+                                                       dtype), -1)
+  err = (got - want).abs()
+  if dtype == torch.float32:
+    assert float(err.max()) <= K4_FP32_ATOL
+  else:
+    assert float(err.max()) <= K4_BF16_MAX
+    assert float(err.mean()) <= K4_BF16_MEAN
+  drgb = (0.1 * torch.randn((n, 3), generator=gen)).to(cuda_device)
+  dsigma = (0.1 * torch.randn((n, 1), generator=gen)).to(cuda_device)
+  args = (spec, params, x, c, drgb, dsigma, dtype)
+  g5 = mlp_kernel.mlp_bwd(*args)
+  assert all(torch.equal(a, b) for a, b in zip(g5,
+                                                 mlp_kernel.mlp_bwd(*args)))
+  acts, plain_acts = {}, {}
+  mlp_kernel.mlp_fwd(spec, params, x, c, dtype, acts=acts)
+  want = mlp_kernel.fused_nerf_mlp_bwd_reference(*args, stored=plain_acts)
+  if any(bool(((acts[k] > 0) != (plain_acts[k] > 0)).any()) for k in acts):
+    want = mlp_kernel.fused_nerf_mlp_bwd_reference(*args, at=acts)
+  _assert_mlp_grads(g5, want, 1e-4 if dtype == torch.float32 else 2e-2)

@@ -127,8 +127,8 @@ def test_fused_render_matches_jax(jax_fused, monkeypatch, mlp_kernel_name,
         else None)
   assert jax_fused == [pe, pe]
   with torch.no_grad():
-    got = port(ttt._torch_batch(b)["rays"], ttt._jitter(rng, args),
-               annealed_alpha=0.5)
+    got, _ = port(ttt._torch_batch(b)["rays"], ttt._jitter(rng, args),
+                  annealed_alpha=0.5)
   assert port_calls == [pe, pe]
   tol = 1e-4 if mlp_dtype == "float32" else 2e-3
   for level, (g_level, w_level) in enumerate(zip(got, ret)):
@@ -182,7 +182,7 @@ def test_all_stage_keeps_linear_layers(monkeypatch):
                                  device="cpu", seed=0)
     calls = _port_calls(monkeypatch)
     with torch.no_grad():
-      outs[kernel] = port(rays, jitter, annealed_alpha=0.5)
+      outs[kernel] = port(rays, jitter, annealed_alpha=0.5)[0]
     assert calls == []
   for g_level, w_level in zip(outs["pallas"], outs["xla"]):
     for g, w in zip(g_level, w_level):

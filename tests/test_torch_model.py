@@ -80,8 +80,9 @@ def test_render_slice_matches_jax(march_mode):
   jitter = torch.from_numpy(np.array(_jax_jitter(rng_0, args)))
   trays = TRays(*map(torch.from_numpy, (o, d, d, radii)))
   with torch.no_grad():
-    got = port(trays, jitter, randomized=False)
+    got, loss_sp = port(trays, jitter, randomized=False)
 
+  assert loss_sp == 0.0  # no online sparsity, as in the JAX model
   assert len(got) == len(ret) == 2
   names = ("comp_rgb", "distance", "acc", "trans", "trans_rgb_bkgd")
   for level, (g_level, w_level) in enumerate(zip(got, ret)):
@@ -124,18 +125,35 @@ def test_seeded_weights_are_deterministic():
 
 
 def test_unported_options_raise():
+  """The port raises where the JAX package raises, and only there: the
+  options JAX implements build in both (online sparsity, SH colour, IPE),
+  and what neither implements raises NotImplementedError in both (a
+  VoxMLP interp_method other than linear3; in the 'all' stage, a
+  normalized head with the residual). tests/test_torch_options.py and
+  tests/test_torch_heads.py hold the rest of the shared raises."""
   values, ndim, nmin, nmax = grid_io.synthetic_blob_grid(8, 1.5, 0.33)
-  for override in ({"use_online_sparsity": True}, {"sh_deg": 2},
-                   {"stage": "all", "use_online_sparsity": True}):
+  o, d, radii = (x[:4] for x in _rays())
+  jrays = JRays(*map(jnp.asarray, (o, d, d, radii)))
+  cases = (({"use_online_sparsity": True}, {}, None),
+           ({"sh_deg": 2, "use_viewdirs": False}, {}, None),
+           ({}, {"NerfModel.use_ipe": True}, None),
+           ({}, {"VoxMLP.interp_method": "nearest"}, NotImplementedError),
+           ({"stage": "all"}, {"VoxMLP.normalized": True},
+            NotImplementedError))
+  for override, binding, raises in cases:
     args = _args("scan")
     for k, v in override.items():
       setattr(args, k, v)
-    with pytest.raises(NotImplementedError):
-      t_nerf.construct_nerf(args, ndim, nmin, nmax, values, device="cpu")
-  for binding in ({"NerfModel.use_ipe": True}, {"VoxMLP.normalized": True}):
-    with pytest.raises(NotImplementedError):
-      t_nerf.construct_nerf(_args("scan"), ndim, nmin, nmax, values, binding,
-                            device="cpu")
+    build = (lambda: construct_nerf(random.PRNGKey(0), {"rays": jrays}, args,
+                                    ndim, nmin, nmax, values, binding),
+             lambda: t_nerf.construct_nerf(args, ndim, nmin, nmax, values,
+                                           binding, device="cpu"))
+    for fn in build:
+      if raises is None:
+        fn()
+      else:
+        with pytest.raises(raises):
+          fn()
 
 
 def test_make_jitter_bins():

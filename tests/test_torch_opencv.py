@@ -236,8 +236,8 @@ def test_bd_cut_matches_jax(stage, name):
   jitter = torch.from_numpy(np.array(_jax_jitter(rng_0, args)))
   trays = t_rays.Rays(*map(torch.from_numpy, (o, d, d, radii)))
   with torch.no_grad():
-    got = port(trays, jitter, annealed_alpha=0.5)
-    plain = uncut(trays, jitter, annealed_alpha=0.5)
+    got, _ = port(trays, jitter, annealed_alpha=0.5)
+    plain, _ = uncut(trays, jitter, annealed_alpha=0.5)
   names = ("comp_rgb", "distance", "acc", "trans", "trans_rgb_bkgd")
   for level in (0, 1):
     for i, what in enumerate(names):
@@ -292,7 +292,7 @@ def test_bd_cut_with_fused_mlp():
   rays = t_rays.Rays(*map(torch.from_numpy, (o, d, d, radii)))
   jitter = torch.arange(0, 32, 4) + 1
   with torch.no_grad():
-    got, want = fused(rays, jitter)[1], linear(rays, jitter)[1]
+    got, want = fused(rays, jitter)[0][1], linear(rays, jitter)[0][1]
   for g, w in zip(got, want):
     np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=1e-5)
 

@@ -252,8 +252,8 @@ def test_bf16_mlps_match_jax_bf16():
   jitter = _jitter(rng, args)
   rays = _torch_batch(b)["rays"]
   with torch.no_grad():
-    got = port(rays, jitter, annealed_alpha=0.5)
-    fp32 = port(rays, jitter, annealed_alpha=0.5, mlp_dtype=torch.float32)
+    got, _ = port(rays, jitter, annealed_alpha=0.5)
+    fp32, _ = port(rays, jitter, annealed_alpha=0.5, mlp_dtype=torch.float32)
   for level in (0, 1):
     want = np.asarray(ret[level][0])
     np.testing.assert_allclose(got[level][0].numpy(), want, atol=1e-4)
