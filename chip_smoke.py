@@ -205,6 +205,24 @@ Phases, each of which must pass or the script exits non-zero:
      under autograd (no K1, K2 or K3 launch), its loss card against CPU
      on 128 rays at 1e-4 relative (its so3 gradients printed against the
      K3 form, not held: no port kernel on that path).
+  14. flax checkpoints (run after phase 13, before phase 7's CPU
+     cross-check moves the ship model to the CPU), with none of flax,
+     orbax, msgpack, tensorstore or a zstd package: (1) the JAX-written fixture (debug/flax_fixture.py: a
+     narrow ship model's TrainState after 3 radiance steps as an orbax
+     OCDBT directory and as a legacy msgpack file, and its params in the
+     reference layout) restored with the port's readers and its libzstd
+     binding, every leaf bit for bit the leaves.npz the JAX package wrote;
+     (2) the ship model at full width (the so3 head included) exported as
+     a reference-layout msgpack checkpoint (train/flax_checkpoints.py),
+     stage-loaded for `all` into a copy whose weights were moved
+     (checkpoints.load_stage_weights: every tensor equal, the step
+     returned), and rendered: the view's digest and a K2 march's equal the
+     source model's; (3) the fixture's orbax state resumed in a stage
+     directory (checkpoints.restore_checkpoint: Adam's counts 3) for one
+     window of 10 radiance steps at K = 10: the counts 13, every loss
+     finite, K1 once a step, the port's torch checkpoint_13 written beside
+     the orbax checkpoint_3, which keep=1 then prunes. Prints one
+     flax_ckpt line (its checks and seconds).
 The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
@@ -235,6 +253,7 @@ from samplenerfro_torch.debug.march_parity import SO3_ALPHA
 from samplenerfro_torch.debug.march_parity import TRAIN_FROM
 from samplenerfro_torch.debug.march_parity import card_name
 from samplenerfro_torch.debug.march_parity import cuda_ms
+from samplenerfro_torch.debug.march_parity import digest
 from samplenerfro_torch.debug.march_parity import glass_inputs
 from samplenerfro_torch.debug.march_parity import kernel_device_ms
 from samplenerfro_torch.debug.march_parity import kernel_launches
@@ -248,6 +267,7 @@ from samplenerfro_torch.debug.march_parity import ship_model
 from samplenerfro_torch.debug.march_parity import so3_params_for
 from samplenerfro_torch.debug.march_parity import step_device_us
 from samplenerfro_torch.debug.march_parity import synthetic_batch
+from samplenerfro_torch.debug import flax_fixture
 from samplenerfro_torch.debug import llff_scene
 from samplenerfro_torch.debug import mlp_rounding
 from samplenerfro_torch.debug import probe_so3_relu
@@ -267,6 +287,8 @@ from samplenerfro_torch.ops import render as render_ops
 from samplenerfro_torch.tools import objio
 from samplenerfro_torch.tools import synth
 from samplenerfro_torch.tools import validate_quality
+from samplenerfro_torch.train import checkpoints
+from samplenerfro_torch.train import flax_checkpoints
 from samplenerfro_torch.train import loop as train_loop
 from samplenerfro_torch.train import selfcheck
 from samplenerfro_torch.train import step as step_lib
@@ -368,6 +390,9 @@ SMOOTH_TOL = 1e-6
 # N_LLFF radiance and N_LLFF ior steps at the ship's K, each a capture
 # and a replay.
 LLFF_VIEWS, N_LLFF = 16, 20
+# The flax checkpoint phase (14): the committed fixture's radiance state
+# resumed for one dispatch window of FLAX_K steps on a FLAX_GRID_N^3 grid.
+FLAX_K, FLAX_GRID_N = 10, 128
 # P3 against its plain version, max abs error over the largest
 # |pre-activation|: both sum the same fp32 products, in other orders.
 P3_ATOL = 1e-5
@@ -3208,6 +3233,103 @@ def options_phase(args, scene, device, seed, card, dispatch, model, host,
   return rows, head_off, figures
 
 
+def flax_ckpt_phase(model, args, view, jitter, device, seed):
+  """Phase 14 (the module docstring): the JAX package's checkpoints read
+  on the card's machine, the reference-layout export round-tripped at
+  ship width, and a resume of the fixture's orbax state. Returns the
+  phase's K1 launches (the resumed window's, by wrapper)."""
+  t_phase = time.time()
+  checks, secs = {}, {}
+  t0 = time.time()
+  fixture = flax_fixture.check()
+  secs["decode"] = time.time() - t0
+  checks["fixture_leaves"] = fixture["leaves"]
+  checks["fixture_arrays"] = fixture["arrays"]
+  secs.update({f"restore {k}": v for k, v in fixture["seconds"].items()})
+
+  ps = model.path_sampler
+  so3 = lambda m: [p.detach() for p in m.path_sampler.so3_mlp.params()]
+  rays = ship_inputs(args, seed, device)[4]
+
+  def marks(m):
+    render_fn = make_render_fn(m, jitter)
+    rgb, dist, acc = render_lib.render_image(render_fn, view, False,
+                                             chunk=args.chunk, device=device)
+    with torch.no_grad():
+      k2 = march_kernel.march_full(ps.spec, ps.grid, rays.origins,
+                                   rays.viewdirs, ps.near, ps.step_size,
+                                   ps.num_samples, so3(m), SO3_ALPHA,
+                                   SO3_MAX_DEG)
+    torch.cuda.synchronize()
+    return digest(*map(torch.from_numpy, (rgb, dist, acc))), digest(k2)
+
+  with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.time()
+    path = flax_checkpoints.export_reference_checkpoint(
+        os.path.join(tmp, "ref_all"), convert.params_to_flax(model),
+        TRAIN_FROM)
+    secs["export ship"] = time.time() - t0
+    checks["export_bytes"] = os.path.getsize(path)
+    t0 = time.time()
+    ckpt = flax_checkpoints.restore(path)
+    secs["restore ship msgpack"] = time.time() - t0
+    if not flax_checkpoints.is_reference_layout(ckpt):
+      raise SystemExit(f"flax_ckpt: {path} is not in the reference layout")
+    moved = copy.deepcopy(model)
+    with torch.no_grad():
+      for p in moved.parameters():
+        p.add_(1.0)
+    cfg = config_lib.Config(all_weight_name="ref_all")
+    t0 = time.time()
+    step = checkpoints.load_stage_weights(moved, tmp, cfg, "all")
+    secs["stage-load ship"] = time.time() - t0
+    own, back = model.state_dict(), moved.state_dict()
+    differ = [k for k in own if not torch.equal(own[k], back[k])]
+    if step != TRAIN_FROM or differ:
+      raise SystemExit(f"flax_ckpt: stage-load step {step}, tensors that "
+                       f"differ {differ[:5]}")
+    t0 = time.time()
+    want, got = marks(model), marks(moved)
+    secs["renders"] = time.time() - t0
+    checks["render_digest"], checks["k2_digest"] = got
+    if got != want:
+      raise SystemExit(f"flax_ckpt: the stage-loaded model's digests {got} "
+                       f"are not the source's {want}")
+    del moved
+
+    t0 = time.time()
+    stage_dir = flax_fixture.stage_copy(os.path.join(tmp, "train"))
+    resumed, optimizer, step, stats, counts, launches = flax_fixture.resume(
+        stage_dir, device, FLAX_K, seed=seed, grid_n=FLAX_GRID_N)
+    torch.cuda.synchronize()
+    secs["resume window"] = time.time() - t0
+    after = [int(c) for c in optimizer.counts]
+    losses = [s.loss for s in stats]
+    checks.update(restored_step=step, restored_counts=counts,
+                  counts_after=after, launches=launches,
+                  losses=[losses[0], losses[-1]])
+    last = step + FLAX_K
+    if (step != flax_fixture.STEP or set(counts) != {step}
+        or set(after) != {last} or len(stats) != FLAX_K
+        or not np.all(np.isfinite(losses)) or launches != FLAX_K):
+      raise SystemExit(f"flax_ckpt: resume {checks}")
+    checkpoints.save_checkpoint(stage_dir, resumed, optimizer, last, keep=2)
+    beside = sorted(os.listdir(stage_dir))
+    kinds = [checkpoints.checkpoint_kind(os.path.join(stage_dir, n))
+             for n in beside]
+    checkpoints.save_checkpoint(stage_dir, resumed, optimizer, last, keep=1)
+    pruned = sorted(os.listdir(stage_dir))
+    checks.update(beside=beside, pruned=pruned)
+    if (beside != [f"checkpoint_{last}", f"checkpoint_{step}"]
+        or kinds != ["torch", "orbax"] or pruned != [f"checkpoint_{last}"]):
+      raise SystemExit(f"flax_ckpt: stage directory {beside} ({kinds}), "
+                       f"after keep=1 {pruned}")
+    del resumed, optimizer
+  secs["phase"] = time.time() - t_phase
+  log("flax_ckpt: " + json.dumps({"checks": checks, "seconds": secs}))
+  return launches
+
+
 def main():
   p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   p.add_argument("--seed", type=int, default=0)
@@ -3289,6 +3411,8 @@ def main():
   k5_fp32["launches"] = fused_cross_check(fused_model, fused_args, host,
                                           device, ns.seed)
   del fused_model
+  k1["flax_ckpt_launches"] = flax_ckpt_phase(
+      model, args, view, jitter, device, ns.seed)
   cross_check_phase(model, view, jitter, rgb, acc)
   del model
   torch.cuda.empty_cache()

@@ -424,7 +424,8 @@ class Grid:
   interpolates the gradient grid there (ops/grid.trilinear_numpy): pts
   and grads [batch, 1, 3] float32. The grid is [N^3, 1] IOR values on the
   host (the model's grid: train/loop.py builds it from the path sampler's
-  buffer).
+  buffer). `train_it` counts the batches drawn, as the image batches'
+  does; a resume sets it (train.py:155-158) and nothing else reads it.
   """
 
   def __init__(self, args, grid, ndim, nmax, nmin, rng):
@@ -438,6 +439,7 @@ class Grid:
     self.grid = grad
     self.extra_batch_size = args.extra_batch_size
     self.rng = rng
+    self.train_it = 0
 
   def __iter__(self):
     return self
@@ -456,5 +458,6 @@ class Grid:
     batch_pts += (self.rng.uniform(low=-1.0, high=1.0, size=batch_pts.shape)
                   * np.array(self.ndelta)[None])
     batch_grads = grid_ops.trilinear_numpy(self.spec, self.grid, batch_pts)
+    self.train_it += 1
     return {"pts": batch_pts[:, None].astype(np.float32),
             "grads": batch_grads[:, None].astype(np.float32)}

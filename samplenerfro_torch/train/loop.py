@@ -14,7 +14,16 @@ march (K2 forward, K3 backward). Where a loss term reads boundary points
 (the sparsity term, the `all` stage's normal terms) each batch carries a
 Grid batch too, drawn from a RandomState of its own. Checkpoints go to
 <train_dir>/<stage>/checkpoint_<step> every --save_every steps and at the
-end; a rerun resumes from the newest. Every --print_every steps one line
+end; a rerun resumes from the newest, whether the port wrote it or the
+JAX package's train.py did (an orbax directory or a legacy flax msgpack
+file, train/checkpoints.py): its step, weights and Adam state (moments,
+counts, so the learning-rate schedule goes on at the restored count) are
+carried over, it starts at step + 1 with the batches positioned as
+train.py positions them, and it writes the port's torch checkpoints into
+the same directory. The JAX PRNG chain is not carried: after a resume the
+port's noise, jitters and batch draws are its own, as they are from the
+first step (the port draws them from torch and numpy generators seeded
+from --seed). Every --print_every steps one line
 reports the loss and rays/s; every --render_every steps a view of the
 val split (OpenCV views centrally cropped, as eval crops its test views)
 is rendered through samplenerfro_torch.eval's render function (K1 in the
@@ -196,8 +205,9 @@ def main(argv=None):
   stage_dir = os.path.join(ns.train_dir, args.stage)
   os.makedirs(stage_dir, exist_ok=True)
   init_step = checkpoints.restore_checkpoint(stage_dir, model, optimizer) + 1
-  if isinstance(dataset, datasets.TrainBatches):
-    dataset.train_it = init_step - 1
+  dataset.train_it = init_step - 1
+  if grid is not None:
+    grid.train_it = init_step - 1
   generator = torch.Generator(device=device).manual_seed(
       NOISE_SEED + ns.seed)
   jitter_gen = torch.Generator().manual_seed(NOISE_SEED + ns.seed)

@@ -1065,3 +1065,34 @@ def test_cuda_fused_mlp_at_option_widths(cuda_device, feat, cond, dtype):
   if any(bool(((acts[k] > 0) != (plain_acts[k] > 0)).any()) for k in acts):
     want = mlp_kernel.fused_nerf_mlp_bwd_reference(*args, at=acts)
   _assert_mlp_grads(g5, want, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flax_fixture_resumes_and_dispatches_bit_for_bit(cuda_device,
+                                                             tmp_path):
+  """The JAX-written fixture decodes on the card's machine (libzstd, no
+  flax), and its orbax state resumed for two windows of 10 radiance steps
+  (an eager window, then a CUDA graph) is bit for bit 20 steps one at a
+  time from the same restored state: every Stats field, parameter, Adam
+  moment and count."""
+  from samplenerfro_torch.debug import flax_fixture
+  assert flax_fixture.check()["leaves"] > 100
+  runs = {}
+  for k in (1, 10):
+    stage_dir = flax_fixture.stage_copy(str(tmp_path / f"k{k}"))
+    model, optimizer, step, stats, counts, launches = flax_fixture.resume(
+        stage_dir, cuda_device, k, windows=20 // k)
+    assert step == flax_fixture.STEP and set(counts) == {step}
+    assert [int(c) for c in optimizer.counts] == [step + 20] * len(counts)
+    state = {f"p.{n}": p.detach().clone()
+             for n, p in model.named_parameters()}
+    for i, st in optimizer.state_dict()["state"].items():
+      state.update({f"{i}.{n}": torch.as_tensor(t).clone()
+                    for n, t in st.items()})
+    runs[k] = (stats, state, launches)
+  assert runs[10][0] == runs[1][0] and len(runs[1][0]) == 20
+  assert all(np.isfinite(s.loss) for s in runs[1][0])
+  assert runs[1][1].keys() == runs[10][1].keys()
+  for key, want in runs[1][1].items():
+    assert torch.equal(runs[10][1][key], want), key
+  assert runs[1][2] == 20 and runs[10][2] == 20  # eager + captured

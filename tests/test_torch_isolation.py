@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: it imports no JAX, no flax and nothing of
-samplenerfro_tpu, not even that package's numpy-only modules.
+"""The PyTorch port stands alone: it imports no JAX, no flax, none of the
+packages behind flax's checkpoint formats (msgpack, tensorstore, zstd)
+and nothing of samplenerfro_tpu, not even that package's numpy-only
+modules.
 
 Every .py file under samplenerfro_torch/ and chip_smoke.py is parsed with
 ast and its imports checked; a second test imports every module of the
@@ -15,7 +17,12 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "samplenerfro_tpu")
+# The JAX stack, and the packages of its checkpoint formats, which the
+# card's machine cannot be counted on to have: the port reads flax's
+# checkpoints with its own codecs (train/ocdbt.py, utils/flax_msgpack.py,
+# utils/zstd.py).
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "msgpack",
+             "tensorstore", "zstandard", "zstd", "samplenerfro_tpu")
 FILES = sorted(
     str(p.relative_to(ROOT))
     for p in [*(ROOT / "samplenerfro_torch").rglob("*.py"),
@@ -45,7 +52,10 @@ def test_port_files_found():
   for rel in ("ops/march_kernel.py", "ops/eikonal_vjp.py", "ops/mlp.py",
               "train/step.py", "train/checkpoints.py", "train/loop.py",
               "train/__main__.py", "ops/mlp_kernel.py", "utils/probes.py",
-              "train/selfcheck.py", "debug/probe_so3_relu.py"):
+              "train/selfcheck.py", "debug/probe_so3_relu.py",
+              "train/ocdbt.py", "train/flax_checkpoints.py",
+              "utils/flax_msgpack.py", "utils/zstd.py",
+              "debug/flax_fixture.py"):
     assert f"samplenerfro_torch/{rel}" in FILES
 
 
