@@ -223,18 +223,38 @@ Phases, each of which must pass or the script exits non-zero:
      finite, K1 once a step, the port's torch checkpoint_13 written beside
      the orbax checkpoint_3, which keep=1 then prunes. Prints one
      flax_ckpt line (its checks and seconds).
+  15. data parallelism (parallel/mesh.py; run after phase 13, on its
+     scene): (i) phase 6b's dispatch (both stages, 30 steps at K=10 from
+     step 80000, then its traced replays) as rank 0 of an NCCL group of
+     world 1 that parallel/mesh.process_group makes from torchrun's
+     variables, the gradients' all-reduce and the Stats' captured in the
+     graph: every Stats field, parameter and Adam moment bit for bit phase
+     6b's, the launches as there, steps/s beside phase 6b's; (ii) two
+     ranks of debug/dist_worker.py on the one card over gloo with CUDA
+     tensors (NCCL refuses two ranks on one device), each 4 radiance and
+     4 'all' steps of the ship model at K=1 on its 512 rays of each
+     1024-ray batch, the radiance batch's forward and the 256x256 view
+     split across the ranks, against one process on the whole batches:
+     Stats within 1e-6 relative, every gradient per tensor at K3's form,
+     the view within 1e-6, both ranks' states equal bit for bit, each
+     rank's K1/K2/K3 launches as its steps and chunks imply; prints
+     whether the forward rows are bit for bit, and the seconds.
 The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
 import pickle
 import shutil
+import socket
+import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -267,6 +287,7 @@ from samplenerfro_torch.debug.march_parity import ship_model
 from samplenerfro_torch.debug.march_parity import so3_params_for
 from samplenerfro_torch.debug.march_parity import step_device_us
 from samplenerfro_torch.debug.march_parity import synthetic_batch
+from samplenerfro_torch.debug import dist_worker
 from samplenerfro_torch.debug import flax_fixture
 from samplenerfro_torch.debug import llff_scene
 from samplenerfro_torch.debug import mlp_rounding
@@ -284,6 +305,7 @@ from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mlp_kernel
 from samplenerfro_torch.ops import render as render_ops
+from samplenerfro_torch.parallel import mesh
 from samplenerfro_torch.tools import objio
 from samplenerfro_torch.tools import synth
 from samplenerfro_torch.tools import validate_quality
@@ -393,6 +415,21 @@ LLFF_VIEWS, N_LLFF = 16, 20
 # The flax checkpoint phase (14): the committed fixture's radiance state
 # resumed for one dispatch window of FLAX_K steps on a FLAX_GRID_N^3 grid.
 FLAX_K, FLAX_GRID_N = 10, 128
+# The data-parallel phase (15): phase 6b's dispatch through an NCCL group
+# of world 1; then two gloo ranks on the one card (NCCL refuses two ranks
+# on one device), N_PARALLEL radiance and N_PARALLEL 'all' steps at K = 1
+# and one view, against one process on the whole batches: Stats at
+# PARALLEL_STATS_RTOL, gradients at K3's form, the view within
+# PARALLEL_RENDER_ATOL. The held steps compute the MLPs in fp32: in bf16
+# each rank's partial weight gradient is rounded to bf16 before the
+# all-reduce (the single process rounds the whole sum once), which moves
+# a gradient whose partials cancel by ~2^-8 of their size, past K3's
+# form (6.2x on the CPU at the tests' size); the ship's bf16 radiance
+# steps are run and printed beside them.
+N_PARALLEL = 4
+PARALLEL_STATS_RTOL = 1e-6
+PARALLEL_RENDER_ATOL = 1e-6
+PARALLEL_TIMEOUT_S = 300
 # P3 against its plain version, max abs error over the largest
 # |pre-activation|: both sum the same fp32 products, in other orders.
 P3_ATOL = 1e-5
@@ -1641,6 +1678,9 @@ def _dispatch_run(sargs, scene, device, seed, hosts, k, span, want):
   model = nerf.construct_nerf(sargs, ndim, nmin, nmax, grid, bindings,
                               device=device, seed=seed)
   optimizer, _, _ = step_lib.create_optimizer(model, sargs)
+  # Under a process group (phase 15) as train.loop runs: rank 0's state,
+  # and each window's replicated leaves broadcast on this thread.
+  mesh.broadcast_module_state(model, optimizer)
   run = step_lib.make_train_step_multi(
       model, optimizer, sargs, k,
       torch.Generator(device=device).manual_seed(seed))
@@ -1671,6 +1711,7 @@ def _dispatch_run(sargs, scene, device, seed, hosts, k, span, want):
         t_trace = time.time()
         prof = tprofile(activities=activities)
         prof.__enter__()
+      mesh.broadcast_replicated(batch)
       out = run(batch)
       if w1 <= traced_from:
         stats += out.per_step()
@@ -1712,7 +1753,7 @@ def dispatch_phase(args, scene, device, seed, card):
   no traced window may launch more. Prints steps/s and the device ms of
   a step both ways. Returns {stage: (the wrapper launches of
   K1/K2/K3/head-off with K, those of one replay in the trace, the state
-  after the N_DISPATCH steps at K)}."""
+  after the N_DISPATCH steps at K, their Stats, the steps/s at K)}."""
   k = args.steps_per_dispatch
   if k < 2 or N_DISPATCH < 2 * k:
     raise SystemExit(f"dispatch: the ship configuration sets "
@@ -1769,8 +1810,242 @@ def dispatch_phase(args, scene, device, seed, card):
     t = graph[4][-1]
     out[stage] = (graph[2], (t["march_lean_kernel"], t["march_so3_kernel"],
                              t["k3_sweep"], t["march_full_plain_kernel"]),
-                  graph[1])
+                  graph[1], graph[0], graph[3])
   return out
+
+
+def _free_port():
+  with socket.socket() as sock:
+    sock.bind(("127.0.0.1", 0))
+    return sock.getsockname()[1]
+
+
+def _rank_env(rank, world, port):
+  """torchrun's variables of one rank on this machine (every rank on
+  cuda:0)."""
+  return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+          "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def _nccl_world_one(args, scene, seed, card, dispatch):
+  """Phase 6b's dispatch (both stages, N_DISPATCH steps at the ship's K,
+  then the traced replays) as rank 0 of an NCCL group of world 1 made by
+  parallel/mesh.process_group from torchrun's variables: the gradients'
+  all-reduce and the Stats' are captured in the graph. Every Stats field,
+  parameter and Adam moment must be phase 6b's bit for bit, the wrapper
+  and traced launches as there. Returns {stage: figures}."""
+  k = args.steps_per_dispatch
+  hosts = [synthetic_batch(args, seed + i)
+           for i in range(N_DISPATCH + TRACE_TRIES * k)]
+  out = {}
+  with mock.patch.dict(os.environ, _rank_env(0, 1, _free_port())), \
+      mesh.process_group("cuda") as dev:
+    if (mesh.backend(), mesh.world()) != ("nccl", 1):
+      raise SystemExit(f"parallel: expected an NCCL group of world 1, got "
+                       f"{mesh.backend()} of {mesh.world()}")
+    for stage in ("radiance", "all"):
+      sargs = argparse.Namespace(**{**vars(args), "stage": stage})
+      per = lambda n: (n, 0, 0, 0) if stage == "radiance" else (0, n, n, 0)
+      want_traced = _march_kernels(per(k))
+      t0 = time.time()
+      stats, state, counts, rate, traced, device_ms, run, _ = _dispatch_run(
+          sargs, scene, dev, seed, hosts, k, k, want_traced)
+      secs = time.time() - t0
+      _, _, want_state, want_stats, want_rate = dispatch[stage]
+      differ = [key for key in want_state
+                if not torch.equal(state[key], want_state[key])]
+      steps_differ = [i for i, (a, b) in enumerate(zip(stats, want_stats))
+                      if a != b]
+      log(f"parallel, NCCL world 1 ({stage}, ship at full width from step "
+          f"{TRAIN_FROM}, {card}): K={k} {rate:.3f} steps/s (phase 6b "
+          f"{want_rate:.3f}), {device_ms:.3f} device ms a step, replays "
+          f"{run.replays}, {secs:.1f} s; wrapper launches {counts}; traced "
+          f"{[list(t.values()) for t in traced]}; {len(differ)} of "
+          f"{len(want_state)} state tensors and {len(steps_differ)} of "
+          f"{N_DISPATCH} steps' Stats differ from phase 6b's")
+      if differ or steps_differ or len(stats) != N_DISPATCH:
+        raise SystemExit(f"parallel: NCCL world 1 is not phase 6b bit for "
+                         f"bit in {stage}: state {differ[:5]}, steps "
+                         f"{steps_differ[:5]}")
+      if counts != per(2 * k) or traced[-1] != want_traced:
+        raise SystemExit(f"parallel: launches {counts}, traced {traced}")
+      out[stage] = {"steps_s": rate, "phase6b_steps_s": want_rate,
+                    "device_ms": device_ms, "seconds": secs}
+  if mesh.active():
+    raise SystemExit("parallel: the process group outlived its entry point")
+  return out
+
+
+def _k3_ratio(got, want):
+  """The largest |got - want| over K3's form, 2e-4 * max|want| + 2e-3 *
+  |want|, of a tensor (<= 1 passes)."""
+  tol = K3_ATOL_SCALE * float(want.abs().max()) + K3_RTOL * want.abs()
+  return float(((got - want).abs() / tol.clamp_min(1e-30)).max())
+
+
+def _two_gloo_ranks(args, scene, scene_spec, seed, device, view, jitter):
+  """N_PARALLEL radiance and 'all' steps of the ship model at K = 1 on
+  1024-ray batches, the radiance batch's forward and the view, by two
+  ranks of debug/dist_worker.py over gloo with CUDA tensors on the one
+  card (512 rays a rank), against dist_worker.run in this process on the
+  whole batches, each of whose steps starts from the weights and Adam
+  state rank 0 had before it (dist_worker's force_states: a gradient
+  near 0 that rounds apart turns into a +-lr update, and later steps
+  would compare different weights). `scene` is the scene of `scene_spec`
+  (dist_worker's spec["scene"], which the ranks build). Each rank's Stats within PARALLEL_STATS_RTOL, its
+  gradients at K3's form, the view within PARALLEL_RENDER_ATOL, both
+  ranks' parameters and moments equal bit for bit, each rank's K1/K2/K3
+  launches as its steps and chunks imply. Returns the figures."""
+  nc, npath = args.num_coarse_samples, args.num_path_samples
+  hosts = [synthetic_batch(args, seed + i) for i in range(N_PARALLEL)]
+  steps = [{"host": hosts[i], "alpha": annealed_alpha(TRAIN_FROM + 1 + i,
+                                                      args),
+            "count": TRAIN_FROM + i,
+            "jitter": nerf.make_jitter(nc, npath, torch.Generator()
+                                       .manual_seed(seed + i))}
+           for i in range(N_PARALLEL)]
+  radiance = {"stage": "radiance"}
+  fp32 = {"mlp_dtype": "float32"}
+  spec = {
+      "device": device.type, "backend": "gloo", "args": vars(args),
+      "scene": scene_spec, "seed": seed,
+      "runs": [
+          {"name": "radiance", "kind": "train", "k": 1, "noise_seed": seed,
+           "args": {**radiance, **fp32}, "steps": steps,
+           "record_states": True},
+          {"name": "all", "kind": "train", "k": 1, "noise_seed": seed,
+           "args": {"stage": "all", **fp32}, "steps": steps,
+           "record_states": True},
+          {"name": "radiance bf16", "kind": "train", "k": 1,
+           "noise_seed": seed, "args": radiance, "steps": steps,
+           "record_states": True},
+          {"name": "forward", "kind": "forward", "args": radiance,
+           "host": hosts[0], "alpha": steps[0]["alpha"], "jitter": jitter},
+          {"name": "render", "kind": "render", "args": radiance,
+           "view": view, "jitter": jitter, "chunk": args.chunk}]}
+  chunks = -(-view.origins.shape[0] * view.origins.shape[1] // args.chunk)
+  want_launches = {"radiance": (N_PARALLEL, 0, 0, 0),
+                   "radiance bf16": (N_PARALLEL, 0, 0, 0),
+                   "all": (0, N_PARALLEL, N_PARALLEL, 0),
+                   "render": (chunks, 0, 0, 0)}
+  figures = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "spec.pt")
+    torch.save(spec, path)
+    port = _free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "samplenerfro_torch.debug.dist_worker", path,
+         os.path.join(tmp, "pair")], cwd=root,
+        env={**os.environ, **_rank_env(r, 2, port)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+      outs = [p.communicate(timeout=PARALLEL_TIMEOUT_S)[0] for p in procs]
+    finally:
+      for p in procs:
+        if p.poll() is None:
+          p.kill()
+          p.wait()
+    figures["pair_s"] = time.time() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+      if p.returncode != 0:
+        raise SystemExit(f"parallel: gloo rank {r} exited {p.returncode}:\n"
+                         f"{text[-3000:]}")
+    got = [torch.load(os.path.join(tmp, f"pair.{r}"), weights_only=False)
+           for r in range(2)]
+  forced = {**spec, "runs": [
+      {**run, "record_states": False,
+       "force_states": got[0][run["name"]]["states"]}
+      if run["kind"] == "train" else run for run in spec["runs"]]}
+  t0 = time.time()
+  want = dist_worker.run(forced, device, scene=scene)
+  figures["single_s"] = time.time() - t0
+  fields = [f.name for f in dataclasses.fields(step_lib.Stats)]
+  fails = []
+  for name in ("radiance", "all", "radiance bf16"):
+    w = want[name]
+    for r, out in enumerate(got):
+      g = out[name]
+      # Per step: the largest relative Stats difference, and the largest
+      # ratio to K3's form with its tensor.
+      stats_rel = [max([abs(a[f] - b[f]) / max(abs(b[f]), 1e-30)
+                        for f in fields if a[f] != b[f]] + [0.0])
+                   for a, b in zip(g["stats"], w["stats"])]
+      grads = [max((_k3_ratio(a[key], b[key]), key) for key in b)
+               for a, b in zip(g["grads"], w["grads"])]
+      figures[f"{name} rank {r}"] = {
+          "stats_rel": stats_rel, "grad_k3_ratio": [x for x, _ in grads],
+          "launches": g["launches"], "seconds": g["seconds"]}
+      log(f"parallel, gloo rank {r} of 2 ({name}, {N_PARALLEL} steps at "
+          f"K=1, half of {args.batch_size} rays): Stats within "
+          f"{[f'{x:.2e}' for x in stats_rel]} relative, gradients at "
+          f"{[f'{x:.4f}' for x, _ in grads]} of K3's form (worst "
+          f"{max(grads)[1]}), K1/K2/K3/head-off launches {g['launches']} "
+          f"(expected {want_launches[name]}), {g['seconds']:.2f} s (one "
+          f"process {w['seconds']:.2f} s)")
+      stats_rel, grad_ratio = max(stats_rel), max(grads)[0]
+      if name.endswith("bf16"):
+        pass  # printed, not held (see PARALLEL_STATS_RTOL)
+      elif stats_rel > PARALLEL_STATS_RTOL or grad_ratio > 1:
+        fails.append(f"{name} rank {r}: Stats {stats_rel}, grads "
+                     f"{grad_ratio}")
+      if g["launches"] != want_launches[name]:
+        fails.append(f"{name} rank {r}: launches {g['launches']}")
+      if len(g["stats"]) != N_PARALLEL:
+        fails.append(f"{name} rank {r}: {len(g['stats'])} steps")
+    differ = [key for key in got[0][name]["state"]
+              if not torch.equal(got[0][name]["state"][key],
+                                 got[1][name]["state"][key])]
+    if differ:
+      fails.append(f"{name}: the ranks' states differ in {differ[:5]}")
+  w = want["render"]
+  for r, out in enumerate(got):
+    g = out["render"]
+    err = max(float(np.abs(g[key] - w[key]).max())
+              for key in ("rgb", "distance", "acc"))
+    same = all(np.array_equal(g[key], w[key])
+               for key in ("rgb", "distance", "acc"))
+    lo, hi = out["forward"]["rows"]
+    fwd = out["forward"]["rgb"]
+    fwd_same = torch.equal(fwd, want["forward"]["rgb"][lo:hi])
+    fwd_err = float((fwd - want["forward"]["rgb"][lo:hi]).abs().max())
+    figures[f"render rank {r}"] = {
+        "max_abs_err": err, "bit_for_bit": same,
+        "forward_bit_for_bit": fwd_same, "forward_max_abs_err": fwd_err,
+        "launches": g["launches"], "seconds": g["seconds"]}
+    log(f"parallel, gloo rank {r} of 2: forward rows [{lo}, {hi}) of the "
+        f"radiance batch bit for bit one process's: {fwd_same} (max "
+        f"{fwd_err:.3e}); the {view.origins.shape[:2]} view, half of each "
+        f"chunk: bit "
+        f"for bit {same}, max abs {err:.3e}, K1 launches "
+        f"{g['launches'][0]} (expected {chunks}), {g['seconds']:.2f} s "
+        f"(one process {w['seconds']:.2f} s)")
+    if err > PARALLEL_RENDER_ATOL or g["launches"] != want_launches["render"]:
+      fails.append(f"render rank {r}: {err}, launches {g['launches']}")
+  log(f"parallel, gloo: one process {figures['single_s']:.1f} s, two ranks "
+      f"{figures['pair_s']:.1f} s with their start and model build")
+  if fails:
+    raise SystemExit(f"parallel: {fails}")
+  return figures
+
+
+def parallel_phase(args, scene, device, seed, card, dispatch, view, jitter):
+  """Phase 15: _nccl_world_one, then _two_gloo_ranks. Returns (the K1,
+  K2 and K3 launches of rank 0's steps and view, the figures)."""
+  t_phase = time.time()
+  figures = {"nccl": _nccl_world_one(args, scene, seed, card, dispatch)}
+  torch.cuda.empty_cache()
+  figures["gloo"] = _two_gloo_ranks(args, scene, {"ship": seed}, seed,
+                                    device, view, jitter)
+  figures["seconds"] = time.time() - t_phase
+  log(f"parallel: phase {figures['seconds']:.1f} s ({card})")
+  g = figures["gloo"]
+  rank0 = (g["radiance rank 0"]["launches"][0]
+           + g["render rank 0"]["launches"][0],
+           g["all rank 0"]["launches"][1], g["all rank 0"]["launches"][2])
+  return rank0, figures
 
 
 def _zero_march_counts():
@@ -3404,6 +3679,11 @@ def main():
   option_rows, head_off["options_launches"], options = options_phase(
       args, scene, device, ns.seed, card, dispatch, model, host, jitter,
       ns.profile)
+  torch.cuda.empty_cache()
+  rank0, parallel = parallel_phase(args, scene, device, ns.seed, card,
+                                   dispatch, view, jitter)
+  for row, n in zip((k1, k2, k3), rank0):
+    row["parallel_rank0_launches"] = n
   del scene, dispatch
   torch.cuda.empty_cache()
   allstep_cross_check(all_model, all_args, host, device, ns.seed)
@@ -3435,6 +3715,7 @@ def main():
   llff_counts, llff = llff_phase(device, ns.seed, card)
   k1["llff_launches"] = sum(c[0] for c in llff_counts.values())
   log(f"ior figures {ior}; llff figures {llff}; options figures {options}")
+  log(f"parallel figures {json.dumps(parallel)}")
 
   report = probe_rows + [k1, k2, k3, head_off, k4, k4_pe, k4_bf16, k5_bf16,
                          k5_fp32] + option_rows

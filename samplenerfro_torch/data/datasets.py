@@ -29,6 +29,7 @@ from samplenerfro_torch.data import rays as rays_lib
 from samplenerfro_torch.data.rays import Rays
 from samplenerfro_torch.data.rays import namedtuple_map
 from samplenerfro_torch.ops import grid as grid_ops
+from samplenerfro_torch.parallel import mesh
 
 
 # Every scene format of samplenerfro_tpu/data/datasets.py:519 (dataset_dict).
@@ -313,9 +314,11 @@ class TrainBatches:
   """Iterator of training batches {"pixels", "rays", "env_rays"} of a
   scene (load_split's train split).
 
-  Each batch holds `batch_size` rays with their [batch, 3] pixels, and,
-  when `bg_patch_size` > 0, a [p, p] patch of rays of one training image
-  for the background smoothness loss (env_rays; None otherwise).
+  Each batch holds this rank's `batch_size` // W rays with their
+  [batch, 3] pixels (samplenerfro_tpu/data/datasets.py:84; ValueError
+  unless W divides batch_size), and, when `bg_patch_size` > 0, a [p, p]
+  patch of rays of one training image for the background smoothness loss
+  (env_rays; None otherwise), which train/loop.py replaces with rank 0's.
   `train_it` counts the batches drawn; precrop applies while it is below
   `precrop_iters`, and a resumed run sets it to the steps already taken.
   """
@@ -331,7 +334,7 @@ class TrainBatches:
       raise NotImplementedError(
           f"{args.batching} batching strategy is not implemented.")
     self.batching = args.batching
-    self.batch_size = args.batch_size
+    self.batch_size = mesh.per_rank(args.batch_size, "batch_size")
     self.precrop_iters = args.precrop_iters
     self.precrop_frac = args.precrop_frac
     self.patch_size = args.bg_patch_size
@@ -419,7 +422,8 @@ class Grid:
   (samplenerfro_tpu/data/datasets.py:471-513).
 
   The candidates are the voxels whose central-difference gradient is
-  longer than 1e-3; a batch takes `extra_batch_size` of them with
+  longer than 1e-3; a batch takes `extra_batch_size` // W of them
+  (datasets.py:493; ValueError unless W divides it) with
   replacement, jitters each uniformly within a voxel's extent and
   interpolates the gradient grid there (ops/grid.trilinear_numpy): pts
   and grads [batch, 1, 3] float32. The grid is [N^3, 1] IOR values on the
@@ -437,7 +441,8 @@ class Grid:
         np.where(np.linalg.norm(grad.reshape(*ndim, 3), axis=-1) > 1e-3),
         axis=-1)
     self.grid = grad
-    self.extra_batch_size = args.extra_batch_size
+    self.extra_batch_size = mesh.per_rank(args.extra_batch_size,
+                                          "extra_batch_size")
     self.rng = rng
     self.train_it = 0
 

@@ -17,6 +17,7 @@ import threading
 
 import numpy as np
 
+from samplenerfro_torch.parallel import mesh as mesh_lib
 from samplenerfro_torch.tools import objio
 from samplenerfro_torch.tools import sdf as sdflib
 
@@ -31,7 +32,8 @@ class Dataset(threading.Thread):
     self.extents = mesh.extents
     self.bounds = mesh.bounds
     self.sdf = sdflib.SDF(mesh.vertices, mesh.faces)
-    self.batch_size = args.batch_size
+    # This rank's share (samplenerfro_tpu/data/sdf_points.py:34).
+    self.batch_size = mesh_lib.per_rank(args.batch_size, "batch_size")
     self.rng = rng
     self.start()
 

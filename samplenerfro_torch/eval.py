@@ -32,6 +32,12 @@ raises when there is none. Or they come from --params_npz
 is evaluated once. Rendering is deterministic (randomized=False); the
 jittered coarse subsample is drawn once per run from --seed and shared by
 every chunk, as the JAX renderer shares one key across chunks.
+Under torchrun (`torchrun --nproc_per_node=N -m samplenerfro_torch.eval
+...`) every rank renders its share of each view's rays (parallel/mesh.py,
+utils/render.py), rank 0 scores, prints and writes, as the JAX eval's
+process 0 does; with --eval_once=False rank 0 reads the newest
+checkpoint's step and decides, and every rank takes its step and rank
+0's weights.
 """
 
 import argparse
@@ -42,11 +48,11 @@ import time
 import numpy as np
 import torch
 
-from samplenerfro_torch import resolve_device
 from samplenerfro_torch.data import datasets
 from samplenerfro_torch.data.rays import namedtuple_map
 from samplenerfro_torch.models import convert
 from samplenerfro_torch.models import nerf
+from samplenerfro_torch.parallel import mesh
 from samplenerfro_torch.train import checkpoints
 from samplenerfro_torch.utils import config as config_lib
 from samplenerfro_torch.utils import grid_io
@@ -104,8 +110,12 @@ def main(argv=None):
   p.add_argument("--seed", type=int, default=0,
                  help="seed of the coarse subsample's jitter")
   ns, rest = p.parse_known_args(argv)
+  with mesh.process_group(ns.device) as device:
+    return _eval(ns, rest, device)
 
-  device = resolve_device(ns.device)
+
+def _eval(ns, rest, device):
+  """main's run on `device`, as a rank of the process group if any."""
   args, cfg, bindings = config_lib.load_args(
       ns.config, ns.gin_file, ns.gin_param,
       **config_lib.parse_flag_overrides(rest))
@@ -132,6 +142,10 @@ def main(argv=None):
     if not ns.params_npz:
       step = checkpoints.load_stage_weights(model, ns.train_dir, cfg,
                                             args.stage)
+      # Rank 0's step and weights: a checkpoint written between two
+      # ranks' reads cannot set them apart.
+      step = mesh.broadcast_object(step)
+      mesh.broadcast_module_state(model)
       if step <= last_step:
         time.sleep(POLL_SECONDS)
         continue
@@ -145,7 +159,11 @@ def main(argv=None):
 def evaluate(args, render_fn, rays, images, step, device, out_dir):
   """Render every view of `rays` ([n, h, w, C]) and score it against
   `images` (None: a render path, scored against nothing); writes the
-  images and scores into out_dir unless it is None."""
+  images and scores into out_dir unless it is None. Under ranks every
+  rank renders, and rank 0 alone scores, prints and writes (the others
+  return no scores)."""
+  if mesh.rank() != 0:
+    out_dir = None
   if out_dir is not None:
     os.makedirs(out_dir, exist_ok=True)
   psnrs, ssims = [], []
@@ -158,6 +176,8 @@ def evaluate(args, render_fn, rays, images, step, device, out_dir):
     rgb, disp, acc = render_lib.render_image(
         render_fn, view, args.dataset == "llff", chunk=args.chunk,
         device=device, chunks_per_dispatch=args.render_chunks_per_dispatch)
+    if mesh.rank() != 0:
+      continue
     if pixels is None:
       print(f"Rendering {idx + 1}/{n}")
     else:

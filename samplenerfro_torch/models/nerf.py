@@ -32,6 +32,7 @@ from samplenerfro_torch.ops import mip as mip_ops
 from samplenerfro_torch.ops import mlp_kernel as fused_ops
 from samplenerfro_torch.ops import render as render_ops
 from samplenerfro_torch.ops import sh as sh_ops
+from samplenerfro_torch.parallel import mesh
 from samplenerfro_torch.utils.config import MLP_KERNELS
 
 
@@ -352,9 +353,12 @@ class NerfModel(nn.Module):
   @staticmethod
   def _online_sparsity(idx_grad, alpha):
     """The online sparsity term of one level: the mean of log alpha over
-    the samples where |grad n| > 1e-6 (models/nerf.py:431-435)."""
+    the samples where |grad n| > 1e-6 (models/nerf.py:431-435). Under
+    ranks, this rank's share of the global batch's term: its sum over
+    the count of every rank's samples (parallel/mesh.global_sum)."""
     mask = torch.linalg.norm(idx_grad, dim=-1) > 1e-6
-    return (mask * math_ops.safe_log(alpha)).sum() / (mask.sum() + 1)
+    return ((mask * math_ops.safe_log(alpha)).sum()
+            / (mesh.global_sum(mask.sum()) + 1))
 
   def forward(self, rays, jitter, randomized=False, generator=None,
               annealed_alpha=1.0, mlp_dtype=None):

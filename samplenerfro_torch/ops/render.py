@@ -8,6 +8,8 @@ with the same result).
 
 import torch
 
+from samplenerfro_torch.parallel import mesh
+
 
 def volumetric_rendering(rgb, density, t_vals, dirs, white_bkgd, rgb_bkgd,
                          mask_bbox=None):
@@ -64,7 +66,8 @@ def sorted_piecewise_constant_pdf(bins, weights, num_samples, randomized,
 
   As samplenerfro_tpu/ops/render.py:71-112; `generator` (a
   torch.Generator on the device of `bins`) draws the stratified offsets
-  when `randomized`.
+  when `randomized`, for this rank's rows of the global batch
+  (parallel/mesh.draw_global).
   """
   eps = 1e-5
   f32_eps = torch.finfo(torch.float32).eps
@@ -84,8 +87,9 @@ def sorted_piecewise_constant_pdf(bins, weights, num_samples, randomized,
   if randomized:
     s = 1 / num_samples
     u = torch.arange(num_samples, dtype=cdf.dtype, device=cdf.device) * s
-    u = u + torch.rand(lead + [num_samples], generator=generator,
-                       dtype=cdf.dtype, device=cdf.device) * (s - f32_eps)
+    u = u + mesh.draw_global(torch.rand, lead + [num_samples],
+                             generator=generator, dtype=cdf.dtype,
+                             device=cdf.device) * (s - f32_eps)
     u = torch.clamp(u, max=1.0 - f32_eps)
   else:
     u = torch.linspace(0.0, 1.0 - f32_eps, num_samples, dtype=cdf.dtype,
@@ -164,8 +168,10 @@ def sample_pdf(bins, weights, path_pos, path_dir, path_dist, path_grad,
 
 
 def add_gaussian_noise(raw, noise_std, randomized, generator=None):
-  """Optional density-noise regularizer (ops/render.py:253-257)."""
+  """Optional density-noise regularizer (ops/render.py:253-257), drawn for
+  this rank's rows of the global batch (parallel/mesh.draw_global)."""
   if (noise_std is not None) and randomized:
-    return raw + torch.randn(raw.shape, generator=generator, dtype=raw.dtype,
-                             device=raw.device) * noise_std
+    return raw + mesh.draw_global(torch.randn, list(raw.shape),
+                                  generator=generator, dtype=raw.dtype,
+                                  device=raw.device) * noise_std
   return raw

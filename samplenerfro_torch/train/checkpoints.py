@@ -16,6 +16,10 @@ reference repo's layout on the fly). A flax TrainState carries its step,
 its params (models/convert.params_from_flax) and optax's Adam state
 (convert.moments_from_flax) into the model and the port's Adam. Pruning
 under `keep` removes old checkpoints of either kind.
+
+Under ranks (parallel/mesh.py) rank 0 writes and prunes, then every rank
+waits at a barrier (samplenerfro_tpu/train/checkpoints.py:21-27); every
+rank restores, and train/loop.py then gives every rank rank 0's state.
 """
 
 import os
@@ -23,6 +27,7 @@ import os
 import torch
 
 from samplenerfro_torch.models import convert
+from samplenerfro_torch.parallel import mesh
 from samplenerfro_torch.train import flax_checkpoints
 
 _GRID = "path_sampler.grid"
@@ -60,7 +65,17 @@ def read_flax(path):
 
 
 def save_checkpoint(stage_dir, model, optimizer, step, keep=100):
-  """Write checkpoint_<step>, then drop all but the newest `keep`."""
+  """Write checkpoint_<step>, then drop all but the newest `keep`; returns
+  its path. Under ranks rank 0 writes (the others return None), and every
+  rank leaves once it is written."""
+  final = None
+  if mesh.rank() == 0:
+    final = _write(stage_dir, model, optimizer, step, keep)
+  mesh.barrier()
+  return final
+
+
+def _write(stage_dir, model, optimizer, step, keep):
   os.makedirs(stage_dir, exist_ok=True)
   state = {"step": int(step),
            "model": {k: v for k, v in model.state_dict().items()

@@ -50,6 +50,19 @@ order and checked there) and copies them to the card ahead of the steps
 render's chunks (utils/render.render_image). The garbage collector runs
 every --gc_every steps only, as in train.py.
 
+Under torchrun (`torchrun --nproc_per_node=N -m samplenerfro_torch.train
+...`) the run is data-parallel over the N ranks (parallel/mesh.py): each
+rank draws batch_size // N rays from its own RandomState (DATA_SEED +
+seed + rank, as train.py:47 seeds each process), rank 0's replicated
+leaves are broadcast to every rank on this thread once the prefetch
+thread hands a window over, and the step is the global batch's. Rank 0
+prints and writes the checkpoints; every rank restores, then takes rank
+0's weights and Adam state, and renders its share of each validation
+view. The noise and jitter generators are seeded alike on every rank:
+train.py:167's per-process noise key (rng + process_index) is not
+reproduced, since it would make the N-rank step differ from the global
+batch's step, which tests/test_multiprocess.py holds the JAX package to.
+
 Not ported from train.py: the TPU march calibration and out-of-window
 ladder (the CUDA marches have no window) and tensorboard summaries (the
 card's machine has no tensorboard package).
@@ -63,13 +76,13 @@ import time
 import numpy as np
 import torch
 
-from samplenerfro_torch import resolve_device
 from samplenerfro_torch.data import datasets
 from samplenerfro_torch.data import prefetch
 from samplenerfro_torch.eval import build_model
 from samplenerfro_torch.eval import make_render_fn
 from samplenerfro_torch.models import nerf
 from samplenerfro_torch.ops import march_kernel
+from samplenerfro_torch.parallel import mesh
 from samplenerfro_torch.train import checkpoints
 from samplenerfro_torch.train import step as step_lib
 from samplenerfro_torch.utils import config as config_lib
@@ -177,8 +190,12 @@ def main(argv=None):
                  help="seed of the initial weights, and offset of the "
                  "batch, noise, jitter and validation seeds (0: train.py's)")
   ns, rest = p.parse_known_args(argv)
+  with mesh.process_group(ns.device) as device:
+    return _train(ns, rest, device)
 
-  device = resolve_device(ns.device)
+
+def _train(ns, rest, device):
+  """main's run on `device`, as a rank of the process group if any."""
   args, cfg, bindings = config_lib.load_args(
       ns.config, ns.gin_file, ns.gin_param,
       **config_lib.parse_flag_overrides(rest))
@@ -192,22 +209,26 @@ def main(argv=None):
   model = build_model(args, cfg, bindings, ns.data_dir, device, ns.seed,
                       ns.params_npz)
   grid = None
+  rank = mesh.rank()
   if args.stage.startswith("ior"):
     dataset = model_grid(model, args,
-                         np.random.RandomState(DATA_SEED + ns.seed))
+                         np.random.RandomState(DATA_SEED + ns.seed + rank))
   else:
     dataset = datasets.TrainBatches(
-        args, np.random.RandomState(DATA_SEED + ns.seed))
+        args, np.random.RandomState(DATA_SEED + ns.seed + rank))
     if step_lib.needs_grid(args):
       grid = model_grid(model, args,
-                        np.random.RandomState(GRID_SEED + ns.seed))
+                        np.random.RandomState(GRID_SEED + ns.seed + rank))
   optimizer, lr_fn, _ = step_lib.create_optimizer(model, args)
   stage_dir = os.path.join(ns.train_dir, args.stage)
   os.makedirs(stage_dir, exist_ok=True)
   init_step = checkpoints.restore_checkpoint(stage_dir, model, optimizer) + 1
+  mesh.broadcast_module_state(model, optimizer)
   dataset.train_it = init_step - 1
   if grid is not None:
     grid.train_it = init_step - 1
+  # Alike on every rank (not train.py:167's rng + process_index): the
+  # noise of a rank's rows is its rows' share of the global batch's draw.
   generator = torch.Generator(device=device).manual_seed(
       NOISE_SEED + ns.seed)
   jitter_gen = torch.Generator().manual_seed(NOISE_SEED + ns.seed)
@@ -239,12 +260,18 @@ def main(argv=None):
   t_loop = time.time()
   try:
     for (_, step), batch in zip(windows, batches):
-      # Stacked [n] Stats of the window, left on the device until printed.
-      stats_trace.append(train_step(batch))
+      # Rank 0's replicated leaves, on this thread (no collective may be
+      # issued from the prefetch thread).
+      mesh.broadcast_replicated(batch)
+      # Stacked [n] Stats of the window, left on the device until printed
+      # (rank 0 prints, as train.py's process 0).
+      stats = train_step(batch)
+      if rank == 0:
+        stats_trace.append(stats)
       del batch
       if step % args.gc_every == 0:
         gc.collect()
-      if step % args.print_every == 0:
+      if step % args.print_every == 0 and rank == 0:
         trace = [s for st in stats_trace for s in st.per_step()]
         avg = lambda name: float(np.mean([getattr(s, name) for s in trace]))
         rays_per_sec = (len(trace) * args.batch_size) / (time.time()
@@ -274,11 +301,13 @@ def main(argv=None):
             chunk=args.chunk, device=device,
             chunks_per_dispatch=args.render_chunks_per_dispatch)
         secs = time.time() - t0
-        psnr = metrics.compute_psnr(((rgb - pixels)**2).mean())
-        ssim = float(metrics.compute_ssim(rgb, pixels, 1.0))
-        rays_per_sec = rgb.shape[0] * rgb.shape[1] / secs
-        print(f"Eval {step}: {secs:0.3f}s., {rays_per_sec:0.0f} rays/sec, "
-              f"PSNR = {psnr:.4f}, SSIM = {ssim:.4f}", flush=True)
+        if rank == 0:
+          psnr = metrics.compute_psnr(((rgb - pixels)**2).mean())
+          ssim = float(metrics.compute_ssim(rgb, pixels, 1.0))
+          rays_per_sec = rgb.shape[0] * rgb.shape[1] / secs
+          print(f"Eval {step}: {secs:0.3f}s., {rays_per_sec:0.0f} "
+                f"rays/sec, PSNR = {psnr:.4f}, SSIM = {ssim:.4f}",
+                flush=True)
         t_loop += secs
   finally:
     batches.close()

@@ -25,6 +25,14 @@ So every per-step value the step reads lives on the device: the batch
 carries its annealing alpha, its checked jitter and its learning rates,
 the optimizer keeps its counts there, and the noise generator is
 registered with the graph.
+
+Under ranks (parallel/mesh.py) a step is the single-process step of the
+global batch, as GSPMD makes the JAX step over a sharded batch: each rank
+differentiates its share of the global loss (ray means / W, ratios over
+all-reduced counts, terms of replicated inputs / W), one all-reduce sums
+the gradients before the clipping reads them, and the Stats are the
+global batch's. In a captured window the collectives are recorded in the
+graph; the eager window before it makes the communicator.
 """
 
 import dataclasses
@@ -35,6 +43,7 @@ import torch
 
 from samplenerfro_torch.data import prefetch
 from samplenerfro_torch.ops import math as math_ops
+from samplenerfro_torch.parallel import mesh
 
 
 @dataclasses.dataclass
@@ -313,8 +322,16 @@ def loss_fn(model, batch, args, generator=None):
     args: flags namespace.
     generator: torch.Generator on the model's device for the randomized
       sampling, the density noise and the offsets' draws.
+
+  Under W ranks the batch's rays and pixels are this rank's rows, and the
+  total is this rank's share of the global batch's loss (the shares sum
+  to it); the Stats are the global batch's.
   """
   alpha = batch["annealed_alpha"]
+  w = mesh.world()
+  # This rank's share of a term that every rank computes alike (replicated
+  # inputs) or of a mean over its own rows.
+  share = (lambda x: x / w) if w > 1 else (lambda x: x)
   wl2 = weight_l2(model)
   zero = torch.zeros((), dtype=wl2.dtype, device=wl2.device)
   d = lambda x: x.detach() if torch.is_tensor(x) else x
@@ -323,7 +340,8 @@ def loss_fn(model, batch, args, generator=None):
     # the normal loss, 0.0.
     normal_loss, _ = model.wrapper_compute_normal_loss_and_smooth(
         batch["pts"], batch["grads"], alpha, _normal_noise(batch, generator))
-    total = ANNEALING_RATE * normal_loss + args.weight_decay_mult * wl2
+    total = share(ANNEALING_RATE * normal_loss
+                  + args.weight_decay_mult * wl2)
     stats = Stats(
         loss=0.0, psnr=0.0, loss_c=0.0, psnr_c=0.0, weight_l2=d(wl2),
         loss_nrm=ANNEALING_RATE * normal_loss, loss_sp=0.0,
@@ -347,7 +365,7 @@ def loss_fn(model, batch, args, generator=None):
   if args.bg_weight > 0:
     mask_bg = trans > 0.5
     loss_bg = gate * ((mask_bg * (trans_rgb_bkgd - pixels).abs()).sum()
-                      / (mask_bg.sum() + 1))
+                      / (mesh.global_sum(mask_bg.sum()) + 1))
   else:
     loss_bg = zero
   if len(ret) > 1:
@@ -384,13 +402,30 @@ def loss_fn(model, batch, args, generator=None):
 
   gated_sp = args.sparsity_weight * ANNEALING_RATE * loss_sp
   gated_nrm = ANNEALING_RATE * loss_nrm
-  total = (loss + loss_c + args.bg_weight * loss_bg + gated_sp + gated_nrm
-           + args.bg_smooth_weight * loss_bg_smooth
-           + args.weight_decay_mult * wl2)
+  # The online term is already this rank's share of a ratio; the offline
+  # one reads the replicated Grid points.
+  sp_share = gated_sp if args.use_online_sparsity else share(gated_sp)
+  total = (share(loss) + share(loss_c) + args.bg_weight * loss_bg + sp_share
+           + share(gated_nrm) + args.bg_smooth_weight * share(loss_bg_smooth)
+           + args.weight_decay_mult * share(wl2))
+  s_loss, s_loss_c, s_bg, s_sp = d(loss), d(loss_c), d(loss_bg), d(gated_sp)
+  if mesh.active():
+    # The rows' terms summed over the ranks in one all-reduce: the means
+    # over W, the ratios' shares as they are.
+    parts = [s_loss, s_loss_c, s_bg]
+    if args.use_online_sparsity:
+      parts.append(torch.as_tensor(s_sp, dtype=s_loss.dtype,
+                                   device=s_loss.device))
+    sums = mesh.global_sum(torch.stack(parts))
+    s_loss, s_loss_c, s_bg = sums[0] / w, sums[1] / w, sums[2]
+    if args.use_online_sparsity:
+      s_sp = sums[3]
+    if len(ret) > 1:
+      psnr_c = _psnr(s_loss_c)
   stats = Stats(
-      loss=d(loss), psnr=_psnr(d(loss)), loss_c=d(loss_c), psnr_c=psnr_c,
-      weight_l2=d(wl2), loss_nrm=d(gated_nrm), loss_sp=d(gated_sp),
-      annealing_rate=alpha, loss_bg=args.bg_weight * d(loss_bg),
+      loss=s_loss, psnr=_psnr(s_loss), loss_c=s_loss_c, psnr_c=psnr_c,
+      weight_l2=d(wl2), loss_nrm=d(gated_nrm), loss_sp=s_sp,
+      annealing_rate=alpha, loss_bg=args.bg_weight * s_bg,
       loss_bg_c=0.0, loss_bg_smooth=d(loss_bg_smooth),
       coarse_alpha_target=d(next_cat), fine_alpha_target=d(next_fat),
       march_oow=0)
@@ -424,7 +459,9 @@ def train_step(model, optimizer, batch, args, generator=None):
   model.zero_grad(set_to_none=True)
   total, stats = loss_fn(model, batch, args, generator)
   total.backward()
-  clip_gradients(list(model.parameters()), args)
+  params = list(model.parameters())
+  mesh.all_reduce_grads(params)
+  clip_gradients(params, args)
   optimizer.step(batch["lr"])
   return stats
 
@@ -470,6 +507,10 @@ class MultiStep:
     dev = batch["annealed_alpha"].device
     if dev.type != "cuda":
       return Stats(*self._steps(batch).unbind(0))
+    if self.k > 1 and mesh.backend() == "gloo":
+      raise ValueError("gloo collectives cannot be captured in a CUDA "
+                       "graph: run gloo ranks at steps_per_dispatch 1, or "
+                       "use NCCL")
     current = torch.cuda.current_stream(dev)
     if self.stream is None:
       self.stream = torch.cuda.Stream(dev)

@@ -55,7 +55,8 @@ def test_port_files_found():
               "train/selfcheck.py", "debug/probe_so3_relu.py",
               "train/ocdbt.py", "train/flax_checkpoints.py",
               "utils/flax_msgpack.py", "utils/zstd.py",
-              "debug/flax_fixture.py"):
+              "debug/flax_fixture.py", "parallel/mesh.py",
+              "debug/dist_worker.py", "debug/dist_probe.py"):
     assert f"samplenerfro_torch/{rel}" in FILES
 
 
