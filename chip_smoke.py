@@ -23,7 +23,9 @@ Phases, each of which must pass or the script exits non-zero:
      its defaults (the JAX gate's 128^3 blob, 512 rays of 768 steps, the
      'all' arm on 256 rays of 192 steps, the so3 head at ship width 4x128);
      K1, K2 and K3 must each launch, every deviation inside its envelope
-     (forward 2e-3, gradients 5e-3, loss 1e-4 of scale). Then P3 (the so3
+     (forward 2e-3, gradients 5e-3, loss 1e-4 of scale), and K2 with the
+     head off at march_interp "default" within the JAX gate's bf16
+     envelope (0.05 of scale). Then P3 (the so3
      head's pre-activations summed as K3 sums them) against its plain
      version (cuBLAS) at the probe's 49,152 points, with the ReLU masks the
      two set apart, and the probe's own path (samplenerfro_torch.debug.
@@ -239,6 +241,31 @@ Phases, each of which must pass or the script exits non-zero:
      the view within 1e-6, both ranks' states equal bit for bit, each
      rank's K1/K2/K3 launches as its steps and chunks imply; prints
      whether the forward rows are bit for bit, and the seconds.
+  16. the shipped configs' reduced-precision arms (ops/precision.py): the
+     ship configuration as shipped, march_interp "default" and
+     march_bwd_dtype "bfloat16" (every phase before it runs the shipped
+     configs pinned to march_interp "highest" and march_bwd_dtype
+     "float32", FP32_ARMS, so that their digests and gates stand as they
+     were). Each reduced arm's kernel against its plain version of the
+     same arm at the ship shapes (debug/precision_arms.py): K1 and K2 with
+     the head off at "default" on the render chunk (8192 rays) and the
+     1024-ray batch, at K1_ATOL; K2 with its bf16 head at the 'all' batch
+     and the render chunk, every step at K2_ATOL teacher-forced (one plain step from each of
+     the kernel's states) and the free-running march within the JAX
+     self-check's bf16 envelope (0.05 of scale); K3's bf16 arm on the
+     plain march's trajectory against march_bwd_passes_reference's bf16
+     arm with the ReLU flips of P3's bf16 arm replayed, per tensor at
+     2e-3 x max|want|, and bit for bit across two runs; each timed with
+     its kernel's device time (K3's split over its five kernels), its
+     plain version's and its bound (the so3 head's products, bf16
+     operands summed in fp32, at the dense bf16 tensor-core rate: K2's
+     forward, K3's three). Then the path as shipped: each stage's 30 steps
+     at K = 1 and at its K = 10 (a CUDA graph), bit for bit, with steps/s
+     and device ms a step; the radiance stage with online sparsity on (K2
+     with the head off at "default", where a shipped config's user runs
+     it) at K = 10; and the 256x256 view (beside the same view at
+     "highest"). Every reduced arm's kernel must launch on these paths and
+     no fp32 arm may.
 The last two lines are the kernel report and {"ok": true, "device": ...}.
 """
 
@@ -291,6 +318,7 @@ from samplenerfro_torch.debug import dist_worker
 from samplenerfro_torch.debug import flax_fixture
 from samplenerfro_torch.debug import llff_scene
 from samplenerfro_torch.debug import mlp_rounding
+from samplenerfro_torch.debug import precision_arms
 from samplenerfro_torch.debug import probe_so3_relu
 from samplenerfro_torch.debug import real_scene
 from samplenerfro_torch.eval import make_render_fn
@@ -361,6 +389,12 @@ N_ALL_FUSED = 2  # 'all' steps with --mlp_kernel=pallas, which keep nn.Linear
 # torch.profiler (up to TRACE_TRIES) for the launches and the device time
 # of a step.
 N_DISPATCH = 30
+# Every phase before the shipped-arms phase (16) runs the shipped configs
+# in the fp32 arms they were written and gated for (march_interp highest,
+# march_bwd_dtype float32), so that honouring the shipped flags moves none
+# of their digests; phase 16 runs the configs as shipped.
+FP32_ARMS = {"march_bwd_dtype": "float32", "march_interp": "highest"}
+FP32_FLAGS = [f"--{k}={v}" for k, v in FP32_ARMS.items()]
 # The real-scene path: glass's shipped configuration on a synthetic OpenCV
 # capture of 8 train views (and one val, one test view) of 320x240; its
 # K = 10 steps a dispatch, so each stage's second window is a replay.
@@ -999,21 +1033,25 @@ def selfcheck_phase():
   march_kernel.march_lean.launches = 0
   march_kernel.march_full.launches = 0
   eikonal_vjp.march_bwd.launches = 0
+  march_kernel.march_full_plain.arms.clear()
   t0 = time.time()
   envelopes = {}
   deviations, not_run = selfcheck.check_march(envelopes=envelopes)
   counts = (march_kernel.march_lean.launches,
             march_kernel.march_full.launches, eikonal_vjp.march_bwd.launches)
+  head_off = march_kernel.march_full_plain.arms["default"]
   log(f"selfcheck: {time.time() - t0:.1f} s, launches K1 {counts[0]}, K2 "
-      f"{counts[1]}, K3 {counts[2]}")
+      f"{counts[1]}, K3 {counts[2]}, K2 with the head off at "
+      f"march_interp=default {head_off}")
   for name, dev in deviations.items():
     log(f"  {name}: {dev:.3e}, envelope {envelopes[name]:.3e} "
         f"({dev / envelopes[name]:.3f} of it)")
   for msg in not_run:
     log(f"  {msg}")
-  if min(counts) == 0:
-    raise SystemExit(f"selfcheck: launches K1/K2/K3 {counts}, each must be "
-                     f"at least 1")
+  if min(counts) == 0 or head_off == 0:
+    raise SystemExit(f"selfcheck: launches K1/K2/K3 {counts}, head off "
+                     f"{head_off}, each must be at least 1")
+  return head_off
 
 
 def p3_case(what, pos, so3, alpha, time_plain=True):
@@ -2049,10 +2087,10 @@ def parallel_phase(args, scene, device, seed, card, dispatch, view, jitter):
 
 
 def _zero_march_counts():
-  march_kernel.march_lean.launches = 0
-  march_kernel.march_full.launches = 0
-  eikonal_vjp.march_bwd.launches = 0
-  march_kernel.march_full_plain.launches = 0
+  for fn in (march_kernel.march_lean, march_kernel.march_full,
+             eikonal_vjp.march_bwd, march_kernel.march_full_plain):
+    fn.launches = 0
+    fn.arms.clear()
 
 
 def _march_counts():
@@ -2078,7 +2116,7 @@ def real_scene_phase(device, seed):
         f"{time.time() - t0:.1f} s")
     common = [f"--data_dir={data}", f"--train_dir={os.path.join(tmp, 'logs')}",
               f"--config={GLASS_CONFIG}", f"--gin_file={GLASS_CONFIG}.gin",
-              f"--seed={seed}", f"--device={device}"]
+              f"--seed={seed}", f"--device={device}", *FP32_FLAGS]
     every = lambda n, render: [f"--max_steps={n}", f"--save_every={n}",
                                f"--print_every={n}",
                                f"--render_every={n if render else 0}"]
@@ -2107,7 +2145,7 @@ def real_scene_phase(device, seed):
     # The model train returned, rendered here on eval's view with eval's
     # jitter: eval must have rendered the checkpoint it wrote.
     args, _, _ = config_lib.load_args(
-        GLASS_CONFIG, [GLASS_CONFIG + ".gin"], [], stage="all")
+        GLASS_CONFIG, [GLASS_CONFIG + ".gin"], [], stage="all", **FP32_ARMS)
     args.data_dir = data
     rays, images = datasets.load_split(args, "test")
     view, pixels = datasets.eval_view(args, rays, images, 0)
@@ -2217,7 +2255,7 @@ def cut_cross_check(model, data, device, seed):
   the K5 fp32 tolerance. Leaves the model on the CPU, its density
   lowered."""
   args, _, _ = config_lib.load_args(GLASS_CONFIG, [GLASS_CONFIG + ".gin"],
-                                    [], stage="radiance")
+                                    [], stage="radiance", **FP32_ARMS)
   args.data_dir, args.randomized = data, False
   host = next(datasets.TrainBatches(args, np.random.RandomState(seed)))
   model.mlp_dtype, model.sigma_bias = torch.float32, CUT_SIGMA_BIAS
@@ -3045,7 +3083,7 @@ def llff_phase(device, seed, card):
     write_s = time.time() - t0
     common = [f"--data_dir={data}", f"--train_dir={os.path.join(tmp, 'logs')}",
               f"--config={ship}", f"--gin_file={ship}.gin", f"--seed={seed}",
-              f"--device={device}", "--dataset=llff", "--near=0.0",
+              f"--device={device}", *FP32_FLAGS, "--dataset=llff", "--near=0.0",
               "--far=1.0", "--gin_param=Config.voxel_grid='voxelize'",
               "--gin_param=Config.radiance_weight_name='radiance'",
               "--gin_param=Config.ior_weight_name='ior'"]
@@ -3053,7 +3091,8 @@ def llff_phase(device, seed, card):
                        f"--print_every={n}", f"--render_every={n}",
                        f"--gc_every={n}"]
     args, _, _ = config_lib.load_args(ship, [ship + ".gin"], [],
-                                      dataset="llff", near=0.0, far=1.0)
+                                      dataset="llff", near=0.0, far=1.0,
+                                      **FP32_ARMS)
     args.data_dir = data
     val_rays, _ = datasets.load_split(args, "val")
     n_val = val_rays.origins.shape[1] * val_rays.origins.shape[2]
@@ -3605,6 +3644,340 @@ def flax_ckpt_phase(model, args, view, jitter, device, seed):
   return launches
 
 
+# The shipped-arms phase (16): the ship configuration as shipped, its
+# march_interp "default" and march_bwd_dtype "bfloat16". The free-running
+# K2 in its reduced arm against its plain version: a bf16 interpolation
+# rounding of n and grad n that the two marches take apart (2^-8 of the
+# grid's values, debug/precision_arms.py), carried; every step is held at
+# K2_ATOL teacher-forced, and the free-running march at the JAX
+# self-check's bf16 envelope of the plain version's scale.
+SHIPPED_FREE_ENVELOPE = 0.05
+SHIPPED_ARMS = (("march_lean", "default"), ("march_full_plain", "default"),
+                ("march_full", ("default", "bfloat16")),
+                ("march_bwd", "bfloat16"))
+MARCH_BWD_KERNEL = "samplenerfro_tpu/ops/pallas/march_bwd_kernel.py:168"
+
+
+def _arm_counts():
+  """Each reduced arm's launches through its wrapper (.arms)."""
+  fns = {"march_lean": march_kernel.march_lean,
+         "march_full_plain": march_kernel.march_full_plain,
+         "march_full": march_kernel.march_full,
+         "march_bwd": eikonal_vjp.march_bwd}
+  return {name: fns[name].arms[arm] for name, arm in SHIPPED_ARMS}
+
+
+def _fp32_arm_counts():
+  """The fp32 arms' launches, which the shipped path must not make."""
+  return (march_kernel.march_lean.arms["highest"]
+          + march_kernel.march_full_plain.arms["highest"]
+          + sum(n for (interp, dt), n in march_kernel.march_full.arms.items()
+                if (interp, dt) != ("default", "bfloat16"))
+          + eikonal_vjp.march_bwd.arms["float32"])
+
+
+def _shipped_kernels(model, first, batch_rays, jitter, seed):
+  """K1, K2 with the head off and K2 with its bf16 head at march_interp
+  "default" (the render chunk and the batch) and K3's bf16 arm at the
+  'all' batch, each against its plain version of the same arm
+  (debug/precision_arms.py), timed, with bounds; returns report rows."""
+  ps = model.path_sampler
+  geo = (ps.spec, ps.grid)
+  steps, near, h = ps.num_samples, ps.near, ps.step_size
+  rows = {}
+  for kind, case in (("march_lean", precision_arms.k1_arm),
+                     ("march_full_plain", precision_arms.head_off_arm)):
+    errs, figures = [], {}
+    for shape, rays in (("chunk", first), ("batch", batch_rays)):
+      o, d = rays.origins, rays.viewdirs
+      extra = (jitter,) if kind == "march_lean" else ()
+      args_ = (*geo, o, d, near, h, steps, *extra, "default")
+      err, out, plain_ms = case(*args_)
+      pos = out[0] if kind == "march_lean" else out[..., 0:3]
+      distinct = distinct_voxels(ps.spec, pos)
+      del out
+      errs.append(err)
+      fn = (march_kernel.march_lean if kind == "march_lean" else
+            march_kernel.march_full_plain)
+      call = lambda: fn(*args_)
+      ms = cuda_ms(call)
+      kernel = ("march_lean_kernel<2>" if kind == "march_lean" else
+                "march_full_plain_kernel<2>")
+      dev_ms, _ = kernel_device_ms(call, kernel)
+      batch = o.shape[0]
+      if kind == "march_lean":
+        nbytes = (4 * 7 * batch * (steps + jitter.shape[0])
+                  + 4 * (6 * batch + jitter.shape[0]) + 16 * distinct)
+      else:
+        nbytes = (4 * march_kernel.FULL_ROW * batch * steps + 4 * 6 * batch
+                  + 16 * distinct)
+      bound_ms, bound_by = bound(nbytes, 120 * batch * steps)
+      figures[shape] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "err": err}
+      log(f"  {kind} [default] {shape} ({batch} x {steps}): max abs err "
+          f"{err:.3e} against the plain version (tolerance {K1_ATOL}), "
+          f"{ms:.4f} ms, kernel {dev_ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+    if not (np.all(np.isfinite(errs)) and max(errs) <= K1_ATOL):
+      raise SystemExit(f"shipped: {kind} at default disagrees with its "
+                       f"plain version: {errs}")
+    f = figures["chunk"]
+    rows[kind] = report_row(
+        kind, MARCH_KERNEL, max(errs), f["ms"], f["plain_ms"], f["bound_ms"],
+        f["bound_by"], source=("samplenerfro_torch/ops/csrc/march_lean.cu"),
+        arm="march_interp=default", device_ms=f["device_ms"],
+        batch_ms=figures["batch"]["ms"],
+        batch_device_ms=figures["batch"]["device_ms"],
+        batch_plain_ms=figures["batch"]["plain_ms"],
+        batch_bound_ms=figures["batch"]["bound_ms"])
+    rows[kind]["name"] = f"{kind}[default]"
+
+  # K2 at the 'all' batch and at a render chunk (eval of an 'all' stage);
+  # the batch's plain trajectory is K3's input below.
+  so3 = so3_params_for(seed, ps.grid.device)
+  nparams = sum(p.numel() for p in so3)
+  figures = {}
+  for shape, rays in (("chunk", first), ("batch", batch_rays)):
+    o, d = rays.origins, rays.viewdirs
+    forced, free, traj, want, plain2 = precision_arms.k2_arm(
+        *geo, o, d, near, h, steps, so3, SO3_ALPHA, "default", "bfloat16")
+    active = int((traj[..., 8:11].norm(dim=-1) > 1e-3).sum())
+    distinct = distinct_voxels(ps.spec, traj[..., 0:3])
+    scale = want.abs().reshape(-1, 11).amax(dim=0).clamp(min=1e-3)
+    free_share = max(e / float(s) for e, s in zip(free, scale)) / (
+        SHIPPED_FREE_ENVELOPE)
+    log(f"  march_so3 [default, bf16 head] {shape} ({o.shape[0]} x "
+        f"{steps}): teacher-forced {forced} (tolerance {K2_ATOL}); "
+        f"free-running max abs err per channel {free}, {free_share:.3f} of "
+        f"the bf16 envelope")
+    if not (all(np.isfinite(v) and v <= K2_ATOL for v in forced.values())
+            and free_share <= 1.0):
+      raise SystemExit(f"shipped: K2 in its reduced arm disagrees with its "
+                       f"plain version at the {shape}")
+    del traj
+    fwd = (*geo, o, d, near, h, steps, so3, SO3_ALPHA, SO3_MAX_DEG,
+           "default", "bfloat16")
+    call = lambda: march_kernel.march_full(*fwd)
+    ms2 = cuda_ms(call)
+    dev2, _ = kernel_device_ms(call, "march_so3_kernel<2, true>")
+    # Least work: the head's forward a ray-step, bf16 operands summed in
+    # fp32, at the dense bf16 tensor-core rate (as K3's below and the bf16
+    # MLP rows), ~120 fp32 operations of the step at the CUDA cores', and
+    # the trajectory, the voxels and the weights moved once.
+    mlp_flops = so3_flops(so3) * active
+    bytes2 = 44 * o.shape[0] * steps + 16 * distinct + 24 * o.shape[0] + (
+        4 * nparams)
+    ops2 = 1e3 * (mlp_flops / BF16_TC_FLOPS
+                  + 120 * o.shape[0] * steps / FP32_FLOPS)
+    bytes2_ms = 1e3 * bytes2 / HBM_BYTES_PER_S
+    bound2, by2 = max(ops2, bytes2_ms), ("bytes" if bytes2_ms >= ops2 else
+                                         "operations")
+    log(f"  march_so3 [default, bf16 head] {shape}: {ms2:.4f} ms, kernel "
+        f"{dev2:.4f} ms, plain {plain2:.3f} ms, bound {bound2:.4f} ms by "
+        f"{by2} ({active} active ray-steps)")
+    figures[shape] = {"ms": ms2, "device_ms": dev2, "plain_ms": plain2,
+                      "bound_ms": bound2, "bound_by": by2,
+                      "err": max(forced.values()), "free": max(free)}
+    if shape == "chunk":
+      del want
+  f, c = figures["batch"], figures["chunk"]
+  rows["march_full"] = report_row(
+      "march_so3", MARCH_KERNEL, max(f["err"], c["err"]), f["ms"],
+      f["plain_ms"], f["bound_ms"], f["bound_by"],
+      arm="march_interp=default, march_bwd_dtype=bfloat16 (bf16 head)",
+      device_ms=f["device_ms"], free_running_max_abs_err=max(f["free"],
+                                                             c["free"]),
+      chunk_ms=c["ms"], chunk_device_ms=c["device_ms"],
+      chunk_plain_ms=c["plain_ms"], chunk_bound_ms=c["bound_ms"])
+  rows["march_full"]["name"] = "march_so3[default,bf16]"
+
+  # K3's bf16 arm on the plain march's trajectory (as phase 4 holds the
+  # fp32 arm), with P3's bf16 flips replayed.
+  cfg = eikonal_vjp.MarchConfig(ps.spec, near, h, steps, SO3_MAX_DEG,
+                                "default", "bfloat16")
+  dtraj = torch.randn(want.shape, generator=torch.Generator().manual_seed(
+      seed + 1)).to(want.device)
+  errs, flips, same, got, plain3 = precision_arms.k3_bf16_case(
+      cfg, ps.grid, o, d, so3, SO3_ALPHA, want, dtraj)
+  for k, (e, share) in errs.items():
+    log(f"  K3 [bf16] {k}: max abs err {e:.3e} ({share:.3f} of "
+        f"{precision_arms.K3_BF16_FORM} x max|want|)")
+  log(f"  K3 [bf16]: P3's bf16 flips replayed per layer {flips}; two runs "
+      f"bit for bit: {same}")
+  fp32 = eikonal_vjp.march_bwd(cfg._replace(bwd_dtype="float32"), ps.grid, o,
+                               d, so3, SO3_ALPHA, want, dtraj)
+  moved = {name: round(float((a - b).abs().max()
+                             / b.abs().max().clamp(min=1e-30)), 6)
+           for name, a, b in zip(precision_arms.K3_NAMES,
+                                 precision_arms.k3_flat(got),
+                                 precision_arms.k3_flat(fp32))}
+  log(f"  K3 [bf16] against K3 [fp32] on the same inputs, max abs "
+      f"difference over the fp32 arm's largest value per tensor: {moved}")
+  del got, fp32
+  if not (same and all(share <= 1.0 for _, share in errs.values())):
+    raise SystemExit("shipped: K3's bf16 arm disagrees with its plain "
+                     "version or is not deterministic")
+  bwd = (cfg, ps.grid, o, d, so3, SO3_ALPHA, want, dtraj)
+  call = lambda: eikonal_vjp.march_bwd(*bwd)
+  ms3 = cuda_ms(call)
+  split = precision_arms.k3_split(call)
+  # Least work: the head's three products a ray-step (forward, backward to
+  # the input, weight gradients) at the dense bf16 tensor-core rate, ~200
+  # fp32 operations of step adjoints a ray-step at the CUDA cores', and the
+  # trajectory and its cotangent, the voxels, the weights and their
+  # gradients moved once.
+  batch = o.shape[0]
+  t_ops = 1e3 * (3 * mlp_flops / BF16_TC_FLOPS
+                 + 200 * batch * steps / FP32_FLOPS)
+  bytes3 = 2 * 44 * batch * steps + 16 * distinct + 24 * batch + 8 * nparams
+  t_bytes = 1e3 * bytes3 / HBM_BYTES_PER_S
+  bound3, by3 = max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else
+                                      "operations")
+  log(f"  K3 [bf16] march_bwd: {ms3:.4f} ms, kernels {split} (device ms), "
+      f"plain {plain3:.3f} ms, bound {bound3:.4f} ms by {by3} "
+      f"({3 * mlp_flops / 1e9:.3f} GFLOP of bf16 head products, "
+      f"{bytes3 / 1e6:.1f} MB)")
+  rows["march_bwd"] = report_row(
+      "march_bwd", MARCH_BWD_KERNEL,
+      max(e for e, _ in errs.values()), ms3, plain3, bound3, by3,
+      arm="march_bwd_dtype=bfloat16", device_ms=split, relu_flips=flips)
+  rows["march_bwd"]["name"] = "march_bwd[bf16]"
+  del want, dtraj
+  return rows
+
+
+def shipped_phase(device, seed, card, head_off_selfcheck):
+  """16: the ship configuration as shipped (configs/tpu/ship_*: march_interp
+  "default", march_bwd_dtype "bfloat16"). Each reduced arm's kernel against
+  its plain version of the same arm at the ship shapes (_shipped_kernels),
+  then the path as shipped, its counts zeroed first: each stage's
+  N_DISPATCH steps from TRAIN_FROM one at a time and at its K (an eager
+  window, then a CUDA graph), bit for bit between the two, with steps/s
+  and device ms a step; the radiance stage with online sparsity on at K
+  (K2 with the head off, which the shipped flags run only there); and a
+  256x256 view through eval's render function, against the same view at
+  march_interp "highest". Every reduced arm must launch on these paths,
+  and no fp32 arm. head_off_selfcheck, the self-check's launches of K2
+  with the head off at "default", is reported beside the path's.
+  Returns the report rows and the figures."""
+  t_phase = time.time()
+  args, model, scene = ship_model(device, seed)
+  if (args.march_interp, args.march_bwd_dtype) != ("default", "bfloat16"):
+    raise SystemExit(f"shipped: the ship configuration sets march_interp "
+                     f"{args.march_interp!r}, march_bwd_dtype "
+                     f"{args.march_bwd_dtype!r}")
+  view, jitter, first, host, batch_rays = ship_inputs(args, seed, device)
+  log(f"shipped arms ({card}): kernels against their plain versions")
+  t0 = time.time()
+  rows = _shipped_kernels(model, first, batch_rays, jitter, seed)
+  figures = {"kernels_s": time.time() - t0}
+  del first, batch_rays
+  torch.cuda.empty_cache()
+
+  arms = dict.fromkeys(rows, 0)
+  k = args.steps_per_dispatch
+  hosts = [synthetic_batch(args, seed + i)
+           for i in range(N_DISPATCH + TRACE_TRIES * k)]
+  fp32_launches = 0
+  for stage in ("radiance", "all"):
+    sargs = argparse.Namespace(**{**vars(args), "stage": stage})
+    per = lambda n: (n, 0, 0, 0) if stage == "radiance" else (0, n, n, 0)
+    want_traced = _march_kernels(per(k))
+    runs = {}
+    for kk in (1, k):
+      _zero_march_counts()
+      runs[kk] = _dispatch_run(sargs, scene, device, seed, hosts, kk, k,
+                               want_traced)
+      for name, n in _arm_counts().items():
+        arms[name] += n
+      fp32_launches += _fp32_arm_counts()
+      torch.cuda.empty_cache()
+    eager, graph = runs[1], runs[k]
+    differ = [key for key in eager[1]
+              if not torch.equal(eager[1][key], graph[1][key])]
+    figures[stage] = {"k1_steps_s": eager[3], "k1_device_ms": eager[5],
+                      f"k{k}_steps_s": graph[3], f"k{k}_device_ms": graph[5]}
+    log(f"shipped ({stage}, ship as shipped from step {TRAIN_FROM}, {card}):"
+        f" K=1 {eager[3]:.3f} steps/s, {eager[5]:.3f} device ms a step; "
+        f"K={k} {graph[3]:.3f} steps/s (a replay), {graph[5]:.3f} device ms "
+        f"a step; {len(differ)} of {len(eager[1])} state tensors differ "
+        f"between K=1 and K={k}; losses {[s.loss for s in graph[0][::10]]}")
+    if differ or eager[0] != graph[0]:
+      raise SystemExit(f"shipped: K={k} is not K=1 bit for bit in {stage}: "
+                       f"{differ[:5]}")
+    if not all(np.isfinite(s.loss) for s in graph[0]):
+      raise SystemExit(f"shipped: non-finite loss in {stage}")
+    del runs, eager, graph
+  figures["k3_bf16_split_ms"] = rows["march_bwd"]["device_ms"]
+
+  # K2 with the head off runs where a user of a shipped config turns on
+  # online sparsity in radiance (the batch _shipped_kernels held it at).
+  oargs = argparse.Namespace(**{**vars(args), "stage": "radiance",
+                                "use_online_sparsity": True})
+  run = _dispatch_run(oargs, scene, device, seed, hosts, k, k,
+                      _march_kernels((0, 0, 0, k)))
+  head_off = march_kernel.march_full_plain.arms["default"]
+  arms["march_full_plain"] += head_off
+  fp32_launches += _fp32_arm_counts()
+  torch.cuda.empty_cache()
+  figures["radiance online sparsity"] = {f"k{k}_steps_s": run[3],
+                                         f"k{k}_device_ms": run[5]}
+  log(f"shipped (radiance online sparsity, {card}): K={k} {run[3]:.3f} "
+      f"steps/s (a replay), {run[5]:.3f} device ms a step; wrapper "
+      f"launches K1/K2/K3/head-off {run[2]}, K2 head off [default] "
+      f"{head_off}; traced windows {[list(t.values()) for t in run[4]]}; "
+      f"losses {[s.loss for s in run[0][::10]]}")
+  if (run[2] != (0, 0, 0, 2 * k) or run[4][-1] != _march_kernels(
+      (0, 0, 0, k)) or not all(np.isfinite(s.loss) for s in run[0])):
+    raise SystemExit(f"shipped: the online-sparsity radiance path launched "
+                     f"{run[2]}, traced {run[4]}, or a loss is not finite")
+  del run
+
+  _zero_march_counts()
+  render_fn = make_render_fn(model, jitter)
+  t0 = time.time()
+  rgb, dist, acc = render_lib.render_image(render_fn, view, False,
+                                           chunk=args.chunk, device=device)
+  torch.cuda.synchronize()
+  secs = time.time() - t0
+  view_launches = march_kernel.march_lean.arms["default"]
+  arms["march_lean"] += view_launches
+  fp32_launches += _fp32_arm_counts()
+  model.path_sampler.interp = "highest"
+  rgb_hi, _, acc_hi = render_lib.render_image(render_fn, view, False,
+                                              chunk=args.chunk, device=device)
+  model.path_sampler.interp = "default"
+  n = rgb.shape[0] * rgb.shape[1]
+  mse = float(np.mean((rgb - rgb_hi) ** 2))
+  figures["view"] = {"seconds": secs, "rays_s": n / secs,
+                     "rgb_max_abs_vs_highest": float(np.abs(rgb - rgb_hi).max()),
+                     "psnr_vs_highest": float(-10 * np.log10(max(mse, 1e-20))),
+                     "acc_max_abs_vs_highest": float(np.abs(acc - acc_hi).max())}
+  log(f"shipped view: {rgb.shape[0]}x{rgb.shape[1]}, {secs:.3f} s, "
+      f"{n / secs:.1f} rays/s, K1 [default] {view_launches} launches; "
+      f"against march_interp highest {figures['view']}")
+  if not (np.all(np.isfinite(rgb)) and np.all(np.isfinite(dist))
+          and 0 <= acc.min() and acc.max() <= 1 and view_launches
+          == -(-n // args.chunk)):
+    raise SystemExit("shipped: the view is not finite or in range, or K1's "
+                     "default arm did not march its chunks")
+  log(f"shipped path launches by arm {arms}; fp32 arms {fp32_launches}; "
+      f"K2 with the head off [default] in the self-check "
+      f"{head_off_selfcheck}")
+  if min(arms.values()) == 0 or fp32_launches:
+    raise SystemExit(f"shipped: an arm's kernel did not launch on its path "
+                     f"({arms}) or an fp32 arm did ({fp32_launches})")
+  for name, row in rows.items():
+    row["launches"] = arms[name]
+  rows["march_full_plain"]["selfcheck_launches"] = head_off_selfcheck
+  figures["seconds"] = time.time() - t_phase
+  log("shipped: " + json.dumps(figures))
+  del model, scene
+  torch.cuda.empty_cache()
+  return list(rows.values()), figures
+
+
 def main():
   p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   p.add_argument("--seed", type=int, default=0)
@@ -3619,10 +3992,10 @@ def main():
   device = torch.device("cuda")
   build_phase()
   probe_rows = probe_phase(device)
-  selfcheck_phase()
+  head_off_selfcheck = selfcheck_phase()
   probe_rows.append(p3_phase(device))
   torch.cuda.empty_cache()
-  args, model, scene = ship_model(device, ns.seed)
+  args, model, scene = ship_model(device, ns.seed, **FP32_ARMS)
   view, jitter, first, host, batch_rays = ship_inputs(args, ns.seed, device)
   log("forward marches (K1, K2) at every shape:")
   cases = march_cases(device, ns.seed, model, first, batch_rays, jitter)
@@ -3716,9 +4089,13 @@ def main():
   k1["llff_launches"] = sum(c[0] for c in llff_counts.values())
   log(f"ior figures {ior}; llff figures {llff}; options figures {options}")
   log(f"parallel figures {json.dumps(parallel)}")
+  torch.cuda.empty_cache()
+  shipped_rows, shipped = shipped_phase(device, ns.seed, card,
+                                        head_off_selfcheck)
+  log(f"shipped figures {json.dumps(shipped)}")
 
   report = probe_rows + [k1, k2, k3, head_off, k4, k4_pe, k4_bf16, k5_bf16,
-                         k5_fp32] + option_rows
+                         k5_fp32] + option_rows + shipped_rows
   log(f"total: {time.time() - t_start:.1f} s")
   log(f"card: {card}")
   print(json.dumps({"kernels": report}))

@@ -441,7 +441,8 @@ def main():
   t_start = time.time()
   card = card_name()
   device = torch.device("cuda")
-  args, model, scene = ship_model(device, ns.seed)
+  args, model, scene = ship_model(device, ns.seed, march_bwd_dtype="float32",
+                                  march_interp="highest")
   _, jitter, first, host, batch_rays = ship_inputs(args, ns.seed, device)
   for case in march_cases(device, ns.seed, model, first, batch_rays, jitter):
     march_report(*case)

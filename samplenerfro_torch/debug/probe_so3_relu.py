@@ -93,7 +93,11 @@ def replaying_refine_fn(k3_pre, flipped):
   gradient passing as through the plain version's. Each refine it makes
   counts the plain march's steps, one call a step on all B rays.
   """
-  def factory(so3_params, alpha, max_deg):
+  def factory(so3_params, alpha, max_deg, dtype="float32"):
+    if dtype != "float32":
+      raise NotImplementedError("the replay runs the fp32 head; the bf16 "
+                                "arm replays through ops/eikonal_vjp."
+                                "march_bwd_passes_reference(replay=...)")
     step = itertools.count()
 
     def refine(p, g):

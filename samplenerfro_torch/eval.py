@@ -120,6 +120,7 @@ def _eval(ns, rest, device):
       ns.config, ns.gin_file, ns.gin_param,
       **config_lib.parse_flag_overrides(rest))
   args.data_dir, args.train_dir = ns.data_dir, ns.train_dir
+  config_lib.apply_matmul_precision(args.matmul_precision)
   datasets.check_dataset(args)
   if args.render_path:
     rays, images = datasets.load_render_path(args), None

@@ -30,6 +30,7 @@ from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mip as mip_ops
 from samplenerfro_torch.ops import mlp_kernel as fused_ops
+from samplenerfro_torch.ops import precision
 from samplenerfro_torch.ops import render as render_ops
 from samplenerfro_torch.ops import sh as sh_ops
 from samplenerfro_torch.parallel import mesh
@@ -99,7 +100,8 @@ class NerfModel(nn.Module):
                use_online_sparsity=False, sh_deg=-1, sh_direnc_deg=-1,
                use_ipe=False, use_mask_bbox=False,
                head=march_kernel.SHIPPED_HEAD, interp_method="linear3",
-               normal_radius_scale=0.1, generator=None):
+               normal_radius_scale=0.1, generator=None,
+               march_interp="highest", march_bwd_dtype="float32"):
     super().__init__()
     # The cut applies at the fine level only, as in the JAX model.
     cut = bd_cut_dist is not None and num_fine_samples > 0
@@ -165,7 +167,7 @@ class NerfModel(nn.Module):
         spec, grid_data, near, far, num_coarse_samples * num_path_samples,
         stage, normal_radius_scale=normal_radius_scale, head=head,
         interp_method=interp_method, emit_grad=use_online_sparsity,
-        generator=generator)
+        generator=generator, interp=march_interp, bwd_dtype=march_bwd_dtype)
 
   def _encode_dirs(self, dirs):
     """The view encoding (_encode_dirs, models/nerf.py:182-185): SH with
@@ -471,6 +473,18 @@ def _check_activations(rgb_activation, sigma_activation, names):
         f"Choice of sigma_activation `{names[1]}` produces negative densities")
 
 
+def effective_march_interp(args):
+  """The stage's march interpolation precision (samplenerfro_tpu/models/
+  nerf.py:491-510): march_interp_all for a stage whose name starts with
+  'all' unless it is 'inherit', else march_interp."""
+  interp = str(getattr(args, "march_interp", "highest"))
+  allv = str(getattr(args, "march_interp_all", "inherit"))
+  stage = str(getattr(args, "stage", None) or "")
+  if stage.startswith("all") and allv != "inherit":
+    return allv
+  return interp
+
+
 def construct_nerf(args, ndim, nmin, nmax, grid, gin_overrides=None,
                    device=None, seed=0):
   """Build the NerfModel of args.stage.
@@ -480,9 +494,11 @@ def construct_nerf(args, ndim, nmin, nmax, grid, gin_overrides=None,
   it constructs): SH colour with use_viewdirs, an SH degree past eval_sh's
   4 or dir_enc's 8, a VoxMLP interp_method other than linear3, an 'all'
   stage whose VoxMLP head has no branch, the boundary cut with
-  use_mask_bbox. It raises ValueError for an unknown mlp_kernel or
-  mlp_dtype, and NotImplementedError for a fused MLP with an activation
-  other than ReLU (the fused kernels compute ReLU).
+  use_mask_bbox. It raises ValueError for an unknown mlp_kernel,
+  mlp_dtype, march_interp, march_interp_all or march_bwd_dtype, and
+  NotImplementedError for a fused MLP with an activation other than ReLU
+  (the fused kernels compute ReLU). The marches run at the stage's
+  effective_march_interp and K2/K3 in march_bwd_dtype's arm.
 
   Args:
     args: flags namespace (utils/config.py).
@@ -511,6 +527,12 @@ def construct_nerf(args, ndim, nmin, nmax, grid, gin_overrides=None,
   if mlp_dtype not in ("float32", "bfloat16"):
     raise ValueError(f"mlp_dtype must be float32 or bfloat16, got "
                      f"{mlp_dtype!r}")
+  all_interp = str(getattr(args, "march_interp_all", "inherit"))
+  if all_interp != "inherit":
+    precision.check_interp(all_interp)
+  march_interp = precision.check_interp(effective_march_interp(args))
+  march_bwd_dtype = precision.check_bwd_dtype(
+      str(getattr(args, "march_bwd_dtype", "float32")))
 
   net_activation = activation(args.net_activation)
   rgb_activation = activation(args.rgb_activation)
@@ -569,5 +591,6 @@ def construct_nerf(args, ndim, nmin, nmax, grid, gin_overrides=None,
       head=head, interp_method=g.get("VoxMLP.interp_method", "linear3"),
       normal_radius_scale=float(g.get("PathSampler.normal_radius_scale",
                                       0.1)),
-      generator=generator)
+      generator=generator, march_interp=march_interp,
+      march_bwd_dtype=march_bwd_dtype)
   return model.to(device).eval()

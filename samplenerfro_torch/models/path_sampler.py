@@ -7,7 +7,10 @@ stage, as in the JAX model, and only the 'all' stage marches with them;
 the `ior` stage trains them on the smoothness of the refined gradient at
 the boundary points (compute_normal_loss_and_smooth). The head's
 configuration (gin VoxMLP.*: its PE, residual and output branches) is a
-march_kernel.So3Head; K2 and K3 compute the shipped one.
+march_kernel.So3Head; K2 and K3 compute the shipped one. Every march runs
+at the stage's interpolation precision (`interp`: models/nerf.py's
+effective_march_interp of march_interp and march_interp_all), and K2 and
+K3 in the arm of march_bwd_dtype (`bwd_dtype`; ops/precision.py).
 """
 
 import torch
@@ -18,6 +21,7 @@ from samplenerfro_torch.ops import eikonal_vjp
 from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mlp as mlp_ops
+from samplenerfro_torch.ops import precision
 
 SO3_MAX_DEG = 10  # PathSampler.max_deg_point, not bound by any shipped gin
 
@@ -28,7 +32,8 @@ class PathSampler(nn.Module):
 
   def __init__(self, spec, grid_data, near, far, num_samples, stage,
                normal_radius_scale=0.1, head=march_kernel.SHIPPED_HEAD,
-               interp_method="linear3", emit_grad=False, generator=None):
+               interp_method="linear3", emit_grad=False, generator=None,
+               interp="highest", bwd_dtype="float32"):
     super().__init__()
     if interp_method != "linear3":
       raise NotImplementedError(f"VoxMLP.interp_method = {interp_method!r}")
@@ -67,8 +72,31 @@ class PathSampler(nn.Module):
         head.in_dim(SO3_MAX_DEG),
         output_init_std=1e-5 if head.use_residual else None,
         generator=generator)
+    # The arm lives in march_cfg alone: every march reads it there, so that
+    # one assignment to `interp` or `bwd_dtype` reaches K1, K2 and K3.
     self.march_cfg = eikonal_vjp.MarchConfig(
-        spec, self.near, self.step_size, self.num_samples, SO3_MAX_DEG)
+        spec, self.near, self.step_size, self.num_samples, SO3_MAX_DEG,
+        precision.check_interp(interp), precision.check_bwd_dtype(bwd_dtype))
+
+  @property
+  def interp(self):
+    """The forward interpolation's precision (march_cfg.interp)."""
+    return self.march_cfg.interp
+
+  @interp.setter
+  def interp(self, value):
+    self.march_cfg = self.march_cfg._replace(
+        interp=precision.check_interp(value))
+
+  @property
+  def bwd_dtype(self):
+    """The so3 head's and K3's arm (march_cfg.bwd_dtype)."""
+    return self.march_cfg.bwd_dtype
+
+  @bwd_dtype.setter
+  def bwd_dtype(self, value):
+    self.march_cfg = self.march_cfg._replace(
+        bwd_dtype=precision.check_bwd_dtype(value))
 
   def wrapper_grad_mlp(self, x, condition, annealed_alpha=1.0):
     """The refined IOR gradient at points x [..., 3] with grid gradient
@@ -114,7 +142,9 @@ class PathSampler(nn.Module):
     (pos, unit dirs, dist, n, grad n, None), and the caller gathers the
     coarse subsample. 'all' stages: K2 forward and K3 backward
     (ops/eikonal_vjp) for the shipped head, the plain march
-    (ops/eikonal.march) under autograd for another (march_all); either is
+    (ops/eikonal.march) under autograd for another (march_all; its head in
+    fp32: the JAX package's sweep for such a head, stepvjp, ignores
+    bwd_dtype); either is
     differentiable in the so3 weights and the ray inputs and returns
     (pos, unit dirs, dist, n, grad n, None). Arclength carries no gradient
     in any stage (path_sampler.py:305).
@@ -123,14 +153,14 @@ class PathSampler(nn.Module):
     if not self.use_pred_grad and (jitter is None or self.emit_grad):
       traj = march_kernel.march_full_plain(
           self.spec, self.grid, origins, directions, self.near,
-          self.step_size, self.num_samples)
+          self.step_size, self.num_samples, self.interp)
       pos, dirs_raw, dist, n, g = march_kernel.split_trajectory(traj)
       return (pos, math_ops.safe_l2_normalize(dirs_raw), dist.detach(), n, g,
               None)
     if not self.use_pred_grad:
       pos, dirs, dist, sub_pos, sub_dir, sub_dist = march_kernel.march_lean(
           self.spec, self.grid, origins, directions, self.near,
-          self.step_size, self.num_samples, jitter)
+          self.step_size, self.num_samples, jitter, self.interp)
       return (pos, dirs, dist.detach(), None, None,
               (sub_pos, sub_dir, sub_dist.detach()))
     if self.march_all == "plain":
@@ -141,7 +171,7 @@ class PathSampler(nn.Module):
           self.step_size, self.num_samples,
           pred_grad_fn=march_kernel.so3_refine_fn(
               self.so3_mlp.params(), alpha, SO3_MAX_DEG, self.head),
-          use_pred_grad=True)
+          use_pred_grad=True, interp=self.interp)
       return pos, dirs, dist.detach(), n, g, None
     traj = eikonal_vjp.march_allstage(self.march_cfg, self.grid, origins,
                                       directions, annealed_alpha,

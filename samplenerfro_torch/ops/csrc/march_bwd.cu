@@ -30,20 +30,21 @@
 //      corner gathers), inv_n, c_p, c_d and K = B^T, stored field-major
 //      for the sweep ([S][22][Bp], Bp the rays rounded up to 32).
 //  1b. k3_jacobians: the active ray-steps, compacted in order into tiles
-//      of 64 by a grid of blocks that each own a contiguous range of
-//      ray-steps. Per tile: the annealed PE and its derivative, each
-//      hidden layer forward and then its three tangents (one per axis of
-//      p), each a product of the tile's 64 rows with the layer's weights
-//      on the CUDA-core engine of mlp_common.cuh (weights streamed from L2
-//      in k-slabs through the cp.async ring, 8 x 8 register tiles a
-//      lane), then the output layer, Rodrigues' Jacobians (its adjoint at
-//      three unit cotangents) and K, written over B^T.
+//      (of 64, or 128 in the bf16 arm) by a grid of blocks that each own a
+//      contiguous range of ray-steps. Per tile: the annealed PE and its
+//      derivative, each hidden layer forward and then its three tangents
+//      (one per axis of p), each a product of the tile's rows with the
+//      layer's weights on an engine of mlp_common.cuh (weights streamed
+//      from L2 in k-slabs through the cp.async ring; Simt's 8 x 8 register
+//      tiles a lane, or Mma's m16n8 fragments), then the output layer,
+//      Rodrigues' Jacobians (its adjoint at three unit cotangents) and K,
+//      written over B^T.
 //  2.  k3_sweep: the recurrence above, one thread a ray, 32 rays a block
 //      (a block per 32 rays spreads 1,024 rays over 32 SMs), the pieces
 //      of 8 steps staged by cp.async while the 8 before are swept. It
 //      writes dbar_{s+1} at every ray-step and (pbar_0, dbar_0).
 //  3.  k3_params: as 1b, a fixed grid of blocks over contiguous ranges,
-//      compacting the active ray-steps into tiles of 64. Per tile: the
+//      compacting the active ray-steps into the arm's tiles. Per tile: the
 //      head's forward again (the same device functions as 1b), rawbar by
 //      the Rodrigues adjoint at ubar, the cotangents of each layer (dZ
 //      W^T on the engine, masked by the stored activations), and each
@@ -54,74 +55,135 @@
 //      from them (W . G summed per degree) and scales them by the window
 //      into dW.
 //  4.  k3_reduce: sums the G partials of each parameter in block order.
-// Every sum is owned by one thread and runs in a fixed order; no atomics,
-// so two runs agree bit for bit.
+// Every sum is owned by one thread (or one mma.sync fragment) and runs in
+// a fixed order; no atomics, so two runs agree bit for bit.
 //
-// The head's products are fp32 sums on CUDA cores that start from zero and
-// run in k order over the layer's input, then the skip input, then + bias:
-// the rounding points of the first version's gemv_tile and of K2. Tensor
-// cores would flip ReLU masks near 0 (PERF.md). The hidden layers are
-// computed at width 128: a narrower head is zero-padded by the wrapper
-// (zero units add exact zeros to every sum).
+// Two arms, chosen by march_bwd_dtype (one instantiation of 1a, 1b, 3 and
+// P3 each; the sweep and the reduction are shared):
+//  - float32: the head's products are fp32 sums on CUDA cores (the Simt
+//    engine of mlp_common.cuh, tiles of 64) that start from zero and run in
+//    k order over the layer's input, then the skip input, then + bias: the
+//    rounding points of the first version's gemv_tile and of K2's fp32
+//    head. Tensor cores would flip ReLU masks near 0 (PERF.md).
+//  - bfloat16: the TPU kernel's so3_precision DEFAULT and the passes
+//    form's bf16 casts (samplenerfro_tpu/ops/pallas/march_bwd_kernel.py:
+//    270-300; eikonal_vjp.py:270-275, 300-321, 428-430). The head's
+//    forward, tangent, cotangent and dW products take bf16 operands (the PE
+//    features and sines, every stored activation, tangent and cotangent,
+//    the weights rounded by the wrapper) on the tensor cores, mma.sync
+//    m16n8k16 through the Mma engine of mlp_common.cuh as K5 uses it, tiles
+//    of 128 ray-steps; each k16 step is summed from zero and added to fp32
+//    accumulators. The bias, ReLU, PE, Rodrigues, the 3-wide output layer
+//    (fp32 sums of bf16 operands on CUDA cores) and the sweep stay fp32; the
+//    bias gradients sum the bf16 cotangents in fp32. 1a forms the
+//    trilinear derivative from the corner values and the axis weights
+//    rounded to bf16, summed in fp32 (trilinear_jacobian_bf16). 1b and 3
+//    call the one forward (so3_encode, so3_layer) on the one engine, so
+//    that they see the same ReLU masks; K2 runs this head with the same
+//    operands (march_so3.cu, kBf16), summed in k order on CUDA cores.
+// The hidden layers are computed at width 128: a narrower head is
+// zero-padded by the wrapper (zero units add exact zeros to every sum).
 //
 // What bounds it: the head's arithmetic at the active ray-steps. This
 // design runs seven head products a ray-step (1b: forward and three
 // tangents; 3: forward, cotangents, dW), 7/3 of the bound's three, fp32
-// on CUDA cores; besides, it streams the trajectory and its cotangent
-// once, the pieces out and back in (88 bytes a ray-step) and each block's
-// 262 KB partial through L2 once a tile.
+// on CUDA cores or bf16 on tensor cores; besides, it streams the
+// trajectory and its cotangent once, the pieces out and back in (88 bytes
+// a ray-step) and each block's 262 KB partial through L2 once a tile.
 //
 // The file also holds P3 (so3_preacts_launch), which computes the head's
-// pre-activations with 1b's and 3's forward (so3_encode, so3_layer), so
-// that ReLU masks can be held against another summation order's.
+// pre-activations with 1b's and 3's forward (so3_encode, so3_layer) in
+// either arm, so that ReLU masks can be held against another summation
+// order's.
 
 #include "mlp_common.cuh"
 
 namespace {
 
-using Seg = fused_mlp::ASeg<float>;
-using Engine = fused_mlp::Simt<128, float>;
+using fused_mlp::bf16;
 
 constexpr int kThreads = fused_mlp::kThreads;  // 256
 constexpr int kW = 128;        // hidden width of the products
-constexpr int kTile = Engine::kRows;  // 64 ray-steps a tile
 constexpr int kIn = 64;        // PE columns kept; zero past 6 * max_deg
-constexpr int kLdH = kW + 4;   // shared-memory rows padded by 16 bytes
-constexpr int kLdX = kIn + 4;
 constexpr int kMaxDeg = 10;
 constexpr int kFields = 22;    // pieces a ray-step: K 9, a 3, inv_n,
                                // c_p 3, c_d 3, d 3
 constexpr int kChunk = 8;      // steps a sweep stage holds
-constexpr int kRing = fused_mlp::kStages * 16 * kLdH;  // floats
 constexpr float kHalfPi = 1.5707963267948966f;
 
-// The engine's k-slab pipeline in fp32: 16 weight rows a slab.
-struct Pol {
-  using Elem = float;
-  static constexpr int kSlab = 16;
+// The fp32 arm: CUDA-core products, 64-row tiles, 16 weight rows a slab.
+struct F32Arm {
+  using T = float;
+  using Engine = fused_mlp::Simt<kW, float>;
+  using GradEngine = Engine;   // A^T Z, 64 output rows a call
+  using GradXEngine = Engine;  // the same over the PE's columns
+  struct Pol {
+    using Elem = float;
+    static constexpr int kSlab = 16;
+  };
 };
+
+// The bf16 arm: tensor-core products of bf16 operands, 128-row tiles, 32
+// weight rows a slab.
+struct Bf16Arm {
+  using T = bf16;
+  using Engine = fused_mlp::Mma<kW, 4>;
+  using GradEngine = fused_mlp::Mma<kW, 4>;   // 128 output rows a call
+  using GradXEngine = fused_mlp::Mma<kW, 2>;  // 64: the PE's columns
+  struct Pol {
+    using Elem = bf16;
+    static constexpr int kSlab = 32;
+  };
+};
+
+// An arm's tile rows, its shared-memory row strides (padded by 16 bytes)
+// and its weight ring.
+template <typename A>
+constexpr int kTileOf = A::Engine::kRows;
+template <typename A>
+constexpr int kLdXOf = kIn + fused_mlp::pad<typename A::T>();
+template <typename A>
+constexpr int kLdHOf = kW + fused_mlp::pad<typename A::T>();
+template <typename A>
+constexpr int kRingOf = fused_mlp::kStages * A::Pol::kSlab * kLdHOf<A>;
+
+// v as an operand of arm T: itself, or rounded to bf16.
+template <typename T>
+__device__ __forceinline__ float operand(float v) {
+  const T r = fused_mlp::round_to<T>(v);
+  return fused_mlp::load(&r);
+}
 
 // The head's weights. Forward pack, input-major, hidden units padded to
 // kW: W0t [I][kW] b0 W1t [kW][kW] b1 W2t b2 W3t [kW + I][kW] b3 Woutt
-// [kW][3] bout. Backward pack, nn.Linear layout [out][in]: W1, W2 and the
-// first kW inputs of W3, each [kW][kW].
+// [kW][3] bout, in fp32 (the biases and the output layer are read from
+// it) and as the products' operands, T (the weights at the same offsets).
+// Backward pack, nn.Linear layout [out][in], T: W1, W2 and the first kW
+// inputs of W3, each [kW][kW].
+template <typename T>
 struct Net {
-  const float *w0t, *b0, *w1t, *b1, *w2t, *b2, *w3t, *b3, *wot, *bo;
-  const float *w1, *w2, *w3;
+  const T *w0t, *w1t, *w2t, *w3t;
+  const float *b0, *b1, *b2, *b3, *wot, *bo;
+  const T *w1, *w2, *w3;
   int in_dim;
 };
 
-__device__ __forceinline__ Net make_net(const float* fwd, const float* bwd,
-                                        int in_dim) {
-  Net n;
+template <typename T>
+__device__ __forceinline__ Net<T> make_net(const float* fwd, const T* fwd_t,
+                                           const T* bwd, int in_dim) {
+  Net<T> n;
   const int I = in_dim;
+  const int o_b0 = I * kW, o_w1 = o_b0 + kW, o_b1 = o_w1 + kW * kW;
+  const int o_w2 = o_b1 + kW, o_b2 = o_w2 + kW * kW, o_w3 = o_b2 + kW;
+  const int o_b3 = o_w3 + (kW + I) * kW, o_wo = o_b3 + kW,
+            o_bo = o_wo + kW * 3;
   n.in_dim = I;
-  n.w0t = fwd;           n.b0 = n.w0t + I * kW;
-  n.w1t = n.b0 + kW;     n.b1 = n.w1t + kW * kW;
-  n.w2t = n.b1 + kW;     n.b2 = n.w2t + kW * kW;
-  n.w3t = n.b2 + kW;     n.b3 = n.w3t + (kW + I) * kW;
-  n.wot = n.b3 + kW;     n.bo = n.wot + kW * 3;
-  n.w1 = bwd;            n.w2 = bwd + kW * kW;
+  n.w0t = fwd_t;        n.b0 = fwd + o_b0;
+  n.w1t = fwd_t + o_w1; n.b1 = fwd + o_b1;
+  n.w2t = fwd_t + o_w2; n.b2 = fwd + o_b2;
+  n.w3t = fwd_t + o_w3; n.b3 = fwd + o_b3;
+  n.wot = fwd + o_wo;   n.bo = fwd + o_bo;
+  n.w1 = bwd;           n.w2 = bwd + kW * kW;
   n.w3 = bwd + 2 * kW * kW;
   return n;
 }
@@ -153,30 +215,45 @@ struct GridArgs {
   float nd_x, nd_y, nd_z;
 };
 
-// d(trilinear)/dp of ops/grid.trilinear at p: dv[a] = the derivative of
-// the x-then-y-then-z lerps of [n, g] along axis a, over the voxel size
-// (the fraction has slope 1 / ndelta; clamped corners give 0).
-__device__ void trilinear_jacobian(const GridArgs& a, float px, float py,
-                                   float pz, float4 (&dv)[3]) {
+// The 8 corners of the cell that holds p, c[x + 2 y + 4 z] (clamped
+// indices, ops/grid.trilinear), and its fractions.
+__device__ __forceinline__ void cell_corners(const GridArgs& a, float px,
+                                             float py, float pz,
+                                             float4 (&c)[8], float& xd,
+                                             float& yd, float& zd) {
   const float cx = (px - a.nmin_x) / a.nd_x;
   const float cy = (py - a.nmin_y) / a.nd_y;
   const float cz = (pz - a.nmin_z) / a.nd_z;
   const float fx0 = floorf(cx), fy0 = floorf(cy), fz0 = floorf(cz);
-  const float xd = cx - fx0, yd = cy - fy0, zd = cz - fz0;
+  xd = cx - fx0;
+  yd = cy - fy0;
+  zd = cz - fz0;
   const int ix = (int)fx0, iy = (int)fy0, iz = (int)fz0;
   const long long x0 = clampi(ix, a.nx - 1), x1 = clampi(ix + 1, a.nx - 1);
   const long long y0 = clampi(iy, a.ny - 1), y1 = clampi(iy + 1, a.ny - 1);
   const long long z0 = clampi(iz, a.nz - 1), z1 = clampi(iz + 1, a.nz - 1);
   const long long sy = a.nz, sx = (long long)a.ny * a.nz;
   const float4* g = a.grid;
-  const float4 c000 = __ldg(g + sx * x0 + sy * y0 + z0);
-  const float4 c100 = __ldg(g + sx * x1 + sy * y0 + z0);
-  const float4 c001 = __ldg(g + sx * x0 + sy * y0 + z1);
-  const float4 c101 = __ldg(g + sx * x1 + sy * y0 + z1);
-  const float4 c010 = __ldg(g + sx * x0 + sy * y1 + z0);
-  const float4 c110 = __ldg(g + sx * x1 + sy * y1 + z0);
-  const float4 c011 = __ldg(g + sx * x0 + sy * y1 + z1);
-  const float4 c111 = __ldg(g + sx * x1 + sy * y1 + z1);
+  c[0] = __ldg(g + sx * x0 + sy * y0 + z0);
+  c[1] = __ldg(g + sx * x1 + sy * y0 + z0);
+  c[2] = __ldg(g + sx * x0 + sy * y1 + z0);
+  c[3] = __ldg(g + sx * x1 + sy * y1 + z0);
+  c[4] = __ldg(g + sx * x0 + sy * y0 + z1);
+  c[5] = __ldg(g + sx * x1 + sy * y0 + z1);
+  c[6] = __ldg(g + sx * x0 + sy * y1 + z1);
+  c[7] = __ldg(g + sx * x1 + sy * y1 + z1);
+}
+
+// d(trilinear)/dp of ops/grid.trilinear at p: dv[a] = the derivative of
+// the x-then-y-then-z lerps of [n, g] along axis a, over the voxel size
+// (the fraction has slope 1 / ndelta; clamped corners give 0).
+__device__ void trilinear_jacobian(const GridArgs& a, float px, float py,
+                                   float pz, float4 (&dv)[3]) {
+  float4 c[8];
+  float xd, yd, zd;
+  cell_corners(a, px, py, pz, c, xd, yd, zd);
+  const float4 c000 = c[0], c100 = c[1], c010 = c[2], c110 = c[3];
+  const float4 c001 = c[4], c101 = c[5], c011 = c[6], c111 = c[7];
   const float4 c00 = lerp4(c000, c100, xd);
   const float4 c01 = lerp4(c001, c101, xd);
   const float4 c10 = lerp4(c010, c110, xd);
@@ -191,6 +268,53 @@ __device__ void trilinear_jacobian(const GridArgs& a, float px, float py,
                       dvy.w / a.nd_y);
   dv[2] = make_float4(dvz.x / a.nd_z, dvz.y / a.nd_z, dvz.z / a.nd_z,
                       dvz.w / a.nd_z);
+}
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The same derivative in the passes form's bf16 arm (eikonal_vjp.py:
+// 300-321): along axis a, its weights are the one-hot derivative (-1 at
+// the lower corner, +1 at the upper) and the other axes' the lerp weights
+// (1 - f, f); dv[a] = sum_z uz(z) sum_{y, x} bf16(c_xyz) bf16(ux(x) uy(y)),
+// each bf16 product exact in fp32, summed along x, then y (the lower
+// corner's addend first), then the z sum in fp32; over the voxel size.
+// ops/eikonal_vjp.trilinear_jacobian_bf16 is its plain version.
+__device__ void trilinear_jacobian_bf16(const GridArgs& a, float px,
+                                        float py, float pz,
+                                        float4 (&dv)[3]) {
+  float4 c[8];
+  float xd, yd, zd;
+  cell_corners(a, px, py, pz, c, xd, yd, zd);
+  const float lerp_w[3][2] = {{1.0f - xd, xd}, {1.0f - yd, yd},
+                              {1.0f - zd, zd}};
+  const float nd[3] = {a.nd_x, a.nd_y, a.nd_z};
+  for (int ax = 0; ax < 3; ++ax) {
+    float w[3][2];
+    for (int k = 0; k < 3; ++k) {
+      w[k][0] = k == ax ? -1.0f : lerp_w[k][0];
+      w[k][1] = k == ax ? 1.0f : lerp_w[k][1];
+    }
+    float t[2][4];
+    for (int z = 0; z < 2; ++z) {
+      float q[4][4];  // [x + 2 y][channel]
+      for (int xy = 0; xy < 4; ++xy) {
+        const float wxy = bf16r(w[0][xy & 1] * w[1][xy >> 1]);
+        const float4 v = c[xy + 4 * z];
+        q[xy][0] = bf16r(v.x) * wxy;
+        q[xy][1] = bf16r(v.y) * wxy;
+        q[xy][2] = bf16r(v.z) * wxy;
+        q[xy][3] = bf16r(v.w) * wxy;
+      }
+      for (int ch = 0; ch < 4; ++ch)
+        t[z][ch] = (q[0][ch] + q[1][ch]) + (q[2][ch] + q[3][ch]);
+    }
+    float o[4];
+    for (int ch = 0; ch < 4; ++ch)
+      o[ch] = (t[0][ch] * w[2][0] + t[1][ch] * w[2][1]) / nd[ax];
+    dv[ax] = make_float4(o[0], o[1], o[2], o[3]);
+  }
 }
 
 __device__ __forceinline__ float3 cross3(float3 a, float3 b) {
@@ -257,14 +381,19 @@ __device__ __forceinline__ bool active_g(const float* row) {
 
 // ------------------------------------------------- the head on a tile
 
-// The annealed PE of the tile's points p[r] (r < kTile), column f < I of
-// degree f / 6, coordinate f % 3, sine for f % 6 < 3 and the sine of the
-// argument + pi/2 past it: x[r][f] = sin(arg) * win[deg]; with val, the
-// sine itself; with dco, the derivative of x[r][f] along p[r][f % 3],
-// cos(arg) 2^deg win[deg]. Columns I .. kIn - 1 are zero.
+// The annealed PE of the tile's points p[r] (r < the arm's tile rows),
+// column f < I of degree f / 6, coordinate f % 3, sine for f % 6 < 3 and
+// the sine of the argument + pi/2 past it: x[r][f] = sin(arg) * win[deg];
+// with val, the sine itself; with dco, the derivative of x[r][f] along
+// p[r][f % 3], cos(arg) 2^deg win[deg]. Columns I .. kIn - 1 are zero.
+// Each is stored as the arm's operand.
+template <typename A>
 __device__ void so3_encode(const float (*p)[3], int in_dim, const float* win,
-                           float* x, float* val, float* dco) {
-  for (int i = threadIdx.x; i < kTile * kIn; i += kThreads) {
+                           typename A::T* x, typename A::T* val,
+                           typename A::T* dco) {
+  using T = typename A::T;
+  constexpr int R = kTileOf<A>, LD = kLdXOf<A>;
+  for (int i = threadIdx.x; i < R * kIn; i += kThreads) {
     const int r = i / kIn, f = i % kIn;
     float xv = 0.0f, sv = 0.0f, dv = 0.0f;
     if (f < in_dim) {
@@ -276,24 +405,27 @@ __device__ void so3_encode(const float (*p)[3], int in_dim, const float* win,
       xv = sv * win[deg];
       if (dco) dv = win[deg] * (cosf(arg) * scale);
     }
-    x[r * kLdX + f] = xv;
-    if (val) val[r * kLdX + f] = sv;
-    if (dco) dco[r * kLdX + f] = dv;
+    x[r * LD + f] = fused_mlp::round_to<T>(xv);
+    if (val) val[r * LD + f] = fused_mlp::round_to<T>(sv);
+    if (dco) dco[r * LD + f] = fused_mlp::round_to<T>(dv);
   }
 }
 
-// One hidden layer of the head on the tile, fp32 on CUDA cores: out[r][c]
+// One hidden layer of the head on the tile, on the arm's engine: out[r][c]
 // = ReLU(sum_k s0(r, k) W[k][c] + sum_k s1(r, k) W[s0.k + k][c] + b[c]),
-// each sum from zero in k order. W is input-major [*][kW] in device
-// memory. With pre, the pre-activations of rows r < rows and columns c <
-// width also go to pre[r * width + c]. out may be s0's buffer.
-__device__ void so3_layer(const Seg& s0, const Seg& s1, const float* w,
-                          const float* b, float* out, float* ring,
+// each sum from zero in k order (fp32), or in k16 steps (bf16), stored as
+// the arm's operand. W is input-major [*][kW] in device memory. With pre,
+// the fp32 pre-activations of rows r < rows and columns c < width also go
+// to pre[r * width + c]. out may be s0's buffer.
+template <typename A, typename T = typename A::T>
+__device__ void so3_layer(const fused_mlp::ASeg<T>& s0,
+                          const fused_mlp::ASeg<T>& s1, const T* w,
+                          const float* b, T* out, T* ring,
                           float* pre = nullptr, int rows = 0,
                           int width = 0) {
-  Engine e;
+  typename A::Engine e;
   e.zero();
-  fused_mlp::weight_product<Pol, kW>(e, s0, s1, w, kW, ring);
+  fused_mlp::weight_product<typename A::Pol, kW>(e, s0, s1, w, kW, ring);
   e.template each<false>([&](int, int r, int c, float v0, float v1) {
     v0 += __ldg(b + c);
     v1 += __ldg(b + c + 1);
@@ -301,8 +433,8 @@ __device__ void so3_layer(const Seg& s0, const Seg& s1, const float* w,
       if (c < width) pre[r * width + c] = v0;
       if (c + 1 < width) pre[r * width + c + 1] = v1;
     }
-    out[r * kLdH + c] = fmaxf(v0, 0.0f);
-    out[r * kLdH + c + 1] = fmaxf(v1, 0.0f);
+    fused_mlp::store_pair(out + r * kLdHOf<A> + c, fmaxf(v0, 0.0f),
+                          fmaxf(v1, 0.0f));
   });
   __syncthreads();
 }
@@ -312,27 +444,32 @@ __device__ void so3_layer(const Seg& s0, const Seg& s1, const float* w,
 // device memory, its first kW columns. The tangents (W input-major) and
 // the cotangents (W in nn.Linear layout) of the head. out may be s0's
 // buffer.
-__device__ void masked_product(const Seg& s0, const Seg& s1, const float* w,
-                               int ldw, const float* mask, float* out,
-                               float* ring) {
-  Engine e;
+template <typename A, typename T = typename A::T>
+__device__ void masked_product(const fused_mlp::ASeg<T>& s0,
+                               const fused_mlp::ASeg<T>& s1, const T* w,
+                               int ldw, const T* mask, T* out, T* ring) {
+  constexpr int LD = kLdHOf<A>;
+  typename A::Engine e;
   e.zero();
-  fused_mlp::weight_product<Pol, kW>(e, s0, s1, w, ldw, ring);
+  fused_mlp::weight_product<typename A::Pol, kW>(e, s0, s1, w, ldw, ring);
   e.template each<false>([&](int, int r, int c, float v0, float v1) {
-    out[r * kLdH + c] = mask[r * kLdH + c] > 0.0f ? v0 : 0.0f;
-    out[r * kLdH + c + 1] = mask[r * kLdH + c + 1] > 0.0f ? v1 : 0.0f;
+    const bool m0 = fused_mlp::load(mask + r * LD + c) > 0.0f;
+    const bool m1 = fused_mlp::load(mask + r * LD + c + 1) > 0.0f;
+    fused_mlp::store_pair(out + r * LD + c, m0 ? v0 : 0.0f, m1 ? v1 : 0.0f);
   });
   __syncthreads();
 }
 
 // raw[r][o] = sum_k h[r][k] Wout[k][o] (+ bout[o] when bias), k in order.
-__device__ void so3_out(const float* h, const Net& n, bool bias,
+template <typename A, typename T = typename A::T>
+__device__ void so3_out(const T* h, const Net<T>& n, bool bias,
                         float (*raw)[3]) {
-  for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
+  for (int i = threadIdx.x; i < kTileOf<A> * 3; i += kThreads) {
     const int r = i / 3, o = i % 3;
     float acc = 0.0f;
     for (int k = 0; k < kW; ++k)
-      acc = __fmaf_rn(h[r * kLdH + k], __ldg(n.wot + 3 * k + o), acc);
+      acc = __fmaf_rn(fused_mlp::load(h + r * kLdHOf<A> + k),
+                      __ldg(n.wot + 3 * k + o), acc);
     raw[r][o] = bias ? acc + __ldg(n.bo + o) : acc;
   }
 }
@@ -340,8 +477,8 @@ __device__ void so3_out(const float* h, const Net& n, bool bias,
 // ------------------------------------------- compaction of active steps
 
 // The active ray-steps of [begin, end), in order, handed to tile(nt) in
-// groups of kTile (the last one shorter) as list[0 .. nt).
-template <typename Tile>
+// groups of R (the last one shorter) as list[0 .. nt).
+template <int R, typename Tile>
 __device__ void active_tiles(const float* traj, long long begin,
                              long long end, int* list, int* warp_count,
                              Tile tile) {
@@ -362,13 +499,13 @@ __device__ void active_tiles(const float* traj, long long begin,
       list[count + before + __popc(ballot & ((1u << lane) - 1u))] = (int)idx;
     count += total;
     __syncthreads();
-    while (count >= kTile) {
-      tile(kTile);
+    while (count >= R) {
+      tile(R);
       int keep[2];
-      const int rest = count - kTile;
+      const int rest = count - R;
       for (int q = 0; q < 2; ++q) {
         const int i = tid + q * kThreads;
-        keep[q] = i < rest ? list[kTile + i] : 0;
+        keep[q] = i < rest ? list[R + i] : 0;
       }
       __syncthreads();
       for (int q = 0; q < 2; ++q) {
@@ -385,8 +522,9 @@ __device__ void active_tiles(const float* traj, long long begin,
 struct Args {
   const float* traj;     // [B, S, 11]: p, raw d, t, n, g
   const float* cts;      // [B, S, 11]: dp, dd(raw), segbar, dn, dg
-  const float* wfwd;
-  const float* wbwd;
+  const float* wfwd;     // fp32 forward pack
+  const void* wfwd_t;    // the arm's forward pack (wfwd in fp32)
+  const void* wbwd_t;    // the arm's backward pack
   const float* window;   // [max_deg]
   GridArgs grid;
   float* pieces;         // [S][kFields][Bp]
@@ -398,6 +536,12 @@ struct Args {
   float step;
 };
 
+template <typename T>
+__device__ __forceinline__ Net<T> args_net(const Args& a) {
+  return make_net(a.wfwd, static_cast<const T*>(a.wfwd_t),
+                  static_cast<const T*>(a.wbwd_t), 6 * a.max_deg);
+}
+
 __device__ __forceinline__ float* piece(const Args& a, int s, int f,
                                         int ray) {
   return a.pieces + ((long long)s * kFields + f) * a.bp + ray;
@@ -405,6 +549,7 @@ __device__ __forceinline__ float* piece(const Args& a, int s, int f,
 
 // ------------------------------------------------------------ pass 1a
 
+template <bool kBf16>
 __global__ void __launch_bounds__(256) k3_pieces(const Args a) {
   const long long i = blockIdx.x * 256LL + threadIdx.x;
   const long long total = (long long)a.batch * a.num_samples;
@@ -416,7 +561,11 @@ __global__ void __launch_bounds__(256) k3_pieces(const Args a) {
   const float h = a.step;
   const float dx = tr[3], dy = tr[4], dz = tr[5], n = tr[7];
   float4 dv[3];
-  trilinear_jacobian(a.grid, tr[0], tr[1], tr[2], dv);
+  if (kBf16) {
+    trilinear_jacobian_bf16(a.grid, tr[0], tr[1], tr[2], dv);
+  } else {
+    trilinear_jacobian(a.grid, tr[0], tr[1], tr[2], dv);
+  }
   // a_vec[c] = dn/dp_c; bg[j][c] = dg_j/dp_c.
   const float av[3] = {dv[0].x, dv[1].x, dv[2].x};
   const float bg[3][3] = {{dv[0].y, dv[1].y, dv[2].y},
@@ -441,62 +590,70 @@ __global__ void __launch_bounds__(256) k3_pieces(const Args a) {
 
 // ------------------------------------------------------------ pass 1b
 
+template <typename A, typename T = typename A::T>
 struct JacSmem {
-  float x[kTile * kLdX];
-  float dco[kTile * kLdX];      // then a tangent's skip input
-  float h[kTile * kLdH];
-  float t[3][kTile * kLdH];
-  float ring[kRing];
-  float p[kTile][3];
-  float raw[kTile][3];
-  float traw[3][kTile][3];
+  static constexpr int R = kTileOf<A>;
+  T x[R * kLdXOf<A>];
+  T dco[R * kLdXOf<A>];         // then a tangent's skip input
+  T h[R * kLdHOf<A>];
+  T t[3][R * kLdHOf<A>];
+  T ring[kRingOf<A>];
+  float p[R][3];
+  float raw[R][3];
+  float traw[3][R][3];
   float win[kMaxDeg];
-  int list[kThreads + kTile];
+  int list[kThreads + R];
   int warp_count[kThreads / 32];
 };
 
 // The tangent of the PE along axis c: dco's columns of coordinate c.
-__device__ void tangent_input(const float* dco, int c, float* out, int ld) {
-  for (int i = threadIdx.x; i < kTile * kIn; i += kThreads) {
+template <typename A, typename T = typename A::T>
+__device__ void tangent_input(const T* dco, int c, T* out, int ld) {
+  const T zero = fused_mlp::round_to<T>(0.0f);
+  for (int i = threadIdx.x; i < kTileOf<A> * kIn; i += kThreads) {
     const int r = i / kIn, f = i % kIn;
-    out[r * ld + f] = f % 3 == c ? dco[r * kLdX + f] : 0.0f;
+    out[r * ld + f] = f % 3 == c ? dco[r * kLdXOf<A> + f] : zero;
   }
 }
 
-__device__ void jacobian_tile(const Args& a, const Net& net, JacSmem& m,
-                              int nt) {
+template <typename A, typename T = typename A::T>
+__device__ void jacobian_tile(const Args& a, const Net<T>& net,
+                              JacSmem<A>& m, int nt) {
+  using Seg = fused_mlp::ASeg<T>;
+  constexpr int R = kTileOf<A>, LDX = kLdXOf<A>, LDH = kLdHOf<A>;
   const int tid = threadIdx.x, I = net.in_dim;
-  for (int i = tid; i < kTile * 3; i += kThreads) {
+  for (int i = tid; i < R * 3; i += kThreads) {
     const int r = i / 3, c = i % 3;
     m.p[r][c] = r < nt ? a.traj[11 * (long long)m.list[r] + c] : 0.0f;
   }
   __syncthreads();
-  so3_encode(m.p, I, m.win, m.x, nullptr, m.dco);
+  so3_encode<A>(m.p, I, m.win, m.x, nullptr, m.dco);
   __syncthreads();
   const Seg none = {nullptr, 0, 0};
-  const float* wt[4] = {net.w0t, net.w1t, net.w2t, net.w3t};
+  const T* wt[4] = {net.w0t, net.w1t, net.w2t, net.w3t};
   const float* bs[4] = {net.b0, net.b1, net.b2, net.b3};
   for (int l = 0; l < 4; ++l) {
     // Forward, into h (over its input past layer 0).
-    const Seg in = l == 0 ? Seg{m.x, kLdX, I} : Seg{m.h, kLdH, kW};
-    so3_layer(in, l == 3 ? Seg{m.x, kLdX, I} : none, wt[l], bs[l], m.h,
-              m.ring);
+    const Seg in = l == 0 ? Seg{m.x, LDX, I} : Seg{m.h, LDH, kW};
+    so3_layer<A>(in, l == 3 ? Seg{m.x, LDX, I} : none, wt[l], bs[l], m.h,
+                 m.ring);
     // The three tangents, each over its own input, masked by h.
     for (int c = 0; c < 3; ++c) {
-      if (l == 0) tangent_input(m.dco, c, m.t[c], kLdH);
-      if (l == 3) tangent_input(m.dco, c, m.x, kLdX);  // x is free now
+      if (l == 0) tangent_input<A>(m.dco, c, m.t[c], LDH);
+      if (l == 3) tangent_input<A>(m.dco, c, m.x, LDX);  // x is free now
       if (l == 0 || l == 3) __syncthreads();
-      const Seg tin = l == 0 ? Seg{m.t[c], kLdH, I} : Seg{m.t[c], kLdH, kW};
-      masked_product(tin, l == 3 ? Seg{m.x, kLdX, I} : none, wt[l], kW, m.h,
-                     m.t[c], m.ring);
+      const Seg tin = l == 0 ? Seg{m.t[c], LDH, I} : Seg{m.t[c], LDH, kW};
+      masked_product<A>(tin, l == 3 ? Seg{m.x, LDX, I} : none, wt[l], kW,
+                        m.h, m.t[c], m.ring);
     }
   }
-  so3_out(m.h, net, true, m.raw);
-  for (int i = tid; i < 3 * kTile * 3; i += kThreads) {
-    const int c = i / (kTile * 3), r = (i / 3) % kTile, o = i % 3;
+  so3_out<A>(m.h, net, true, m.raw);
+  for (int i = tid; i < 3 * R * 3; i += kThreads) {
+    const int c = i / (R * 3), r = (i / 3) % R, o = i % 3;
     float acc = 0.0f;
     for (int k = 0; k < kW; ++k)
-      acc = __fmaf_rn(m.t[c][r * kLdH + k], __ldg(net.wot + 3 * k + o), acc);
+      acc = __fmaf_rn(fused_mlp::load(m.t[c] + r * LDH + k),
+                      __ldg(net.wot + 3 * k + o), acc);
     m.traw[c][r][o] = acc;
   }
   __syncthreads();
@@ -538,17 +695,19 @@ __device__ void jacobian_tile(const Args& a, const Net& net, JacSmem& m,
   __syncthreads();
 }
 
+template <typename A>
 __global__ void __launch_bounds__(kThreads) k3_jacobians(const Args a) {
+  using T = typename A::T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  JacSmem& m = *reinterpret_cast<JacSmem*>(smem_raw);
-  const Net net = make_net(a.wfwd, a.wbwd, 6 * a.max_deg);
+  JacSmem<A>& m = *reinterpret_cast<JacSmem<A>*>(smem_raw);
+  const Net<T> net = args_net<T>(a);
   if (threadIdx.x < a.max_deg) m.win[threadIdx.x] = a.window[threadIdx.x];
   __syncthreads();
   const long long total = (long long)a.batch * a.num_samples;
   const long long begin = blockIdx.x * a.chunk;
   const long long end = begin + a.chunk < total ? begin + a.chunk : total;
-  active_tiles(a.traj, begin, end, m.list, m.warp_count,
-               [&](int nt) { jacobian_tile(a, net, m, nt); });
+  active_tiles<kTileOf<A>>(a.traj, begin, end, m.list, m.warp_count,
+                           [&](int nt) { jacobian_tile<A>(a, net, m, nt); });
 }
 
 // ------------------------------------------------------------- pass 2
@@ -625,28 +784,31 @@ __global__ void __launch_bounds__(32) k3_sweep(const Args a) {
 
 // ------------------------------------------------------------- pass 3
 
+template <typename A, typename T = typename A::T>
 struct ParamSmem {
-  float x[kTile * kLdX];
-  float val[kTile * kLdX];
-  float h[4][kTile * kLdH];   // h[3] then each layer's cotangent in turn
-  float ring[kRing];
-  float p[kTile][3];
-  float raw[kTile][3];
-  float rb[kTile][3];
+  static constexpr int R = kTileOf<A>;
+  T x[R * kLdXOf<A>];
+  T val[R * kLdXOf<A>];
+  T h[4][R * kLdHOf<A>];   // h[3] then each layer's cotangent in turn
+  T ring[kRingOf<A>];
+  float p[R][3];
+  float raw[R][3];
+  float rb[R][3];
   float win[kMaxDeg];
-  int list[kThreads + kTile];
+  int list[kThreads + R];
   int warp_count[kThreads / 32];
 };
 
 // part[(row0 + m) * kW + c] += sum_r A[r][m0 + m] Z[r][c] over the tile's
-// rows in order, for m0 + m < mrows: A [kTile][lda], Z [kTile][kLdH] in
-// shared memory.
-__device__ void grad_product(const float* A, int lda, int m0, int mrows,
-                             const float* Z, float* part, int row0) {
-  Engine e;
+// rows in order, for m0 + m < mrows, on engine E (E::kRows values of m a
+// call): A [R][lda], Z [R][ldz] in shared memory.
+template <typename E, int R, typename T>
+__device__ void grad_product(const T* a, int lda, int m0, int mrows,
+                             const T* z, int ldz, float* part, int row0) {
+  E e;
   e.zero();
-  for (int k = 0; k < kTile; k += Engine::kK)
-    e.step_t(A + k * lda + m0, lda, Z + k * kLdH, kLdH);
+  for (int k = 0; k < R; k += E::kK)
+    e.step_t(a + k * lda + m0, lda, z + k * ldz, ldz);
   e.template each<true>([&](int, int r, int c, float v0, float v1) {
     const int m = m0 + r;
     if (m >= mrows) return;
@@ -656,35 +818,56 @@ __device__ void grad_product(const float* A, int lda, int m0, int mrows,
   });
 }
 
+// The weight gradients of a layer over the tile: dW rows [0, kW) against
+// the hidden input h, and (skip) rows [kW, kW + I) against the PE's sines.
+template <typename A, typename T = typename A::T>
+__device__ void hidden_grad(const T* h, const T* z, float* part) {
+  using E = typename A::GradEngine;
+  for (int m0 = 0; m0 < kW; m0 += E::kRows)
+    grad_product<E, kTileOf<A>>(h, kLdHOf<A>, m0, kW, z, kLdHOf<A>, part, 0);
+}
+
+template <typename A, typename T = typename A::T>
+__device__ void sine_grad(const T* val, int in_dim, const T* z, float* part,
+                          int row0) {
+  grad_product<typename A::GradXEngine, kTileOf<A>>(
+      val, kLdXOf<A>, 0, in_dim, z, kLdHOf<A>, part, row0);
+}
+
 // bias[c] += sum_r Z[r][c] over the tile's rows in order.
-__device__ void bias_sum(const float* Z, float* bias) {
+template <typename A, typename T = typename A::T>
+__device__ void bias_sum(const T* z, float* bias) {
   for (int c = threadIdx.x; c < kW; c += kThreads) {
     float s = 0.0f;
-    for (int r = 0; r < kTile; ++r) s += Z[r * kLdH + c];
+    for (int r = 0; r < kTileOf<A>; ++r)
+      s += fused_mlp::load(z + r * kLdHOf<A> + c);
     bias[c] += s;
   }
 }
 
-__device__ void param_tile(const Args& a, const Net& net, ParamSmem& m,
+template <typename A, typename T = typename A::T>
+__device__ void param_tile(const Args& a, const Net<T>& net, ParamSmem<A>& m,
                            float* part, int nt) {
+  using Seg = fused_mlp::ASeg<T>;
+  constexpr int R = kTileOf<A>, LDX = kLdXOf<A>, LDH = kLdHOf<A>;
   const int tid = threadIdx.x, I = net.in_dim;
   const float h = a.step;
-  for (int i = tid; i < kTile * 3; i += kThreads) {
+  for (int i = tid; i < R * 3; i += kThreads) {
     const int r = i / 3, c = i % 3;
     m.p[r][c] = r < nt ? a.traj[11 * (long long)m.list[r] + c] : 0.0f;
   }
   __syncthreads();
-  so3_encode(m.p, I, m.win, m.x, m.val, nullptr);
+  so3_encode<A>(m.p, I, m.win, m.x, m.val, nullptr);
   __syncthreads();
   const Seg none = {nullptr, 0, 0};
-  so3_layer(Seg{m.x, kLdX, I}, none, net.w0t, net.b0, m.h[0], m.ring);
-  so3_layer(Seg{m.h[0], kLdH, kW}, none, net.w1t, net.b1, m.h[1], m.ring);
-  so3_layer(Seg{m.h[1], kLdH, kW}, none, net.w2t, net.b2, m.h[2], m.ring);
-  so3_layer(Seg{m.h[2], kLdH, kW}, Seg{m.x, kLdX, I}, net.w3t, net.b3,
-            m.h[3], m.ring);
-  so3_out(m.h[3], net, true, m.raw);
+  so3_layer<A>(Seg{m.x, LDX, I}, none, net.w0t, net.b0, m.h[0], m.ring);
+  so3_layer<A>(Seg{m.h[0], LDH, kW}, none, net.w1t, net.b1, m.h[1], m.ring);
+  so3_layer<A>(Seg{m.h[1], LDH, kW}, none, net.w2t, net.b2, m.h[2], m.ring);
+  so3_layer<A>(Seg{m.h[2], LDH, kW}, Seg{m.x, LDX, I}, net.w3t, net.b3,
+               m.h[3], m.ring);
+  so3_out<A>(m.h[3], net, true, m.raw);
   __syncthreads();
-  if (tid < kTile) {
+  if (tid < R) {
     float3 rb = make_float3(0.f, 0.f, 0.f), gb;
     if (tid < nt) {
       const long long idx = m.list[tid];
@@ -694,9 +877,10 @@ __device__ void param_tile(const Args& a, const Net& net, ParamSmem& m,
                     make_float3(tr[8], tr[9], tr[10]),
                     make_float3(h * db[0], h * db[1], h * db[2]), &rb, &gb);
     }
-    m.rb[tid][0] = rb.x;
-    m.rb[tid][1] = rb.y;
-    m.rb[tid][2] = rb.z;
+    // rawbar as the products' operand.
+    m.rb[tid][0] = operand<T>(rb.x);
+    m.rb[tid][1] = operand<T>(rb.y);
+    m.rb[tid][2] = operand<T>(rb.z);
   }
   __syncthreads();
   // Offsets of the forward pack in the partial.
@@ -714,57 +898,61 @@ __device__ void param_tile(const Args& a, const Net& net, ParamSmem& m,
   for (int e = tid; e < kW * 3; e += kThreads) {
     const int k = e / 3, o = e % 3;
     float acc = 0.0f;
-    for (int r = 0; r < kTile; ++r)
-      acc = __fmaf_rn(m.h[3][r * kLdH + k], m.rb[r][o], acc);
+    for (int r = 0; r < R; ++r)
+      acc = __fmaf_rn(fused_mlp::load(m.h[3] + r * LDH + k), m.rb[r][o],
+                      acc);
     pwo[e] += acc;
   }
   if (tid < 3) {
     float acc = 0.0f;
-    for (int r = 0; r < kTile; ++r) acc += m.rb[r][tid];
+    for (int r = 0; r < R; ++r) acc += m.rb[r][tid];
     pbo[tid] += acc;
   }
   __syncthreads();
-  float* dz = m.h[3];
-  for (int i = tid; i < kTile * kW; i += kThreads) {
+  T* dz = m.h[3];
+  const T zero = fused_mlp::round_to<T>(0.0f);
+  for (int i = tid; i < R * kW; i += kThreads) {
     const int r = i / kW, c = i % kW;
     float v = 0.0f;
     for (int o = 0; o < 3; ++o)
       v = __fmaf_rn(m.rb[r][o], __ldg(net.wot + 3 * c + o), v);
-    dz[r * kLdH + c] = dz[r * kLdH + c] > 0.0f ? v : 0.0f;
+    dz[r * LDH + c] = fused_mlp::load(dz + r * LDH + c) > 0.0f
+                          ? fused_mlp::round_to<T>(v)
+                          : zero;
   }
   __syncthreads();
   // Layer 3: dW over [h2 | sines], its cotangent to h2.
-  bias_sum(dz, pb3);
-  grad_product(m.h[2], kLdH, 0, kW, dz, pw3, 0);
-  grad_product(m.h[2], kLdH, 64, kW, dz, pw3, 0);
-  grad_product(m.val, kLdX, 0, I, dz, pw3, kW);
+  bias_sum<A>(dz, pb3);
+  hidden_grad<A>(m.h[2], dz, pw3);
+  sine_grad<A>(m.val, I, dz, pw3, kW);
   __syncthreads();
-  masked_product(Seg{dz, kLdH, kW}, none, net.w3, kW, m.h[2], dz, m.ring);
+  masked_product<A>(Seg{dz, LDH, kW}, none, net.w3, kW, m.h[2], dz, m.ring);
   // Layers 2, 1, 0.
   float* const pws[3] = {pw2, pw1, pw0};
   float* const pbs[3] = {pb2, pb1, pb0};
-  const float* const wb[2] = {net.w2, net.w1};
+  const T* const wb[2] = {net.w2, net.w1};
   for (int l = 2; l >= 0; --l) {
-    bias_sum(dz, pbs[2 - l]);
+    bias_sum<A>(dz, pbs[2 - l]);
     if (l > 0) {
-      grad_product(m.h[l - 1], kLdH, 0, kW, dz, pws[2 - l], 0);
-      grad_product(m.h[l - 1], kLdH, 64, kW, dz, pws[2 - l], 0);
+      hidden_grad<A>(m.h[l - 1], dz, pws[2 - l]);
     } else {
-      grad_product(m.val, kLdX, 0, I, dz, pws[2], 0);
+      sine_grad<A>(m.val, I, dz, pws[2], 0);
     }
     __syncthreads();
     if (l > 0) {
-      masked_product(Seg{dz, kLdH, kW}, none, wb[2 - l], kW, m.h[l - 1], dz,
-                     m.ring);
+      masked_product<A>(Seg{dz, LDH, kW}, none, wb[2 - l], kW, m.h[l - 1],
+                        dz, m.ring);
     }
   }
 }
 
+template <typename A>
 __global__ void __launch_bounds__(kThreads) k3_params(const Args a) {
+  using T = typename A::T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  ParamSmem& m = *reinterpret_cast<ParamSmem*>(smem_raw);
+  ParamSmem<A>& m = *reinterpret_cast<ParamSmem<A>*>(smem_raw);
   const int I = 6 * a.max_deg, P = num_params(I);
-  const Net net = make_net(a.wfwd, a.wbwd, I);
+  const Net<T> net = args_net<T>(a);
   float* part = a.partial + (long long)blockIdx.x * P;
   for (int e = threadIdx.x; e < P; e += kThreads) part[e] = 0.0f;
   if (threadIdx.x < a.max_deg) m.win[threadIdx.x] = a.window[threadIdx.x];
@@ -772,8 +960,9 @@ __global__ void __launch_bounds__(kThreads) k3_params(const Args a) {
   const long long total = (long long)a.batch * a.num_samples;
   const long long begin = blockIdx.x * a.chunk;
   const long long end = begin + a.chunk < total ? begin + a.chunk : total;
-  active_tiles(a.traj, begin, end, m.list, m.warp_count,
-               [&](int nt) { param_tile(a, net, m, part, nt); });
+  active_tiles<kTileOf<A>>(
+      a.traj, begin, end, m.list, m.warp_count,
+      [&](int nt) { param_tile<A>(a, net, m, part, nt); });
 }
 
 __global__ void k3_reduce(const float* partial, int num_blocks,
@@ -787,45 +976,53 @@ __global__ void k3_reduce(const float* partial, int num_blocks,
 }
 
 // P3, the ReLU-flip probe: the so3 head's pre-activations of hidden layers
-// 1-3 at n points, with K3's own forward (so3_encode, so3_layer): each
-// value is bitwise what passes 1b and 3 compute at that point. Replaces
-// the Pallas kernel of samplenerfro_tpu's scripts/debug/probe_so3_relu.py.
-// A block takes 64 points. Bound by its multiply-adds (60 W + 2 W^2 a
-// point), fp32 on CUDA cores.
+// 1-3 at n points, with K3's own forward (so3_encode, so3_layer) in either
+// arm: each value is bitwise what passes 1b and 3 compute at that point.
+// Replaces the Pallas kernel of samplenerfro_tpu's
+// scripts/debug/probe_so3_relu.py. A block takes a tile of points. Bound
+// by its multiply-adds (60 W + 2 W^2 a point), fp32 on CUDA cores or bf16
+// on tensor cores.
+template <typename A, typename T = typename A::T>
 struct PreactSmem {
-  float x[kTile * kLdX];
-  float h[kTile * kLdH];
-  float ring[kRing];
-  float p[kTile][3];
+  static constexpr int R = kTileOf<A>;
+  T x[R * kLdXOf<A>];
+  T h[R * kLdHOf<A>];
+  T ring[kRingOf<A>];
+  float p[R][3];
   float win[kMaxDeg];
 };
 
+template <typename A>
 __global__ void __launch_bounds__(kThreads)
     so3_preacts_kernel(const float* pts, const float* wfwd,
-                       const float* window, float* pre, int n, int max_deg,
-                       int width) {
+                       const void* wfwd_t, const float* window, float* pre,
+                       int n, int max_deg, int width) {
+  using T = typename A::T;
+  using Seg = fused_mlp::ASeg<T>;
+  constexpr int R = kTileOf<A>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  PreactSmem& m = *reinterpret_cast<PreactSmem*>(smem_raw);
+  PreactSmem<A>& m = *reinterpret_cast<PreactSmem<A>*>(smem_raw);
   const int I = 6 * max_deg;
   // Only the forward pack is read.
-  const Net net = make_net(wfwd, wfwd, I);
+  const T* fwd_t = static_cast<const T*>(wfwd_t);
+  const Net<T> net = make_net(wfwd, fwd_t, fwd_t, I);
   if (threadIdx.x < max_deg) m.win[threadIdx.x] = window[threadIdx.x];
-  const long long row0 = (long long)blockIdx.x * kTile;
-  const int rows = n - row0 < kTile ? (int)(n - row0) : kTile;
-  for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
+  const long long row0 = (long long)blockIdx.x * R;
+  const int rows = n - row0 < R ? (int)(n - row0) : R;
+  for (int i = threadIdx.x; i < R * 3; i += kThreads) {
     const int r = i / 3, c = i % 3;
     m.p[r][c] = r < rows ? pts[3 * (row0 + r) + c] : 0.0f;
   }
   __syncthreads();
-  so3_encode(m.p, I, m.win, m.x, nullptr, nullptr);
+  so3_encode<A>(m.p, I, m.win, m.x, nullptr, nullptr);
   __syncthreads();
   const Seg none = {nullptr, 0, 0};
-  const float* const w[3] = {net.w0t, net.w1t, net.w2t};
+  const T* const w[3] = {net.w0t, net.w1t, net.w2t};
   const float* const b[3] = {net.b0, net.b1, net.b2};
   for (int l = 0; l < 3; ++l) {
-    const Seg in = l == 0 ? Seg{m.x, kLdX, I} : Seg{m.h, kLdH, kW};
-    so3_layer(in, none, w[l], b[l], m.h, m.ring,
-              pre + (long long)l * n * width + row0 * width, rows, width);
+    const Seg in = l == 0 ? Seg{m.x, kLdXOf<A>, I} : Seg{m.h, kLdHOf<A>, kW};
+    so3_layer<A>(in, none, w[l], b[l], m.h, m.ring,
+                 pre + (long long)l * n * width + row0 * width, rows, width);
   }
 }
 
@@ -836,29 +1033,81 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The five launches in arm A.
+template <typename A>
+cudaError_t launch_k3(const Args& a, int num_blocks, float* grads,
+                      cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<typename A::T, bf16>::value;
+  const long long total = (long long)a.batch * a.num_samples;
+  k3_pieces<kBf16><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = set_smem(k3_jacobians<A>, sizeof(JacSmem<A>));
+  if (err != cudaSuccess) return err;
+  k3_jacobians<A><<<num_blocks, kThreads, sizeof(JacSmem<A>), stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  k3_sweep<<<a.bp / 32, 32, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = set_smem(k3_params<A>, sizeof(ParamSmem<A>));
+  if (err != cudaSuccess) return err;
+  k3_params<A><<<num_blocks, kThreads, sizeof(ParamSmem<A>), stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int P = num_params(6 * a.max_deg);
+  k3_reduce<<<(P + 255) / 256, 256, 0, stream>>>(a.partial, num_blocks, P,
+                                                  grads);
+  return cudaGetLastError();
+}
+
+template <typename A>
+cudaError_t launch_preacts(const float* pts, const float* wfwd,
+                           const void* wfwd_t, const float* window,
+                           float* pre, int n, int max_deg, int width,
+                           cudaStream_t stream) {
+  constexpr int R = kTileOf<A>;
+  const cudaError_t err = set_smem(so3_preacts_kernel<A>,
+                                   sizeof(PreactSmem<A>));
+  if (err != cudaSuccess) return err;
+  so3_preacts_kernel<A><<<(n + R - 1) / R, kThreads, sizeof(PreactSmem<A>),
+                          stream>>>(pts, wfwd, wfwd_t, window, pre, n,
+                                    max_deg, width);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// traj, cts: [B, S, 11] (cts with segbar in channel 6); wfwd, wbwd: the
-// padded packs (see Net); window: [max_deg]; pieces: [S, 22, bp] scratch
-// (bp = B rounded up to 32); dbar: [B, S, 3] scratch; raybar: [B, 6];
-// partial: [num_blocks, P]; grads: [P], P the padded forward pack's size.
-// Returns a cudaError_t.
+// traj, cts: [B, S, 11] (cts with segbar in channel 6); wfwd: the padded
+// fp32 forward pack; wfwd_t, wbwd_t: the arm's forward and backward packs
+// (see Net: fp32, or bf16 of the weights rounded by the caller); window:
+// [max_deg]; pieces: [S, 22, bp] scratch (bp = B rounded up to 32); dbar:
+// [B, S, 3] scratch; raybar: [B, 6]; partial: [num_blocks, P]; grads: [P],
+// P the padded forward pack's size; bf16: 0 for the fp32 arm, 1 for the
+// bf16 one. Returns a cudaError_t.
 extern "C" int march_bwd_launch(
     const float* traj, const float* cts, const float* grid,
-    const float* wfwd, const float* wbwd, const float* window, float* pieces,
-    float* dbar, float* raybar, float* partial, float* grads, int batch,
-    int num_samples, int max_deg, int num_blocks, int nx, int ny, int nz,
-    float step, float nmin_x, float nmin_y, float nmin_z, float nd_x,
-    float nd_y, float nd_z, void* stream_ptr) {
+    const float* wfwd, const void* wfwd_t, const void* wbwd_t,
+    const float* window, float* pieces, float* dbar, float* raybar,
+    float* partial, float* grads, int batch, int num_samples, int max_deg,
+    int num_blocks, int bf16, int nx, int ny, int nz, float step,
+    float nmin_x, float nmin_y, float nmin_z, float nd_x, float nd_y,
+    float nd_z, void* stream_ptr) {
   if (6 * max_deg > kIn - 4 || max_deg < 1 || max_deg > kMaxDeg ||
-      batch < 1 || num_samples < 1 || num_blocks < 1)
+      batch < 1 || num_samples < 1 || num_blocks < 1 ||
+      (bf16 != 0 && bf16 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Args a;
   a.traj = traj;
   a.cts = cts;
   a.wfwd = wfwd;
-  a.wbwd = wbwd;
+  a.wfwd_t = wfwd_t;
+  a.wbwd_t = wbwd_t;
   a.window = window;
   a.grid.grid = reinterpret_cast<const float4*>(grid);
   a.grid.nx = nx; a.grid.ny = ny; a.grid.nz = nz;
@@ -875,31 +1124,9 @@ extern "C" int march_bwd_launch(
   a.step = step;
   const long long total = (long long)batch * num_samples;
   a.chunk = (total + num_blocks - 1) / num_blocks;
-
-  k3_pieces<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  err = set_smem(k3_jacobians, sizeof(JacSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  k3_jacobians<<<num_blocks, kThreads, sizeof(JacSmem), stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  k3_sweep<<<a.bp / 32, 32, 0, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  err = set_smem(k3_params, sizeof(ParamSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  k3_params<<<num_blocks, kThreads, sizeof(ParamSmem), stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int P = num_params(6 * max_deg);
-  k3_reduce<<<(P + 255) / 256, 256, 0, stream>>>(partial, num_blocks, P,
-                                                  grads);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      bf16 ? launch_k3<Bf16Arm>(a, num_blocks, grads, stream)
+           : launch_k3<F32Arm>(a, num_blocks, grads, stream));
 }
 
 // Parameters of the padded forward pack for 6 * max_deg inputs.
@@ -907,17 +1134,19 @@ extern "C" int march_bwd_num_params(int max_deg) {
   return num_params(6 * max_deg);
 }
 
+// pts: [n, 3]; wfwd, wfwd_t: as march_bwd_launch's; pre: [3, n, width].
 extern "C" int so3_preacts_launch(const float* pts, const float* wfwd,
-                                  const float* window, float* pre, int n,
-                                  int max_deg, int width, void* stream_ptr) {
+                                  const void* wfwd_t, const float* window,
+                                  float* pre, int n, int max_deg, int width,
+                                  int bf16, void* stream_ptr) {
   if (n < 0 || width < 1 || width > kW || max_deg < 1 ||
-      max_deg > kMaxDeg)
+      max_deg > kMaxDeg || (bf16 != 0 && bf16 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  cudaError_t err = set_smem(so3_preacts_kernel, sizeof(PreactSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  so3_preacts_kernel<<<(n + kTile - 1) / kTile, kThreads, sizeof(PreactSmem),
-                       static_cast<cudaStream_t>(stream_ptr)>>>(
-      pts, wfwd, window, pre, n, max_deg, width);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  return static_cast<int>(
+      bf16 ? launch_preacts<Bf16Arm>(pts, wfwd, wfwd_t, window, pre, n,
+                                     max_deg, width, stream)
+           : launch_preacts<F32Arm>(pts, wfwd, wfwd_t, window, pre, n,
+                                    max_deg, width, stream));
 }

@@ -17,9 +17,14 @@
 // keeps IEEE division and square root, so each product and sum rounds as
 // in the plain PyTorch version and as in the kernels' one-thread-a-ray
 // predecessors.
+//
+// interp8 picks the interpolation's precision (march_interp) by a template
+// parameter: kHighest is combine8; kHigh and kDefault compute the TPU
+// kernel's two one-hot contractions at their rounding points.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace march {
@@ -85,6 +90,62 @@ __device__ __forceinline__ float4 combine8(float4 v, const Corner& c,
   v = combine(v, c.xd, 1, corner & 1);
   v = combine(v, c.yd, 2, (corner >> 1) & 1);
   return combine(v, c.zd, 4, corner >> 2);
+}
+
+// The interpolation's precisions (ops/precision.INTERPS): kHighest is fp32
+// (the lerps above), kHigh bf16x3, kDefault one bf16 pass.
+constexpr int kHighest = 0, kHigh = 1, kDefault = 2;
+
+// v rounded to bf16 (to nearest even), as fp32.
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// v * w as a product of the TPU's matrix unit at precision P: kDefault
+// rounds both to bf16 (their product is exact in fp32); kHigh splits each
+// into bf16 hi and lo and sums hi*hi + hi*lo + lo*hi (bf16x3).
+template <int P>
+__device__ __forceinline__ float mxu_mul(float v, float w) {
+  const float vh = bf16r(v), wh = bf16r(w);
+  if (P == kDefault) return vh * wh;
+  const float vl = bf16r(v - vh), wl = bf16r(w - wh);
+  return (vh * wh + vh * wl) + vl * wh;
+}
+
+// a + b with a the lower corner's, the same value in both lanes.
+__device__ __forceinline__ float4 add_pair(float4 v, int bit, bool upper) {
+  float4 o;
+  o.x = __shfl_xor_sync(0xffffffffu, v.x, bit);
+  o.y = __shfl_xor_sync(0xffffffffu, v.y, bit);
+  o.z = __shfl_xor_sync(0xffffffffu, v.z, bit);
+  o.w = __shfl_xor_sync(0xffffffffu, v.w, bit);
+  return upper ? make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w)
+               : make_float4(v.x + o.x, v.y + o.y, v.z + o.z, v.w + o.w);
+}
+
+// The trilinear value from this lane's corner value v at precision P.
+// kHighest: combine8. Otherwise the TPU kernel's contractions
+// (samplenerfro_tpu/ops/pallas/march_kernel.py:395-412): each corner value
+// times its (x, y) weight (1 - xd or xd) * (1 - yd or yd) at P, summed
+// along x then y; that partial times the z weight in fp32; then the
+// channel select, a product with 1 at P, summed along z. So at kDefault the
+// z-weighted partial is rounded to bf16 and at kHigh it is its bf16 hi +
+// lo. Every sum is fp32, the lower corner's addend first, so every lane of
+// the group ends with the same value.
+template <int P>
+__device__ __forceinline__ float4 interp8(float4 v, const Corner& c,
+                                          int corner) {
+  if (P == kHighest) return combine8(v, c, corner);
+  const bool ux = corner & 1, uy = (corner >> 1) & 1, uz = corner >> 2;
+  const float w = (ux ? c.xd : 1.0f - c.xd) * (uy ? c.yd : 1.0f - c.yd);
+  const float wz = uz ? c.zd : 1.0f - c.zd;
+  float4 p = make_float4(mxu_mul<P>(v.x, w), mxu_mul<P>(v.y, w),
+                         mxu_mul<P>(v.z, w), mxu_mul<P>(v.w, w));
+  p = add_pair(p, 1, ux);
+  p = add_pair(p, 2, uy);
+  p = make_float4(mxu_mul<P>(p.x * wz, 1.0f), mxu_mul<P>(p.y * wz, 1.0f),
+                  mxu_mul<P>(p.z * wz, 1.0f), mxu_mul<P>(p.w * wz, 1.0f));
+  return add_pair(p, 4, uz);
 }
 
 // A 16-byte load through the read-only path, issued where it stands (not

@@ -45,6 +45,10 @@
 // lines. The subsample rows wait in shared memory until the march ends.
 // Every output comes from the same expressions in the same order as in a
 // one-thread-a-ray march, so the layout does not change a bit of it.
+//
+// Both marches take the interpolation's precision (march_interp) as a
+// template parameter, one instantiation each (march_common.cuh:interp8);
+// at kHighest they are the fp32 marches above.
 
 #include <cstdint>
 
@@ -91,8 +95,9 @@ __device__ __forceinline__ void flush(const float* src, float* dst, int n,
 }
 
 // The march of one block. kFull: emit [B, S, 11] rows and no subsample
-// (K2 with the head off); else K1's lean rows and subsample.
-template <bool kFull>
+// (K2 with the head off); else K1's lean rows and subsample. kInterp: the
+// interpolation's precision.
+template <bool kFull, int kInterp>
 __device__ __forceinline__ void march_block(const MarchArgs& a) {
   constexpr int kOut = kFull ? kFullRow : kRow;  // floats a dense row
   // [kRays][kStage][kOut] staged dense rows, then (lean) [kRays][Nc][7]
@@ -137,7 +142,7 @@ __device__ __forceinline__ void march_block(const MarchArgs& a) {
       const int s = base + u;
       if (s >= a.num_samples) break;
       const march::Corner c = march::corner8(a.grid, px, py, pz, lane);
-      const float4 v = march::combine8(
+      const float4 v = march::interp8<kInterp>(
           march::load_if(c.addr != ahead_a[u], c.addr, ahead_v[u]), c, lane);
       if (lane < kRow) {
         const float x = lane == 0 ? px : lane == 1 ? py : lane == 2 ? pz
@@ -178,14 +183,47 @@ __device__ __forceinline__ void march_block(const MarchArgs& a) {
           a.num_coarse * kRow, lane);
 }
 
+template <int kInterp>
 __global__ void __launch_bounds__(kThreads)
 march_lean_kernel(const MarchArgs a) {
-  march_block<false>(a);
+  march_block<false, kInterp>(a);
 }
 
+template <int kInterp>
 __global__ void __launch_bounds__(kThreads)
 march_full_plain_kernel(const MarchArgs a) {
-  march_block<true>(a);
+  march_block<true, kInterp>(a);
+}
+
+// K1 at precision kInterp, its dynamic shared memory raised once.
+template <int kInterp>
+cudaError_t launch_lean(const MarchArgs& a, int smem_bytes,
+                        cudaStream_t stream) {
+  static int smem_set = 0;
+  if (smem_bytes > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        march_lean_kernel<kInterp>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return e;
+    smem_set = smem_bytes;
+  }
+  const int blocks = (a.batch + kRays - 1) / kRays;
+  march_lean_kernel<kInterp><<<blocks, kThreads, smem_bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int kInterp>
+cudaError_t launch_full_plain(const MarchArgs& a, int smem_bytes,
+                              cudaStream_t stream) {
+  const int blocks = (a.batch + kRays - 1) / kRays;
+  march_full_plain_kernel<kInterp><<<blocks, kThreads, smem_bytes,
+                                     stream>>>(a);
+  return cudaGetLastError();
+}
+
+bool interp_ok(int interp) {
+  return interp == march::kHighest || interp == march::kHigh ||
+         interp == march::kDefault;
 }
 
 march::Grid make_grid(const float* grid, int nx, int ny, int nz,
@@ -200,28 +238,20 @@ march::Grid make_grid(const float* grid, int nx, int ny, int nz,
 
 // The launch geometry is march_kernel.lean_launch_geometry's; the caller
 // passes its rays a block, threads and shared bytes, and they are checked
-// here again.
+// here again. interp: march_common.cuh's kHighest, kHigh or kDefault.
 extern "C" int march_lean_launch(
     const float* origins, const float* dirs, const float* grid,
     const int* jitter, float* dense, float* sub, int batch, int num_samples,
     int num_coarse, int nx, int ny, int nz, float near, float step,
     float nmin_x, float nmin_y, float nmin_z, float nd_x, float nd_y,
     float nd_z, int rays_per_block, int threads, int smem_bytes,
-    void* stream) {
+    int interp, void* stream) {
   const long long want_smem =
       4LL * kRays * kRow * ((long long)kStage + num_coarse);
   if (batch < 1 || num_coarse < 1 || num_samples % num_coarse ||
       rays_per_block != kRays || threads != kThreads ||
-      smem_bytes != want_smem)
+      smem_bytes != want_smem || !interp_ok(interp))
     return static_cast<int>(cudaErrorInvalidValue);
-  static int smem_set = 0;
-  if (smem_bytes > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        march_lean_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = smem_bytes;
-  }
   MarchArgs a;
   a.origins = origins;
   a.dirs = dirs;
@@ -236,10 +266,14 @@ extern "C" int march_lean_launch(
   a.num_path = num_samples / num_coarse;
   a.near = near;
   a.step = step;
-  const int blocks = (batch + kRays - 1) / kRays;
-  march_lean_kernel<<<blocks, kThreads, smem_bytes,
-                      static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      interp == march::kHighest ? launch_lean<march::kHighest>(a, smem_bytes,
+                                                                s)
+      : interp == march::kHigh  ? launch_lean<march::kHigh>(a, smem_bytes, s)
+                                : launch_lean<march::kDefault>(a, smem_bytes,
+                                                               s);
+  return static_cast<int>(e);
 }
 
 // K2 with the head off: [B, S, 11] rows into `traj`. The launch geometry
@@ -250,9 +284,10 @@ extern "C" int march_full_plain_launch(
     int batch, int num_samples, int nx, int ny, int nz, float near,
     float step, float nmin_x, float nmin_y, float nmin_z, float nd_x,
     float nd_y, float nd_z, int rays_per_block, int threads,
-    int smem_bytes, void* stream) {
+    int smem_bytes, int interp, void* stream) {
   if (batch < 1 || num_samples < 1 || rays_per_block != kRays ||
-      threads != kThreads || smem_bytes != 4 * kRays * kStage * kFullRow)
+      threads != kThreads || smem_bytes != 4 * kRays * kStage * kFullRow ||
+      !interp_ok(interp))
     return static_cast<int>(cudaErrorInvalidValue);
   MarchArgs a;
   a.origins = origins;
@@ -268,8 +303,12 @@ extern "C" int march_full_plain_launch(
   a.num_path = 0;
   a.near = near;
   a.step = step;
-  const int blocks = (batch + kRays - 1) / kRays;
-  march_full_plain_kernel<<<blocks, kThreads, smem_bytes,
-                            static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      interp == march::kHighest
+          ? launch_full_plain<march::kHighest>(a, smem_bytes, s)
+      : interp == march::kHigh
+          ? launch_full_plain<march::kHigh>(a, smem_bytes, s)
+          : launch_full_plain<march::kDefault>(a, smem_bytes, s);
+  return static_cast<int>(e);
 }

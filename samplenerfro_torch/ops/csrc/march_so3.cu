@@ -57,6 +57,15 @@
 // runs the head; 4 warps an SM, one a scheduler. Every output comes from
 // the same expressions in the same order as in a one-thread-a-ray march,
 // so the layout does not change a bit of the trajectory.
+//
+// Two template parameters pick the arm (one instantiation each): kInterp,
+// the interpolation's precision (march_interp; march_common.cuh:interp8),
+// and kBf16, the head at the TPU's DEFAULT precision, which the port ties
+// to march_bwd_dtype = bfloat16 so that K3's bf16 sweep differentiates the
+// head K2 ran: the PE features and every hidden activation are rounded to
+// bf16 as they are stored, and the wrapper passes the weights rounded to
+// bf16 (the biases stay fp32). A product of two bf16 values is exact in
+// fp32, so each sum is still one fp32 chain in k order.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -198,7 +207,7 @@ __device__ __forceinline__ void sum_rows(const float* w, const float* in,
 // columns in): ReLU(sum over in_a's KA rows, then in_b's KB rows, of
 // in[k][ray] * w[k][c], from zero in k order, + b), written to out[col]
 // here and, unless out_peer is null, in the peer CTA.
-template <int KA, int KB, int LDW>
+template <int KA, int KB, int LDW, bool kBf16>
 __device__ __forceinline__ void hidden_layer(const float* w,
                                              const float* bias,
                                              const float* in_a,
@@ -213,18 +222,22 @@ __device__ __forceinline__ void hidden_layer(const float* w,
   sum_rows<KA, LDW>(w, in_a, cp, q, acc);
   if constexpr (KB > 0) sum_rows<KB, LDW>(w + KA * LDW, in_b, cp, q, acc);
   const float2 b = *reinterpret_cast<const float2*>(bias + 2 * cp);
+  auto act = [](float v) {
+    v = fmaxf(v, 0.0f);
+    return kBf16 ? march::bf16r(v) : v;
+  };
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const float bc = c == 0 ? b.x : b.y;
-    const float4 o = make_float4(
-        fmaxf(acc[c][0] + bc, 0.0f), fmaxf(acc[c][1] + bc, 0.0f),
-        fmaxf(acc[c][2] + bc, 0.0f), fmaxf(acc[c][3] + bc, 0.0f));
+    const float4 o = make_float4(act(acc[c][0] + bc), act(acc[c][1] + bc),
+                                 act(acc[c][2] + bc), act(acc[c][3] + bc));
     *reinterpret_cast<float4*>(out + (col + c) * kLd + 4 * q) = o;
     if (out_peer)
       *reinterpret_cast<float4*>(out_peer + (col + c) * kLd + 4 * q) = o;
   }
 }
 
+template <int kInterp, bool kBf16>
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kThreads, 1) march_so3_kernel(const So3Args a) {
   extern __shared__ float4 smem4[];
@@ -326,7 +339,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   float4 cv = march::load_now(cn.addr);
 
   for (int s = 0; s < a.num_samples; ++s) {
-    const float4 v = march::combine8(cv, cn, lane);
+    const float4 v = march::interp8<kInterp>(cv, cn, lane);
     const float n = v.x, gx = v.y, gy = v.z, gz = v.w;
     // The next position does not wait for the head: its corner loads
     // while the head runs.
@@ -353,24 +366,25 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
           const float pc = c == 0 ? px : c == 1 ? py : pz;
           const float xb = pc * (float)(1 << deg);
           const float arg = (f % 6) < 3 ? xb : xb + kHalfPi;
-          x_s[f * kLd + local] = sinf(arg) * win[deg];
+          const float x = sinf(arg) * win[deg];
+          x_s[f * kLd + local] = kBf16 ? march::bf16r(x) : x;
         }
       }
       __syncwarp();
       // Layer 0 whole in each CTA, so that it needs no exchange.
-      hidden_layer<kIn, 0, kW>(w0, b0, x_s, nullptr, ha, nullptr, cp, 2 * cp,
-                               q);
-      hidden_layer<kIn, 0, kW>(w0 + kCols, b0 + kCols, x_s, nullptr, ha,
-                               nullptr, cp, kCols + 2 * cp, q);
+      hidden_layer<kIn, 0, kW, kBf16>(w0, b0, x_s, nullptr, ha, nullptr, cp,
+                                      2 * cp, q);
+      hidden_layer<kIn, 0, kW, kBf16>(w0 + kCols, b0 + kCols, x_s, nullptr,
+                                      ha, nullptr, cp, kCols + 2 * cp, q);
       __syncwarp();
-      hidden_layer<kW, 0, kCols>(w1, bias, ha, nullptr, hb, hb_peer, cp,
-                                 col0 + 2 * cp, q);
+      hidden_layer<kW, 0, kCols, kBf16>(w1, bias, ha, nullptr, hb, hb_peer,
+                                        cp, col0 + 2 * cp, q);
       exchange();
-      hidden_layer<kW, 0, kCols>(w2, bias + kCols, hb, nullptr, ha, ha_peer,
-                                 cp, col0 + 2 * cp, q);
+      hidden_layer<kW, 0, kCols, kBf16>(w2, bias + kCols, hb, nullptr, ha,
+                                        ha_peer, cp, col0 + 2 * cp, q);
       exchange();
-      hidden_layer<kW, kIn, kCols>(w3, bias + 2 * kCols, ha, x_s, hc,
-                                   hc_peer, cp, col0 + 2 * cp, q);
+      hidden_layer<kW, kIn, kCols, kBf16>(w3, bias + 2 * kCols, ha, x_s, hc,
+                                          hc_peer, cp, col0 + 2 * cp, q);
       exchange();
       // The output layer: lane o < 3 of each ray sums raw[o] in k order;
       // the ray's lanes then share it.
@@ -409,10 +423,38 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   cluster.sync();
 }
 
+// K2 in one arm, its dynamic shared memory raised once.
+template <int kInterp, bool kBf16>
+cudaError_t launch_so3(const So3Args& a, int ctas, cudaStream_t stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        march_so3_kernel<kInterp, kBf16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  march_so3_kernel<kInterp, kBf16><<<ctas, kThreads, kSmemBytes, stream>>>(
+      a);
+  return cudaGetLastError();
+}
+
+template <bool kBf16>
+cudaError_t launch_so3(const So3Args& a, int ctas, int interp,
+                       cudaStream_t stream) {
+  return interp == march::kHighest
+             ? launch_so3<march::kHighest, kBf16>(a, ctas, stream)
+         : interp == march::kHigh
+             ? launch_so3<march::kHigh, kBf16>(a, ctas, stream)
+             : launch_so3<march::kDefault, kBf16>(a, ctas, stream);
+}
+
 }  // namespace
 
 // The launch geometry is march_kernel.so3_launch_geometry's; the caller
-// passes it and it is checked here again.
+// passes it and it is checked here again. interp: march_common.cuh's
+// kHighest, kHigh or kDefault; bf16: the head's arm (the weights already
+// rounded to bf16 by the caller).
 extern "C" int march_so3_launch(
     const float* origins, const float* dirs, const float* grid,
     const float* w0, const float* b0, const float* w1, const float* b1,
@@ -421,22 +463,17 @@ extern "C" int march_so3_launch(
     int batch, int num_samples, int max_deg, int width, int nx, int ny,
     int nz, float near, float step, float nmin_x, float nmin_y,
     float nmin_z, float nd_x, float nd_y, float nd_z, int cluster,
-    int rays_per_cluster, int ctas, int threads, int smem_bytes,
-    void* stream) {
+    int rays_per_cluster, int ctas, int threads, int smem_bytes, int interp,
+    int bf16, void* stream) {
   const int clusters = (batch + kRays - 1) / kRays;
   if (batch < 1 || width < 1 || width > kW || max_deg < 1 ||
       max_deg > kMaxDeg || cluster != kCluster ||
       rays_per_cluster != kRays || ctas != kCluster * clusters ||
-      threads != kThreads || smem_bytes != kSmemBytes)
+      threads != kThreads || smem_bytes != kSmemBytes ||
+      (interp != march::kHighest && interp != march::kHigh &&
+       interp != march::kDefault) ||
+      (bf16 != 0 && bf16 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        march_so3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = true;
-  }
   So3Args a;
   a.origins = origins;
   a.dirs = dirs;
@@ -454,7 +491,7 @@ extern "C" int march_so3_launch(
   a.width = width;
   a.near = near;
   a.step = step;
-  march_so3_kernel<<<ctas, kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16 ? launch_so3<true>(a, ctas, interp, s)
+                               : launch_so3<false>(a, ctas, interp, s));
 }

@@ -48,7 +48,8 @@ def spherical_residual(raw_out, condition):
 
 
 def march(spec, data, origins, directions, near, step_size, num_samples,
-          pred_grad_fn=None, use_pred_grad=False, normalize_dirs=True):
+          pred_grad_fn=None, use_pred_grad=False, normalize_dirs=True,
+          interp="highest"):
   """March curved eikonal paths for a batch of rays.
 
   Args:
@@ -64,6 +65,7 @@ def march(spec, data, origins, directions, near, step_size, num_samples,
     use_pred_grad: the 'all' stage: step with the refined gradient where
       |grid grad| > 1e-3 (samplenerfro_tpu/ops/eikonal.py:89-94).
     normalize_dirs: emit unit directions; False emits them raw.
+    interp: the interpolation's precision (grid_ops.trilinear).
 
   Returns:
     (pos [batch, S, 3], dirs [batch, S, 3], arclength [batch, S],
@@ -82,18 +84,32 @@ def march(spec, data, origins, directions, near, step_size, num_samples,
   h = torch.full((), step_size, dtype=origins.dtype, device=origins.device)
   outs = []
   for _ in range(num_samples):
-    interp = grid_ops.trilinear(spec, data, rp)
-    n = interp[..., :1]
-    g = interp[..., 1:]
-    grad = g
-    if use_pred_grad:
-      active = torch.linalg.norm(g, dim=-1, keepdim=True) > 1e-3
-      grad = torch.where(active, pred_grad_fn(rp, g), g)
-    next_rp = rp + h / n * rd
-    next_rd = rd + step_size * grad
-    next_rt = rt + torch.sqrt(((rp - next_rp)**2).sum(dim=-1))
+    n, g = grid_n_and_grad(spec, data, rp, interp)
+    next_rp, next_rd, next_rt = euler_step(rp, rd, rt, n, g, h, step_size,
+                                           pred_grad_fn if use_pred_grad
+                                           else None)
     outs.append((rp, math_ops.safe_l2_normalize(rd) if normalize_dirs else rd,
                  rt, n, g))
     rp, rd, rt = next_rp, next_rd, next_rt
   pos, dirs, dist, n, g = (torch.stack(cols, dim=1) for cols in zip(*outs))
   return pos, dirs, dist, n, g
+
+
+def grid_n_and_grad(spec, data, rp, interp="highest"):
+  """(n [..., 1], grad n [..., 3]) interpolated at rp at `interp`."""
+  ng = grid_ops.trilinear(spec, data, rp, interp)
+  return ng[..., :1], ng[..., 1:]
+
+
+def euler_step(rp, rd, rt, n, g, h, step_size, pred_grad_fn=None):
+  """One step of march from the state (rp, rd, rt) with (n, g) there: the
+  next (rp, rd, rt). h: step_size as a 0-d tensor (true division); with
+  pred_grad_fn, the step uses the refined gradient where |g| > 1e-3."""
+  grad = g
+  if pred_grad_fn is not None:
+    active = torch.linalg.norm(g, dim=-1, keepdim=True) > 1e-3
+    grad = torch.where(active, pred_grad_fn(rp, g), g)
+  next_rp = rp + h / n * rd
+  next_rd = rd + step_size * grad
+  next_rt = rt + torch.sqrt(((rp - next_rp)**2).sum(dim=-1))
+  return next_rp, next_rd, next_rt

@@ -14,6 +14,12 @@ the grid. `march_bwd` launches K3 for CUDA tensors and, for CPU tensors,
 uses `march_bwd_reference`, which replays ops/eikonal.march under autograd.
 `march_bwd_passes_reference` is a second plain version, in K3's three
 passes.
+
+The arms (MarchConfig.interp, .bwd_dtype; ops/precision.py): K2 marches
+at the interpolation's precision with the head in the sweep's dtype; K3
+in its bf16 arm is the JAX package's passes form with bwd_dtype bfloat16
+(eikonal_vjp.py:270-275, 300-321, 428-430), whose plain version is
+march_bwd_passes_reference in the same arm, on the CPU too.
 """
 
 import collections
@@ -22,15 +28,19 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from samplenerfro_torch.ops import cuda_build
 from samplenerfro_torch.ops import eikonal as eik_ops
+from samplenerfro_torch.ops import grid as grid_ops
 from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mlp as mlp_ops
+from samplenerfro_torch.ops import precision
 
 MarchConfig = collections.namedtuple(
-    "MarchConfig", ("spec", "near", "step_size", "num_samples", "max_deg"))
+    "MarchConfig", ("spec", "near", "step_size", "num_samples", "max_deg",
+                    "interp", "bwd_dtype"), defaults=("highest", "float32"))
 
 
 def march_bwd_reference(cfg, data, origins, directions, so3_params, alpha,
@@ -48,7 +58,7 @@ def march_bwd_reference(cfg, data, origins, directions, so3_params, alpha,
     ps = [p.detach().requires_grad_() for p in so3_params]
     traj = march_kernel.march_full_reference(
         cfg.spec, data, o, d, cfg.near, cfg.step_size, cfg.num_samples, ps,
-        a, cfg.max_deg)
+        a, cfg.max_deg, cfg.interp)
     grads = torch.autograd.grad(traj, [o, d, a, *ps], dtraj,
                                 allow_unused=True)
   grads = [torch.zeros_like(x) if gr is None else gr
@@ -66,22 +76,9 @@ def _trilinear_jacobian(spec, data, pts):
   """d[n, g]/dp of ops/grid.trilinear at pts [..., 3]: [..., 4, 3] (the
   lerps' derivative along each axis over the voxel size; clamped corners
   give 0), as K3's pass 1 takes it."""
-  nx, ny, nz = spec.ndim
-  nmin, ndelta = spec.axis_tensors(pts.device)
-  c = (pts - nmin) / ndelta
-  c0f = torch.floor(c)
-  xd, yd, zd = (c - c0f).unbind(-1)
-  xd, yd, zd = xd[..., None], yd[..., None], zd[..., None]
-  c0 = c0f.to(torch.int64)
-  hi = torch.tensor([nx - 1, ny - 1, nz - 1], device=pts.device)
-  x0, y0, z0 = torch.minimum(torch.clamp(c0, min=0), hi).unbind(-1)
-  x1, y1, z1 = torch.minimum(torch.clamp(c0 + 1, min=0), hi).unbind(-1)
-  sy, sx = nz, ny * nz
-  g = lambda x, y, z: data[sx * x + sy * y + z]
-  c000, c100, c001, c101 = g(x0, y0, z0), g(x1, y0, z0), g(x0, y0, z1), g(
-      x1, y0, z1)
-  c010, c110, c011, c111 = g(x0, y1, z0), g(x1, y1, z0), g(x0, y1, z1), g(
-      x1, y1, z1)
+  _, ndelta = spec.axis_tensors(pts.device)
+  (c000, c100, c010, c110, c001, c101, c011, c111), (xd, yd, zd) = (
+      grid_ops.cell_corners(spec, data, pts))
   lerp = lambda u, v, t: u * (1 - t) + v * t
   c00, c01 = lerp(c000, c100, xd), lerp(c001, c101, xd)
   c10, c11 = lerp(c010, c110, xd), lerp(c011, c111, xd)
@@ -91,6 +88,29 @@ def _trilinear_jacobian(spec, data, pts):
   dvz = lerp(c01, c11, yd) - lerp(c00, c10, yd)
   return torch.stack([dvx / ndelta[0], dvy / ndelta[1], dvz / ndelta[2]],
                      dim=-1)
+
+
+def trilinear_jacobian_bf16(spec, data, pts, rnd=precision.bf16):
+  """The same derivative in the passes form's bf16 arm, as K3's 1a takes
+  it there (csrc/march_bwd.cu:trilinear_jacobian_bf16): along axis a, its
+  weights are the one-hot derivative (-1, +1) and the other axes' the lerp
+  weights (1 - f, f); sum_z uz(z) sum_{y, x} rnd(c_xyz) rnd(ux(x) uy(y)),
+  summed along x, then y, lower corner first, then over z in fp32; over
+  the voxel size. rnd is the bf16 rounding."""
+  _, ndelta = spec.axis_tensors(pts.device)
+  corners, fracs = grid_ops.cell_corners(spec, data, pts)
+  lerp_w = [(1 - f, f) for f in fracs]
+  one = torch.ones_like(fracs[0])
+  cols = []
+  for ax in range(3):
+    w = [(-one, one) if k == ax else lerp_w[k] for k in range(3)]
+    t = []
+    for z in range(2):
+      q = [rnd(corners[xy + 4 * z]) * rnd(w[0][xy & 1] * w[1][xy >> 1])
+           for xy in range(4)]
+      t.append((q[0] + q[1]) + (q[2] + q[3]))
+    cols.append((t[0] * w[2][0] + t[1] * w[2][1]) / ndelta[ax])
+  return torch.stack(cols, dim=-1)
 
 
 def _so3_tangents(so3_params, window, pts, max_deg):
@@ -120,8 +140,82 @@ def _so3_tangents(so3_params, window, pts, max_deg):
   return raw, traw
 
 
+def _so3_bf16(so3_params, window, pts, max_deg, rnd, replay=None):
+  """K3's bf16 head at pts [M, 3], as passes 1b and 3 run it: the weights
+  rnd-rounded, the PE's features x = rnd(sin(arg) w), its sines rnd(sin)
+  and tangent seeds rnd(w cos(arg) 2^deg), the stored activations
+  rnd(ReLU(z)), fp32 sums and biases. Returns (weights, x, sines, seeds,
+  [h0, h1, h2, h3], raw). replay: ([pre] * 3, [flipped] * 3), [M, W] each,
+  the pre-activations of layers 1-3 to take where flipped (another
+  summation order's, as probe_so3_relu.replaying_refine_fn takes them)."""
+  w = [rnd(p) for p in so3_params[0::2]]
+  b = so3_params[1::2]
+  m = pts.shape[0]
+  scales = torch.tensor([2.0**i for i in range(max_deg)], dtype=pts.dtype,
+                        device=pts.device)
+  xb = pts[:, None, :] * scales[:, None]                      # [M, D, 3]
+  args = torch.cat([xb, xb + 0.5 * math.pi], dim=-1)         # [M, D, 6]
+  win = window[:, None]
+  sines = torch.sin(args)
+  x = rnd((sines * win).reshape(m, -1))
+  val = rnd(sines.reshape(m, -1))
+  seeds = rnd((win * (torch.cos(args) * scales[:, None])).reshape(m, -1))
+  hs, h = [], x
+  for i in range(4):
+    z = F.linear(torch.cat([h, x], -1) if i == 3 else h, w[i], b[i])
+    if replay is not None and i < 3:
+      z = torch.where(replay[1][i], replay[0][i], z)
+    h = rnd(torch.relu(z))
+    hs.append(h)
+  return w, x, val, seeds, hs, F.linear(h, w[4], b[4])
+
+
+def _so3_bf16_tangents(w, seeds, hs, rnd):
+  """d raw / d p [M, 3 (out), 3 (axis of p)] of the bf16 head: the PE's
+  seeds along each axis pushed through each layer, rnd-rounded and masked
+  by its activations, as pass 1b's tangents."""
+  axis = torch.arange(seeds.shape[-1], device=seeds.device) % 3
+  tx = torch.stack([seeds * (axis == c) for c in range(3)])   # [3, M, I]
+  t = tx
+  for i in range(4):
+    t = rnd(((torch.cat([t, tx], -1) if i == 3 else t) @ w[i].t())
+            * (hs[i] > 0))
+  return (t @ w[4].t()).permute(1, 2, 0)
+
+
+def _so3_bf16_grads(w, val, hs, rawbar, window, max_deg, rnd):
+  """Pass 3 of the bf16 arm: the head's weight and bias cotangents (in
+  nn.Linear layout) and the window's [max_deg] at rawbar [M, 3]. Each
+  cotangent is rnd-rounded as the products' operand (masked by the next
+  layer's activations), each dW = dz^T A sums fp32 products of bf16
+  operands; the first layer's and the skip columns' are taken against the
+  sines and scaled by the window, whose cotangent is their sum against the
+  weights per degree (march_bwd's _unpack_grads)."""
+  width = w[0].shape[0]
+  rb = rnd(rawbar)
+  gw, gb = [None] * 5, [None] * 5
+  gw[4], gb[4] = rb.t() @ hs[3], rb.sum(0)
+  dz = rnd((rb @ w[4]) * (hs[3] > 0))
+  for i in (3, 2, 1, 0):
+    gb[i] = dz.sum(0)
+    if i == 3:
+      gw[i] = dz.t() @ torch.cat([hs[2], val], -1)
+    else:
+      gw[i] = dz.t() @ (hs[i - 1] if i > 0 else val)
+    if i > 0:
+      dz = rnd((dz @ w[i][:, :width]) * (hs[i - 1] > 0))
+  sine0, sine3 = gw[0], gw[3][:, width:]
+  wbar = ((w[0] * sine0).sum(0) + (w[3][:, width:] * sine3).sum(0))
+  scale = window.repeat_interleave(6)
+  gw[0] = sine0 * scale
+  gw[3] = torch.cat([gw[3][:, :width], sine3 * scale], -1)
+  return wbar.view(max_deg, 6).sum(-1), [x for pair in zip(gw, gb)
+                                         for x in pair]
+
+
 def march_bwd_passes_reference(cfg, data, origins, directions, so3_params,
-                               alpha, traj, dtraj):
+                               alpha, traj, dtraj, rnd=precision.bf16,
+                               replay=None):
   """Plain version of K3 in its three passes (samplenerfro_tpu/ops/
   eikonal_vjp.py:209-444, bwd_impl="passes"), on the trajectory traj that
   K2 (or its plain version) emitted. Returns what march_bwd returns.
@@ -133,7 +227,13 @@ def march_bwd_passes_reference(cfg, data, origins, directions, so3_params,
   elsewhere. Pass 2: the linear recurrence in (pbar, dbar), s = S-1 .. 0.
   Pass 3: the head's VJP to its weights and alpha at ubar_s = h dbar_{s+1}
   over the active ray-steps.
+
+  cfg.bwd_dtype "bfloat16" is K3's bf16 arm: the derivative of the
+  interpolation (trilinear_jacobian_bf16), the head's tangents and its
+  VJP at the passes form's bf16 operands (_so3_bf16*), rnd the rounding;
+  replay as _so3_bf16's, at the active ray-steps in traj's order.
   """
+  bf16 = precision.check_bwd_dtype(cfg.bwd_dtype) == "bfloat16"
   h = cfg.step_size
   so3 = [p.detach() for p in so3_params]
   traj, dtraj = traj.detach(), dtraj.detach()
@@ -146,7 +246,8 @@ def march_bwd_passes_reference(cfg, data, origins, directions, so3_params,
   window = march_kernel.so3_window(alpha_t.detach(), cfg.max_deg)
 
   # Pass 1.
-  jac = _trilinear_jacobian(cfg.spec, data, pos)           # [B, S, 4, 3]
+  jac = (trilinear_jacobian_bf16(cfg.spec, data, pos, rnd) if bf16 else
+         _trilinear_jacobian(cfg.spec, data, pos))         # [B, S, 4, 3]
   a_vec, bg = jac[..., 0, :], jac[..., 1:, :]              # [B,S,3], [..3,3]
   bt = bg.transpose(-1, -2)
   mask = torch.sqrt((g * g).sum(-1)) > 1e-3
@@ -156,8 +257,14 @@ def march_bwd_passes_reference(cfg, data, origins, directions, so3_params,
   c_p = a_vec * c_n + (bt @ dg[..., None])[..., 0] + dp
   c_d = dd + sb * (h * inv_n) * d / dlen
   k_mat = bt.clone()
-  if bool(mask.any()):
-    raw, traw = _so3_tangents(so3, window, pos[mask], cfg.max_deg)
+  any_active = bool(mask.any())
+  if any_active:
+    if bf16:
+      w_r, _, val, seeds, hs, raw = _so3_bf16(so3, window, pos[mask],
+                                              cfg.max_deg, rnd, replay)
+      traw = _so3_bf16_tangents(w_r, seeds, hs, rnd)
+    else:
+      raw, traw = _so3_tangents(so3, window, pos[mask], cfg.max_deg)
     gm = g[mask]
     rows = []
     with torch.enable_grad():
@@ -187,10 +294,26 @@ def march_bwd_passes_reference(cfg, data, origins, directions, so3_params,
     pbar = new_p
 
   # Pass 3.
+  if bf16:
+    if any_active:
+      with torch.enable_grad():
+        r = raw.detach().requires_grad_()
+        rawbar, = torch.autograd.grad(eik_ops.rodrigues_rotate(r, gm), r,
+                                      h * dbar_traj[mask])
+      wbar, param_grads = _so3_bf16_grads(w_r, val, hs, rawbar, window,
+                                          cfg.max_deg, rnd)
+    else:
+      wbar = torch.zeros_like(window)
+      param_grads = [torch.zeros_like(p) for p in so3]
+    with torch.enable_grad():
+      a = alpha_t.detach().requires_grad_()
+      alpha_bar, = torch.autograd.grad(march_kernel.so3_window(
+          a, cfg.max_deg), a, wbar)
+    return pbar, cfg.near * pbar + dbar, alpha_bar, param_grads
   with torch.enable_grad():
     a = alpha_t.detach().requires_grad_()
     ps = [p.requires_grad_() for p in (q.clone() for q in so3)]
-    if bool(mask.any()):
+    if any_active:
       x = math_ops.annealed_pos_enc(pos[mask], 0, cfg.max_deg,
                                     a * cfg.max_deg)
       u = eik_ops.rodrigues_rotate(mlp_ops.apply_params(ps, x), g[mask])
@@ -241,6 +364,21 @@ def so3_packs(so3_params):
   return fwd, bwd.reshape(-1)
 
 
+def arm_packs(so3_params, bwd_dtype):
+  """K3's and P3's packs in the arm bwd_dtype: (the fp32 forward pack, the
+  fp32 backward pack, the products' forward pack, their backward pack).
+  In the bf16 arm the weights are rounded to bf16 first (the biases stay
+  fp32), so the fp32 packs hold the rounded weights and the products'
+  packs are their bf16 copies; in fp32 the products' packs are the fp32
+  ones."""
+  if precision.check_bwd_dtype(bwd_dtype) == "float32":
+    fwd, bwd = so3_packs(so3_params)
+    return fwd, bwd, fwd, bwd
+  fwd, bwd = so3_packs([precision.bf16(p.detach()) if i % 2 == 0 else p
+                        for i, p in enumerate(so3_params)])
+  return fwd, bwd, fwd.to(torch.bfloat16), bwd.to(torch.bfloat16)
+
+
 def _unpack_grads(so3_params, flat, window, max_deg, wfwd):
   """K3's flat gradients in the padded forward pack's order -> (the
   window's cotangent [max_deg], [grad of each so3 param]). The first
@@ -280,9 +418,16 @@ def march_bwd(cfg, data, origins, directions, so3_params, alpha, traj,
 
   Returns:
     (origins_bar, directions_bar, alpha_bar, [so3 param grads]).
+
+  cfg.bwd_dtype picks K3's arm; its plain version on the CPU is
+  march_bwd_reference in fp32 and march_bwd_passes_reference in bf16.
   """
+  bf16 = precision.check_bwd_dtype(cfg.bwd_dtype) == "bfloat16"
   dev = origins.device
   if dev.type == "cpu":
+    if bf16:
+      return march_bwd_passes_reference(cfg, data, origins, directions,
+                                        so3_params, alpha, traj, dtraj)
     return march_bwd_reference(cfg, data, origins, directions, so3_params,
                                alpha, dtraj)
   if dev.type != "cuda":
@@ -300,11 +445,11 @@ def march_bwd(cfg, data, origins, directions, so3_params, alpha, traj,
   traj = traj.contiguous()
   cts = dtraj.contiguous().clone()
   cts[..., 6] = _segbar(dtraj[..., 6])
-  wfwd, wbwd = so3_packs(so3_params)
+  wfwd, wbwd, wfwd_t, wbwd_t = arm_packs(so3_params, cfg.bwd_dtype)
   alpha_t = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
   window = march_kernel.so3_window(alpha_t.detach(), cfg.max_deg)
   window = window.contiguous()
-  num_blocks = BLOCKS_PER_SM * _sm_count(dev)
+  num_blocks = BLOCKS_PER_SM[cfg.bwd_dtype] * _sm_count(dev)
   num_params = wfwd.numel()
   bp = -(-batch // 32) * 32
   pieces = torch.empty((num_samples, PIECES, bp), dtype=torch.float32,
@@ -321,14 +466,16 @@ def march_bwd(cfg, data, origins, directions, so3_params, alpha, traj,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.march_bwd_launch(
         traj.data_ptr(), cts.data_ptr(), data.data_ptr(), wfwd.data_ptr(),
-        wbwd.data_ptr(), window.data_ptr(), pieces.data_ptr(),
-        dbar_traj.data_ptr(), raybar.data_ptr(), partial.data_ptr(),
-        grads.data_ptr(), batch, num_samples, cfg.max_deg, num_blocks,
-        *spec.ndim, cfg.step_size, *spec.nmin, *spec.ndelta, stream)
+        wfwd_t.data_ptr(), wbwd_t.data_ptr(), window.data_ptr(),
+        pieces.data_ptr(), dbar_traj.data_ptr(), raybar.data_ptr(),
+        partial.data_ptr(), grads.data_ptr(), batch, num_samples,
+        cfg.max_deg, num_blocks, int(bf16), *spec.ndim, cfg.step_size,
+        *spec.nmin, *spec.ndelta, stream)
   if err != 0:
     raise RuntimeError(f"march_bwd: kernel launch failed with CUDA error "
                        f"{err}")
   march_bwd.launches += 1
+  march_bwd.arms[cfg.bwd_dtype] += 1
 
   pbar, dbar = raybar[:, 0:3], raybar[:, 3:6]
   wbar, param_grads = _unpack_grads(so3_params, grads, window, cfg.max_deg,
@@ -341,10 +488,12 @@ def march_bwd(cfg, data, origins, directions, so3_params, alpha, traj,
 
 
 march_bwd.launches = 0
+march_bwd.arms = collections.Counter()
 # K3's pieces a ray-step (csrc/march_bwd.cu kFields) and the blocks of its
-# passes 1b and 3 for each SM.
+# passes 1b and 3 for each SM, by arm: a bf16 block's 128-row tiles take
+# ~212 KB of shared memory, one block an SM.
 PIECES = 22
-BLOCKS_PER_SM = 2
+BLOCKS_PER_SM = {"float32": 2, "bfloat16": 1}
 
 
 class _AllStageMarch(torch.autograd.Function):
@@ -354,7 +503,8 @@ class _AllStageMarch(torch.autograd.Function):
   def forward(ctx, cfg, data, origins, directions, alpha, *so3_params):
     traj = march_kernel.march_full(
         cfg.spec, data, origins, directions, cfg.near, cfg.step_size,
-        cfg.num_samples, list(so3_params), alpha, cfg.max_deg)
+        cfg.num_samples, list(so3_params), alpha, cfg.max_deg, cfg.interp,
+        cfg.bwd_dtype)
     ctx.cfg = cfg
     ctx.save_for_backward(data, origins, directions, alpha, traj,
                           *so3_params)
@@ -391,6 +541,6 @@ def _library():
   fn = lib.march_bwd_launch
   if fn.restype is not ctypes.c_int or not fn.argtypes:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 11 + [ci] * 7 + [cf] * 7 + [vp]
+    fn.argtypes = [vp] * 12 + [ci] * 8 + [cf] * 7 + [vp]
     fn.restype = ci
   return lib

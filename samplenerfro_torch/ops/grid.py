@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from samplenerfro_torch.ops import math as math_ops
+from samplenerfro_torch.ops import precision
 
 
 class GridSpec:
@@ -41,18 +42,10 @@ class GridSpec:
             math_ops.constant(self.ndelta, torch.float32, device))
 
 
-def trilinear(spec, data, pts):
-  """Clamp-to-edge trilinear interpolation.
-
-  Args:
-    spec: GridSpec.
-    data: [Nx*Ny*Nz, C] flattened grid values.
-    pts: [..., 3] world-space query points.
-
-  Returns:
-    [..., C], lerped x first, then y, then z (samplenerfro_tpu/ops/grid.py:
-    50-102); corner indices clamped to [0, N-1], fractions unclamped.
-  """
+def cell_corners(spec, data, pts):
+  """The 8 corner values c[x + 2y + 4z] ([..., C] each) of the cells that
+  hold pts [..., 3], corner indices clamped to [0, N-1], and the cells'
+  fractions (xd, yd, zd), each [..., 1], unclamped."""
   nx, ny, nz = spec.ndim
   nmin, ndelta = spec.axis_tensors(pts.device)
   c = (pts - nmin) / ndelta
@@ -69,14 +62,34 @@ def trilinear(spec, data, pts):
   sy, sx = nz, ny * nz
   b0 = sx * x0
   b1 = sx * x1
-  c000 = data[b0 + sy * y0 + z0]
-  c100 = data[b1 + sy * y0 + z0]
-  c001 = data[b0 + sy * y0 + z1]
-  c101 = data[b1 + sy * y0 + z1]
-  c010 = data[b0 + sy * y1 + z0]
-  c110 = data[b1 + sy * y1 + z0]
-  c011 = data[b0 + sy * y1 + z1]
-  c111 = data[b1 + sy * y1 + z1]
+  corners = (data[b0 + sy * y0 + z0], data[b1 + sy * y0 + z0],
+             data[b0 + sy * y1 + z0], data[b1 + sy * y1 + z0],
+             data[b0 + sy * y0 + z1], data[b1 + sy * y0 + z1],
+             data[b0 + sy * y1 + z1], data[b1 + sy * y1 + z1])
+  return corners, (xd, yd, zd)
+
+
+def trilinear(spec, data, pts, interp="highest"):
+  """Clamp-to-edge trilinear interpolation.
+
+  Args:
+    spec: GridSpec.
+    data: [Nx*Ny*Nz, C] flattened grid values.
+    pts: [..., 3] world-space query points.
+    interp: the precision (ops/precision.INTERPS). "highest" lerps in fp32;
+      "high" and "default" compute the TPU march kernel's contractions at
+      their rounding points (contracted), as the march kernels' interp8
+      does (csrc/march_common.cuh).
+
+  Returns:
+    [..., C], lerped x first, then y, then z (samplenerfro_tpu/ops/grid.py:
+    50-102); corner indices clamped to [0, N-1], fractions unclamped.
+  """
+  precision.check_interp(interp)
+  corners, (xd, yd, zd) = cell_corners(spec, data, pts)
+  if interp != "highest":
+    return contracted(corners, xd, yd, zd, interp)
+  c000, c100, c010, c110, c001, c101, c011, c111 = corners
   c00 = c000 * (1 - xd) + c100 * xd
   c01 = c001 * (1 - xd) + c101 * xd
   c10 = c010 * (1 - xd) + c110 * xd
@@ -84,6 +97,25 @@ def trilinear(spec, data, pts):
   c0_ = c00 * (1 - yd) + c10 * yd
   c1_ = c01 * (1 - yd) + c11 * yd
   return c0_ * (1 - zd) + c1_ * zd
+
+
+def contracted(corners, xd, yd, zd, interp, rnd=precision.bf16):
+  """The TPU march kernel's interpolation at `interp` ("high" or
+  "default") from cell_corners' 8 corner values and fractions: each
+  corner value times its (x, y) weight through precision.mxu_mul, summed
+  along x then y; times the z weight in fp32; the channel select (a
+  product with 1 through mxu_mul); summed along z. Every sum takes the
+  lower corner's addend first. rnd is the bf16 rounding (a test may
+  replace it)."""
+  wx, wy, wz = (1 - xd, xd), (1 - yd, yd), (1 - zd, zd)
+  out = None
+  for z in range(2):
+    p = [precision.mxu_mul(corners[xy + 4 * z], wx[xy & 1] * wy[xy >> 1],
+                           interp, rnd) for xy in range(4)]
+    t = ((p[0] + p[1]) + (p[2] + p[3])) * wz[z]
+    r = precision.mxu_mul(t, torch.ones_like(t), interp, rnd)
+    out = r if out is None else out + r
+  return out
 
 
 def central_difference_grad(spec, values):

@@ -16,10 +16,15 @@ card.
 CUDA tensors and use `march_lean_reference` / `march_full_reference` /
 `march_full_plain_reference` only for CPU tensors.
 Unlike the TPU kernel they march straight out of the grid in device
-memory, so they take no window, refetch, interpolation-precision or skip
-settings and report no out-of-window count.
+memory, so they take no window, refetch or skip settings and report no
+out-of-window count. Each takes the interpolation's precision (`interp`,
+ops/precision.INTERPS: the TPU kernel's interp_precision), and K2 the so3
+head's arm (`bwd_dtype`, tied to march_bwd_dtype: ops/precision.py); each
+arm is its own instantiation of the kernel. A wrapper counts its launches
+in `.launches` and, by arm, in `.arms`.
 """
 
+import collections
 import ctypes
 import typing
 
@@ -29,13 +34,14 @@ from samplenerfro_torch.ops import cuda_build
 from samplenerfro_torch.ops import eikonal as eik_ops
 from samplenerfro_torch.ops import math as math_ops
 from samplenerfro_torch.ops import mlp as mlp_ops
+from samplenerfro_torch.ops import precision
 
 
 def march_lean_reference(spec, data, origins, directions, near, step_size,
-                         num_samples, jitter):
+                         num_samples, jitter, interp="highest"):
   """Plain PyTorch version of K1: ops/eikonal.march plus the jitter gather."""
   pos, dirs, dist, _, _ = eik_ops.march(spec, data, origins, directions, near,
-                                        step_size, num_samples)
+                                        step_size, num_samples, interp=interp)
   jitter = jitter.to(device=pos.device, dtype=torch.int64)
   return pos, dirs, dist, pos[:, jitter], dirs[:, jitter], dist[:, jitter]
 
@@ -151,7 +157,7 @@ def _check_inputs(spec, data, origins, directions, num_samples, jitter):
 
 
 def march_lean(spec, data, origins, directions, near, step_size, num_samples,
-               jitter):
+               jitter, interp="highest"):
   """March, emitting the dense path and the jittered coarse subsample.
 
   Args:
@@ -166,17 +172,19 @@ def march_lean(spec, data, origins, directions, near, step_size, num_samples,
       the card without a wait. Or a CheckedJitter on the card, taken as
       it is (the form a CUDA graph captures). The call reads nothing back
       from the card.
+    interp: the interpolation's precision (ops/precision.INTERPS).
 
   Returns:
     (pos [B, S, 3], unit dirs [B, S, 3], dist [B, S],
      sub_pos [B, Nc, 3], sub_dirs [B, Nc, 3], sub_dist [B, Nc]).
   """
+  precision.check_interp(interp)
   dev = origins.device
   if dev.type == "cpu":
     if isinstance(jitter, CheckedJitter):
       jitter = jitter.indices
     return march_lean_reference(spec, data, origins, directions, near,
-                                step_size, num_samples, jitter)
+                                step_size, num_samples, jitter, interp)
   if dev.type != "cuda":
     raise ValueError(f"march_lean runs on CUDA or CPU tensors, not {dev}")
   geom = _check_inputs(spec, data, origins, directions, num_samples, jitter)
@@ -196,26 +204,28 @@ def march_lean(spec, data, origins, directions, near, step_size, num_samples,
         jit32.data_ptr(), dense.data_ptr(), sub.data_ptr(), batch,
         num_samples, nc, *spec.ndim, near, step_size, *spec.nmin,
         *spec.ndelta, geom["rays_per_block"], geom["threads"],
-        geom["smem_bytes"], stream)
+        geom["smem_bytes"], precision.INTERP_CODES[interp], stream)
   if err != 0:
     raise RuntimeError(f"march_lean: kernel launch failed with CUDA error "
                        f"{err}")
   march_lean.launches += 1
+  march_lean.arms[interp] += 1
   return (dense[..., 0:3], math_ops.safe_l2_normalize(dense[..., 3:6]),
           dense[..., 6], sub[..., 0:3],
           math_ops.safe_l2_normalize(sub[..., 3:6]), sub[..., 6])
 
 
 march_lean.launches = 0
+march_lean.arms = collections.Counter()
 
 
 def _library():
   lib = cuda_build.load("march_lean")
   vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
   for fn, argtypes in (
-      (lib.march_lean_launch, [vp] * 6 + [ci] * 6 + [cf] * 8 + [ci] * 3),
+      (lib.march_lean_launch, [vp] * 6 + [ci] * 6 + [cf] * 8 + [ci] * 4),
       (lib.march_full_plain_launch, [vp] * 4 + [ci] * 5 + [cf] * 8
-       + [ci] * 3)):
+       + [ci] * 4)):
     if fn.restype is not ci or not fn.argtypes:
       fn.argtypes = argtypes + [vp]
       fn.restype = ci
@@ -240,18 +250,18 @@ def full_plain_launch_geometry(batch):
 
 
 def march_full_plain_reference(spec, data, origins, directions, near,
-                               step_size, num_samples):
+                               step_size, num_samples, interp="highest"):
   """Plain PyTorch version of the head-off full emit: ops/eikonal.march
   with the grid's gradient and raw directions, as [B, S, 11]."""
   pos, dirs, dist, n, g = eik_ops.march(spec, data, origins, directions,
                                         near, step_size, num_samples,
                                         use_pred_grad=False,
-                                        normalize_dirs=False)
+                                        normalize_dirs=False, interp=interp)
   return torch.cat([pos, dirs, dist[..., None], n, g], dim=-1)
 
 
 def march_full_plain(spec, data, origins, directions, near, step_size,
-                     num_samples):
+                     num_samples, interp="highest"):
   """The march without the so3 head, emitting the full trajectory.
 
   Args: as march_lean, without the jitter.
@@ -262,10 +272,11 @@ def march_full_plain(spec, data, origins, directions, near, step_size,
     and arclength are K1's bit for bit. The call reads nothing back from
     the card.
   """
+  precision.check_interp(interp)
   dev = origins.device
   if dev.type == "cpu":
     return march_full_plain_reference(spec, data, origins, directions, near,
-                                      step_size, num_samples)
+                                      step_size, num_samples, interp)
   if dev.type != "cuda":
     raise ValueError(f"march_full_plain runs on CUDA or CPU tensors, not "
                      f"{dev}")
@@ -284,15 +295,17 @@ def march_full_plain(spec, data, origins, directions, near, step_size,
         origins.data_ptr(), directions.data_ptr(), data.data_ptr(),
         traj.data_ptr(), batch, num_samples, *spec.ndim, near, step_size,
         *spec.nmin, *spec.ndelta, geom["rays_per_block"], geom["threads"],
-        geom["smem_bytes"], stream)
+        geom["smem_bytes"], precision.INTERP_CODES[interp], stream)
   if err != 0:
     raise RuntimeError(f"march_full_plain: kernel launch failed with CUDA "
                        f"error {err}")
   march_full_plain.launches += 1
+  march_full_plain.arms[interp] += 1
   return traj
 
 
 march_full_plain.launches = 0
+march_full_plain.arms = collections.Counter()
 
 
 # K2's launch geometry (csrc/march_so3.cu): a cluster of SO3_CLUSTER CTAs
@@ -365,12 +378,17 @@ def so3_apply_head(head, raw, g):
           * math_ops.safe_l2_normalize(raw))
 
 
-def so3_refine_fn(so3_params, alpha, max_deg, head=SHIPPED_HEAD):
+def so3_refine_fn(so3_params, alpha, max_deg, head=SHIPPED_HEAD,
+                  dtype="float32"):
   """(p, g) -> refined g of the so3 head (its PE, the skip-MLP and its
-  output head), as the plain marches call it."""
+  output head), as the plain marches call it; dtype "bfloat16" is K2's
+  bf16 head (mlp_ops.apply_params with the bf16 rounding)."""
+  rnd = None if precision.check_bwd_dtype(dtype) == "float32" else (
+      precision.bf16)
+
   def refine(p, g):
     raw = mlp_ops.apply_params(so3_params, so3_embed(head, p, alpha,
-                                                     max_deg))
+                                                     max_deg), rnd=rnd)
     return so3_apply_head(head, raw, g)
   return refine
 
@@ -395,15 +413,18 @@ def so3_width(so3_params, max_deg):
 
 
 def march_full_reference(spec, data, origins, directions, near, step_size,
-                         num_samples, so3_params, alpha, max_deg=10):
+                         num_samples, so3_params, alpha, max_deg=10,
+                         interp="highest", bwd_dtype="float32"):
   """Plain PyTorch version of K2: ops/eikonal.march with the so3 head.
 
   Returns the [B, S, 11] trajectory (pos, raw dir, arclength, n, grad n).
   """
   out = eik_ops.march(spec, data, origins, directions, near, step_size,
                       num_samples,
-                      pred_grad_fn=so3_refine_fn(so3_params, alpha, max_deg),
-                      use_pred_grad=True, normalize_dirs=False)
+                      pred_grad_fn=so3_refine_fn(so3_params, alpha, max_deg,
+                                                 dtype=bwd_dtype),
+                      use_pred_grad=True, normalize_dirs=False,
+                      interp=interp)
   pos, dirs, dist, n, g = out
   return torch.cat([pos, dirs, dist[..., None], n, g], dim=-1)
 
@@ -450,7 +471,8 @@ def so3_launch_geometry(batch, width, max_deg):
 
 
 def march_full(spec, data, origins, directions, near, step_size, num_samples,
-               so3_params, alpha, max_deg=10):
+               so3_params, alpha, max_deg=10, interp="highest",
+               bwd_dtype="float32"):
   """The 'all'-stage forward march with the so3-refined gradient (K2).
 
   Args:
@@ -462,17 +484,22 @@ def march_full(spec, data, origins, directions, near, step_size, num_samples,
     alpha: annealing progress (float or 0-d tensor); the PE window runs
       at alpha * max_deg.
     max_deg: PE degrees (the MLP takes 6 * max_deg inputs).
+    interp: the interpolation's precision (ops/precision.INTERPS).
+    bwd_dtype: the head's arm: "float32", or "bfloat16" (its weights
+      rounded here, its PE features and activations in the kernel).
 
   Returns:
     [B, S, 11] float32 trajectory: pos 0:3, raw dir 3:6, arclength 6,
     n 7, grad n 8:11, each the state before that step's update. The call
     reads nothing back from the card.
   """
+  precision.check_interp(interp)
+  precision.check_bwd_dtype(bwd_dtype)
   dev = origins.device
   if dev.type == "cpu":
     return march_full_reference(spec, data, origins, directions, near,
                                 step_size, num_samples, so3_params, alpha,
-                                max_deg)
+                                max_deg, interp, bwd_dtype)
   if dev.type != "cuda":
     raise ValueError(f"march_full runs on CUDA or CPU tensors, not {dev}")
   check_march_inputs("march_full", spec, data, origins, directions)
@@ -484,6 +511,9 @@ def march_full(spec, data, origins, directions, near, step_size, num_samples,
   geom = so3_launch_geometry(batch, width, max_deg)
   lib = _so3_library()
   params = [p.detach().contiguous() for p in so3_params]
+  if bwd_dtype == "bfloat16":
+    params = [precision.bf16(p) if i % 2 == 0 else p
+              for i, p in enumerate(params)]
   if torch.is_tensor(alpha):
     alpha_t = alpha.to(device=dev, dtype=torch.float32, non_blocking=True)
   else:
@@ -498,15 +528,18 @@ def march_full(spec, data, origins, directions, near, step_size, num_samples,
         *[p.data_ptr() for p in params], window.data_ptr(), traj.data_ptr(),
         batch, num_samples, max_deg, width, *spec.ndim, near, step_size,
         *spec.nmin, *spec.ndelta, geom["cluster"], geom["rays_per_cluster"],
-        geom["ctas"], geom["threads"], geom["smem_bytes"], stream)
+        geom["ctas"], geom["threads"], geom["smem_bytes"],
+        precision.INTERP_CODES[interp], int(bwd_dtype == "bfloat16"), stream)
   if err != 0:
     raise RuntimeError(f"march_full: kernel launch failed with CUDA error "
                        f"{err}")
   march_full.launches += 1
+  march_full.arms[(interp, bwd_dtype)] += 1
   return traj
 
 
 march_full.launches = 0
+march_full.arms = collections.Counter()
 
 
 def split_trajectory(traj):
@@ -520,6 +553,6 @@ def _so3_library():
   fn = lib.march_so3_launch
   if fn.restype is not ctypes.c_int or not fn.argtypes:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 15 + [ci] * 7 + [cf] * 8 + [ci] * 5 + [vp]
+    fn.argtypes = [vp] * 15 + [ci] * 7 + [cf] * 8 + [ci] * 7 + [vp]
     fn.restype = ci
   return lib

@@ -17,17 +17,25 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def apply_params(params, x, skip_layer=2):
-  """Skip-MLP of flat params [W_0, b_0, ..., W_out, b_out] on [..., in]."""
+def apply_params(params, x, skip_layer=2, rnd=None):
+  """Skip-MLP of flat params [W_0, b_0, ..., W_out, b_out] on [..., in].
+
+  rnd: None computes in fp32; otherwise the bf16 arm (march_bwd_dtype =
+  bfloat16, ops/precision.py): the inputs, each weight and each stored
+  activation pass through rnd (the rounding to bf16) as operands, the
+  products and sums stay fp32 and the biases are added unrounded.
+  """
   lead = x.shape[:-1]
   x = x.reshape(-1, x.shape[-1])
+  op = (lambda t: t) if rnd is None else rnd
+  x = op(x)
   inputs = x
   depth = len(params) // 2 - 1
   for i in range(depth):
-    x = torch.relu(F.linear(x, params[2 * i], params[2 * i + 1]))
+    x = op(torch.relu(F.linear(x, op(params[2 * i]), params[2 * i + 1])))
     if i % skip_layer == 0 and i > 0:
       x = torch.cat([x, inputs], dim=-1)
-  x = F.linear(x, params[-2], params[-1])
+  x = F.linear(x, op(params[-2]), params[-1])
   return x.reshape(*lead, x.shape[-1])
 
 

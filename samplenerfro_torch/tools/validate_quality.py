@@ -3,8 +3,10 @@
     python -m samplenerfro_torch.tools.validate_quality [--steps 2000] \
         [--batching single_image|tile] [--tile_stride 1] [--tile_images] \
         [--batch_size 1024] [--mlp_dtype float32|bfloat16] \
-        [--all_steps 0] [--ipe] [--seed 0] [--workdir DIR] [--skip_scene] \
-        [--device cuda]
+        [--march_interp highest|high|default] \
+        [--all_steps 0] [--march_interp_all inherit|highest|high|default] \
+        [--march_bwd_dtype float32|bfloat16] [--all_tag TAG] [--ipe] \
+        [--seed 0] [--workdir DIR] [--skip_scene] [--device cuda]
 
 The port's counterpart of scripts/validate_quality.py: writes the scene
 (tools/synth.make_scene at its defaults) unless it exists, trains the
@@ -15,14 +17,18 @@ samples with mip-NeRF's integrated positional encoding
 (`NerfModel.use_ipe = True` in the gin file, as the JAX script writes it)
 and tags the run `_ipe`. --seed seeds the weights, the batches, the
 density noise and the jitters (train's and eval's --seed) and tags the
-run `_s<seed>`; 0 keeps the draws of a run without it. With --all_steps
-the `all` stage starts from the radiance stage's checkpoint (a copy of its
-directory), trains that many more steps, and is scored the same way. A
-finished radiance stage (its checkpoint and psnr.txt) is reused, as the JAX
-script reuses it. The config is the JAX script's text (CONFIG_YAML, GIN)
-without its TPU march keys; the JAX script's march window, refetch, skip,
-interpolation, reverse-sweep and dispatch knobs have no counterpart
-(utils/config.IGNORED_FLAGS).
+run `_s<seed>`; 0 keeps the draws of a run without it. --march_interp
+trains and scores the radiance stage at that interpolation precision
+(tagged `_interp-<value>`). With --all_steps the `all` stage starts from
+the radiance stage's checkpoint (a copy of its directory, `all_quality`
+or `all_quality_<all_tag>`, so that arms share one radiance run), trains
+that many more steps with --march_interp_all and --march_bwd_dtype, and
+is scored the same way, its view marched at highest as the JAX script
+scores it. A finished radiance stage (its checkpoint and psnr.txt) is
+reused, as the JAX script reuses it. The config is the JAX script's text
+(CONFIG_YAML, GIN) without its TPU march keys; the JAX script's march
+window, refetch, skip, reverse-sweep implementation and dispatch knobs
+have no counterpart (utils/config.IGNORED_FLAGS).
 """
 
 import argparse
@@ -100,6 +106,19 @@ def parse_args(argv=None):
   p.add_argument("--all_steps", type=int, default=0,
                  help="after the radiance stage, train the 'all' stage "
                  "from its checkpoint for this many more steps")
+  p.add_argument("--march_interp", default="highest",
+                 choices=["highest", "high", "default"],
+                 help="the marches' interpolation precision")
+  p.add_argument("--march_interp_all", default="inherit",
+                 choices=["inherit", "highest", "high", "default"],
+                 help="the 'all' stage's training interpolation (its eval "
+                 "marches at highest)")
+  p.add_argument("--march_bwd_dtype", default="float32",
+                 choices=["float32", "bfloat16"],
+                 help="the 'all' stage's reverse sweep (and so3 head) arm")
+  p.add_argument("--all_tag", default="",
+                 help="suffix of the 'all' stage's directory, so that "
+                 "several arms share one radiance checkpoint")
   p.add_argument("--workdir",
                  default=os.path.join(tempfile.gettempdir(),
                                       "samplenerfro_quality"))
@@ -125,6 +144,8 @@ def run_tag(args):
     tag += "_timg"
   if args.ipe:
     tag += "_ipe"
+  if args.march_interp != "highest":
+    tag += f"_interp-{args.march_interp}"
   if args.seed:
     tag += f"_s{args.seed}"
   return tag
@@ -172,7 +193,7 @@ def main(argv=None):
             f"--config={cfg_base}", f"--gin_file={cfg_base}.gin",
             f"--tile_stride={args.tile_stride}",
             f"--tile_images={str(args.tile_images).lower()}",
-            f"--seed={args.seed}"]
+            f"--seed={args.seed}", f"--march_interp={args.march_interp}"]
   if args.device is not None:
     common.append(f"--device={args.device}")
 
@@ -209,15 +230,18 @@ def main(argv=None):
   if args.all_steps > 0:
     # The 'all' stage resumes from a copy of the radiance stage's
     # directory; max_steps extends past the radiance budget.
-    all_dir = os.path.join(train_dir, ALL_STAGE)
+    all_stage = ALL_STAGE + (f"_{args.all_tag}" if args.all_tag else "")
+    all_dir = os.path.join(train_dir, all_stage)
     if not os.path.exists(all_dir):
       shutil.copytree(os.path.join(train_dir, RADIANCE_STAGE), all_dir)
       shutil.rmtree(os.path.join(all_dir, "test_preds"), ignore_errors=True)
     total = args.steps + args.all_steps
-    steps = [f"--max_steps={total}", f"--save_every={total}"]
-    run(ALL_STAGE, steps,
-        steps + [f"--gin_param=Config.all_weight_name='{ALL_STAGE}'"])
-    r = results[ALL_STAGE]
+    steps = [f"--max_steps={total}", f"--save_every={total}",
+             f"--march_bwd_dtype={args.march_bwd_dtype}"]
+    run(all_stage, steps + [f"--march_interp_all={args.march_interp_all}"],
+        steps + [f"--gin_param=Config.all_weight_name='{all_stage}'",
+                 "--march_interp_all=highest"])
+    r = results[all_stage]
     print(f"RESULT {tag} all-stage(+{args.all_steps}): PSNR = {r['psnr']}, "
           f"SSIM = {r['ssim']}", flush=True)
   return results

@@ -200,6 +200,7 @@ def _train(ns, rest, device):
       ns.config, ns.gin_file, ns.gin_param,
       **config_lib.parse_flag_overrides(rest))
   args.data_dir, args.train_dir = ns.data_dir, ns.train_dir
+  config_lib.apply_matmul_precision(args.matmul_precision)
   datasets.check_dataset(args)
   step_lib.check_supported(args)
 

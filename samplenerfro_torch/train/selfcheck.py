@@ -10,13 +10,18 @@ runs the kernels on the JAX gate's inputs, at the so3 head's ship width
      at alpha 0.6) against march_full_reference, all 11 channels. K1
      stands in for the JAX gate's Pallas full-emit arm without the head:
      the port has no such emit mode.
+     Then the JAX gate's fwd_pallas_bf16 arm: K2 with the head off
+     (march_full_plain, the counterpart of its march_tiled_pallas without
+     the head) at march_interp="default", the production bf16
+     interpolation, against the fp32 scan march within the JAX gate's bf16
+     envelope (0.05 of scale).
   2. backward ('all' stage): the loss and gradients of march_allstage (K2
      forward, K3 backward) against torch.autograd through
      march_full_reference.
 
-The JAX gate's two bf16-interpolation arms are not run: the port's march
-interpolates in fp32 only. check_march reports them among its soft
-failures (SKIPPED_ARMS) rather than dropping them.
+The JAX gate's fwd_tiled_bf16 arm is not run: the port has no XLA tiled
+marcher. check_march reports it among its soft failures (SKIPPED_ARMS)
+rather than dropping it.
 
 On a CUDA device every arm asserts that its kernel's launch counter moved,
 so no arm can pass through a plain version. On the CPU the wrappers run
@@ -38,9 +43,11 @@ SO3_KEY = (0, 10, True, True, True, False)  # shipped VoxMLP branch
 ALPHA = 0.6
 NEAR, FAR = 2.0, 6.0
 SKIPPED_ARMS = (
-    ("fwd_pallas_bf16", "the port's march interpolates in fp32 only"),
-    ("fwd_tiled_bf16", "the port's march interpolates in fp32 only"),
+    ("fwd_tiled_bf16", "the port has no XLA tiled marcher: "
+     "ops/eikonal_tiled.py's windows are shaped by the TPU's VMEM, and the "
+     "port's marches gather from the whole grid (ROADMAP.md)"),
 )
+BF16_ENVELOPE = 0.05  # the JAX gate's bf16-interpolation envelope
 
 
 def _blob_grid3d(spec, n):
@@ -172,6 +179,19 @@ def check_march(grid_n=128, num_samples=768, block_size=256, nblocks=2,
                           march_kernel.split_trajectory(ref_full),
                           march_kernel.split_trajectory(full)):
       close(f"fwd_so3_{name}", a, b, fwd_atol)
+
+    # --- Forward, the production bf16 interpolation (march_interp=
+    # "default") without the head, against the exact scan march ----------
+    before = march_kernel.march_full_plain.launches
+    bf16_out = march_kernel.march_full_plain(spec, data, o, d, NEAR, h,
+                                             num_samples, interp="default")
+    _launched(march_kernel.march_full_plain, before, "K2 with the head off "
+              "at march_interp=default", on_card)
+    pos, dirs_raw, dist, nv, g = march_kernel.split_trajectory(bf16_out)
+    for name, a, b in zip(("pos", "dirs", "dist", "n", "g"), scan_out,
+                          (pos, math_ops.safe_l2_normalize(dirs_raw), dist,
+                           nv, g)):
+      close(f"fwd_pallas_bf16_{name}", a, b, BF16_ENVELOPE)
 
   # --- Backward ('all' stage): K2 + K3 vs autograd of the plain march -----
   s_grad = grad_samples

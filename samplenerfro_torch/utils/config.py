@@ -6,15 +6,22 @@ and utils/gin_lite.py: the same flag names and defaults, the
 YAML package) and the `Class.param = literal` gin subset.
 
 Flags the port reads and ignores are IGNORED_FLAGS, each with its reason:
-they tune the TPU kernels' VMEM windows, interpolation precision,
-free-space skip and marcher choice. The Hopper march
-kernels gather straight from the grid in device memory and interpolate in
-fp32, so none of them applies.
+they tune the TPU kernels' VMEM windows, free-space skip and marcher
+choice. The Hopper march kernels gather straight from the grid in device
+memory, so none of them applies. The precision flags are honoured:
+march_interp and march_interp_all (the marches' interpolation,
+models/nerf.effective_march_interp), march_bwd_dtype (K3's bf16 sweep,
+and K2's so3 head at the same bf16 operands: the port ties the head's
+precision to this flag, where the TPU ran it at DEFAULT whatever the
+flags, so that the default flags keep the JAX package's fp32 on the CPU;
+ops/precision.py) and matmul_precision (apply_matmul_precision).
 """
 
 import ast
 import dataclasses
 import types
+
+import torch
 
 FLAG_DEFAULTS = {
     "gin_file": None, "gin_param": None, "train_dir": None,
@@ -65,13 +72,7 @@ IGNORED_FLAGS = {
     "march_oow_action": "no grid window, so nothing is ever clamped",
     "march_skip": "no free-space skip",
     "scan_unroll": "no lax.scan",
-    # The march interpolates in fp32 (ROADMAP.md Queue 3: the interp and
-    # reverse-sweep precision knobs stay off until measured on the card).
-    "march_interp": "fp32 interpolation",
-    "march_interp_all": "fp32 interpolation",
-    "march_bwd_dtype": "K3 runs in fp32; the bf16 sweep is not honoured",
     "march_bwd_impl": "K3 is the one reverse sweep",
-    "matmul_precision": "fp32 products with TF32 off",
     # Rematerialisation of the MLPs under jax.checkpoint: autograd keeps
     # the nn.Linear activations, and K5 recomputes its own.
     "mlp_remat": "autograd keeps the activations; K5 recomputes its own",
@@ -79,6 +80,24 @@ IGNORED_FLAGS = {
 # The radiance MLPs' implementations (models/nerf.py): nn.Linear, or the
 # fused K4/K5 with features given or encoded in the kernel.
 MLP_KERNELS = ("xla", "pallas", "pallas_pe")
+# matmul_precision's names (jax.default_matmul_precision's) and the
+# torch.set_float32_matmul_precision each maps to: fp32, TF32 (or bf16x3),
+# one bf16 pass.
+MATMUL_PRECISIONS = {
+    "highest": "highest", "float32": "highest",
+    "high": "high", "tensorfloat32": "high", "bfloat16_3x": "high",
+    "default": "medium", "bfloat16": "medium",
+}
+
+
+def apply_matmul_precision(precision):
+  """Set PyTorch's float32 matmul precision from the matmul_precision flag,
+  where train.py and eval.py set JAX's (samplenerfro_tpu/utils/config.py:
+  378-382); ValueError for a name JAX does not take."""
+  if precision not in MATMUL_PRECISIONS:
+    raise ValueError(f"matmul_precision must be one of "
+                     f"{sorted(MATMUL_PRECISIONS)}, got {precision!r}")
+  torch.set_float32_matmul_precision(MATMUL_PRECISIONS[precision])
 # tile_size sizes the TPU march blocks too; the port reads it only for
 # `batching: tile` and renders in fixed 16x16 pixel tiles (utils/render.py).
 

@@ -28,6 +28,7 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (`x + 1`, `torch.sin`, `so3_preacts_reference`) for CPU tensors.
 """
 
+import collections
 import ctypes
 
 import numpy as np
@@ -38,6 +39,7 @@ from samplenerfro_torch.ops import cuda_build
 from samplenerfro_torch.ops import eikonal_vjp
 from samplenerfro_torch.ops import march_kernel
 from samplenerfro_torch.ops import math as math_ops
+from samplenerfro_torch.ops import precision
 
 SIN_SCALES = (1.0, 64.0, 512.0, 2048.0)
 
@@ -111,25 +113,32 @@ def sin_errors(device, seed=0):
   return out
 
 
-def so3_preacts_reference(p, so3_params, alpha, max_deg=10):
+def so3_preacts_reference(p, so3_params, alpha, max_deg=10,
+                          dtype="float32"):
   """Plain version of P3: (pre1, pre2, pre3), each [N, width], of the so3
   head's first three layers at the points p [N, 3]; the PE window at
-  alpha * max_deg, alpha rounded to float32 first as the kernels take it."""
+  alpha * max_deg, alpha rounded to float32 first as the kernels take it.
+  dtype "bfloat16": the features, weights and activations rounded to bf16
+  as operands (K3's bf16 arm), the sums fp32."""
+  op = (lambda t: t) if precision.check_bwd_dtype(dtype) == "float32" else (
+      precision.bf16)
   a = torch.as_tensor(alpha, dtype=torch.float32, device=p.device)
-  h = math_ops.annealed_pos_enc(p, 0, max_deg, a * max_deg)
+  h = op(math_ops.annealed_pos_enc(p, 0, max_deg, a * max_deg))
   pres = []
   for i in range(3):
-    pres.append(F.linear(h, so3_params[2 * i], so3_params[2 * i + 1]))
-    h = torch.relu(pres[-1])
+    pres.append(F.linear(h, op(so3_params[2 * i]), so3_params[2 * i + 1]))
+    h = op(torch.relu(pres[-1]))
   return tuple(pres)
 
 
-def so3_preacts(p, so3_params, alpha, max_deg=10):
+def so3_preacts(p, so3_params, alpha, max_deg=10, dtype="float32"):
   """P3: the so3 head's pre-activations of layers 1-3 at p [N, 3], summed
-  as K3 sums them. Returns (pre1, pre2, pre3), each [N, width] float32."""
+  as K3 sums them in its arm `dtype` (march_bwd_dtype). Returns (pre1,
+  pre2, pre3), each [N, width] float32."""
+  precision.check_bwd_dtype(dtype)
   dev = p.device
   if dev.type == "cpu":
-    return so3_preacts_reference(p, so3_params, alpha, max_deg)
+    return so3_preacts_reference(p, so3_params, alpha, max_deg, dtype)
   if dev.type != "cuda":
     raise ValueError(f"so3_preacts runs on CUDA or CPU tensors, not {dev}")
   if (p.dtype != torch.float32 or p.dim() != 2 or p.shape[1] != 3
@@ -140,7 +149,7 @@ def so3_preacts(p, so3_params, alpha, max_deg=10):
   for q in so3_params:
     if q.device != dev:
       raise ValueError(f"so3_preacts: so3 params on {q.device}, p on {dev}")
-  wpack, _ = eikonal_vjp.so3_packs(so3_params)
+  wpack, _, wpack_t, _ = eikonal_vjp.arm_packs(so3_params, dtype)
   window = march_kernel.so3_window(torch.as_tensor(
       alpha, dtype=torch.float32, device=dev), max_deg).detach().contiguous()
   n = p.shape[0]
@@ -149,23 +158,27 @@ def so3_preacts(p, so3_params, alpha, max_deg=10):
   fn = lib.so3_preacts_launch
   if fn.restype is not ctypes.c_int or not fn.argtypes:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 4 + [ci] * 3 + [vp]
+    fn.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     fn.restype = ci
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(p.data_ptr(), wpack.data_ptr(), window.data_ptr(),
-             pre.data_ptr(), n, max_deg, width, stream)
+    err = fn(p.data_ptr(), wpack.data_ptr(), wpack_t.data_ptr(),
+             window.data_ptr(), pre.data_ptr(), n, max_deg, width,
+             int(dtype == "bfloat16"), stream)
   if err != 0:
     raise RuntimeError(f"so3_preacts: kernel launch failed with CUDA error "
                        f"{err}")
   so3_preacts.launches += 1
+  so3_preacts.arms[dtype] += 1
   return pre[0], pre[1], pre[2]
 
 
 so3_preacts.launches = 0
+so3_preacts.arms = collections.Counter()
 
 
-def so3_preacts_by_step(pos, so3_params, alpha, max_deg=10):
+def so3_preacts_by_step(pos, so3_params, alpha, max_deg=10,
+                        dtype="float32"):
   """P3 and its plain version at the path vertices pos [B, S, 3]: P3 in
   one call, the plain version a step at a time on all B rays, as the plain
   march (and autograd through it) calls the head. cuBLAS picks its
@@ -174,9 +187,9 @@ def so3_preacts_by_step(pos, so3_params, alpha, max_deg=10):
   [B, S, W] plain)."""
   b, steps = pos.shape[:2]
   got = so3_preacts(pos.reshape(-1, 3).contiguous(), so3_params, alpha,
-                    max_deg)
+                    max_deg, dtype)
   plain = [so3_preacts_reference(pos[:, i].contiguous(), so3_params, alpha,
-                                 max_deg) for i in range(steps)]
+                                 max_deg, dtype) for i in range(steps)]
   return [(g.reshape(b, steps, -1),
            torch.stack([x[layer] for x in plain], dim=1))
           for layer, g in enumerate(got)]

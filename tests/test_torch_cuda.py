@@ -1096,3 +1096,71 @@ def test_cuda_flax_fixture_resumes_and_dispatches_bit_for_bit(cuda_device,
   for key, want in runs[1][1].items():
     assert torch.equal(runs[10][1][key], want), key
   assert runs[1][2] == 20 and runs[10][2] == 20  # eager + captured
+
+
+# The shipped configs' reduced-precision arms (ops/precision.py), each
+# kernel against its plain version of the same arm. K1 and K2 with the head
+# off round at the same points in the same order as their plain versions:
+# ATOL. K2 with its bf16 head is held teacher-forced (one plain step from
+# each of the kernel's states: debug/precision_arms.teacher_forced) at
+# SO3_ATOL, and free-running at SO3_ATOL where the interpolation is fp32;
+# K3's bf16 arm per tensor at 2e-3 x max|want| with P3's bf16 flips
+# replayed (precision_arms.k3_bf16_case).
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", ["default", "high"])
+@pytest.mark.parametrize("nrays", [100, 1024])
+def test_cuda_interp_arms_match_plain_versions(cuda_device, interp, nrays):
+  from samplenerfro_torch.debug import precision_arms
+  spec, data, o, d, jitter = _march_inputs(nrays)
+  data, o, d = [torch.from_numpy(a).to(cuda_device) for a in (data, o, d)]
+  jitter = torch.from_numpy(jitter)
+  before = (march_kernel.march_lean.arms[interp],
+            march_kernel.march_full_plain.arms[interp])
+  err, got, _ = precision_arms.k1_arm(spec, data, o, d, NEAR, H, S, jitter,
+                                      interp)
+  err2, traj, _ = precision_arms.head_off_arm(spec, data, o, d, NEAR, H, S,
+                                              interp)
+  assert (march_kernel.march_lean.arms[interp],
+          march_kernel.march_full_plain.arms[interp]) == (before[0] + 1,
+                                                          before[1] + 1)
+  assert err <= ATOL and err2 <= ATOL
+  exact = march_kernel.march_full_plain(spec, data, o, d, NEAR, H, S)
+  assert float((exact[..., 7:] - traj[..., 7:]).abs().max()) > ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", ["highest", "default"])
+def test_cuda_so3_march_bf16_head_matches_plain_version(cuda_device, interp):
+  from samplenerfro_torch.debug import precision_arms
+  spec, data, o, d, so3 = _allstage_inputs(cuda_device, 256)
+  before = march_kernel.march_full.arms[(interp, "bfloat16")]
+  forced, free, traj, _, _ = precision_arms.k2_arm(
+      spec, data, o, d, NEAR, H, S, so3, ALPHA, interp, "bfloat16")
+  assert march_kernel.march_full.arms[(interp, "bfloat16")] == before + 1
+  assert max(forced.values()) <= SO3_ATOL, forced
+  if interp == "highest":
+    assert max(free) <= SO3_ATOL, free
+  fp32 = march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA,
+                                 10, interp)
+  assert not torch.equal(fp32, traj)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrays", [256, 100])
+def test_cuda_march_bwd_bf16_matches_plain_version(cuda_device, nrays):
+  from samplenerfro_torch.debug import precision_arms
+  spec, data, o, d, so3 = _allstage_inputs(cuda_device, nrays)
+  cfg = eikonal_vjp.MarchConfig(spec, NEAR, H, S, 10, "highest", "bfloat16")
+  traj = march_kernel.march_full_reference(spec, data, o, d, NEAR, H, S, so3,
+                                           ALPHA, 10, bwd_dtype="bfloat16")
+  dtraj = torch.randn(traj.shape, generator=torch.Generator().manual_seed(
+      5)).to(cuda_device)
+  before = eikonal_vjp.march_bwd.arms["bfloat16"]
+  errs, flips, same, got, _ = precision_arms.k3_bf16_case(
+      cfg, data, o, d, so3, ALPHA, traj, dtraj)
+  assert eikonal_vjp.march_bwd.arms["bfloat16"] == before + 2
+  assert same
+  assert all(share <= 1.0 for _, share in errs.values()), (errs, flips)
+  assert float(got[3][-2].abs().sum()) > 0

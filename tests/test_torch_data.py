@@ -53,7 +53,7 @@ def test_gin_and_flag_overlay_match_jax():
   assert cfg == t_config.Config(**vars(j_config.Config.from_gin(bindings)))
   assert cfg.kernel_size == 5 and cfg.voxel_grid == "voxelize_uni512_highpoly"
   assert args.chunk == 4096 and args.num_path_samples == 12
-  assert args.march_interp == "default" and "march_interp" in (
+  assert args.march_interp == "default" and "march_interp" not in (
       t_config.IGNORED_FLAGS)
   with pytest.raises(ValueError, match="unknown flags"):
     t_config.load_args(base, [base + ".gin"], not_a_flag=1)

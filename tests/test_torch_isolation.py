@@ -56,7 +56,8 @@ def test_port_files_found():
               "train/ocdbt.py", "train/flax_checkpoints.py",
               "utils/flax_msgpack.py", "utils/zstd.py",
               "debug/flax_fixture.py", "parallel/mesh.py",
-              "debug/dist_worker.py", "debug/dist_probe.py"):
+              "debug/dist_worker.py", "debug/dist_probe.py",
+              "ops/precision.py", "debug/precision_arms.py"):
     assert f"samplenerfro_torch/{rel}" in FILES
 
 

@@ -170,7 +170,8 @@ def test_check_march_passes_on_the_cpu_with_jax_weights(reduced_run):
   deviations, _, envelopes = reduced_run
   fwd = [f"fwd_lean_{n}" for n in ("pos", "dirs", "dist", "sub_pos",
                                    "sub_dirs", "sub_dist")]
-  fwd += [f"fwd_so3_{n}" for n in ("pos", "dirs", "dist", "n", "g")]
+  fwd += [f"fwd_{arm}_{n}" for arm in ("so3", "pallas_bf16")
+          for n in ("pos", "dirs", "dist", "n", "g")]
   grads = ["grad_origins", "grad_directions", "grad_alpha"] + [
       f"grad_so3.{name}.{kind}" for name in LAYERS
       for kind in ("weight", "bias")]
@@ -181,10 +182,10 @@ def test_check_march_passes_on_the_cpu_with_jax_weights(reduced_run):
 
 def test_check_march_reports_the_skipped_bf16_arms(reduced_run):
   _, not_run, _ = reduced_run
-  assert len(not_run) == len(t_selfcheck.SKIPPED_ARMS) == 2
+  assert len(not_run) == len(t_selfcheck.SKIPPED_ARMS) == 1
   for msg, (name, why) in zip(not_run, t_selfcheck.SKIPPED_ARMS):
     assert msg.startswith(f"{name}: not run") and why in msg
-    assert "bf16" in name and "fp32" in why
+    assert name == "fwd_tiled_bf16" and "no XLA tiled marcher" in why
 
 
 def test_check_march_default_head_is_the_ship_width():
