@@ -255,9 +255,15 @@ Phases, each of which must pass or the script exits non-zero:
      self-check's bf16 envelope (0.05 of scale); K3's bf16 arm on the
      plain march's trajectory against march_bwd_passes_reference's bf16
      arm with the ReLU flips of P3's bf16 arm replayed, per tensor at
-     2e-3 x max|want|, and bit for bit across two runs; each timed with
-     its kernel's device time (K3's split over its five kernels), its
-     plain version's and its bound (the so3 head's products, bf16
+     2e-3 x max|want|, and bit for bit across two runs, there and at
+     the edges of its balanced partition on the batch's first 128 rays
+     (no active ray-step, every one, one over and one under a multiple of
+     the tile's rows, fewer tiles than blocks); the active tiles a block
+     of its passes 1b and 3 runs, under the streamed-weights design's
+     contiguous ranges and the balanced partitions, from the active mask
+     on the host (a log line); each timed with its kernel's device time
+     (K3's split over its five kernels, logged beside the streamed-weights
+     design's figures), its plain version's and its bound (the so3 head's products, bf16
      operands summed in fp32, at the dense bf16 tensor-core rate: K2's
      forward, K3's three). Then the path as shipped: each stage's 30 steps
      at K = 1 and at its K = 10 (a CUDA graph), bit for bit, with steps/s
@@ -3652,6 +3658,16 @@ def flax_ckpt_phase(model, args, view, jitter, device, seed):
 # K2_ATOL teacher-forced, and the free-running march at the JAX
 # self-check's bf16 envelope of the plain version's scale.
 SHIPPED_FREE_ENVELOPE = 0.05
+# K3 bf16's five kernels at the ship 'all' batch in the design before
+# its passes 1b and 3 kept the head's weights resident (PERF.md section 6:
+# NVIDIA H100 80GB HBM3, 700.00 W, device ms), logged beside this run's
+# split and never reported as a measurement.
+STREAMED_K3_BF16_SPLIT = {"k3_pieces": 0.1368, "k3_jacobians": 2.7285,
+                          "k3_sweep": 0.3680, "k3_params": 3.8004,
+                          "k3_reduce": 0.0121}
+# The edges of K3 bf16's partition held at a small size: the first
+# K3_EDGE_RAYS rays of the ship batch (768 steps each).
+K3_EDGE_RAYS = 128
 SHIPPED_ARMS = (("march_lean", "default"), ("march_full_plain", "default"),
                 ("march_full", ("default", "bfloat16")),
                 ("march_bwd", "bfloat16"))
@@ -3818,10 +3834,20 @@ def _shipped_kernels(model, first, batch_rays, jitter, seed):
   if not (same and all(share <= 1.0 for _, share in errs.values())):
     raise SystemExit("shipped: K3's bf16 arm disagrees with its plain "
                      "version or is not deterministic")
+  _k3_tile_spread(want)
+  edges = _k3_edges(cfg, ps.grid, o, d, so3, want, dtraj)
   bwd = (cfg, ps.grid, o, d, so3, SO3_ALPHA, want, dtraj)
   call = lambda: eikonal_vjp.march_bwd(*bwd)
   ms3 = cuda_ms(call)
   split = precision_arms.k3_split(call)
+  passes = {k: round(split.get(k, float("nan")), 4)
+            for k in ("k3_jacobians", "k3_params")}
+  before = (STREAMED_K3_BF16_SPLIT["k3_jacobians"]
+            + STREAMED_K3_BF16_SPLIT["k3_params"])
+  log(f"  K3 [bf16] kernels, device ms: {split}; the streamed-weights "
+      f"design (PERF.md): {STREAMED_K3_BF16_SPLIT}; k3_jacobians + "
+      f"k3_params {sum(passes.values()):.4f} against {before:.4f} "
+      f"({before / max(sum(passes.values()), 1e-9):.2f}x)")
   # Least work: the head's three products a ray-step (forward, backward to
   # the input, weight gradients) at the dense bf16 tensor-core rate, ~200
   # fp32 operations of step adjoints a ray-step at the CUDA cores', and the
@@ -3841,10 +3867,65 @@ def _shipped_kernels(model, first, batch_rays, jitter, seed):
   rows["march_bwd"] = report_row(
       "march_bwd", MARCH_BWD_KERNEL,
       max(e for e, _ in errs.values()), ms3, plain3, bound3, by3,
-      arm="march_bwd_dtype=bfloat16", device_ms=split, relu_flips=flips)
+      arm="march_bwd_dtype=bfloat16", device_ms=split, relu_flips=flips,
+      edges=edges)
   rows["march_bwd"]["name"] = "march_bwd[bf16]"
   del want, dtraj
   return rows
+
+
+def _k3_tile_spread(traj):
+  """Logs the active tiles each block of K3 bf16's passes 1b and 3 runs on
+  traj, from the active mask on the host: under the streamed-weights
+  design's partition (one block an SM, each over a contiguous range of
+  ceil(B S / blocks) ray-steps cut into 128-row tiles) and under the
+  balanced ones of 1b and 3 (ops/eikonal_vjp.k3_tile_ranges)."""
+  active = (traj[..., 8:11].norm(dim=-1) > 1e-3).reshape(-1).cpu()
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  chunk = -(-active.numel() // sms)
+  counts = torch.nn.functional.pad(active.long(),
+                                   (0, chunk * sms - active.numel()))
+  spreads = {"contiguous": (sms, 128, [-(-int(n) // 128) for n in
+                                       counts.view(sms, -1).sum(-1)])}
+  blocks = eikonal_vjp.BLOCKS_PER_SM["bfloat16"] * sms
+  for name, rows in (("balanced 1b", eikonal_vjp.K3_BF16_ROWS),
+                     ("balanced 3", eikonal_vjp.K3_BF16_PARAM_ROWS)):
+    ranges = eikonal_vjp.k3_tile_ranges(int(active.sum()), blocks, rows)
+    spreads[name] = (blocks, rows, [t1 - t0 for t0, t1 in ranges])
+  for name, (blocks, rows, tiles) in spreads.items():
+    log(f"  K3 [bf16] active tiles a block, {name} ({blocks} blocks, "
+        f"{rows}-row tiles, {int(active.sum())} active ray-steps): min "
+        f"{min(tiles)}, mean {sum(tiles) / len(tiles):.3f}, max "
+        f"{max(tiles)}, {sum(tiles)} in all")
+
+
+def _k3_edges(cfg, grid, o, d, so3, traj, dtraj):
+  """K3 bf16 against its plain version (P3's flips replayed, its form per
+  tensor, two runs bit for bit) on the first K3_EDGE_RAYS rays of traj
+  with its active ray-steps set at each edge of the balanced partition
+  (debug/precision_arms.k3_edge_trajectory). Returns {edge: (active
+  ray-steps, the largest share of the form)}."""
+  n = K3_EDGE_RAYS
+  blocks = (eikonal_vjp.BLOCKS_PER_SM["bfloat16"]
+            * torch.cuda.get_device_properties(0).multi_processor_count)
+  out = {}
+  for edge in precision_arms.K3_EDGES:
+    t = precision_arms.k3_edge_trajectory(traj[:n], edge, blocks)
+    active = int((t[..., 8:11].norm(dim=-1) > 1e-3).sum())
+    errs, flips, same, got, _ = precision_arms.k3_bf16_case(
+        cfg, grid, o[:n].contiguous(), d[:n].contiguous(), so3, SO3_ALPHA,
+        t, dtraj[:n].contiguous())
+    worst = max(share for _, share in errs.values())
+    zero = edge != "none" or all(float(g.abs().max()) == 0 for g in got[3])
+    log(f"  K3 [bf16] edge {edge!r} ({n} x {t.shape[1]}, {active} active, "
+        f"{-(-active // eikonal_vjp.K3_BF16_ROWS)} tiles over {blocks} "
+        f"blocks): {worst:.4f} of the form at worst, flips {flips}, bit for "
+        f"bit {same}")
+    del got, t
+    if not (same and worst <= 1.0 and zero):
+      raise SystemExit(f"shipped: K3's bf16 arm fails at the edge {edge!r}")
+    out[edge] = (active, round(worst, 4))
+  return out
 
 
 def shipped_phase(device, seed, card, head_off_selfcheck):

@@ -1,17 +1,20 @@
 """The forward marches (K1, K2) at every shape chip_smoke.py runs them,
-and the radiance and 'all' train steps, on inputs made from a seed.
+K3 and P3 in each arm at the 'all' batch, and the radiance and 'all'
+train steps, on inputs made from a seed.
 
     python -m samplenerfro_torch.debug.march_parity [--seed N] [--steps N]
 
 For each march shape it prints a sha256 digest of the kernel's outputs
 (and of a sample of its inputs), the max abs error against the plain
 version, the call's time (CUDA events) and the kernel's device time
-(torch.profiler). Then, for each stage, one train step's device time and
-the steps/s of `--steps` steps through train.step.train_step.
+(torch.profiler); for K3 and P3, their outputs' digests. Then, for each
+stage, one train step's device time and the steps/s of `--steps` steps
+through train.step.train_step.
 
 Its marches call only what the march wrappers have taken since the port
-began (march_lean with a host jitter, march_full), so a copy of this file
-in an earlier checkout of the port measures that checkout's kernels on
+began (march_lean with a host jitter, march_full; march_bwd and
+so3_preacts with their arm since the precision arms), so a copy of this
+file in an earlier checkout of the port measures that checkout's kernels on
 the same inputs: equal digests show the kernels bit for bit equal, and
 runs in the order parent, change, change, parent in one call compare
 their times. Its train steps take their batches as train/loop.step_batch
@@ -378,6 +381,40 @@ def march_report(shape, kind, args):
   return report
 
 
+def sweep_digests(path_sampler, batch_rays, seed):
+  """K3 in each arm and P3 in each arm at the ship 'all' batch, on the
+  plain march's trajectory and a seeded cotangent: the digest of each
+  output (K3's five tensors and its so3 gradients; P3's pre-activations at
+  the trajectory's active ray-steps). K3 and P3 in fp32 must equal an
+  earlier checkout's; their bf16 arm is printed beside them."""
+  # Imported here, as step_rates' imports, for copies of this file in
+  # earlier checkouts.
+  from samplenerfro_torch.ops import eikonal_vjp
+  from samplenerfro_torch.utils import probes
+  ps = path_sampler
+  so3 = so3_params_for(seed, ps.grid.device)
+  o, d = batch_rays.origins, batch_rays.viewdirs
+  with torch.no_grad():
+    traj = march_kernel.march_full_reference(
+        ps.spec, ps.grid, o, d, ps.near, ps.step_size, ps.num_samples, so3,
+        SO3_ALPHA, SO3_MAX_DEG)
+  dtraj = torch.randn(traj.shape, generator=torch.Generator().manual_seed(
+      seed + 1)).to(traj.device)
+  pts = traj[..., 0:3][traj[..., 8:11].norm(dim=-1) > 1e-3].contiguous()
+  out = {}
+  for arm in ("float32", "bfloat16"):
+    cfg = eikonal_vjp.MarchConfig(ps.spec, ps.near, ps.step_size,
+                                  ps.num_samples, SO3_MAX_DEG, "highest", arm)
+    r = eikonal_vjp.march_bwd(cfg, ps.grid, o, d, so3, SO3_ALPHA, traj,
+                              dtraj)
+    pre = probes.so3_preacts(pts, so3, SO3_ALPHA, SO3_MAX_DEG, arm)
+    torch.cuda.synchronize()
+    out[arm] = (digest(r[0], r[1], r[2], *r[3]), digest(*pre))
+    log(f"  K3 [{arm}] digest {out[arm][0]}, P3 [{arm}] digest "
+        f"{out[arm][1]} ({pts.shape[0]} active ray-steps)")
+  return out
+
+
 def step_rates(args, scene, device, seed, host, steps):
   """For each stage, one train step's device time (torch.profiler) after
   two untimed steps, then the steps/s of `steps` more (and of each
@@ -446,6 +483,7 @@ def main():
   _, jitter, first, host, batch_rays = ship_inputs(args, ns.seed, device)
   for case in march_cases(device, ns.seed, model, first, batch_rays, jitter):
     march_report(*case)
+  sweep_digests(model.path_sampler, batch_rays, ns.seed)
   del model, first, batch_rays
   torch.cuda.empty_cache()
   step_rates(args, scene, device, ns.seed, host, ns.steps)

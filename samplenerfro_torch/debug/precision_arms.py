@@ -154,19 +154,23 @@ def k3_bf16_case(cfg, grid, o, d, so3, alpha, traj, dtraj):
   Returns ({tensor: (max abs err, its share of the form)}, the flips per
   layer, whether two runs agree bit for bit, the kernel's outputs, the
   plain version's ms)."""
+  replay, flips = None, [0, 0, 0]
   with torch.no_grad():
     swept = traj[..., 8:11].norm(dim=-1) > 1e-3
     pts = traj[..., 0:3][swept].contiguous()
-    k3_pre = probes.so3_preacts(pts, so3, alpha, cfg.max_deg, "bfloat16")
-    plain_pre = probes.so3_preacts_reference(pts, so3, alpha, cfg.max_deg,
-                                             "bfloat16")
-    flipped = [(a > 0) != (b > 0) for a, b in zip(k3_pre, plain_pre)]
-    flips = [int(f.sum()) for f in flipped]
-    del plain_pre, pts
+    if pts.shape[0]:  # no swept point, no mask to replay
+      k3_pre = probes.so3_preacts(pts, so3, alpha, cfg.max_deg, "bfloat16")
+      plain_pre = probes.so3_preacts_reference(pts, so3, alpha, cfg.max_deg,
+                                               "bfloat16")
+      flipped = [(a > 0) != (b > 0) for a, b in zip(k3_pre, plain_pre)]
+      flips = [int(f.sum()) for f in flipped]
+      replay = (k3_pre, flipped)
+      del plain_pre
+    del pts
   got = eikonal_vjp.march_bwd(cfg, grid, o, d, so3, alpha, traj, dtraj)
   sync(got[0])
   want, plain_ms = timed(lambda: eikonal_vjp.march_bwd_passes_reference(
-      cfg, grid, o, d, so3, alpha, traj, dtraj, replay=(k3_pre, flipped)))
+      cfg, grid, o, d, so3, alpha, traj, dtraj, replay=replay))
   errs = {}
   for name, a, b in zip(K3_NAMES, k3_flat(got), k3_flat(want)):
     err, scale = float((a - b).abs().max()), float(b.abs().max())
@@ -176,6 +180,41 @@ def k3_bf16_case(cfg, grid, o, d, so3, alpha, traj, dtraj):
   again = eikonal_vjp.march_bwd(cfg, grid, o, d, so3, alpha, traj, dtraj)
   same = all(torch.equal(a, b) for a, b in zip(k3_flat(got), k3_flat(again)))
   return errs, flips, same, got, plain_ms
+
+
+# The edges of the bf16 arm's partition (ops/eikonal_vjp.k3_tile_ranges)
+# that k3_edge_trajectory makes.
+K3_EDGES = ("none", "all", "over", "under", "few")
+
+
+def k3_edge_trajectory(traj, case, num_blocks,
+                       rows=eikonal_vjp.K3_BF16_ROWS):
+  """traj [B, S, 11] with its active ray-steps (|g| > 1e-3) set at an edge
+  of K3's bf16 partition: "none", no active ray-step (g zeroed); "all",
+  every one (g = 1e-2 on each axis where it was not active); "over" and
+  "under", the first active ones in ray-major order kept, one over and
+  one under a multiple of the tile's rows (g zeroed at the rest); "few",
+  fewer tiles than num_blocks. K3 is a function of traj, so its plain
+  version is held on the same edited trajectory."""
+  out = traj.clone()
+  g = out[..., 8:11]
+  active = g.norm(dim=-1) > 1e-3
+  if case == "none":
+    g.zero_()
+    return out
+  if case == "all":
+    g[~active] = 1e-2
+    return out
+  n = int(active.sum())
+  keep = {"over": (n - 1) // rows * rows + 1,
+          "under": n // rows * rows - 1,
+          "few": min(n, (num_blocks // 2) * rows) - 5}[case]
+  if not 0 < keep <= n:
+    raise ValueError(f"k3_edge_trajectory: {n} active ray-steps cannot "
+                     f"give the edge {case!r}")
+  rank = active.reshape(-1).cumsum(0).reshape(active.shape)
+  g[active & (rank > keep)] = 0.0
+  return out
 
 
 K3_KERNELS = ("k3_pieces", "k3_jacobians", "k3_sweep", "k3_params",

@@ -28,41 +28,38 @@
 // Five launches, one wrapper call:
 //  1a. k3_pieces: one thread a ray-step: the trilinear derivative (the 8
 //      corner gathers), inv_n, c_p, c_d and K = B^T, stored field-major
-//      for the sweep ([S][22][Bp], Bp the rays rounded up to 32).
-//  1b. k3_jacobians: the active ray-steps, compacted in order into tiles
-//      (of 64, or 128 in the bf16 arm) by a grid of blocks that each own a
-//      contiguous range of ray-steps. Per tile: the annealed PE and its
-//      derivative, each hidden layer forward and then its three tangents
-//      (one per axis of p), each a product of the tile's rows with the
-//      layer's weights on an engine of mlp_common.cuh (weights streamed
-//      from L2 in k-slabs through the cp.async ring; Simt's 8 x 8 register
-//      tiles a lane, or Mma's m16n8 fragments), then the output layer,
+//      for the sweep ([S][22][Bp], Bp the rays rounded up to 32). In the
+//      bf16 arm it also counts the active rows of traj in its block's 256.
+//  1b. k3_jacobians: the active ray-steps, compacted in order into tiles.
+//      Per tile: the annealed PE and its derivative, each hidden layer
+//      forward and its three tangents (one per axis of p), each a product
+//      of the tile's rows with the layer's weights, then the output layer,
 //      Rodrigues' Jacobians (its adjoint at three unit cotangents) and K,
 //      written over B^T.
 //  2.  k3_sweep: the recurrence above, one thread a ray, 32 rays a block
 //      (a block per 32 rays spreads 1,024 rays over 32 SMs), the pieces
 //      of 8 steps staged by cp.async while the 8 before are swept. It
 //      writes dbar_{s+1} at every ray-step and (pbar_0, dbar_0).
-//  3.  k3_params: as 1b, a fixed grid of blocks over contiguous ranges,
-//      compacting the active ray-steps into the arm's tiles. Per tile: the
-//      head's forward again (the same device functions as 1b), rawbar by
-//      the Rodrigues adjoint at ubar, the cotangents of each layer (dZ
-//      W^T on the engine, masked by the stored activations), and each
-//      layer's dW = A^T dZ over the tile's rows on the engine, added into
-//      the block's own [P] slice of a [G, P] partial; the first layer's
-//      and the skip rows' products are taken against the PE's sines
-//      before the window, so that the wrapper gets the window's cotangent
-//      from them (W . G summed per degree) and scales them by the window
-//      into dW.
+//  3.  k3_params: over the same tiles as 1b: the head's forward again,
+//      rawbar by the Rodrigues adjoint at ubar, the cotangents of each
+//      layer (dZ W^T, masked by the stored activations), and each layer's
+//      dW = A^T dZ over the tile's rows, added into the block's own row of
+//      a [G, stride] partial; the first layer's and the skip rows'
+//      products are taken against the PE's sines before the window, so
+//      that the wrapper gets the window's cotangent from them (W . G summed
+//      per degree) and scales them by the window into dW.
 //  4.  k3_reduce: sums the G partials of each parameter in block order.
 // Every sum is owned by one thread (or one mma.sync fragment) and runs in
 // a fixed order; no atomics, so two runs agree bit for bit.
 //
-// Two arms, chosen by march_bwd_dtype (one instantiation of 1a, 1b, 3 and
-// P3 each; the sweep and the reduction are shared):
-//  - float32: the head's products are fp32 sums on CUDA cores (the Simt
-//    engine of mlp_common.cuh, tiles of 64) that start from zero and run in
-//    k order over the layer's input, then the skip input, then + bias: the
+// Two arms, chosen by march_bwd_dtype (1a takes the arm as a flag; the
+// sweep and the reduction are shared):
+//  - float32: 1b and 3 are the templates below (F32Arm): a fixed grid of
+//    blocks over contiguous ranges of ray-steps, compacting the active
+//    ones into tiles of 64; the head's products are fp32 sums on CUDA
+//    cores (the Simt engine of mlp_common.cuh, weights streamed from L2 in
+//    k-slabs through its cp.async ring) that start from zero and run in k
+//    order over the layer's input, then the skip input, then + bias: the
 //    rounding points of the first version's gemv_tile and of K2's fp32
 //    head. Tensor cores would flip ReLU masks near 0 (PERF.md).
 //  - bfloat16: the TPU kernel's so3_precision DEFAULT and the passes
@@ -70,31 +67,82 @@
 //    270-300; eikonal_vjp.py:270-275, 300-321, 428-430). The head's
 //    forward, tangent, cotangent and dW products take bf16 operands (the PE
 //    features and sines, every stored activation, tangent and cotangent,
-//    the weights rounded by the wrapper) on the tensor cores, mma.sync
-//    m16n8k16 through the Mma engine of mlp_common.cuh as K5 uses it, tiles
-//    of 128 ray-steps; each k16 step is summed from zero and added to fp32
-//    accumulators. The bias, ReLU, PE, Rodrigues, the 3-wide output layer
-//    (fp32 sums of bf16 operands on CUDA cores) and the sweep stay fp32; the
-//    bias gradients sum the bf16 cotangents in fp32. 1a forms the
-//    trilinear derivative from the corner values and the axis weights
-//    rounded to bf16, summed in fp32 (trilinear_jacobian_bf16). 1b and 3
-//    call the one forward (so3_encode, so3_layer) on the one engine, so
-//    that they see the same ReLU masks; K2 runs this head with the same
+//    the weights rounded by the wrapper) on the tensor cores. The bias,
+//    ReLU, PE, Rodrigues, the 3-wide output layer (fp32 sums of bf16
+//    operands on CUDA cores) and the sweep stay fp32; the bias gradients
+//    sum the bf16 cotangents in fp32. 1a forms the trilinear derivative
+//    from the corner values and the axis weights rounded to bf16, summed
+//    in fp32 (trilinear_jacobian_bf16). K2 runs this head with the same
 //    operands (march_so3.cu, kBf16), summed in k order on CUDA cores.
 // The hidden layers are computed at width 128: a narrower head is
 // zero-padded by the wrapper (zero units add exact zeros to every sum).
 //
-// What bounds it: the head's arithmetic at the active ray-steps. This
+// The bf16 arm's 1b, 3 and P3 (namespace bfa, explicit specializations of
+// k3_jacobians, k3_params and so3_preacts_kernel), for Hopper:
+//  - Balanced tiles. 1a counts the active rows of traj (ray-major) in each
+//    range of 256; every block of 1b and 3 scans the counts: A active
+//    ray-steps make T = ceil(A / R) tiles of R (64 in 1b, 128 in 3), and
+//    block b of G takes tiles [b T / G, (b + 1) T / G), so no block runs
+//    more than one tile more than another. 1b compacts its share in
+//    ray-major order into the list (a ballot a warp, from the range that
+//    holds its first tile), and 3 reads the list back. T is read on the
+//    card, never on the host, and every scratch has a shape fixed by B x
+//    S, so the call is captured in the K-step CUDA graph as it is.
+//  - Resident weights. One persistent block of 8 warps an SM loads the
+//    head's bf16 weights into its shared memory once (cp.async): W0t,
+//    W1t, W2t and W3t as 512 input-major rows of 128. Forward and tangent
+//    products read them as [k][n] (ldmatrix.trans), the cotangents dZ W^T
+//    as [n][k] (ldmatrix): one copy, and no weight read from L2 in the
+//    tile loop.
+//  - Groups of warps that share 32 rows of a tile (named barriers from 1):
+//    a group's products, epilogues, PE, output layer and Rodrigues touch
+//    its own rows alone, so the groups run apart between block barriers.
+//    1b: two groups of 4 warps on tiles of 64, each warp a 32 x 32 block
+//    of m16n8 fragments; a layer's forward and its three tangents run in
+//    one pass over the layer's weights (four accumulators; the PE's
+//    derivative is loaded once and masked to each axis in registers). 3:
+//    four groups of 2 warps on tiles of 128, each warp 32 x 64; the
+//    forward runs through two activation buffers (x -> A -> B -> A -> B)
+//    while each warp keeps its blocks of h0 and h1 in registers, and the
+//    backward stages them back into the buffer just freed: the masks and
+//    the weight gradients' operands of a 128-row tile in 227 KB with the
+//    weights. dW = A^T dZ runs over the tile's 128 rows (all groups), so
+//    each block's 262 KB partial is read and written once per 128 rows.
+//  - The sum in the tensor core. Each mma.sync m16n8k16 adds its k16 step
+//    to the accumulator itself, k in order: over the layer's input, then
+//    the skip input; the fp32 bias is added after (mlp_common.cuh's
+//    add_mma, which K4 and K5 keep, sums each step from zero and adds it
+//    in fp32). P3 runs the same layer() and so gives these
+//    pre-activations bit for bit.
+//  - Overlap instead of occupancy (the weights leave room for one block):
+//    the next tile's gathers are in flight while a tile's products run
+//    (cp.async of 4 bytes: in 1b p after the PE and g after K; in 3 p and
+//    g after the sines, dbar after rawbar is used). 3 keeps dWout, dbout
+//    and the bias gradients in registers over all its tiles and adds them
+//    to the partial once a block; dW goes to the partial once a tile, the
+//    old values loaded before the products and stored in aligned pairs
+//    that fill whole sectors.
+//  Shared memory (bytes): 1b 228,952: weights 139,264; x, dco 9,216 each
+//  (dco then each group's raw, traw and Rodrigues rows); h 17,408; three
+//  tangents 52,224; p, g 768 each; window and scan 88. 3 232,024: weights
+//  139,264; x (then raw, then the sines) 18,432; two activation buffers
+//  34,816 each; p, g, dbar (then rawbar) 4,608; window and scan 88. P3
+//  114,472 (layers 1-3's weights, x, h, p), two blocks an SM.
+//
+// What bounds it: the head's arithmetic at the active ray-steps. The
 // design runs seven head products a ray-step (1b: forward and three
-// tangents; 3: forward, cotangents, dW), 7/3 of the bound's three, fp32
-// on CUDA cores or bf16 on tensor cores; besides, it streams the
-// trajectory and its cotangent once, the pieces out and back in (88 bytes
-// a ray-step) and each block's 262 KB partial through L2 once a tile.
+// tangents; 3: forward, cotangents, dW), 7/3 of the bound's three; besides,
+// it streams the trajectory and its cotangent once, the pieces out and
+// back in (88 bytes a ray-step), and each block's 262 KB partial through L2
+// once a tile (128 rows in the bf16 arm). In the bf16 arm a warp's k16 step
+// reads 2 KB of fragments from shared memory for 8 mma.sync (1b's fused
+// layer: 3 to 5 KB for 32), so shared memory's 128 bytes a clock an SM
+// hold it near half the dense bf16 peak; one block of 8 warps an SM hides
+// less of ldmatrix's and the mma's latency than more warps would.
 //
 // The file also holds P3 (so3_preacts_launch), which computes the head's
-// pre-activations with 1b's and 3's forward (so3_encode, so3_layer) in
-// either arm, so that ReLU masks can be held against another summation
-// order's.
+// pre-activations with 1b's and 3's forward in either arm, so that ReLU
+// masks can be held against another summation order's.
 
 #include "mlp_common.cuh"
 
@@ -123,17 +171,10 @@ struct F32Arm {
   };
 };
 
-// The bf16 arm: tensor-core products of bf16 operands, 128-row tiles, 32
-// weight rows a slab.
+// The bf16 arm: its passes 1b and 3 and P3 are the kernels of namespace
+// bfa below (explicit specializations), not the templates above.
 struct Bf16Arm {
   using T = bf16;
-  using Engine = fused_mlp::Mma<kW, 4>;
-  using GradEngine = fused_mlp::Mma<kW, 4>;   // 128 output rows a call
-  using GradXEngine = fused_mlp::Mma<kW, 2>;  // 64: the PE's columns
-  struct Pol {
-    using Elem = bf16;
-    static constexpr int kSlab = 32;
-  };
 };
 
 // An arm's tile rows, its shared-memory row strides (padded by 16 bytes)
@@ -530,10 +571,14 @@ struct Args {
   float* pieces;         // [S][kFields][Bp]
   float* dbar;           // [B * S, 3]: dbar_{s+1} of each ray-step
   float* raybar;         // [B, 6]: pbar_0, dbar_0
-  float* partial;        // [G, P]
+  float* partial;        // [G, stride]: the first P of each row used
   int batch, bp, num_samples, max_deg;
-  long long chunk;       // ray-steps a block of 1b / 3 owns
+  long long chunk;       // ray-steps a block of 1b / 3 owns (fp32 arm)
   float step;
+  int* counts;           // bf16 arm: active ray-steps of each range of
+                         // kThreads rows of traj, by k3_pieces
+  int* list;             // bf16 arm: [B * S], the active rows compacted
+  int stride;            // of the partial's rows (partial_stride)
 };
 
 template <typename T>
@@ -553,6 +598,20 @@ template <bool kBf16>
 __global__ void __launch_bounds__(256) k3_pieces(const Args a) {
   const long long i = blockIdx.x * 256LL + threadIdx.x;
   const long long total = (long long)a.batch * a.num_samples;
+  if constexpr (kBf16) {
+    // The bf16 arm's partition: the active rows of traj (ray-major) among
+    // this block's 256, in a.counts[block].
+    __shared__ int warp_count[8];
+    const bool f = i < total && active_g(a.traj + 11 * i);
+    const unsigned ballot = __ballot_sync(0xffffffffu, f);
+    if ((threadIdx.x & 31) == 0) warp_count[threadIdx.x >> 5] = __popc(ballot);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int n = 0;
+      for (int w = 0; w < 8; ++w) n += warp_count[w];
+      a.counts[blockIdx.x] = n;
+    }
+  }
   if (i >= total) return;
   const int s = (int)(i / a.batch), ray = (int)(i % a.batch);
   const long long row = (long long)ray * a.num_samples + s;
@@ -966,13 +1025,21 @@ __global__ void __launch_bounds__(kThreads) k3_params(const Args a) {
 }
 
 __global__ void k3_reduce(const float* partial, int num_blocks,
-                          int num_params, float* out) {
+                          int num_params, int stride, float* out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= num_params) return;
   float s = 0.0f;
   for (int b = 0; b < num_blocks; ++b)
-    s += partial[(long long)b * num_params + e];
+    s += partial[(long long)b * stride + e];
   out[e] = s;
+}
+
+// The partial's row stride: P in the fp32 arm; in the bf16 arm P rounded
+// up to 8 floats, so that every block's row starts on 32 bytes and pass 3
+// moves its sums in aligned pairs that fill whole 32-byte sectors
+// (ops/eikonal_vjp.partial_stride).
+__host__ __device__ inline int partial_stride(int num_params, bool bf16) {
+  return bf16 ? (num_params + 7) / 8 * 8 : num_params;
 }
 
 // P3, the ReLU-flip probe: the so3 head's pre-activations of hidden layers
@@ -1026,6 +1093,962 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------- the bf16 arm on Hopper
+//
+// Passes 1b and 3 and P3 in the bf16 arm: one persistent block of 8 warps
+// an SM, the head's bf16 weights resident in its shared memory, the sums
+// kept in the tensor core's accumulators (see the header note).
+namespace bfa {
+
+constexpr int kRows = 64;             // ray-steps a tile of 1b (and P3)
+constexpr int kRowsP = 128;           // ray-steps a tile of pass 3
+constexpr int kLdX = kIn + 8;         // shared-memory row strides, padded
+constexpr int kLdH = kW + 8;          // by 16 bytes
+constexpr int kRange = kThreads;      // rows of traj a count covers
+// The resident weights, input-major rows of kW: W0t | W1t | W2t | W3t
+// (its hidden inputs, then its PE inputs); rows past in_dim are zero.
+constexpr int kW0 = 0, kW1 = kIn, kW2 = kIn + kW, kW3 = kIn + 2 * kW,
+              kW3x = kIn + 3 * kW, kWRows = 2 * kIn + 3 * kW;
+
+// The warps of a block in groups of W that share 32 rows of a tile: 1b
+// and P3 two groups of 4 (tiles of 64), pass 3 four groups of 2 (tiles of
+// 128). A warp owns its group's 32 rows by 128 / W columns of a product's
+// output; a group's products, epilogues, PE and output layer touch its
+// own rows alone, so the groups run apart between block barriers.
+template <int W>
+struct Geo {
+  static constexpr int kThr = 32 * W;   // threads of a group
+  static constexpr int kNT = 16 / W;    // n8 tiles of a warp
+  __device__ static int group() { return threadIdx.x / kThr; }
+  __device__ static int tid() { return threadIdx.x % kThr; }
+  __device__ static int row0() { return 32 * group(); }
+  __device__ static int col0() { return (kW / W) * ((threadIdx.x >> 5) % W); }
+  // The barrier of this thread's group alone (named barriers from 1).
+  __device__ static void sync() {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group()), "r"(kThr)
+                 : "memory");
+  }
+};
+using G1 = Geo<4>;
+using G3 = Geo<2>;
+
+// 4 bytes from src to dst (shared), asynchronously.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   fused_mlp::smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// A warp's block of fp32 sums, MT m16 tiles by NT n8 tiles, as m16n8
+// fragments: v[mt][nt][e] is row row0 + 16 mt + lane / 4 + 8 (e / 2),
+// column col0 + 8 nt + 2 (lane % 4) + e % 2.
+template <int MT, int NT>
+struct Acc {
+  float v[MT][NT][4];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[mt][nt][e] = 0.0f;
+  }
+  // f(mt, nt, h, row, column, value, value of the next column) for every
+  // pair held.
+  template <typename F>
+  __device__ __forceinline__ void each(int row0, int col0, F f) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          f(mt, nt, h, row0 + 16 * mt + g + 8 * h, col0 + 8 * nt + 2 * t,
+            v[mt][nt][2 * h], v[mt][nt][2 * h + 1]);
+  }
+};
+
+// The A fragments of rows row0 .. row0 + 16 MT - 1 of a row-major [*][lda]
+// at k columns k0 .. k0 + 15.
+template <int MT>
+__device__ __forceinline__ void load_a(unsigned (&af)[MT][4], const bf16* a,
+                                       int lda, int row0, int k0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    fused_mlp::ldsm_x4(af[mt], a + (row0 + 16 * mt + (lane & 15)) * lda +
+                                   k0 + (lane >> 4) * 8);
+}
+
+// The same of A stored transposed, [k][m]: m0 .. m0 + 16 MT - 1, k rows
+// k0 .. k0 + 15.
+template <int MT>
+__device__ __forceinline__ void load_at(unsigned (&af)[MT][4], const bf16* a,
+                                        int lda, int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    fused_mlp::ldsm_x4_t(af[mt],
+                         a + (k0 + (lane & 7) + ((lane >> 4) << 3)) * lda +
+                             m0 + 16 * mt + ((lane >> 3) & 1) * 8);
+}
+
+// A's fragments with the values at columns k, k % 3 != axis, zeroed: the
+// PE's tangent seeds along one axis of p, from its derivative's columns.
+__device__ __forceinline__ void mask_axis(const unsigned (&af)[2][4],
+                                          unsigned (&out)[2][4], int k0,
+                                          int axis) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = k0 + 2 * t + 8 * (j >> 1);
+    const unsigned m = (k % 3 == axis ? 0x0000ffffu : 0u) |
+                       ((k + 1) % 3 == axis ? 0xffff0000u : 0u);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) out[mt][j] = af[mt][j] & m;
+  }
+}
+
+// The B fragments of 2 NP n8 tiles from column col0 at k rows k0 .. k0 +
+// 15: of B [k][n] (kNk false), or of B given as [n][k], B(k, n) = b[n * ldb
+// + k] (a weight matrix read transposed). bf[np] holds tiles 2 np and
+// 2 np + 1.
+template <bool kNk, int NP>
+__device__ __forceinline__ void load_b(unsigned (&bf)[NP][4], const bf16* b,
+                                       int ldb, int k0, int col0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int np = 0; np < NP; ++np) {
+    const int n0 = col0 + 16 * np;
+    if (kNk) {
+      fused_mlp::ldsm_x4(bf[np],
+                         b + (n0 + (lane & 7) + ((lane >> 4) & 1) * 8) * ldb +
+                             k0 + ((lane >> 3) & 1) * 8);
+    } else {
+      fused_mlp::ldsm_x4_t(
+          bf[np], b + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + n0 +
+                      (lane >> 4) * 8);
+    }
+  }
+}
+
+// c += one k16 step's product, added by the tensor core to c itself.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_step(Acc<MT, NT>& c,
+                                         const unsigned (&af)[MT][4],
+                                         const unsigned (&bf)[NT / 2][4]) {
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      fused_mlp::mma_bf16(c.v[mt][2 * np], af[mt], bf[np][0], bf[np][1]);
+      fused_mlp::mma_bf16(c.v[mt][2 * np + 1], af[mt], bf[np][2],
+                          bf[np][3]);
+    }
+}
+
+// c += A B over k in [0, K), in k16 steps in order, the sum of each output
+// kept in the tensor core: A row-major, the group's 32 rows; B's columns
+// of this warp.
+template <typename G, int K, bool kNk>
+__device__ __forceinline__ void product(Acc<2, G::kNT>& c, const bf16* a,
+                                        int lda, const bf16* b, int ldb) {
+  // Pass 3's wider warp blocks keep their fragments' registers in hand
+  // with two k16 steps unrolled; 1b's and P3's unroll the whole k.
+#pragma unroll(G::kNT == 8 ? 2 : K / 16)
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    unsigned af[2][4], bf[G::kNT / 2][4];
+    load_b<kNk, G::kNT / 2>(bf, b, ldb, k0, G::col0());
+    load_a<2>(af, a, lda, G::row0(), k0);
+    mma_step(c, af, bf);
+  }
+}
+
+// A bf16 pair's two values, each > 0.
+__device__ __forceinline__ void positive(unsigned pair, bool& m0, bool& m1) {
+  m0 = __uint_as_float(pair << 16) > 0.0f;
+  m1 = __uint_as_float(pair & 0xffff0000u) > 0.0f;
+}
+
+// One hidden layer on the group's rows: out = bf16(ReLU(A0 W0 + A1 W1 +
+// b)), A0 over K0 columns, then A1 over K1 (none if 0), each product's sum
+// from zero in the tensor core in k order, the fp32 bias added after them
+// (jac_layer's forward sums the same way, so P3, 1b and 3 agree bit for
+// bit). With pre (P3): the fp32 pre-activations of rows r < rows and
+// columns c < width go to pre[r * width + c]. in_place: out is A0's
+// buffer. keep (kKeep): this warp's block of the output as bf16 pairs,
+// keep[mt][nt][h] as Acc's fragments.
+template <typename G, int K0, int K1, bool kKeep = false>
+__device__ __forceinline__ void layer(
+    const bf16* a0, int ld0, const bf16* w0, const bf16* a1, int ld1,
+    const bf16* w1, const float* b, bf16* out, bool in_place,
+    unsigned (*keep)[G::kNT][2] = nullptr, float* pre = nullptr,
+    int rows = 0, int width = 0) {
+  Acc<2, G::kNT> c;
+  c.zero();
+  product<G, K0, false>(c, a0, ld0, w0, kLdH);
+  if (K1 > 0) product<G, K1, false>(c, a1, ld1, w1, kLdH);
+  if (in_place) G::sync();
+  c.each(G::row0(), G::col0(),
+         [&](int mt, int nt, int h, int r, int col, float v0, float v1) {
+           v0 += __ldg(b + col);
+           v1 += __ldg(b + col + 1);
+           if (pre && r < rows) {
+             if (col < width) pre[r * width + col] = v0;
+             if (col + 1 < width) pre[r * width + col + 1] = v1;
+           }
+           __nv_bfloat162 hv;
+           hv.x = __float2bfloat16_rn(fmaxf(v0, 0.0f));
+           hv.y = __float2bfloat16_rn(fmaxf(v1, 0.0f));
+           *reinterpret_cast<__nv_bfloat162*>(out + r * kLdH + col) = hv;
+           if (kKeep) keep[mt][nt][h] = *reinterpret_cast<unsigned*>(&hv);
+         });
+  G::sync();
+}
+
+// One segment of a layer of 1b: c[0] += F W and c[1 + q] += T_q W over k
+// in [0, K), one pass over W's fragments. kPe: F is the PE's features x
+// and every T_q the PE's derivative dco masked to axis q (layer 0, and
+// layer 3's PE inputs); otherwise F is h and T_q the tangent t[q].
+template <int K, bool kPe>
+__device__ __forceinline__ void jac_seg(Acc<2, 4> (&c)[4], const bf16* f,
+                                        const bf16* const (&t)[3], int lda,
+                                        const bf16* w) {
+  const int row0 = G1::row0();
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    unsigned bf[2][4], af[2][4];
+    load_b<false, 2>(bf, w, kLdH, k0, G1::col0());
+    load_a<2>(af, f, lda, row0, k0);
+    mma_step(c[0], af, bf);
+    if (kPe) {
+      unsigned d[2][4];
+      load_a<2>(d, t[0], lda, row0, k0);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        mask_axis(d, af, k0, q);
+        mma_step(c[1 + q], af, bf);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        load_a<2>(af, t[q], lda, row0, k0);
+        mma_step(c[1 + q], af, bf);
+      }
+    }
+  }
+}
+
+// Layer l of 1b on the group's rows in one pass over its weights: the
+// forward h = bf16(ReLU(F W + b)) (as layer() sums it) and the three
+// tangents t[q] = bf16(T_q W) where h > 0, zero elsewhere. Segment 0
+// (K0, kPe0 as jac_seg) meets w0; with kSkip, layer 3's PE inputs (x, and
+// dco masked) meet w1. in_place: the outputs overwrite segment 0's inputs.
+template <int K0, bool kPe0, bool kSkip>
+__device__ void jac_layer(const bf16* f, const bf16* const (&ta)[3], int lda,
+                          const bf16* w0, const bf16* x, const bf16* dco,
+                          const bf16* w1, const float* b, bf16* h,
+                          bf16* const (&t)[3], bool in_place) {
+  Acc<2, 4> c[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) c[q].zero();
+  jac_seg<K0, kPe0>(c, f, ta, lda, w0);
+  if (kSkip) {
+    const bf16* const d3[3] = {dco, dco, dco};
+    jac_seg<kIn, true>(c, x, d3, kLdX, w1);
+  }
+  if (in_place) G1::sync();
+  c[0].each(G1::row0(), G1::col0(),
+            [&](int mt, int nt, int hh, int r, int col, float v0, float v1) {
+              v0 += __ldg(b + col);
+              v1 += __ldg(b + col + 1);
+              __nv_bfloat162 hv;
+              hv.x = __float2bfloat16_rn(fmaxf(v0, 0.0f));
+              hv.y = __float2bfloat16_rn(fmaxf(v1, 0.0f));
+              *reinterpret_cast<__nv_bfloat162*>(h + r * kLdH + col) = hv;
+              bool m0, m1;
+              positive(*reinterpret_cast<unsigned*>(&hv), m0, m1);
+#pragma unroll
+              for (int q = 0; q < 3; ++q)
+                fused_mlp::store_pair(
+                    t[q] + r * kLdH + col,
+                    m0 ? c[1 + q].v[mt][nt][2 * hh] : 0.0f,
+                    m1 ? c[1 + q].v[mt][nt][2 * hh + 1] : 0.0f);
+            });
+  G1::sync();
+}
+
+// The annealed PE (so3_encode's arithmetic) of the group's rows: x =
+// sin(arg) win, val the sine, dco the derivative along its coordinate.
+template <typename G>
+__device__ void encode(const float (*p)[3], int in_dim, const float* win,
+                       bf16* x, bf16* val, bf16* dco) {
+  for (int i = G::tid(); i < 32 * kIn; i += G::kThr) {
+    const int r = G::row0() + i / kIn, f = i % kIn;
+    float xv = 0.0f, sv = 0.0f, dv = 0.0f;
+    if (f < in_dim) {
+      const int deg = f / 6, c = f % 3;
+      const float scale = (float)(1 << deg);
+      const float xb = p[r][c] * scale;
+      const float arg = (f % 6) < 3 ? xb : xb + kHalfPi;
+      sv = sinf(arg);
+      xv = sv * win[deg];
+      if (dco) dv = win[deg] * (cosf(arg) * scale);
+    }
+    if (x) x[r * kLdX + f] = __float2bfloat16_rn(xv);
+    if (val) val[r * kLdX + f] = __float2bfloat16_rn(sv);
+    if (dco) dco[r * kLdX + f] = __float2bfloat16_rn(dv);
+  }
+}
+
+// Issues the cp.async copies of the head's weight rows [0, rows) into w.
+__device__ void load_weights(bf16* w, const Net<bf16>& n, int rows) {
+  const int I = n.in_dim;
+  for (int x = threadIdx.x; x < rows * (kW / 8); x += kThreads) {
+    const int r = x / (kW / 8), q = x % (kW / 8);
+    const bf16* src = nullptr;
+    if (r < kW1) {
+      if (r < I) src = n.w0t + r * kW;
+    } else if (r < kW2) {
+      src = n.w1t + (r - kW1) * kW;
+    } else if (r < kW3) {
+      src = n.w2t + (r - kW2) * kW;
+    } else if (r < kW3x) {
+      src = n.w3t + (r - kW3) * kW;
+    } else if (r - kW3x < I) {
+      src = n.w3t + (kW + r - kW3x) * kW;
+    }
+    fused_mlp::cp_async16(w + r * kLdH + q * 8, src ? src + q * 8 : n.w0t,
+                          src ? 16 : 0);
+  }
+  fused_mlp::cp_async_commit();
+}
+
+// s[o] = sum_k a[r][k] wo[k][o]: lane l sums k = 4 l .. 4 l + 3 in order,
+// then the lanes by a butterfly; lane 0's sum is the result.
+__device__ __forceinline__ void out_row(const bf16* a, int r,
+                                        const float (&wo)[4][3],
+                                        float (&s)[3]) {
+  const int lane = threadIdx.x & 31;
+  const float4 v4 = fused_mlp::load4(a + r * kLdH + 4 * lane);
+  const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+  for (int o = 0; o < 3; ++o) {
+    s[o] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) s[o] = __fmaf_rn(v[kk], wo[kk][o], s[o]);
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1)
+      s[o] += __shfl_xor_sync(0xffffffffu, s[o], m);
+  }
+}
+
+// The partition: a.counts holds the active rows of traj (ray-major) of
+// each range of kRange; A of them in all make T = ceil(A / rows) tiles,
+// and block b of G takes tiles [b T / G, (b + 1) T / G). With locate, j0
+// is the range that holds the block's first active row and base0 the
+// active rows before it.
+struct Span {
+  int active, tile0, tile1, j0, base0;
+};
+
+__device__ Span tile_span(const Args& a, int* sm, int rows, bool locate) {
+  const long long total = (long long)a.batch * a.num_samples;
+  const int nr = (int)((total + kRange - 1) / kRange);
+  const int per = (nr + kThreads - 1) / kThreads;
+  const int j_lo = min((int)threadIdx.x * per, nr);
+  const int j_hi = min(j_lo + per, nr);
+  int local = 0;
+  for (int j = j_lo; j < j_hi; ++j) local += a.counts[j];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) sm[warp] = incl;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int w = 0; w < kThreads / 32; ++w) {
+    if (w < warp) before += sm[w];
+    all += sm[w];
+  }
+  const int excl = before + incl - local;
+  const int tiles = (all + rows - 1) / rows;
+  Span s;
+  s.active = all;
+  s.tile0 = (int)((long long)blockIdx.x * tiles / gridDim.x);
+  s.tile1 = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
+  s.j0 = 0;
+  s.base0 = 0;
+  if (locate) {
+    const int p0 = s.tile0 * rows;
+    if (s.tile0 < s.tile1 && excl <= p0 && p0 < excl + local) {
+      int base = excl;
+      for (int j = j_lo; j < j_hi; ++j) {
+        const int n = a.counts[j];
+        if (p0 < base + n) {
+          sm[8] = j;
+          sm[9] = base;
+          break;
+        }
+        base += n;
+      }
+    }
+    __syncthreads();
+    s.j0 = sm[8];
+    s.base0 = sm[9];
+  }
+  __syncthreads();
+  return s;
+}
+
+// Writes a.list[q] = the row of the q-th active ray-step (ray-major) for
+// the block's q in [tile0 rows, min(tile1 rows, A)), walking the ranges
+// from j0 with a ballot a warp.
+__device__ void compact(const Args& a, const Span& s, int* sm, int rows) {
+  if (s.tile0 >= s.tile1) return;
+  const long long total = (long long)a.batch * a.num_samples;
+  const int p0 = s.tile0 * rows, p1 = min(s.tile1 * rows, s.active);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int base = s.base0;
+  for (long long j = s.j0; base < p1; ++j) {
+    const long long i = j * kRange + threadIdx.x;
+    const bool f = i < total && active_g(a.traj + 11 * i);
+    const unsigned ballot = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) sm[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, n = 0;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      if (w < warp) before += sm[w];
+      n += sm[w];
+    }
+    const int q = base + before + __popc(ballot & ((1u << lane) - 1u));
+    if (f && q >= p0 && q < p1) a.list[q] = (int)i;
+    base += n;
+    __syncthreads();
+  }
+}
+
+// Issues the cp.async copies of src[row * stride + off + c], c < 3, for
+// the group's rows of tile `tile` (of `rows`) into dst (zeros past the
+// tile's active rows, and past the block's tiles).
+template <typename G>
+__device__ void fetch(const Args& a, const Span& s, int tile, int rows,
+                      const float* src, int stride, int off,
+                      float (*dst)[3]) {
+  const int nt = tile < s.tile1 ? min(rows, s.active - tile * rows) : 0;
+  for (int i = G::tid(); i < 32 * 3; i += G::kThr) {
+    const int r = G::row0() + i / 3, c = i % 3;
+    if (r < nt) {
+      cp_async4(&dst[r][c],
+                src + (long long)stride * a.list[tile * rows + r] + off + c);
+    } else {
+      dst[r][c] = 0.0f;
+    }
+  }
+}
+
+// ------------------------------------------------------------- pass 1b
+
+struct JacSmem {
+  bf16 w[kWRows * kLdH];
+  bf16 x[kRows * kLdX];
+  bf16 dco[kRows * kLdX];  // then each group's scratch: raw, traw, rows of
+                           // the Rodrigues Jacobians
+  bf16 h[kRows * kLdH];
+  bf16 t[3][kRows * kLdH];
+  float p[kRows][3];
+  float g[kRows][3];
+  float win[kMaxDeg];
+  int scan[12];
+};
+
+__device__ void jacobian_tile(const Args& a, const Net<bf16>& net,
+                              JacSmem& m, const Span& s, int tile,
+                              const float (&wo)[4][3]) {
+  const int row0 = G1::row0(), I = net.in_dim;
+  const int nt = min(kRows, s.active - tile * kRows);
+  fused_mlp::cp_async_wait<1>();  // p of this tile (g may be in flight)
+  G1::sync();
+  encode<G1>(m.p, I, m.win, m.x, nullptr, m.dco);
+  G1::sync();
+  fetch<G1>(a, s, tile + 1, kRows, a.traj, 11, 0, m.p);
+  fused_mlp::cp_async_commit();
+  // Each layer's forward into h and the three tangents each over its own
+  // input (the PE's derivative masked to the axis at layer 0 and in layer
+  // 3's PE inputs), masked by h.
+  const bf16* w = m.w;
+  const bf16* const dco3[3] = {m.dco, m.dco, m.dco};
+  const bf16* const tin[3] = {m.t[0], m.t[1], m.t[2]};
+  bf16* const tout[3] = {m.t[0], m.t[1], m.t[2]};
+  jac_layer<kIn, true, false>(m.x, dco3, kLdX, w + kW0 * kLdH, nullptr,
+                              nullptr, nullptr, net.b0, m.h, tout, false);
+  jac_layer<kW, false, false>(m.h, tin, kLdH, w + kW1 * kLdH, nullptr,
+                              nullptr, nullptr, net.b1, m.h, tout, true);
+  jac_layer<kW, false, false>(m.h, tin, kLdH, w + kW2 * kLdH, nullptr,
+                              nullptr, nullptr, net.b2, m.h, tout, true);
+  jac_layer<kW, false, true>(m.h, tin, kLdH, w + kW3 * kLdH, m.x, m.dco,
+                             w + kW3x * kLdH, net.b3, m.h, tout, true);
+  // The output layer: raw and its tangents, 8 rows a warp; into the
+  // group's rows of dco (free now).
+  float* sc = reinterpret_cast<float*>(m.dco + row0 * kLdX);
+  float(*raw)[3] = reinterpret_cast<float(*)[3]>(sc);
+  float(*traw)[32][3] = reinterpret_cast<float(*)[32][3]>(sc + 96);
+  float(*jac)[3][6] = reinterpret_cast<float(*)[3][6]>(sc + 384);
+  const int lane = threadIdx.x & 31;
+  for (int i = 0; i < 8; ++i) {
+    const int lr = 8 * ((threadIdx.x >> 5) & 3) + i, r = row0 + lr;
+    float o3[3];
+    out_row(m.h, r, wo, o3);
+    if (lane == 0)
+      for (int o = 0; o < 3; ++o) raw[lr][o] = o3[o] + __ldg(net.bo + o);
+    for (int c = 0; c < 3; ++c) {
+      out_row(m.t[c], r, wo, o3);
+      if (lane == 0)
+        for (int o = 0; o < 3; ++o) traw[c][lr][o] = o3[o];
+    }
+  }
+  fused_mlp::cp_async_wait<1>();  // g of this tile
+  G1::sync();
+  // Row e of du/draw and du/dg (the adjoint at the unit cotangent e), a
+  // thread each; then K, a thread a row.
+  for (int i = G1::tid(); i < 32 * 3; i += G1::kThr) {
+    const int lr = i / 3, e = i % 3, r = row0 + lr;
+    if (r >= nt) continue;
+    float3 rb, gb;
+    rodrigues_bwd(make_float3(raw[lr][0], raw[lr][1], raw[lr][2]),
+                  make_float3(m.g[r][0], m.g[r][1], m.g[r][2]),
+                  make_float3(e == 0 ? 1.f : 0.f, e == 1 ? 1.f : 0.f,
+                              e == 2 ? 1.f : 0.f),
+                  &rb, &gb);
+    for (int c = 0; c < 3; ++c)
+      jac[lr][e][c] = (rb.x * traw[c][lr][0] + rb.y * traw[c][lr][1]) +
+                      rb.z * traw[c][lr][2];
+    jac[lr][e][3] = gb.x;
+    jac[lr][e][4] = gb.y;
+    jac[lr][e][5] = gb.z;
+  }
+  G1::sync();
+  if (G1::tid() < 32 && row0 + G1::tid() < nt) {
+    const int lr = G1::tid();
+    const long long idx = a.list[tile * kRows + row0 + lr];
+    const int ray = (int)(idx / a.num_samples);
+    const int st = (int)(idx % a.num_samples);
+    // K[c][k] = Jp[k][c] + sum_j B[j][c] Jg[k][j], B^T read from K.
+    float bt[3][3];
+    for (int c = 0; c < 3; ++c)
+      for (int j = 0; j < 3; ++j) bt[c][j] = *piece(a, st, 3 * c + j, ray);
+    for (int c = 0; c < 3; ++c)
+      for (int k = 0; k < 3; ++k)
+        *piece(a, st, 3 * c + k, ray) =
+            jac[lr][k][c] + ((bt[c][0] * jac[lr][k][3] +
+                              bt[c][1] * jac[lr][k][4]) +
+                             bt[c][2] * jac[lr][k][5]);
+  }
+  fetch<G1>(a, s, tile + 1, kRows, a.traj, 11, 8, m.g);
+  fused_mlp::cp_async_commit();
+}
+
+// ------------------------------------------------------------- pass 3
+
+// Two activation buffers hold a 128-row tile's forward (x -> A -> B -> A
+// -> B: h0 .. h3) and then its cotangents; each warp keeps its block of
+// h0 and h1 in registers for the backward (their masks, and the operands
+// of dW1 and dW2 staged back into a free buffer).
+struct ParamSmem {
+  bf16 w[kWRows * kLdH];
+  bf16 x[kRowsP * kLdX];  // x, then each group's raw, then the sines
+  bf16 ha[kRowsP * kLdH];
+  bf16 hb[kRowsP * kLdH];
+  float p[kRowsP][3];
+  float g[kRowsP][3];
+  float db[kRowsP][3];    // dbar, then rawbar
+  float win[kMaxDeg];
+  int scan[12];
+};
+
+// part[m * kW + n] += A^T Z over the tile's 128 rows for m < m_limit: A
+// [128][lda], Z [128][kLdH], the sums in the tensor core over the rows in
+// order. WM warps along m (32 rows each) and 8 / WM along n (32 columns
+// each), from column n0. The partial's values are loaded before the
+// products, so that their latency passes under them, then added and
+// stored; each lane moves its two adjacent columns as one aligned pair, so
+// a warp's store fills whole 32-byte sectors.
+//
+// Built with -DK3_TRIAL_NO_PARTIAL (debug/k3_partial_cost.py: a timing
+// trial, its gradients wrong), the products run and the partial is
+// neither read nor written, bar a store guarded by a value the products
+// never give, which keeps the products alive.
+#ifdef K3_TRIAL_NO_PARTIAL
+constexpr bool kTrialNoPartial = true;
+#else
+constexpr bool kTrialNoPartial = false;
+#endif
+
+template <int WM>
+__device__ void grad_chunk(const bf16* a, int lda, const bf16* z,
+                           float* part, int m_limit, int n0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 32 * (warp / (8 / WM));
+  const int c0 = n0 + 32 * (warp % (8 / WM));
+  float2 old[2][4][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int mm = m0 + 16 * mt + g + 8 * h;
+        old[mt][nt][h] =
+            mm < m_limit && !kTrialNoPartial
+                ? *reinterpret_cast<const float2*>(
+                      part + mm * kW + c0 + 8 * nt + 2 * t)
+                : make_float2(0.0f, 0.0f);
+      }
+  // Every load is issued before the products (the compiler would
+  // otherwise sink them under the products' registers).
+  asm volatile("" ::: "memory");
+  Acc<2, 4> c;
+  c.zero();
+#pragma unroll 4
+  for (int k0 = 0; k0 < kRowsP; k0 += 16) {
+    unsigned af[2][4], bf[2][4];
+    load_at<2>(af, a, lda, m0, k0);
+    load_b<false, 2>(bf, z, kLdH, k0, c0);
+    mma_step(c, af, bf);
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int mm = m0 + 16 * mt + g + 8 * h;
+        if (mm < m_limit) {
+          const float2 v =
+              make_float2(old[mt][nt][h].x + c.v[mt][nt][2 * h],
+                          old[mt][nt][h].y + c.v[mt][nt][2 * h + 1]);
+          if (!kTrialNoPartial || __float_as_uint(v.x) == 0x7fbadbadu)
+            *reinterpret_cast<float2*>(part + mm * kW + c0 + 8 * nt + 2 * t) =
+                v;
+        }
+      }
+}
+
+// dW of a hidden layer over the tile: rows [0, kW) against its hidden
+// input a.
+__device__ __forceinline__ void hidden_grad(const bf16* a, const bf16* z,
+                                            float* part) {
+  grad_chunk<4>(a, kLdH, z, part, kW, 0);
+  grad_chunk<4>(a, kLdH, z, part, kW, kW / 2);
+}
+
+// The cotangent of a hidden layer's input on the group's rows: out =
+// bf16(dz W^T) where the layer's input was > 0 (keep, or out's own values
+// when keep is null), zero elsewhere; W is read transposed from the
+// resident copy at row wrow. All groups meet at a block barrier between
+// the products and the stores, since out (or, with keep, the buffer the
+// caller stages next) is read by the weight gradients before.
+__device__ __forceinline__ void cotangent(const bf16* dz, const bf16* w,
+                                          bf16* out,
+                                          const unsigned (*keep)[8][2]) {
+  Acc<2, 8> c;
+  c.zero();
+  product<G3, kW, true>(c, dz, kLdH, w, kLdH);
+  __syncthreads();
+  c.each(G3::row0(), G3::col0(),
+         [&](int mt, int nt, int h, int r, int col, float v0, float v1) {
+           bool m0, m1;
+           positive(keep ? keep[mt][nt][h]
+                         : *reinterpret_cast<const unsigned*>(
+                               out + r * kLdH + col),
+                    m0, m1);
+           fused_mlp::store_pair(out + r * kLdH + col, m0 ? v0 : 0.0f,
+                                 m1 ? v1 : 0.0f);
+         });
+}
+
+// Writes this warp's kept block of an activation into buf.
+__device__ __forceinline__ void stage(const unsigned (&keep)[2][8][2],
+                                      bf16* buf) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<unsigned*>(
+            buf + (G3::row0() + 16 * mt + g + 8 * h) * kLdH + G3::col0() +
+            8 * nt + 2 * t) = keep[mt][nt][h];
+}
+
+// What a block keeps over its tiles in registers, per thread of its group
+// (c = G3::tid()): for the columns c and c + 64, dWout[col][o] and each
+// layer's bias gradient; dbout[c] for c < 3.
+struct Sums {
+  float wo[2][3], b[4][2], bo;
+};
+
+// bias[j] += the group's rows of dz at the columns c + 64 j.
+__device__ __forceinline__ void bias_sums(const bf16* dz, float (&bias)[2]) {
+  for (int j = 0; j < 2; ++j) {
+    float s = 0.0f;
+    for (int lr = 0; lr < 32; ++lr)
+      s += fused_mlp::load(dz + (G3::row0() + lr) * kLdH + G3::tid() +
+                           64 * j);
+    bias[j] += s;
+  }
+}
+
+__device__ void param_tile(const Args& a, const Net<bf16>& net,
+                           ParamSmem& m, const Span& s, int tile,
+                           const float (&wo)[4][3], const float (&woc)[2][3],
+                           float* part, Sums& sums) {
+  const int row0 = G3::row0(), I = net.in_dim, c = G3::tid();
+  const int nt = min(kRowsP, s.active - tile * kRowsP);
+  const float h = a.step;
+  fused_mlp::cp_async_wait<0>();
+  __syncthreads();
+  encode<G3>(m.p, I, m.win, m.x, nullptr, nullptr);
+  G3::sync();
+  const bf16* w = m.w;
+  unsigned k0[2][8][2], k1[2][8][2];
+  layer<G3, kIn, 0, true>(m.x, kLdX, w + kW0 * kLdH, nullptr, 0, nullptr,
+                          net.b0, m.ha, false, k0);
+  layer<G3, kW, 0, true>(m.ha, kLdH, w + kW1 * kLdH, nullptr, 0, nullptr,
+                         net.b1, m.hb, false, k1);
+  layer<G3, kW, 0>(m.hb, kLdH, w + kW2 * kLdH, nullptr, 0, nullptr, net.b2,
+                   m.ha, false);
+  layer<G3, kW, kIn>(m.ha, kLdH, w + kW3 * kLdH, m.x, kLdX, w + kW3x * kLdH,
+                     net.b3, m.hb, false);
+  // raw, 16 rows a warp, into the group's rows of x (free now); rawbar by
+  // the Rodrigues adjoint at h dbar, a thread a row (zero past the tile's
+  // rows), as the products' operand, over dbar.
+  float(*raw)[3] = reinterpret_cast<float(*)[3]>(m.x + row0 * kLdX);
+  const int lane = threadIdx.x & 31;
+  for (int i = 0; i < 16; ++i) {
+    const int lr = 16 * ((threadIdx.x >> 5) & 1) + i;
+    float o3[3];
+    out_row(m.hb, row0 + lr, wo, o3);
+    if (lane == 0)
+      for (int o = 0; o < 3; ++o) raw[lr][o] = o3[o] + __ldg(net.bo + o);
+  }
+  G3::sync();
+  float(*rb)[3] = m.db;
+  if (c < 32) {
+    const int r = row0 + c;
+    float3 rbv = make_float3(0.f, 0.f, 0.f), gb;
+    if (r < nt) {
+      rodrigues_bwd(make_float3(raw[c][0], raw[c][1], raw[c][2]),
+                    make_float3(m.g[r][0], m.g[r][1], m.g[r][2]),
+                    make_float3(h * m.db[r][0], h * m.db[r][1],
+                                h * m.db[r][2]),
+                    &rbv, &gb);
+    }
+    rb[r][0] = operand<bf16>(rbv.x);
+    rb[r][1] = operand<bf16>(rbv.y);
+    rb[r][2] = operand<bf16>(rbv.z);
+  }
+  G3::sync();
+  // The sines over raw; then the next tile's p and g are in flight.
+  encode<G3>(m.p, I, m.win, nullptr, m.x, nullptr);
+  G3::sync();
+  fetch<G3>(a, s, tile + 1, kRowsP, a.traj, 11, 0, m.p);
+  fetch<G3>(a, s, tile + 1, kRowsP, a.traj, 11, 8, m.g);
+  // The output layer's weight and bias gradients over the group's rows,
+  // and the cotangent of h3 (masked by it) over h3's buffer: thread c owns
+  // columns c and c + 64.
+  for (int lr = 0; lr < 32; ++lr) {
+    const int r = row0 + lr;
+    if (c < 3) sums.bo += rb[r][c];
+    for (int j = 0; j < 2; ++j) {
+      bf16* q = m.hb + r * kLdH + c + 64 * j;
+      const float hv = fused_mlp::load(q);
+      for (int o = 0; o < 3; ++o)
+        sums.wo[j][o] = __fmaf_rn(hv, rb[r][o], sums.wo[j][o]);
+      float v = 0.0f;
+      for (int o = 0; o < 3; ++o) v = __fmaf_rn(rb[r][o], woc[j][o], v);
+      const bf16 dz = __float2bfloat16_rn(hv > 0.0f ? v : 0.0f);
+      *q = dz;
+      sums.b[3][j] += __bfloat162float(dz);
+    }
+  }
+  G3::sync();
+  fetch<G3>(a, s, tile + 1, kRowsP, a.dbar, 3, 0, m.db);
+  fused_mlp::cp_async_commit();
+  // Offsets of the forward pack in the partial.
+  float* pw0 = part;
+  float* pw1 = pw0 + I * kW + kW;
+  float* pw2 = pw1 + kW * kW + kW;
+  float* pw3 = pw2 + kW * kW + kW;
+  // Layer 3: dW over [h2 | sines] (A, x), the cotangent of h2 over A.
+  __syncthreads();
+  hidden_grad(m.ha, m.hb, pw3);
+  grad_chunk<2>(m.x, kLdX, m.hb, pw3 + kW * kW, I, 0);
+  cotangent(m.hb, w + kW3 * kLdH, m.ha, nullptr);
+  stage(k1, m.hb);
+  G3::sync();
+  bias_sums(m.ha, sums.b[2]);
+  // Layer 2: dW over h1 (staged in B), the cotangent of h1 over B.
+  __syncthreads();
+  hidden_grad(m.hb, m.ha, pw2);
+  cotangent(m.ha, w + kW2 * kLdH, m.hb, k1);
+  stage(k0, m.ha);
+  G3::sync();
+  bias_sums(m.hb, sums.b[1]);
+  // Layer 1: dW over h0 (staged in A), the cotangent of h0 over A.
+  __syncthreads();
+  hidden_grad(m.ha, m.hb, pw1);
+  cotangent(m.hb, w + kW1 * kLdH, m.ha, k0);
+  G3::sync();
+  bias_sums(m.ha, sums.b[0]);
+  // Layer 0: dW over the sines.
+  __syncthreads();
+  grad_chunk<2>(m.x, kLdX, m.ha, pw0, I, 0);
+}
+
+// P3's buffers: the weights of hidden layers 1-3 only.
+struct PreactSmem {
+  bf16 w[kW3 * kLdH];
+  bf16 x[kRows * kLdX];
+  bf16 h[kRows * kLdH];
+  float p[kRows][3];
+  float win[kMaxDeg];
+};
+
+}  // namespace bfa
+
+template <>
+__global__ void __launch_bounds__(kThreads, 1)
+    k3_jacobians<Bf16Arm>(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bfa::JacSmem& m = *reinterpret_cast<bfa::JacSmem*>(smem_raw);
+  const Net<bf16> net = args_net<bf16>(a);
+  bfa::load_weights(m.w, net, bfa::kWRows);
+  if (threadIdx.x < a.max_deg) m.win[threadIdx.x] = a.window[threadIdx.x];
+  const bfa::Span s = bfa::tile_span(a, m.scan, bfa::kRows, true);
+  bfa::compact(a, s, m.scan, bfa::kRows);
+  fused_mlp::cp_async_wait<0>();
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  float wo[4][3];
+  for (int kk = 0; kk < 4; ++kk)
+    for (int o = 0; o < 3; ++o)
+      wo[kk][o] = __ldg(net.wot + 3 * (4 * lane + kk) + o);
+  bfa::fetch<bfa::G1>(a, s, s.tile0, bfa::kRows, a.traj, 11, 0, m.p);
+  fused_mlp::cp_async_commit();
+  bfa::fetch<bfa::G1>(a, s, s.tile0, bfa::kRows, a.traj, 11, 8, m.g);
+  fused_mlp::cp_async_commit();
+  for (int tile = s.tile0; tile < s.tile1; ++tile)
+    bfa::jacobian_tile(a, net, m, s, tile, wo);
+  fused_mlp::cp_async_wait<0>();
+}
+
+template <>
+__global__ void __launch_bounds__(kThreads, 1)
+    k3_params<Bf16Arm>(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bfa::ParamSmem& m = *reinterpret_cast<bfa::ParamSmem*>(smem_raw);
+  const int I = 6 * a.max_deg, P = num_params(I);
+  const Net<bf16> net = args_net<bf16>(a);
+  float* part = a.partial + (long long)blockIdx.x * a.stride;
+  bfa::load_weights(m.w, net, bfa::kWRows);
+  for (int e = threadIdx.x; e < P; e += kThreads) part[e] = 0.0f;
+  if (threadIdx.x < a.max_deg) m.win[threadIdx.x] = a.window[threadIdx.x];
+  // 1b wrote the compacted list; this pass cuts it into tiles of 128.
+  const bfa::Span s = bfa::tile_span(a, m.scan, bfa::kRowsP, false);
+  const int lane = threadIdx.x & 31, c = bfa::G3::tid();
+  float wo[4][3], woc[2][3];
+  for (int kk = 0; kk < 4; ++kk)
+    for (int o = 0; o < 3; ++o)
+      wo[kk][o] = __ldg(net.wot + 3 * (4 * lane + kk) + o);
+  for (int j = 0; j < 2; ++j)
+    for (int o = 0; o < 3; ++o)
+      woc[j][o] = __ldg(net.wot + 3 * (c + 64 * j) + o);
+  bfa::Sums sums = {};
+  // Tile tile0's p, g and dbar as one group (after the weights' group).
+  bfa::fetch<bfa::G3>(a, s, s.tile0, bfa::kRowsP, a.traj, 11, 0, m.p);
+  bfa::fetch<bfa::G3>(a, s, s.tile0, bfa::kRowsP, a.traj, 11, 8, m.g);
+  bfa::fetch<bfa::G3>(a, s, s.tile0, bfa::kRowsP, a.dbar, 3, 0, m.db);
+  fused_mlp::cp_async_commit();
+  for (int tile = s.tile0; tile < s.tile1; ++tile)
+    bfa::param_tile(a, net, m, s, tile, wo, woc, part, sums);
+  fused_mlp::cp_async_wait<0>();
+  __syncthreads();
+  // The four groups' sums, in group order, written once a block.
+  float* x = reinterpret_cast<float*>(m.ha);
+  constexpr int kN = 2 * 3 + 4 * 2 + 1;
+  const float* v = &sums.wo[0][0];
+  const int grp = bfa::G3::group();
+  if (grp > 0)
+    for (int q = 0; q < kN; ++q) x[(grp * 64 + c) * kN + q] = v[q];
+  __syncthreads();
+  if (grp == 0) {
+    float t[kN];
+    for (int q = 0; q < kN; ++q) t[q] = v[q];
+    for (int gi = 1; gi < 4; ++gi)
+      for (int q = 0; q < kN; ++q) t[q] += x[(gi * 64 + c) * kN + q];
+    float* pb0 = part + I * kW;
+    float* pb1 = pb0 + kW + kW * kW;
+    float* pb2 = pb1 + kW + kW * kW;
+    float* pb3 = pb2 + kW + (kW + I) * kW;
+    float* pwo = pb3 + kW;
+    float* pbo = pwo + kW * 3;
+    float* const pbs[4] = {pb0, pb1, pb2, pb3};
+    for (int j = 0; j < 2; ++j) {
+      for (int o = 0; o < 3; ++o) pwo[3 * (c + 64 * j) + o] = t[3 * j + o];
+      for (int l = 0; l < 4; ++l) pbs[l][c + 64 * j] = t[6 + 2 * l + j];
+    }
+    if (c < 3) pbo[c] = t[kN - 1];
+  }
+}
+
+template <>
+__global__ void __launch_bounds__(kThreads, 1)
+    so3_preacts_kernel<Bf16Arm>(const float* pts, const float* wfwd,
+                                const void* wfwd_t, const float* window,
+                                float* pre, int n, int max_deg, int width) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bfa::PreactSmem& m = *reinterpret_cast<bfa::PreactSmem*>(smem_raw);
+  using bfa::G1;
+  const int I = 6 * max_deg;
+  const bf16* fwd_t = static_cast<const bf16*>(wfwd_t);
+  const Net<bf16> net = make_net(wfwd, fwd_t, fwd_t, I);
+  bfa::load_weights(m.w, net, bfa::kW3);
+  if (threadIdx.x < max_deg) m.win[threadIdx.x] = window[threadIdx.x];
+  const int tiles = (n + bfa::kRows - 1) / bfa::kRows;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = (long long)tile * bfa::kRows;
+    const int rows = n - row0 < bfa::kRows ? (int)(n - row0) : bfa::kRows;
+    __syncthreads();
+    for (int i = threadIdx.x; i < bfa::kRows * 3; i += kThreads) {
+      const int r = i / 3, c = i % 3;
+      m.p[r][c] = r < rows ? pts[3 * (row0 + r) + c] : 0.0f;
+    }
+    fused_mlp::cp_async_wait<0>();
+    __syncthreads();
+    bfa::encode<G1>(m.p, I, m.win, m.x, nullptr, nullptr);
+    G1::sync();
+    float* const out = pre + row0 * width;
+    const long long plane = (long long)n * width;
+    bfa::layer<G1, kIn, 0>(m.x, bfa::kLdX, m.w + bfa::kW0 * bfa::kLdH,
+                           nullptr, 0, nullptr, net.b0, m.h, false, nullptr,
+                           out, rows, width);
+    bfa::layer<G1, kW, 0>(m.h, bfa::kLdH, m.w + bfa::kW1 * bfa::kLdH,
+                          nullptr, 0, nullptr, net.b1, m.h, true, nullptr,
+                          out + plane, rows, width);
+    bfa::layer<G1, kW, 0>(m.h, bfa::kLdH, m.w + bfa::kW2 * bfa::kLdH,
+                          nullptr, 0, nullptr, net.b2, m.h, true, nullptr,
+                          out + 2 * plane, rows, width);
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -1033,19 +2056,33 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The shared memory of passes 1b and 3 in arm A.
+template <typename A>
+struct SmemOf {
+  using Jac = JacSmem<A>;
+  using Param = ParamSmem<A>;
+};
+template <>
+struct SmemOf<Bf16Arm> {
+  using Jac = bfa::JacSmem;
+  using Param = bfa::ParamSmem;
+};
+
 // The five launches in arm A.
 template <typename A>
 cudaError_t launch_k3(const Args& a, int num_blocks, float* grads,
                       cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<typename A::T, bf16>::value;
+  using Jac = typename SmemOf<A>::Jac;
+  using Param = typename SmemOf<A>::Param;
   const long long total = (long long)a.batch * a.num_samples;
   k3_pieces<kBf16><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = set_smem(k3_jacobians<A>, sizeof(JacSmem<A>));
+  err = set_smem(k3_jacobians<A>, sizeof(Jac));
   if (err != cudaSuccess) return err;
-  k3_jacobians<A><<<num_blocks, kThreads, sizeof(JacSmem<A>), stream>>>(a);
+  k3_jacobians<A><<<num_blocks, kThreads, sizeof(Jac), stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1053,15 +2090,15 @@ cudaError_t launch_k3(const Args& a, int num_blocks, float* grads,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = set_smem(k3_params<A>, sizeof(ParamSmem<A>));
+  err = set_smem(k3_params<A>, sizeof(Param));
   if (err != cudaSuccess) return err;
-  k3_params<A><<<num_blocks, kThreads, sizeof(ParamSmem<A>), stream>>>(a);
+  k3_params<A><<<num_blocks, kThreads, sizeof(Param), stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const int P = num_params(6 * a.max_deg);
   k3_reduce<<<(P + 255) / 256, 256, 0, stream>>>(a.partial, num_blocks, P,
-                                                  grads);
+                                                  a.stride, grads);
   return cudaGetLastError();
 }
 
@@ -1080,26 +2117,49 @@ cudaError_t launch_preacts(const float* pts, const float* wfwd,
   return cudaGetLastError();
 }
 
+// P3 in the bf16 arm: two persistent blocks an SM over tiles of 64 points.
+template <>
+cudaError_t launch_preacts<Bf16Arm>(const float* pts, const float* wfwd,
+                                    const void* wfwd_t, const float* window,
+                                    float* pre, int n, int max_deg,
+                                    int width, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = set_smem(so3_preacts_kernel<Bf16Arm>, sizeof(bfa::PreactSmem));
+  if (err != cudaSuccess) return err;
+  const int tiles = (n + bfa::kRows - 1) / bfa::kRows;
+  const int grid = tiles < 2 * sms ? tiles : 2 * sms;
+  so3_preacts_kernel<Bf16Arm><<<grid, kThreads, sizeof(bfa::PreactSmem),
+                                stream>>>(pts, wfwd, wfwd_t, window, pre, n,
+                                          max_deg, width);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // traj, cts: [B, S, 11] (cts with segbar in channel 6); wfwd: the padded
 // fp32 forward pack; wfwd_t, wbwd_t: the arm's forward and backward packs
 // (see Net: fp32, or bf16 of the weights rounded by the caller); window:
 // [max_deg]; pieces: [S, 22, bp] scratch (bp = B rounded up to 32); dbar:
-// [B, S, 3] scratch; raybar: [B, 6]; partial: [num_blocks, P]; grads: [P],
-// P the padded forward pack's size; bf16: 0 for the fp32 arm, 1 for the
-// bf16 one. Returns a cudaError_t.
+// [B, S, 3] scratch; raybar: [B, 6]; partial: [num_blocks,
+// partial_stride(P, bf16)]; grads: [P], P the padded forward pack's size;
+// index (bf16 arm): [ceil(B S / 256) + B S] int32 scratch; bf16: 0 for the
+// fp32 arm, 1 for the bf16 one. Returns a cudaError_t.
 extern "C" int march_bwd_launch(
     const float* traj, const float* cts, const float* grid,
     const float* wfwd, const void* wfwd_t, const void* wbwd_t,
     const float* window, float* pieces, float* dbar, float* raybar,
-    float* partial, float* grads, int batch, int num_samples, int max_deg,
+    float* partial, float* grads, int* index, int batch, int num_samples,
+    int max_deg,
     int num_blocks, int bf16, int nx, int ny, int nz, float step,
     float nmin_x, float nmin_y, float nmin_z, float nd_x, float nd_y,
     float nd_z, void* stream_ptr) {
   if (6 * max_deg > kIn - 4 || max_deg < 1 || max_deg > kMaxDeg ||
       batch < 1 || num_samples < 1 || num_blocks < 1 ||
-      (bf16 != 0 && bf16 != 1))
+      (bf16 != 0 && bf16 != 1) || (bf16 == 1 && index == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Args a;
@@ -1124,6 +2184,9 @@ extern "C" int march_bwd_launch(
   a.step = step;
   const long long total = (long long)batch * num_samples;
   a.chunk = (total + num_blocks - 1) / num_blocks;
+  a.stride = partial_stride(num_params(6 * max_deg), bf16 == 1);
+  a.counts = index;
+  a.list = index ? index + (total + bfa::kRange - 1) / bfa::kRange : nullptr;
   return static_cast<int>(
       bf16 ? launch_k3<Bf16Arm>(a, num_blocks, grads, stream)
            : launch_k3<F32Arm>(a, num_blocks, grads, stream));

@@ -457,9 +457,11 @@ def march_bwd(cfg, data, origins, directions, so3_params, alpha, traj,
   dbar_traj = torch.empty((batch, num_samples, 3), dtype=torch.float32,
                           device=dev)
   raybar = torch.empty((batch, 6), dtype=torch.float32, device=dev)
-  partial = torch.empty((num_blocks, num_params), dtype=torch.float32,
-                        device=dev)
+  partial = torch.empty((num_blocks, partial_stride(num_params, bf16)),
+                        dtype=torch.float32, device=dev)
   grads = torch.empty((num_params,), dtype=torch.float32, device=dev)
+  index = (torch.empty(sum(n for n, in k3_index_shapes(batch, num_samples)),
+                       dtype=torch.int32, device=dev) if bf16 else None)
   lib = _library()
   spec = cfg.spec
   with torch.cuda.device(dev):
@@ -468,7 +470,8 @@ def march_bwd(cfg, data, origins, directions, so3_params, alpha, traj,
         traj.data_ptr(), cts.data_ptr(), data.data_ptr(), wfwd.data_ptr(),
         wfwd_t.data_ptr(), wbwd_t.data_ptr(), window.data_ptr(),
         pieces.data_ptr(), dbar_traj.data_ptr(), raybar.data_ptr(),
-        partial.data_ptr(), grads.data_ptr(), batch, num_samples,
+        partial.data_ptr(), grads.data_ptr(),
+        None if index is None else index.data_ptr(), batch, num_samples,
         cfg.max_deg, num_blocks, int(bf16), *spec.ndim, cfg.step_size,
         *spec.nmin, *spec.ndelta, stream)
   if err != 0:
@@ -490,10 +493,46 @@ def march_bwd(cfg, data, origins, directions, so3_params, alpha, traj,
 march_bwd.launches = 0
 march_bwd.arms = collections.Counter()
 # K3's pieces a ray-step (csrc/march_bwd.cu kFields) and the blocks of its
-# passes 1b and 3 for each SM, by arm: a bf16 block's 128-row tiles take
-# ~212 KB of shared memory, one block an SM.
+# passes 1b and 3 for each SM, by arm: the fp32 arm's two blocks of 64-row
+# tiles over contiguous ranges of ray-steps; the bf16 arm's one persistent
+# block, its head weights resident (~229-232 KB of shared memory with its
+# tiles).
 PIECES = 22
 BLOCKS_PER_SM = {"float32": 2, "bfloat16": 1}
+# -D switches march_bwd.cu is built with; () but in a trial that times a
+# part of the kernel on its own (debug/k3_partial_cost.py).
+TRIAL_DEFINES = ()
+# The bf16 arm's partition (csrc/march_bwd.cu, namespace bfa): k3_pieces
+# counts the active ray-steps of each range of K3_RANGE rows of the
+# trajectory (ray-major); 1b compacts them in order into one list, which
+# 1b cuts into tiles of K3_BF16_ROWS and 3 into tiles of
+# K3_BF16_PARAM_ROWS, and every block of each pass takes an equal share of
+# its tiles, give or take one. The tile count is read on the card, so the
+# wrapper never waits for it.
+K3_RANGE = 256
+K3_BF16_ROWS = 64
+K3_BF16_PARAM_ROWS = 128
+
+
+def k3_index_shapes(batch, num_samples):
+  """The bf16 arm's int32 scratch, fixed by batch x steps: (the counts,
+  one a range; the compacted rows, at most one a ray-step)."""
+  total = batch * num_samples
+  return (-(-total // K3_RANGE),), (total,)
+
+
+def partial_stride(num_params, bf16):
+  """The row stride of K3's [G, stride] partial (csrc partial_stride): P,
+  or in the bf16 arm P rounded up to 8 floats (rows on 32 bytes)."""
+  return -(-num_params // 8) * 8 if bf16 else num_params
+
+
+def k3_tile_ranges(active, num_blocks, rows=K3_BF16_ROWS):
+  """[tile0, tile1) of each block of the bf16 arm's passes 1b and 3 over
+  the ceil(active / rows) tiles, as the kernels cut them."""
+  tiles = -(-active // rows)
+  return [(b * tiles // num_blocks, (b + 1) * tiles // num_blocks)
+          for b in range(num_blocks)]
 
 
 class _AllStageMarch(torch.autograd.Function):
@@ -537,10 +576,10 @@ def _sm_count(dev):
 
 
 def _library():
-  lib = cuda_build.load("march_bwd")
+  lib = cuda_build.load("march_bwd", TRIAL_DEFINES)
   fn = lib.march_bwd_launch
   if fn.restype is not ctypes.c_int or not fn.argtypes:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 12 + [ci] * 8 + [cf] * 7 + [vp]
+    fn.argtypes = [vp] * 13 + [ci] * 8 + [cf] * 7 + [vp]
     fn.restype = ci
   return lib

@@ -125,20 +125,30 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_march_wrappers_do_not_sync(cuda_device):
-  """K1 with make_jitter's host jitter, and K2, read nothing back from the
-  card: they run under the sync debug mode's "error"."""
+  """K1 with make_jitter's host jitter, K2, and K3 in both arms (alpha a
+  tensor on the card, as the train step passes it; the bf16 arm's tile
+  count is read on the card) read nothing back from the card: they run
+  under the sync debug mode's "error"."""
   spec, data, o, d, _ = _march_inputs(64)
   data, o, d = [torch.from_numpy(a).to(cuda_device) for a in (data, o, d)]
   jitter = nerf.make_jitter(S // NUM_PATH, NUM_PATH,
                             torch.Generator().manual_seed(0))
   so3 = _so3_params(cuda_device)
+  alpha = torch.tensor(ALPHA, device=cuda_device)
   march_kernel.march_lean(spec, data, o, d, NEAR, H, S, jitter)
-  march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA)
+  traj = march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA)
+  dtraj = torch.ones_like(traj)
+  cfgs = [eikonal_vjp.MarchConfig(spec, NEAR, H, S, 10, "highest", arm)
+          for arm in ("float32", "bfloat16")]
+  for cfg in cfgs:
+    eikonal_vjp.march_bwd(cfg, data, o, d, so3, alpha, traj, dtraj)
   torch.cuda.synchronize()
   torch.cuda.set_sync_debug_mode("error")
   try:
     march_kernel.march_lean(spec, data, o, d, NEAR, H, S, jitter)
     march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA)
+    for cfg in cfgs:
+      eikonal_vjp.march_bwd(cfg, data, o, d, so3, alpha, traj, dtraj)
   finally:
     torch.cuda.set_sync_debug_mode(0)
   torch.cuda.synchronize()
@@ -1148,19 +1158,51 @@ def test_cuda_so3_march_bf16_head_matches_plain_version(cuda_device, interp):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nrays", [256, 100])
-def test_cuda_march_bwd_bf16_matches_plain_version(cuda_device, nrays):
+@pytest.mark.parametrize("nrays,edge", [
+    (256, None), (100, None), (100, "none"), (100, "all"), (256, "over"),
+    (256, "under"), (256, "few"), (100, "narrow"), ("ship", None)])
+def test_cuda_march_bwd_bf16_matches_plain_version(cuda_device, nrays, edge):
+  """K3's bf16 arm against its plain version with P3's flips replayed, at
+  K3_BF16_FORM per tensor and bit for bit across two runs: on the march's
+  trajectory, at the edges of its balanced partition (no active ray-step,
+  every one, one over and one under a multiple of the tile's rows, fewer
+  tiles than blocks), with a narrower head (64 units, 6 degrees: zero rows
+  and units in the resident weights) and at the ship 'all' batch."""
   from samplenerfro_torch.debug import precision_arms
-  spec, data, o, d, so3 = _allstage_inputs(cuda_device, nrays)
-  cfg = eikonal_vjp.MarchConfig(spec, NEAR, H, S, 10, "highest", "bfloat16")
-  traj = march_kernel.march_full_reference(spec, data, o, d, NEAR, H, S, so3,
-                                           ALPHA, 10, bwd_dtype="bfloat16")
-  dtraj = torch.randn(traj.shape, generator=torch.Generator().manual_seed(
-      5)).to(cuda_device)
+  if nrays == "ship":
+    cfg, data, o, d, so3, traj, dtraj = _shape_inputs(cuda_device, "ship")
+    cfg = cfg._replace(interp="default", bwd_dtype="bfloat16")
+  else:
+    spec, data, o, d, so3 = _allstage_inputs(cuda_device, nrays)
+    deg = 10
+    if edge == "narrow":
+      deg, edge = 6, None
+      so3 = _so3_params(cuda_device, max_deg=deg, width=64)
+    cfg = eikonal_vjp.MarchConfig(spec, NEAR, H, S, deg, "highest",
+                                  "bfloat16")
+    traj = march_kernel.march_full_reference(spec, data, o, d, NEAR, H, S,
+                                             so3, ALPHA, deg,
+                                             bwd_dtype="bfloat16")
+    dtraj = torch.randn(traj.shape, generator=torch.Generator().manual_seed(
+        5)).to(cuda_device)
+  blocks = (eikonal_vjp.BLOCKS_PER_SM["bfloat16"]
+            * torch.cuda.get_device_properties(cuda_device)
+            .multi_processor_count)
+  if edge is not None:
+    traj = precision_arms.k3_edge_trajectory(traj, edge, blocks)
+  active = int((traj[..., 8:11].norm(dim=-1) > 1e-3).sum())
+  rows = eikonal_vjp.K3_BF16_ROWS
+  assert {"none": active == 0, "all": active == traj.shape[0] * traj.shape[1],
+          "over": active % rows == 1, "under": active % rows == rows - 1,
+          "few": 0 < -(-active // rows) < blocks,
+          None: active > 0}[edge], active
   before = eikonal_vjp.march_bwd.arms["bfloat16"]
   errs, flips, same, got, _ = precision_arms.k3_bf16_case(
       cfg, data, o, d, so3, ALPHA, traj, dtraj)
   assert eikonal_vjp.march_bwd.arms["bfloat16"] == before + 2
   assert same
   assert all(share <= 1.0 for _, share in errs.values()), (errs, flips)
-  assert float(got[3][-2].abs().sum()) > 0
+  if edge == "none":
+    assert all(float(g.abs().max()) == 0 for g in got[3])
+  else:
+    assert float(got[3][-2].abs().sum()) > 0
