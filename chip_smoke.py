@@ -250,9 +250,13 @@ Phases, each of which must pass or the script exits non-zero:
      same arm at the ship shapes (debug/precision_arms.py): K1 and K2 with
      the head off at "default" on the render chunk (8192 rays) and the
      1024-ray batch, at K1_ATOL; K2 with its bf16 head at the 'all' batch
-     and the render chunk, every step at K2_ATOL teacher-forced (one plain step from each of
-     the kernel's states) and the free-running march within the JAX
-     self-check's bf16 envelope (0.05 of scale); K3's bf16 arm on the
+     and the render chunk, every step at K2_ATOL teacher-forced (one plain
+     step from each of the kernel's states) and the free-running march
+     within the JAX self-check's bf16 envelope (0.05 of scale), two runs
+     bit for bit, and its pre-activations of layers 1-3 bit for bit P3's
+     bf16 arm's at every active ray-step (0 ReLU flips; read back through
+     march_so3.cu's -DK2_TRIAL_PREACTS build, whose trajectory must be the
+     kernel's bit for bit); K3's bf16 arm on the
      plain march's trajectory against march_bwd_passes_reference's bf16
      arm with the ReLU flips of P3's bf16 arm replayed, per tensor at
      2e-3 x max|want|, and bit for bit across two runs, there and at
@@ -536,13 +540,15 @@ def device_phase():
 
 
 def build_phase():
-  """Every kernel, and K4 with its tensor-core trial switch (the F2
-  measurement's before), one nvcc each, all started together."""
+  """Every kernel, K4 with its tensor-core trial switch (the F2
+  measurement's before) and K2 with its pre-activations read back (phase
+  16's check of its bf16 head), one nvcc each, all started together."""
   t0 = time.time()
-  logs = cuda_build.build(cuda_build.kernel_names(),
-                          also=[("mlp_fwd", (mlp_rounding.K4_TENSOR,))])
+  also = [("mlp_fwd", (mlp_rounding.K4_TENSOR,)),
+          ("march_so3", march_kernel.PREACTS_TRIAL)]
+  logs = cuda_build.build(cuda_build.kernel_names(), also=also)
   log(f"build: {time.time() - t0:.1f} s for {cuda_build.kernel_names()} and "
-      f"mlp_fwd with {mlp_rounding.K4_TENSOR}")
+      f"{also}")
   for (name, defines), out in logs.items():
     for line in out.splitlines():
       if "registers" in line or "spill" in line or "smem" in line:
@@ -3750,12 +3756,16 @@ def _shipped_kernels(model, first, batch_rays, jitter, seed):
     rows[kind]["name"] = f"{kind}[default]"
 
   # K2 at the 'all' batch and at a render chunk (eval of an 'all' stage);
-  # the batch's plain trajectory is K3's input below.
+  # the batch's plain trajectory is K3's input below. Its bf16 head runs
+  # K3's own layers: its pre-activations must be P3's bit for bit.
   so3 = so3_params_for(seed, ps.grid.device)
   nparams = sum(p.numel() for p in so3)
+  sms = march_kernel.sm_count(ps.grid.device)
   figures = {}
   for shape, rays in (("chunk", first), ("batch", batch_rays)):
     o, d = rays.origins, rays.viewdirs
+    fwd = (*geo, o, d, near, h, steps, so3, SO3_ALPHA, SO3_MAX_DEG,
+           "default", "bfloat16")
     forced, free, traj, want, plain2 = precision_arms.k2_arm(
         *geo, o, d, near, h, steps, so3, SO3_ALPHA, "default", "bfloat16")
     active = int((traj[..., 8:11].norm(dim=-1) > 1e-3).sum())
@@ -3763,20 +3773,32 @@ def _shipped_kernels(model, first, batch_rays, jitter, seed):
     scale = want.abs().reshape(-1, 11).amax(dim=0).clamp(min=1e-3)
     free_share = max(e / float(s) for e, s in zip(free, scale)) / (
         SHIPPED_FREE_ENVELOPE)
+    same = torch.equal(traj, march_kernel.march_full(*fwd))
+    pre, trial_same = precision_arms.k2_preacts_case(
+        *geo, o, d, near, h, steps, so3, SO3_ALPHA, "default", traj=traj)
+    geom = march_kernel.so3_bf16_launch_geometry(o.shape[0], so3[0].shape[0],
+                                                 SO3_MAX_DEG, sms)
     log(f"  march_so3 [default, bf16 head] {shape} ({o.shape[0]} x "
-        f"{steps}): teacher-forced {forced} (tolerance {K2_ATOL}); "
-        f"free-running max abs err per channel {free}, {free_share:.3f} of "
-        f"the bf16 envelope")
+        f"{steps}; {geom['ctas']} CTAs of {geom['rays_per_cta']} rays): "
+        f"teacher-forced {forced} (tolerance {K2_ATOL}); free-running max "
+        f"abs err per channel {free}, {free_share:.3f} of the bf16 "
+        f"envelope; two runs bit for bit {same}; against P3 bf16 at "
+        f"{pre['active']} active ray-steps: flips per layer {pre['flips']}, "
+        f"elements that differ {pre['differ']} (the trial build's "
+        f"trajectory bit for bit {trial_same})")
     if not (all(np.isfinite(v) and v <= K2_ATOL for v in forced.values())
             and free_share <= 1.0):
       raise SystemExit(f"shipped: K2 in its reduced arm disagrees with its "
                        f"plain version at the {shape}")
+    if not (same and trial_same and pre["active"] == active
+            and not any(pre["flips"]) and not any(pre["differ"])):
+      raise SystemExit(f"shipped: K2's bf16 head at the {shape} is not "
+                       f"deterministic or its pre-activations are not P3's "
+                       f"bit for bit ({pre})")
     del traj
-    fwd = (*geo, o, d, near, h, steps, so3, SO3_ALPHA, SO3_MAX_DEG,
-           "default", "bfloat16")
     call = lambda: march_kernel.march_full(*fwd)
     ms2 = cuda_ms(call)
-    dev2, _ = kernel_device_ms(call, "march_so3_kernel<2, true>")
+    dev2, _ = kernel_device_ms(call, "bfh::march_so3_kernel<2")
     # Least work: the head's forward a ray-step, bf16 operands summed in
     # fp32, at the dense bf16 tensor-core rate (as K3's below and the bf16
     # MLP rows), ~120 fp32 operations of the step at the CUDA cores', and
@@ -3794,18 +3816,21 @@ def _shipped_kernels(model, first, batch_rays, jitter, seed):
         f"{by2} ({active} active ray-steps)")
     figures[shape] = {"ms": ms2, "device_ms": dev2, "plain_ms": plain2,
                       "bound_ms": bound2, "bound_by": by2,
-                      "err": max(forced.values()), "free": max(free)}
+                      "err": max(forced.values()), "free": max(free),
+                      "active": active, "flips": pre["flips"]}
     if shape == "chunk":
       del want
   f, c = figures["batch"], figures["chunk"]
   rows["march_full"] = report_row(
       "march_so3", MARCH_KERNEL, max(f["err"], c["err"]), f["ms"],
       f["plain_ms"], f["bound_ms"], f["bound_by"],
-      arm="march_interp=default, march_bwd_dtype=bfloat16 (bf16 head)",
-      device_ms=f["device_ms"], free_running_max_abs_err=max(f["free"],
-                                                             c["free"]),
-      chunk_ms=c["ms"], chunk_device_ms=c["device_ms"],
-      chunk_plain_ms=c["plain_ms"], chunk_bound_ms=c["bound_ms"])
+      arm="march_interp=default, march_bwd_dtype=bfloat16 (bf16 head on "
+      "tensor cores)", device_ms=f["device_ms"],
+      free_running_max_abs_err=max(f["free"], c["free"]),
+      p3_flips=f["flips"],
+      active_ray_steps=f["active"], chunk_ms=c["ms"],
+      chunk_device_ms=c["device_ms"], chunk_plain_ms=c["plain_ms"],
+      chunk_bound_ms=c["bound_ms"], chunk_p3_flips=c["flips"], chunk_active_ray_steps=c["active"])
   rows["march_full"]["name"] = "march_so3[default,bf16]"
 
   # K3's bf16 arm on the plain march's trajectory (as phase 4 holds the

@@ -9,7 +9,9 @@ K1 and K2 with the head off at march_interp "default" and "high" against
 their plain versions (the same interpolation's rounding points, the same
 order: chip_smoke.py holds them at K1_ATOL); K2 with its bf16 head at
 "default" and "highest", teacher-forced (teacher_forced: one plain step
-from each of the kernel's own states, held at K2_ATOL) and free-running;
+from each of the kernel's own states, held at K2_ATOL) and free-running,
+and its pre-activations against P3's bf16 arm, which must be equal bit for
+bit (k2_preacts_case);
 K3's bf16 arm on the plain march's trajectory against
 ops/eikonal_vjp.march_bwd_passes_reference in the same arm, with the ReLU
 masks that P3's bf16 arm and the plain version set apart replayed in the
@@ -19,12 +21,13 @@ this module prints them with the call and kernel times.
 
 Why the free-running K2 is not held at K2_ATOL: a bf16 interpolation
 rounds the (x, y) weights, whose last fp32 bits follow the position's. K2
-sums its head in k order and the plain version through cuBLAS; the ulps
-that leaves in a direction move the next positions by ulps, which at a
-512^3 grid move a fraction by ~3e-5 of a cell, and that rounds a weight
-to the next bf16 value (2^-9 of it) a few times in a hundred. So the two
-marches part by a bf16 rounding of n and grad n, ~1e-3, and carry it. The
-teacher-forced check holds every step's arithmetic at its own inputs.
+sums its head in the tensor core and the plain version through cuBLAS;
+the ulps that leaves in a direction move the next positions by ulps, which
+at a 512^3 grid move a fraction by ~3e-5 of a cell, and that rounds a
+weight to the next bf16 value (2^-9 of it) a few times in a hundred. So
+the two marches part by a bf16 rounding of n and grad n, ~1e-3, and carry
+it. The teacher-forced check holds every step's arithmetic at its own
+inputs.
 """
 
 import argparse
@@ -140,6 +143,35 @@ def k2_arm(spec, grid, o, d, near, step_size, steps, so3, alpha, interp,
   forced = teacher_forced(spec, grid, traj, step_size, so3, alpha,
                           SO3_MAX_DEG, interp, bwd_dtype)
   return forced, free, traj, want, plain_ms
+
+
+def k2_preacts_case(spec, grid, o, d, near, step_size, steps, so3, alpha,
+                    interp, max_deg=SO3_MAX_DEG, traj=None):
+  """K2's bf16 head against P3's bf16 arm (K3's forward): the
+  pre-activations of hidden layers 1-3 as K2 summed them
+  (march_kernel.march_full_preacts, its trial build) at every active
+  ray-step of its own trajectory, against P3's at the same points. Returns
+  ({"active": active ray-steps, "flips": ReLU masks that differ per layer,
+  "differ": elements not equal bit for bit per layer}, whether the trial
+  build's trajectory is `traj` bit for bit, None without traj)."""
+  flips, differ = [0, 0, 0], [0, 0, 0]
+  with torch.no_grad():
+    got, pre = march_kernel.march_full_preacts(spec, grid, o, d, near,
+                                               step_size, steps, so3, alpha,
+                                               max_deg, interp)
+    active = got[..., 8:11].norm(dim=-1) > 1e-3
+    pts = got[..., 0:3][active].contiguous()
+    if pts.shape[0]:
+      p3 = probes.so3_preacts(pts, so3, alpha, max_deg, "bfloat16")
+      for layer in range(3):
+        a, b = pre[layer][active], p3[layer]
+        flips[layer] = int(((a > 0) != (b > 0)).sum())
+        differ[layer] = int((a != b).sum())  # a NaN: a step not run
+      del p3
+    same = None if traj is None else torch.equal(got, traj)
+    out = {"active": pts.shape[0], "flips": flips, "differ": differ}
+    del got, pre, pts
+  return out, same
 
 
 def k3_flat(r):
@@ -280,6 +312,9 @@ def main():
                                    "bfloat16")
     log(f"K2 {interp} bf16 head: teacher-forced {forced}, free-running "
         f"per channel {free}")
+    pre, _ = k2_preacts_case(*geo, o, d, ps.near, ps.step_size,
+                             ps.num_samples, so3, alpha, interp)
+    log(f"K2 {interp} bf16 head against P3 bf16: {pre}")
   cfg = eikonal_vjp.MarchConfig(ps.spec, ps.near, ps.step_size,
                                 ps.num_samples, SO3_MAX_DEG, "default",
                                 "bfloat16")

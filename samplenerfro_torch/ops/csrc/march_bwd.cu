@@ -72,8 +72,10 @@
 //    operands on CUDA cores) and the sweep stay fp32; the bias gradients
 //    sum the bf16 cotangents in fp32. 1a forms the trilinear derivative
 //    from the corner values and the axis weights rounded to bf16, summed
-//    in fp32 (trilinear_jacobian_bf16). K2 runs this head with the same
-//    operands (march_so3.cu, kBf16), summed in k order on CUDA cores.
+//    in fp32 (trilinear_jacobian_bf16). K2's bf16 head (march_so3.cu,
+//    namespace bfh) runs the hidden layers with the same operands through
+//    the same layer() (so3_bf16.cuh), so K3 differentiates the forward K2
+//    ran, bit for bit in its pre-activations.
 // The hidden layers are computed at width 128: a narrower head is
 // zero-padded by the wrapper (zero units add exact zeros to every sum).
 //
@@ -112,8 +114,8 @@
 //    to the accumulator itself, k in order: over the layer's input, then
 //    the skip input; the fp32 bias is added after (mlp_common.cuh's
 //    add_mma, which K4 and K5 keep, sums each step from zero and adds it
-//    in fp32). P3 runs the same layer() and so gives these
-//    pre-activations bit for bit.
+//    in fp32). P3 and K2's bf16 head run the same layer()
+//    (so3_bf16.cuh) and so give these pre-activations bit for bit.
 //  - Overlap instead of occupancy (the weights leave room for one block):
 //    the next tile's gathers are in flight while a tile's products run
 //    (cp.async of 4 bytes: in 1b p after the PE and g after K; in 3 p and
@@ -145,6 +147,7 @@
 // masks can be held against another summation order's.
 
 #include "mlp_common.cuh"
+#include "so3_bf16.cuh"
 
 namespace {
 
@@ -1100,35 +1103,14 @@ __global__ void __launch_bounds__(kThreads)
 // kept in the tensor core's accumulators (see the header note).
 namespace bfa {
 
+using namespace so3bf;
+
 constexpr int kRows = 64;             // ray-steps a tile of 1b (and P3)
 constexpr int kRowsP = 128;           // ray-steps a tile of pass 3
-constexpr int kLdX = kIn + 8;         // shared-memory row strides, padded
-constexpr int kLdH = kW + 8;          // by 16 bytes
 constexpr int kRange = kThreads;      // rows of traj a count covers
-// The resident weights, input-major rows of kW: W0t | W1t | W2t | W3t
-// (its hidden inputs, then its PE inputs); rows past in_dim are zero.
-constexpr int kW0 = 0, kW1 = kIn, kW2 = kIn + kW, kW3 = kIn + 2 * kW,
-              kW3x = kIn + 3 * kW, kWRows = 2 * kIn + 3 * kW;
 
-// The warps of a block in groups of W that share 32 rows of a tile: 1b
-// and P3 two groups of 4 (tiles of 64), pass 3 four groups of 2 (tiles of
-// 128). A warp owns its group's 32 rows by 128 / W columns of a product's
-// output; a group's products, epilogues, PE and output layer touch its
-// own rows alone, so the groups run apart between block barriers.
-template <int W>
-struct Geo {
-  static constexpr int kThr = 32 * W;   // threads of a group
-  static constexpr int kNT = 16 / W;    // n8 tiles of a warp
-  __device__ static int group() { return threadIdx.x / kThr; }
-  __device__ static int tid() { return threadIdx.x % kThr; }
-  __device__ static int row0() { return 32 * group(); }
-  __device__ static int col0() { return (kW / W) * ((threadIdx.x >> 5) % W); }
-  // The barrier of this thread's group alone (named barriers from 1).
-  __device__ static void sync() {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group()), "r"(kThr)
-                 : "memory");
-  }
-};
+// The warps of a block in groups (so3_bf16.cuh's Geo): 1b and P3 two
+// groups of 4 (tiles of 64), pass 3 four groups of 2 (tiles of 128).
 using G1 = Geo<4>;
 using G3 = Geo<2>;
 
@@ -1140,50 +1122,8 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
-// A warp's block of fp32 sums, MT m16 tiles by NT n8 tiles, as m16n8
-// fragments: v[mt][nt][e] is row row0 + 16 mt + lane / 4 + 8 (e / 2),
-// column col0 + 8 nt + 2 (lane % 4) + e % 2.
-template <int MT, int NT>
-struct Acc {
-  float v[MT][NT][4];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[mt][nt][e] = 0.0f;
-  }
-  // f(mt, nt, h, row, column, value, value of the next column) for every
-  // pair held.
-  template <typename F>
-  __device__ __forceinline__ void each(int row0, int col0, F f) const {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          f(mt, nt, h, row0 + 16 * mt + g + 8 * h, col0 + 8 * nt + 2 * t,
-            v[mt][nt][2 * h], v[mt][nt][2 * h + 1]);
-  }
-};
-
-// The A fragments of rows row0 .. row0 + 16 MT - 1 of a row-major [*][lda]
-// at k columns k0 .. k0 + 15.
-template <int MT>
-__device__ __forceinline__ void load_a(unsigned (&af)[MT][4], const bf16* a,
-                                       int lda, int row0, int k0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-    fused_mlp::ldsm_x4(af[mt], a + (row0 + 16 * mt + (lane & 15)) * lda +
-                                   k0 + (lane >> 4) * 8);
-}
-
-// The same of A stored transposed, [k][m]: m0 .. m0 + 16 MT - 1, k rows
-// k0 .. k0 + 15.
+// load_a's fragments of A stored transposed, [k][m]: m0 .. m0 + 16 MT -
+// 1, k rows k0 .. k0 + 15.
 template <int MT>
 __device__ __forceinline__ void load_at(unsigned (&af)[MT][4], const bf16* a,
                                         int lda, int m0, int k0) {
@@ -1211,101 +1151,10 @@ __device__ __forceinline__ void mask_axis(const unsigned (&af)[2][4],
   }
 }
 
-// The B fragments of 2 NP n8 tiles from column col0 at k rows k0 .. k0 +
-// 15: of B [k][n] (kNk false), or of B given as [n][k], B(k, n) = b[n * ldb
-// + k] (a weight matrix read transposed). bf[np] holds tiles 2 np and
-// 2 np + 1.
-template <bool kNk, int NP>
-__device__ __forceinline__ void load_b(unsigned (&bf)[NP][4], const bf16* b,
-                                       int ldb, int k0, int col0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int np = 0; np < NP; ++np) {
-    const int n0 = col0 + 16 * np;
-    if (kNk) {
-      fused_mlp::ldsm_x4(bf[np],
-                         b + (n0 + (lane & 7) + ((lane >> 4) & 1) * 8) * ldb +
-                             k0 + ((lane >> 3) & 1) * 8);
-    } else {
-      fused_mlp::ldsm_x4_t(
-          bf[np], b + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + n0 +
-                      (lane >> 4) * 8);
-    }
-  }
-}
-
-// c += one k16 step's product, added by the tensor core to c itself.
-template <int MT, int NT>
-__device__ __forceinline__ void mma_step(Acc<MT, NT>& c,
-                                         const unsigned (&af)[MT][4],
-                                         const unsigned (&bf)[NT / 2][4]) {
-#pragma unroll
-  for (int np = 0; np < NT / 2; ++np)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      fused_mlp::mma_bf16(c.v[mt][2 * np], af[mt], bf[np][0], bf[np][1]);
-      fused_mlp::mma_bf16(c.v[mt][2 * np + 1], af[mt], bf[np][2],
-                          bf[np][3]);
-    }
-}
-
-// c += A B over k in [0, K), in k16 steps in order, the sum of each output
-// kept in the tensor core: A row-major, the group's 32 rows; B's columns
-// of this warp.
-template <typename G, int K, bool kNk>
-__device__ __forceinline__ void product(Acc<2, G::kNT>& c, const bf16* a,
-                                        int lda, const bf16* b, int ldb) {
-  // Pass 3's wider warp blocks keep their fragments' registers in hand
-  // with two k16 steps unrolled; 1b's and P3's unroll the whole k.
-#pragma unroll(G::kNT == 8 ? 2 : K / 16)
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    unsigned af[2][4], bf[G::kNT / 2][4];
-    load_b<kNk, G::kNT / 2>(bf, b, ldb, k0, G::col0());
-    load_a<2>(af, a, lda, G::row0(), k0);
-    mma_step(c, af, bf);
-  }
-}
-
 // A bf16 pair's two values, each > 0.
 __device__ __forceinline__ void positive(unsigned pair, bool& m0, bool& m1) {
   m0 = __uint_as_float(pair << 16) > 0.0f;
   m1 = __uint_as_float(pair & 0xffff0000u) > 0.0f;
-}
-
-// One hidden layer on the group's rows: out = bf16(ReLU(A0 W0 + A1 W1 +
-// b)), A0 over K0 columns, then A1 over K1 (none if 0), each product's sum
-// from zero in the tensor core in k order, the fp32 bias added after them
-// (jac_layer's forward sums the same way, so P3, 1b and 3 agree bit for
-// bit). With pre (P3): the fp32 pre-activations of rows r < rows and
-// columns c < width go to pre[r * width + c]. in_place: out is A0's
-// buffer. keep (kKeep): this warp's block of the output as bf16 pairs,
-// keep[mt][nt][h] as Acc's fragments.
-template <typename G, int K0, int K1, bool kKeep = false>
-__device__ __forceinline__ void layer(
-    const bf16* a0, int ld0, const bf16* w0, const bf16* a1, int ld1,
-    const bf16* w1, const float* b, bf16* out, bool in_place,
-    unsigned (*keep)[G::kNT][2] = nullptr, float* pre = nullptr,
-    int rows = 0, int width = 0) {
-  Acc<2, G::kNT> c;
-  c.zero();
-  product<G, K0, false>(c, a0, ld0, w0, kLdH);
-  if (K1 > 0) product<G, K1, false>(c, a1, ld1, w1, kLdH);
-  if (in_place) G::sync();
-  c.each(G::row0(), G::col0(),
-         [&](int mt, int nt, int h, int r, int col, float v0, float v1) {
-           v0 += __ldg(b + col);
-           v1 += __ldg(b + col + 1);
-           if (pre && r < rows) {
-             if (col < width) pre[r * width + col] = v0;
-             if (col + 1 < width) pre[r * width + col + 1] = v1;
-           }
-           __nv_bfloat162 hv;
-           hv.x = __float2bfloat16_rn(fmaxf(v0, 0.0f));
-           hv.y = __float2bfloat16_rn(fmaxf(v1, 0.0f));
-           *reinterpret_cast<__nv_bfloat162*>(out + r * kLdH + col) = hv;
-           if (kKeep) keep[mt][nt][h] = *reinterpret_cast<unsigned*>(&hv);
-         });
-  G::sync();
 }
 
 // One segment of a layer of 1b: c[0] += F W and c[1 + q] += T_q W over k

@@ -24,7 +24,6 @@ march_bwd_passes_reference in the same arm, on the CPU too.
 
 import collections
 import ctypes
-import functools
 import math
 
 import torch
@@ -449,7 +448,7 @@ def march_bwd(cfg, data, origins, directions, so3_params, alpha, traj,
   alpha_t = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
   window = march_kernel.so3_window(alpha_t.detach(), cfg.max_deg)
   window = window.contiguous()
-  num_blocks = BLOCKS_PER_SM[cfg.bwd_dtype] * _sm_count(dev)
+  num_blocks = BLOCKS_PER_SM[cfg.bwd_dtype] * march_kernel.sm_count(dev)
   num_params = wfwd.numel()
   bp = -(-batch // 32) * 32
   pieces = torch.empty((num_samples, PIECES, bp), dtype=torch.float32,
@@ -568,11 +567,6 @@ def march_allstage(cfg, data, origins, directions, alpha, so3_params):
   alpha = torch.as_tensor(alpha, dtype=torch.float32, device=origins.device)
   return _AllStageMarch.apply(cfg, data, origins.contiguous(),
                               directions.contiguous(), alpha, *so3_params)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(dev):
-  return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _library():

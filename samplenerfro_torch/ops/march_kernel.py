@@ -20,12 +20,14 @@ memory, so they take no window, refetch or skip settings and report no
 out-of-window count. Each takes the interpolation's precision (`interp`,
 ops/precision.INTERPS: the TPU kernel's interp_precision), and K2 the so3
 head's arm (`bwd_dtype`, tied to march_bwd_dtype: ops/precision.py); each
-arm is its own instantiation of the kernel. A wrapper counts its launches
-in `.launches` and, by arm, in `.arms`.
+arm is its own instantiation of the kernel, and K2's bf16 head a kernel of
+its own (the so3 head on tensor cores, its weights resident in one CTA). A
+wrapper counts its launches in `.launches` and, by arm, in `.arms`.
 """
 
 import collections
 import ctypes
+import functools
 import typing
 
 import torch
@@ -308,13 +310,25 @@ march_full_plain.launches = 0
 march_full_plain.arms = collections.Counter()
 
 
-# K2's launch geometry (csrc/march_so3.cu): a cluster of SO3_CLUSTER CTAs
-# marches SO3_RAYS rays, each CTA holding the columns
+# K2's launch geometry with the fp32 head (csrc/march_so3.cu): a cluster
+# of SO3_CLUSTER CTAs marches SO3_RAYS rays, each CTA holding the columns
 # [rank * 64, rank * 64 + 64) of hidden layers 1-3 of the head padded to
 # width SO3_PAD_WIDTH and SO3_PAD_IN PE features, and the first hidden
 # layer and the output layer whole; 8 lanes a ray, a warp 4 rays.
 SO3_CLUSTER, SO3_RAYS, SO3_THREADS = 2, 16, 128
 SO3_PAD_WIDTH, SO3_PAD_IN, SO3_DEG_LIMIT = 128, 60, 10
+# With the bf16 head (csrc/march_so3.cu, namespace bfh): no cluster; a CTA
+# of one 16-ray group or two 32-ray groups (8 lanes a ray), each running its
+# head as one tensor-core tile on 4 warps, the whole head resident in K3's
+# padded input-major bf16 layout (csrc/so3_bf16.cuh: SO3_BF16_ROWS rows of
+# SO3_PAD_WIDTH, the PE padded to SO3_BF16_PE). SO3_BF16_SHAPES: the (rays
+# a group, groups a CTA) it is built for, smallest CTA first.
+SO3_BF16_SHAPES = ((16, 1), (32, 2))
+SO3_BF16_PE = 64
+SO3_BF16_ROWS = 2 * SO3_BF16_PE + 3 * SO3_PAD_WIDTH
+# The -D switch of march_so3.cu's trial build, which writes the bf16
+# head's pre-activations out (march_full_preacts).
+PREACTS_TRIAL = ("K2_TRIAL_PREACTS",)
 
 
 def so3_window(alpha, max_deg):
@@ -470,6 +484,71 @@ def so3_launch_geometry(batch, width, max_deg):
           "whole": ["Dense_0", "Dense_out"]}
 
 
+def so3_bf16_smem_bytes(rows, groups):
+  """Dynamic shared bytes a CTA of K2's bf16 head with `groups` groups of
+  `rows` rays (csrc/march_so3.cu, bfh::Smem)."""
+  ld_h, ld_x = SO3_PAD_WIDTH + 8, SO3_BF16_PE + 8   # rows padded by 16 B
+  helpers = rows * groups if so3_bf16_helpers(rows) else 1
+  return (2 * (SO3_BF16_ROWS * ld_h             # the hidden layers, bf16
+               + rows * groups * 2 * (ld_x + ld_h))  # PE, activations: 2
+          + 4 * (4 * SO3_PAD_WIDTH              # b0 .. b3
+                 + 4 * (SO3_PAD_WIDTH + 4) + 4  # the output layer, [o][k]
+                 + 16                           # window
+                 + 2 * 3 * helpers))            # the helpers' positions
+
+
+def so3_bf16_helpers(rows):
+  """Whether K2's bf16 head gives a CTA of groups of `rows` rays its
+  helper warps (the next step's PE during the head): 16-ray groups."""
+  return rows == 16
+
+
+def so3_bf16_launch_geometry(batch, width, max_deg, sms, shape=None):
+  """K2's launch with the bf16 head for `batch` rays, a head of `width` at
+  PE degree max_deg, on a card of `sms` SMs: rays a group, groups a CTA
+  (one CTA an SM: the resident head leaves room for no second), rays a
+  CTA, CTAs, threads (8 a ray, twice that with helper warps), dynamic
+  shared bytes a CTA. shape None picks 16-ray CTAs while one wave of them
+  covers the batch (a step's latency sets the time: the batch spreads
+  over the most SMs), else two 32-ray groups a CTA (the waves set it:
+  the fewest).
+
+  Raises ValueError, naming the limit, for a shape K2 does not take.
+  """
+  if batch < 1:
+    raise ValueError(f"march_full: batch must be at least 1, got {batch}")
+  if not 1 <= width <= SO3_PAD_WIDTH:
+    raise ValueError(f"K2 takes a head of width 1 to {SO3_PAD_WIDTH}, got "
+                     f"{width}")
+  if not 1 <= max_deg <= SO3_DEG_LIMIT:
+    raise ValueError(f"K2 takes 1 <= max_deg <= {SO3_DEG_LIMIT}, got "
+                     f"{max_deg}")
+  if sms < 1:
+    raise ValueError(f"K2's bf16 head needs at least 1 SM, got {sms}")
+  if shape is None:
+    shape = next((sh for sh in SO3_BF16_SHAPES
+                  if -(-batch // (sh[0] * sh[1])) <= sms),
+                 SO3_BF16_SHAPES[-1])
+  if tuple(shape) not in SO3_BF16_SHAPES:
+    raise ValueError(f"K2's bf16 head runs (rays a group, groups a CTA) in "
+                     f"{SO3_BF16_SHAPES}, got {shape}")
+  rows, groups = shape
+  smem = so3_bf16_smem_bytes(rows, groups)
+  if smem > SMEM_LIMIT:
+    raise ValueError(f"K2's bf16 head needs {smem} bytes of shared memory "
+                     f"a CTA, over the {SMEM_LIMIT} a block may use")
+  per = rows * groups
+  threads = per * LEAN_LANES * (2 if so3_bf16_helpers(rows) else 1)
+  return {"rays_per_group": rows, "groups": groups, "rays_per_cta": per,
+          "ctas": -(-batch // per), "threads": threads, "smem_bytes": smem}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev):
+  """The SMs of the CUDA device `dev`."""
+  return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def march_full(spec, data, origins, directions, near, step_size, num_samples,
                so3_params, alpha, max_deg=10, interp="highest",
                bwd_dtype="float32"):
@@ -485,8 +564,9 @@ def march_full(spec, data, origins, directions, near, step_size, num_samples,
       at alpha * max_deg.
     max_deg: PE degrees (the MLP takes 6 * max_deg inputs).
     interp: the interpolation's precision (ops/precision.INTERPS).
-    bwd_dtype: the head's arm: "float32", or "bfloat16" (its weights
-      rounded here, its PE features and activations in the kernel).
+    bwd_dtype: the head's arm: "float32", or "bfloat16" (its weights, PE
+      features and activations rounded to bf16 in the kernel, which runs
+      the hidden layers on tensor cores).
 
   Returns:
     [B, S, 11] float32 trajectory: pos 0:3, raw dir 3:6, arclength 6,
@@ -502,37 +582,9 @@ def march_full(spec, data, origins, directions, near, step_size, num_samples,
                                 max_deg, interp, bwd_dtype)
   if dev.type != "cuda":
     raise ValueError(f"march_full runs on CUDA or CPU tensors, not {dev}")
-  check_march_inputs("march_full", spec, data, origins, directions)
-  width = so3_width(so3_params, max_deg)
-  for p in so3_params:
-    if p.device != dev:
-      raise ValueError(f"march_full: so3 params on {p.device}, rays on {dev}")
-  batch = origins.shape[0]
-  geom = so3_launch_geometry(batch, width, max_deg)
-  lib = _so3_library()
-  params = [p.detach().contiguous() for p in so3_params]
-  if bwd_dtype == "bfloat16":
-    params = [precision.bf16(p) if i % 2 == 0 else p
-              for i, p in enumerate(params)]
-  if torch.is_tensor(alpha):
-    alpha_t = alpha.to(device=dev, dtype=torch.float32, non_blocking=True)
-  else:
-    alpha_t = torch.full((), alpha, dtype=torch.float32, device=dev)
-  window = so3_window(alpha_t, max_deg).detach().contiguous()
-  traj = torch.empty((batch, num_samples, 11), dtype=torch.float32,
-                     device=dev)
-  with torch.cuda.device(dev):
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.march_so3_launch(
-        origins.data_ptr(), directions.data_ptr(), data.data_ptr(),
-        *[p.data_ptr() for p in params], window.data_ptr(), traj.data_ptr(),
-        batch, num_samples, max_deg, width, *spec.ndim, near, step_size,
-        *spec.nmin, *spec.ndelta, geom["cluster"], geom["rays_per_cluster"],
-        geom["ctas"], geom["threads"], geom["smem_bytes"],
-        precision.INTERP_CODES[interp], int(bwd_dtype == "bfloat16"), stream)
-  if err != 0:
-    raise RuntimeError(f"march_full: kernel launch failed with CUDA error "
-                       f"{err}")
+  traj = _launch_so3(spec, data, origins, directions, near, step_size,
+                     num_samples, so3_params, alpha, max_deg, interp,
+                     bwd_dtype)
   march_full.launches += 1
   march_full.arms[(interp, bwd_dtype)] += 1
   return traj
@@ -542,17 +594,92 @@ march_full.launches = 0
 march_full.arms = collections.Counter()
 
 
+def march_full_preacts(spec, data, origins, directions, near, step_size,
+                       num_samples, so3_params, alpha, max_deg=10,
+                       interp="default"):
+  """K2 with the bf16 head built with -DK2_TRIAL_PREACTS, on CUDA tensors:
+  (the trajectory, (pre1, pre2, pre3)), each pre-activation [B, S, width]
+  of hidden layers 1-3 as the kernel summed them, written at every step
+  where the ray's group ran the head (every active ray-step; where it did
+  not, NaN). The trajectory is the kernel's own; march_full's launch
+  counts do not move."""
+  if origins.device.type != "cuda":
+    raise ValueError("march_full_preacts reads a kernel's sums: CUDA "
+                     "tensors only")
+  b, width = origins.shape[0], so3_params[0].shape[0]
+  pre = torch.full((3, b, num_samples, width), float("nan"),
+                   dtype=torch.float32, device=origins.device)
+  traj = _launch_so3(spec, data, origins, directions, near, step_size,
+                     num_samples, so3_params, alpha, max_deg, interp,
+                     "bfloat16", pre=pre)
+  return traj, (pre[0], pre[1], pre[2])
+
+
+def _launch_so3(spec, data, origins, directions, near, step_size,
+                num_samples, so3_params, alpha, max_deg, interp, bwd_dtype,
+                pre=None, shape=None):
+  """K2 in its arm on CUDA tensors; `pre`, the trial build's buffer;
+  `shape`, the bf16 head's (rays a group, groups a CTA) where a
+  measurement pins one of SO3_BF16_SHAPES (None: chosen from the batch)."""
+  dev = origins.device
+  check_march_inputs("march_full", spec, data, origins, directions)
+  width = so3_width(so3_params, max_deg)
+  for p in so3_params:
+    if p.device != dev:
+      raise ValueError(f"march_full: so3 params on {p.device}, rays on {dev}")
+  batch = origins.shape[0]
+  params = [p.detach().contiguous() for p in so3_params]
+  if torch.is_tensor(alpha):
+    alpha_t = alpha.to(device=dev, dtype=torch.float32, non_blocking=True)
+  else:
+    alpha_t = torch.full((), alpha, dtype=torch.float32, device=dev)
+  window = so3_window(alpha_t, max_deg).detach().contiguous()
+  traj = torch.empty((batch, num_samples, 11), dtype=torch.float32,
+                     device=dev)
+  if bwd_dtype == "bfloat16":
+    geom = so3_bf16_launch_geometry(batch, width, max_deg, sm_count(dev),
+                                    shape)
+    lib = _so3_library(PREACTS_TRIAL if pre is not None else ())
+    launch = lib.march_so3_bf16_launch
+    extra = (pre.data_ptr() if pre is not None else None,)
+    dims = (geom["rays_per_group"], geom["groups"], geom["ctas"],
+            geom["threads"], geom["smem_bytes"])
+  else:
+    if shape is not None:
+      raise ValueError("march_full: a pinned shape is the bf16 head's")
+    geom = so3_launch_geometry(batch, width, max_deg)
+    launch = _so3_library().march_so3_launch
+    extra = ()
+    dims = (geom["cluster"], geom["rays_per_cluster"], geom["ctas"],
+            geom["threads"], geom["smem_bytes"])
+  with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = launch(
+        origins.data_ptr(), directions.data_ptr(), data.data_ptr(),
+        *[p.data_ptr() for p in params], window.data_ptr(), traj.data_ptr(),
+        *extra, batch, num_samples, max_deg, width, *spec.ndim, near,
+        step_size, *spec.nmin, *spec.ndelta, *dims,
+        precision.INTERP_CODES[interp], stream)
+  if err != 0:
+    raise RuntimeError(f"march_full: kernel launch failed with CUDA error "
+                       f"{err}")
+  return traj
+
+
 def split_trajectory(traj):
   """[B, S, 11] -> (pos, raw dirs, dist, n, grad n) views."""
   return (traj[..., 0:3], traj[..., 3:6], traj[..., 6], traj[..., 7:8],
           traj[..., 8:11])
 
 
-def _so3_library():
-  lib = cuda_build.load("march_so3")
-  fn = lib.march_so3_launch
-  if fn.restype is not ctypes.c_int or not fn.argtypes:
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 15 + [ci] * 7 + [cf] * 8 + [ci] * 7 + [vp]
-    fn.restype = ci
+def _so3_library(defines=()):
+  lib = cuda_build.load("march_so3", defines)
+  vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+  for fn, argtypes in (
+      (lib.march_so3_launch, [vp] * 15 + [ci] * 7 + [cf] * 8 + [ci] * 6),
+      (lib.march_so3_bf16_launch, [vp] * 16 + [ci] * 7 + [cf] * 8
+       + [ci] * 6)):
+    if fn.restype is not ci or not fn.argtypes:
+      fn.argtypes = argtypes + [vp]
+      fn.restype = ci
   return lib

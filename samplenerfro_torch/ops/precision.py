@@ -11,8 +11,11 @@ Two flags of the JAX package name arithmetic the card can do:
     sweep (K3) at the passes form's bf16 operands. The port ties the so3
     head's forward in K2 to it as well (the TPU ran that head at DEFAULT
     whatever the flags; the port keeps the default flags bit for bit the
-    JAX package's fp32 on the CPU instead), so that K3 differentiates the
-    head K2 ran.
+    JAX package's fp32 on the CPU instead). In bf16, K2's hidden layers
+    are K3's own (csrc/so3_bf16.cuh: mma.sync, the running sum in the
+    accumulator), so K3 and P3 recompute the pre-activations K2 ran bit
+    for bit and K3 differentiates its ReLU masks; the plain versions sum
+    them through cuBLAS, in another order.
 
 `bf16` is the one rounding the plain versions and their tests use; each
 kernel rounds at the same points (csrc/march_common.cuh, march_so3.cu,

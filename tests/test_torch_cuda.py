@@ -1157,6 +1157,97 @@ def test_cuda_so3_march_bf16_head_matches_plain_version(cuda_device, interp):
   assert not torch.equal(fp32, traj)
 
 
+# K2's bf16 head is a kernel of its own (csrc/march_so3.cu, namespace bfh):
+# its hidden layers are K3's (csrc/so3_bf16.cuh), so its pre-activations
+# are P3's bf16 arm's bit for bit; a ray's rows of the head's tile are its
+# own, so its trajectory does not depend on the other rays of its batch,
+# nor on the rays a group or the groups a CTA.
+
+
+def _bf16_march(spec, data, o, d, so3, max_deg=10, interp="default",
+                shape=None):
+  """K2's bf16 head through march_full, or in the geometry `shape`."""
+  if shape is None:
+    return march_kernel.march_full(spec, data, o, d, NEAR, H, S, so3, ALPHA,
+                                   max_deg, interp, "bfloat16")
+  return march_kernel._launch_so3(  # pylint: disable=protected-access
+      spec, data, o, d, NEAR, H, S, so3, ALPHA, max_deg, interp, "bfloat16",
+      shape=shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrays", [1, 31, 33, 1000])
+def test_cuda_so3_bf16_head_ragged_batches(cuda_device, nrays):
+  """Batches that end inside a group of 16 or 32 rays and past one: the
+  first nrays rays of a 1000-ray batch march as in it, bit for bit, in
+  every geometry the kernel is built for, and teacher-forced within
+  SO3_ATOL."""
+  from samplenerfro_torch.debug import precision_arms
+  spec, data, o, d, so3 = _allstage_inputs(cuda_device, 1000)
+  whole = _bf16_march(spec, data, o, d, so3)
+  for shape in march_kernel.SO3_BF16_SHAPES:
+    got = _bf16_march(spec, data, o[:nrays].contiguous(),
+                      d[:nrays].contiguous(), so3, shape=shape)
+    assert got.shape == (nrays, S, 11)
+    assert torch.equal(got, whole[:nrays]), shape
+  forced = precision_arms.teacher_forced(spec, data, got, H, so3, ALPHA, 10,
+                                         "default", "bfloat16")
+  assert max(forced.values()) <= SO3_ATOL, forced
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,max_deg", [(128, 10), (64, 4)])
+def test_cuda_so3_bf16_head_preacts_are_p3s(cuda_device, width, max_deg):
+  """At every active ray-step the kernel's pre-activations of hidden layers
+  1-3 (its trial build, march_full_preacts) are P3 bf16's bit for bit, at
+  the shipped head and a narrow one (zero units and PE rows in the
+  resident weights); the trial build marches as the kernel does."""
+  from samplenerfro_torch.debug import precision_arms
+  spec, data, o, d, _ = _allstage_inputs(cuda_device, 256)
+  so3 = _so3_params(cuda_device, max_deg=max_deg, width=width)
+  traj = _bf16_march(spec, data, o, d, so3, max_deg)
+  pre, same = precision_arms.k2_preacts_case(spec, data, o, d, NEAR, H, S,
+                                             so3, ALPHA, "default", max_deg,
+                                             traj=traj)
+  assert same
+  active = int((traj[..., 8:11].norm(dim=-1) > 1e-3).sum())
+  assert pre == {"active": active, "flips": [0, 0, 0],
+                 "differ": [0, 0, 0]} and active > 1000
+  forced = precision_arms.teacher_forced(spec, data, traj, H, so3, ALPHA,
+                                         max_deg, "default", "bfloat16")
+  assert max(forced.values()) <= SO3_ATOL, forced
+
+
+@pytest.mark.cuda
+def test_cuda_so3_bf16_head_no_active_step(cuda_device):
+  """Rays that never meet the blob: no ray-step runs the head (the trial
+  build writes no pre-activation), and the march is its plain version's
+  within SO3_ATOL."""
+  spec, data, o, d, so3 = _allstage_inputs(cuda_device, 64)
+  o = o + torch.tensor([0.0, 0.0, -40.0], device=cuda_device)
+  d = -d
+  traj = _bf16_march(spec, data, o, d, so3)
+  assert int((traj[..., 8:11].norm(dim=-1) > 1e-3).sum()) == 0
+  _, pre = march_kernel.march_full_preacts(spec, data, o, d, NEAR, H, S, so3,
+                                           ALPHA)
+  assert all(bool(torch.isnan(p).all()) for p in pre)
+  want = march_kernel.march_full_reference(spec, data, o, d, NEAR, H, S, so3,
+                                           ALPHA, 10, "default", "bfloat16")
+  torch.testing.assert_close(traj, want, atol=SO3_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_so3_bf16_head_is_deterministic(cuda_device):
+  """Two runs at the ship batch's shape, 1024 rays of 768 steps on the
+  ship blob, agree bit for bit."""
+  spec, data, o, d, so3 = _allstage_inputs(cuda_device, 1024)
+  fwd = (spec, data, o, d, NEAR, H / 24, 24 * S, so3, ALPHA, 10, "default",
+         "bfloat16")
+  first = march_kernel.march_full(*fwd)
+  assert torch.equal(first, march_kernel.march_full(*fwd))
+  assert bool(torch.isfinite(first).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nrays,edge", [
     (256, None), (100, None), (100, "none"), (100, "all"), (256, "over"),
