@@ -9,7 +9,10 @@ For each march shape it prints a sha256 digest of the kernel's outputs
 version, the call's time (CUDA events) and the kernel's device time
 (torch.profiler); for K3 and P3, their outputs' digests. Then, for each
 stage, one train step's device time and the steps/s of `--steps` steps
-through train.step.train_step.
+through train.step.train_step. With --fused, the radiance stage through
+the fused MLP (--mlp_kernel=pallas, the ship's bf16 MLPs: K4/K5) instead:
+a step's device ms at K = 1 and at K = 10 (make_train_step_multi; a
+replay of the captured window traced), and the steps/s of each.
 
 Its marches call only what the march wrappers have taken since the port
 began (march_lean with a host jitter, march_full; march_bwd and
@@ -467,17 +470,78 @@ def step_rates(args, scene, device, seed, host, steps):
     torch.cuda.empty_cache()
 
 
+def fused_step_ms(args, scene, device, seed, host, k, windows=3):
+  """The radiance stage with --mlp_kernel=pallas at K = k steps a dispatch
+  (train.step.make_train_step_multi: the first window eager, the second
+  captured, then replays): (device ms a step of the last window, traced
+  by torch.profiler, and steps/s of `windows` windows after the first
+  two), on the repeated host batch with jitters from `seed`."""
+  from samplenerfro_torch.data import prefetch
+  from samplenerfro_torch.train import loop
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as tprofile
+  ndim, nmin, nmax, grid, bindings = scene
+  sargs = argparse.Namespace(**{**vars(args), "stage": "radiance",
+                                "mlp_kernel": "pallas",
+                                "steps_per_dispatch": k})
+  model = nerf.construct_nerf(sargs, ndim, nmin, nmax, grid, bindings,
+                              device=device, seed=seed)
+  optimizer, _, _ = step_lib.create_optimizer(model, sargs)
+  run = step_lib.make_train_step_multi(
+      model, optimizer, sargs, k,
+      torch.Generator(device=device).manual_seed(seed))
+  jit = torch.Generator().manual_seed(seed + 1)
+  dataset = iter(lambda: host, None)
+  first = TRAIN_FROM + 1
+  batches = []
+  for _ in range(windows + 3):
+    batches.append(prefetch.to_device(loop.host_window(
+        dataset, first, first + k - 1, sargs, optimizer, jit), device))
+    first += k
+  run(batches[0])
+  run(batches[1])
+  torch.cuda.synchronize()
+  t0 = time.time()
+  for b in batches[2:2 + windows]:
+    run(b)
+  torch.cuda.synchronize()
+  rate = windows * k / (time.time() - t0)
+  with tprofile(activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+    run(batches[-1])
+    torch.cuda.synchronize()
+  step_ms = step_device_us(prof.key_averages()) / 1e3 / k
+  del model, optimizer, run, batches
+  torch.cuda.empty_cache()
+  return step_ms, rate
+
+
 def main():
   p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   p.add_argument("--seed", type=int, default=0)
   p.add_argument("--steps", type=int, default=200,
                  help="train steps timed per stage")
+  p.add_argument("--fused", action="store_true",
+                 help="time the fused-MLP radiance step at K = 1 and 10 "
+                 "instead")
   ns = p.parse_args()
   if not torch.cuda.is_available():
     raise SystemExit("march_parity: no CUDA device")
   t_start = time.time()
   card = card_name()
   device = torch.device("cuda")
+  if ns.fused:
+    args, model, scene = ship_model(device, ns.seed)
+    host = ship_inputs(args, ns.seed, device)[3]
+    del model
+    for k in (1, 10):
+      step_ms, rate = fused_step_ms(args, scene, device, ns.seed, host, k)
+      log(f"fused radiance step (--mlp_kernel=pallas, {args.mlp_dtype} "
+          f"MLPs), K = {k}: {step_ms:.3f} ms of device time a step, "
+          f"{rate:.3f} steps/s")
+    log(f"total: {time.time() - t_start:.1f} s")
+    log(f"card: {card}")
+    return
   args, model, scene = ship_model(device, ns.seed, march_bwd_dtype="float32",
                                   march_interp="highest")
   _, jitter, first, host, batch_rays = ship_inputs(args, ns.seed, device)

@@ -2,10 +2,19 @@
 
 K4 and K5 (csrc/mlp_fwd.cu, csrc/mlp_bwd.cu) multiply exact bf16 products
 and sum them in fp32, as the plain versions (ops/mlp_kernel.py) do, but in
-another order, and on tensor cores each mma step rounds its own sum. Every
-stored activation and cotangent is then rounded to bf16, so a sum that
-lands on the other side of a bf16 rounding boundary stores the other
-neighbour (a flip), which every later layer of that row carries.
+another order: on tensor cores, the warpgroup engine keeps each product's
+running sum in wgmma's accumulator, the mma.sync engine (wide tiles) sums
+each k16 step from zero and adds it in fp32. Every stored activation and
+cotangent is then rounded to bf16, so a sum that lands on the other side
+of a bf16 rounding boundary stores the other neighbour (a flip), which
+every later layer of that row carries. The forward recomputes the outputs
+whose sum lands near a rounding midpoint in the plain version's k order,
+which removes most of its flips; the cotangents keep the tensor core's.
+K5 recomputes K4's forward through the same code, so it differentiates
+K4's activations bit for bit (F2 = 0); held against the plain backward
+taken at those activations (fused_nerf_mlp_bwd_reference(at=)) it stays
+inside its tolerance, while free-running the forward's remaining flips
+and the cotangents' move it past.
 
 stage_report compares K5's stored values (mlp_kernel.stored_values) with
 the plain version's, stage by stage, and both with a float64 twin of the
@@ -14,17 +23,20 @@ from exact sums, and how far the two chains have drifted apart. Then each
 layer's weight gradient, in units of the K5 bf16 tolerance.
 
     python -m samplenerfro_torch.debug.mlp_rounding [--rows=196608]
+    python -m samplenerfro_torch.debug.mlp_rounding --digests
 
-runs that report for the shipped kernels and for their rounding trials
-(mlp_kernel.TRIAL_DEFINES): K4's bf16 forward on tensor cores, tensor-core
-products that keep their running sum inside the tensor core, and K5's
-recompute on tensor cores, at the ship width on random samples; with
-K4-bf16's and K5-bf16's errors against their plain versions and their
-times. It needs a CUDA card. forward_disagreement counts where K4's
-stored activations and K5's recompute differ.
+The first runs that report at the ship width on random samples, with
+K4-bf16's error against its plain version, K5-bf16's ratio to its
+tolerance free-running and at K4's activations, their times and the F2
+count (forward_disagreement). --digests prints sha256 digests of K4 in
+fp32 (fed and pe) at the render's fine-call rows (1,572,864) and of K5 in
+fp32 at the train fine call's, on seeded inputs; it uses only mlp_fwd and
+mlp_bwd, so a copy of this file run in an older checkout gives that
+tree's digests. Both need a CUDA card.
 """
 
 import argparse
+import hashlib
 
 import numpy as np
 import torch
@@ -36,18 +48,8 @@ from samplenerfro_torch.ops import mlp_kernel
 # K5-bf16's tolerance: 2e-3 of each plain tensor's largest |value|
 # (chip_smoke.py, tests/test_torch_cuda.py).
 K5_BF16_SCALE = 2e-3
-K4_TENSOR = "FUSED_MLP_K4_TENSOR_FORWARD=1"
-TRIALS = (
-    ("shipped", ()),
-    ("K4-bf16 on tensor cores (the earlier K4)", (K4_TENSOR,)),
-    ("tensor-core running sums",
-     (K4_TENSOR, "FUSED_MLP_MMA_RUNNING_SUM=1")),
-    ("K5 recompute on tensor cores",
-     (K4_TENSOR, "FUSED_MLP_K5_TENSOR_FORWARD=1")),
-    ("all on tensor cores, running sums",
-     (K4_TENSOR, "FUSED_MLP_K5_TENSOR_FORWARD=1",
-      "FUSED_MLP_MMA_RUNNING_SUM=1")),
-)
+# The render's fine call: 8192 rays x 192 samples.
+RENDER_ROWS = 1572864
 
 
 def stage_out(spec, w, b, src, name, acc):
@@ -177,24 +179,24 @@ def stage_report(spec, params, x, c, drgb, dsigma, scale=K5_BF16_SCALE,
   return worst
 
 
-def forward_disagreement(spec, params, x, c, drgb, dsigma, dtype,
-                         k4_defines=()):
+def forward_disagreement(spec, params, x, c, drgb, dsigma, dtype):
   """Per stored activation (mlp_kernel.forward_activations' names), the
-  count of elements where K4's forward (built with k4_defines) and K5's
-  recompute store different values, at the same rows: {name: count}."""
-  saved = mlp_kernel.TRIAL_DEFINES
+  count of elements where K4's forward and K5's recompute store different
+  values, at the same rows: {name: count}."""
   acts = {}
-  try:
-    mlp_kernel.TRIAL_DEFINES = tuple(k4_defines)
-    mlp_kernel.mlp_fwd(spec, params, x, c, dtype, acts=acts)
-  finally:
-    mlp_kernel.TRIAL_DEFINES = saved
+  mlp_kernel.mlp_fwd(spec, params, x, c, dtype, acts=acts)
   stash, n = {}, x.shape[0]
   mlp_kernel.mlp_bwd(spec, params, x, c, drgb, dsigma, dtype,
                      super_rows=-(-n // 128) * 128, stash=stash)
   stored = mlp_kernel.stored_values(spec, stash, n)
   return {name: int((acts[name] != stored[name]).sum())
           for name, _, _ in mlp_kernel.forward_activations(spec)}
+
+
+def k5_ratio(got, want, scale=K5_BF16_SCALE):
+  """The worst of |got - want| / (scale * max |want|) over the tensors."""
+  return max(float((g - w).abs().max()) / (scale * float(w.abs().max()))
+             for g, w in zip(got, want))
 
 
 def _ms(fn, reps=5):
@@ -211,57 +213,101 @@ def _ms(fn, reps=5):
   return float(np.median(times))
 
 
+def ship_mlp(seed, dev):
+  """The ship NerfMLP (8 x 256, skip 4, 63 + 27 inputs) with weights from
+  seed: (spec, params on dev)."""
+  mlp = mlp_modules.NerfMLP(63, 27, net_depth=8, net_width=256, skip_layer=4,
+                            generator=torch.Generator().manual_seed(seed))
+  params = [t.detach().to(dev) for t in mlp_kernel.mlp_params(mlp)]
+  return mlp_kernel.mlp_spec(mlp), params
+
+
+def samples(rows, seed, dev):
+  """Raw points in [-1.5, 1.5]^3, unit view directions and cotangents of
+  std 1e-3, from seed: (pts, dirs, drgb, dsigma) on dev."""
+  rng = np.random.RandomState(seed + 1)
+  pts = rng.uniform(-1.5, 1.5, (rows, 3)).astype(np.float32)
+  dirs = rng.randn(rows, 3).astype(np.float32)
+  dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+  drgb = 1e-3 * rng.randn(rows, 3).astype(np.float32)
+  dsigma = 1e-3 * rng.randn(rows, 1).astype(np.float32)
+  return tuple(torch.from_numpy(a).to(dev) for a in (pts, dirs, drgb,
+                                                       dsigma))
+
+
+def digest(tensors):
+  h = hashlib.sha256()
+  for t in tensors:
+    h.update(t.detach().contiguous().cpu().numpy().tobytes())
+  return h.hexdigest()[:16]
+
+
+def fp32_digests(seed, dev, rows=196608, render_rows=RENDER_ROWS):
+  """{name: sha256} of K4 fp32 fed and pe at render_rows and of K5 fp32 at
+  rows, the ship MLP on seeded samples."""
+  spec, params = ship_mlp(seed, dev)
+  spec_pe = spec._replace(pe=(10, 4))
+  f32 = torch.float32
+  pts, dirs, _, _ = samples(render_rows, seed, dev)
+  x = math_ops.pe_cols(pts, 10).contiguous()
+  c = math_ops.pe_cols(dirs, 4).contiguous()
+  out = {"K4 fp32 fed": digest(mlp_kernel.mlp_fwd(spec, params, x, c, f32)),
+         "K4 fp32 pe": digest(mlp_kernel.mlp_fwd(spec_pe, params, pts, dirs,
+                                                 f32))}
+  del x, c
+  pts, dirs, drgb, dsigma = samples(rows, seed, dev)
+  x = math_ops.pe_cols(pts, 10).contiguous()
+  c = math_ops.pe_cols(dirs, 4).contiguous()
+  out["K5 fp32"] = digest(mlp_kernel.mlp_bwd(spec, params, x, c, drgb,
+                                             dsigma, f32))
+  return out
+
+
 def main():
   p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   p.add_argument("--rows", type=int, default=196608,
                  help="MLP rows (the ship train batch's fine call: 1024 "
                  "rays x 192 samples)")
   p.add_argument("--seed", type=int, default=0)
+  p.add_argument("--digests", action="store_true",
+                 help="print the fp32 arms' digests instead")
   ns = p.parse_args()
   if not torch.cuda.is_available():
     raise SystemExit("mlp_rounding: needs a CUDA card")
   dev = torch.device("cuda")
-  mlp = mlp_modules.NerfMLP(63, 27, net_depth=8, net_width=256, skip_layer=4,
-                            generator=torch.Generator().manual_seed(ns.seed))
-  params = [t.detach().to(dev) for t in mlp_kernel.mlp_params(mlp)]
-  spec = mlp_kernel.mlp_spec(mlp)
-  rng = np.random.RandomState(ns.seed + 1)
-  pts = rng.uniform(-1.5, 1.5, (ns.rows, 3)).astype(np.float32)
-  dirs = rng.randn(ns.rows, 3).astype(np.float32)
-  dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-  x = math_ops.pe_cols(torch.from_numpy(pts).to(dev), 10).contiguous()
-  c = math_ops.pe_cols(torch.from_numpy(dirs).to(dev), 4).contiguous()
-  drgb = torch.from_numpy(1e-3 * rng.randn(ns.rows, 3).astype(np.float32))
-  dsigma = torch.from_numpy(1e-3 * rng.randn(ns.rows, 1).astype(np.float32))
-  drgb, dsigma = drgb.to(dev), dsigma.to(dev)
+  card = torch.cuda.get_device_name(0)
+  if ns.digests:
+    for name, value in fp32_digests(ns.seed, dev, ns.rows).items():
+      print(f"digest {name}: {value} ({card})", flush=True)
+    return
+  spec, params = ship_mlp(ns.seed, dev)
+  pts, dirs, drgb, dsigma = samples(ns.rows, ns.seed, dev)
+  x = math_ops.pe_cols(pts, 10).contiguous()
+  c = math_ops.pe_cols(dirs, 4).contiguous()
   bf16 = torch.bfloat16
   want4 = torch.cat(mlp_kernel.fused_nerf_mlp_reference(spec, params, x, c,
                                                         bf16), -1)
   want5 = mlp_kernel.fused_nerf_mlp_bwd_reference(spec, params, x, c, drgb,
                                                   dsigma, bf16)
   pack = mlp_kernel.pack_params(params, bf16)
-  saved = mlp_kernel.TRIAL_DEFINES
-  try:
-    for what, defines in TRIALS:
-      mlp_kernel.TRIAL_DEFINES = defines
-      err = (torch.cat(mlp_kernel.mlp_fwd(spec, params, x, c, bf16), -1)
-             - want4).abs()
-      ms4 = _ms(lambda: mlp_kernel.mlp_fwd(spec, params, x, c, bf16,
-                                           pack=pack))
-      got = mlp_kernel.mlp_bwd(spec, params, x, c, drgb, dsigma, bf16)
-      ratio = max(float((g - w).abs().max()) / (K5_BF16_SCALE
-                                                * float(w.abs().max()))
-                  for g, w in zip(got, want5))
-      ms5 = _ms(lambda: mlp_kernel.mlp_bwd(spec, params, x, c, drgb, dsigma,
-                                           bf16, pack=pack))
-      print(f"{what} {list(defines)}: K4-bf16 max abs err "
-            f"{float(err.max()):.3e}, mean {float(err.mean()):.3e}, "
-            f"{ms4:.4f} ms; K5-bf16 at {ratio:.3f} of its tolerance, "
-            f"{ms5:.4f} ms ({ns.rows} rows, {torch.cuda.get_device_name(0)})",
-            flush=True)
-      stage_report(spec, params, x, c, drgb, dsigma)
-  finally:
-    mlp_kernel.TRIAL_DEFINES = saved
+  acts = {}
+  err = (torch.cat(mlp_kernel.mlp_fwd(spec, params, x, c, bf16, acts=acts),
+                   -1) - want4).abs()
+  ms4 = _ms(lambda: mlp_kernel.mlp_fwd(spec, params, x, c, bf16, pack=pack))
+  got = mlp_kernel.mlp_bwd(spec, params, x, c, drgb, dsigma, bf16)
+  ratio = k5_ratio(got, want5)
+  forced = k5_ratio(got, mlp_kernel.fused_nerf_mlp_bwd_reference(
+      spec, params, x, c, drgb, dsigma, bf16, at=acts))
+  del acts
+  ms5 = _ms(lambda: mlp_kernel.mlp_bwd(spec, params, x, c, drgb, dsigma,
+                                       bf16, pack=pack))
+  f2 = forward_disagreement(spec, params, x, c, drgb, dsigma, bf16)
+  print(f"K4-bf16 max abs err {float(err.max()):.3e}, mean "
+        f"{float(err.mean()):.3e}, {ms4:.4f} ms; K5-bf16 at {ratio:.3f} of "
+        f"its tolerance free-running, {forced:.3f} at K4's activations, "
+        f"{ms5:.4f} ms; F2 {sum(f2.values())} {f2} ({ns.rows} rows, {card})",
+        flush=True)
+  stage_report(spec, params, x, c, drgb, dsigma)
 
 
 if __name__ == "__main__":

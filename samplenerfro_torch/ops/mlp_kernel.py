@@ -40,11 +40,13 @@ MAX_DEPTH = 20
 IN_PAD = 32      # feature and condition widths padded to this in the kernels
 OUT_COLS = 8     # the cotangent's columns, padded (csrc/mlp_common.cuh)
 # Rows of a K5 super-tile: each block adds its weight gradients into its
-# partial once per this many rows (csrc/mlp_bwd.cu).
+# partial once per this many rows (csrc/mlp_bwd.cu). The warpgroup
+# engine's are twice as many, so that the ship's train fine call (196,608
+# rows, 1,490 a block) takes one and its partial is only stored.
 SUPER_ROWS = 1024
-# `-D` switches the kernels are built with: empty in use; the rounding
-# trials of debug/mlp_rounding.py set them (csrc/mlp_common.cuh,
-# csrc/mlp_bwd.cu).
+SUPER_ROWS_WARPGROUP = 2048
+# `-D` switches the kernels are built with: empty in use; the trial of
+# debug/k5_scratch_cost.py sets one (csrc/mlp_bwd.cu).
 TRIAL_DEFINES = ()
 
 # The static geometry of a fused MLP: trunk depth and width, skip period,
@@ -121,8 +123,20 @@ def mlp_params(mlp):
 # kernel's layout) and output-major (wnk, [out, kp] with each row of `in`
 # weights padded with zeros to kp = `in` rounded up to 16, so that rows
 # start on 16 bytes for K5's dZ W^T products), each concatenated in layer
-# order in the compute type, and the biases concatenated in fp32.
-Pack = collections.namedtuple("Pack", ("wkn", "wnk", "bias"))
+# order in the compute type, the biases concatenated in fp32, and the
+# warpgroup engine's weight slabs (slab_pack; empty where the kernels run
+# no warpgroup products).
+Pack = collections.namedtuple("Pack", ("wkn", "wnk", "bias", "slabs"))
+
+# The warpgroup engine's weight slabs (csrc/mlp_common.cuh: kSlabK,
+# kSlabN): SLAB_K inputs of SLAB_N outputs, K-major, in the 128-byte
+# swizzle of wgmma's shared-memory operands.
+SLAB_K, SLAB_N = 64, 128
+SLAB_BYTES = SLAB_K * SLAB_N * 2
+# Shared memory a block may use, and the most slabs the feed's ring holds
+# (csrc/mlp_common.cuh: kMaxSmem, kMaxFeedStages).
+MAX_SMEM = 232448
+MAX_FEED_STAGES = 4
 
 
 def wnk_row_len(k):
@@ -138,7 +152,109 @@ def pack_params(params, dtype):
       torch.nn.functional.pad(w, (0, wnk_row_len(w.shape[1]) - w.shape[1]))
       .reshape(-1) for w in weights]).to(dtype)
   bias = torch.cat([b.detach().reshape(-1) for b in params[1::2]]).float()
-  return Pack(wkn.contiguous(), wnk.contiguous(), bias.contiguous())
+  spec = _params_geometry(params)
+  slabs = (slab_pack(spec, params) if warpgroup(spec, dtype) else
+           torch.empty((0,), dtype=dtype, device=wkn.device))
+  return Pack(wkn.contiguous(), wnk.contiguous(), bias.contiguous(), slabs)
+
+
+def _params_geometry(params):
+  """An MlpSpec of the layer shapes of a flat [W_0, b_0, ...], enough for
+  wide() and slab_pack (its skip and pe, which neither reads, set to 1 and
+  None)."""
+  w = params[0::2]
+  d = len(w) - 4
+  width, cond_width = w[0].shape[0], w[d + 2].shape[0]
+  return MlpSpec(d, width, 1, w[0].shape[1], w[d + 2].shape[1] - width,
+                 cond_width, w[d + 3].shape[0], w[d].shape[0], None)
+
+
+def warpgroup(spec, dtype):
+  """Whether K4 and K5 run this geometry's layers, and K5 its cotangents,
+  as warpgroup products (wgmma) on fed weight slabs: bf16 tiles that are
+  not wide. Wide bf16 tiles run mma.sync, fp32 the CUDA cores."""
+  return dtype == torch.bfloat16 and not wide(spec)
+
+
+def slab_products(spec):
+  """[(layer, outputs, inputs, transposed)] of the products the slab pack
+  holds, in the kernels' order: the forward's layers (trunk, bottleneck,
+  condition layer: `outputs` x `inputs` of weight [out, in]), then K5's
+  cotangents (the condition layer's, the bottleneck's, the trunk's from
+  the last to the second: the first `width` inputs of the layer are the
+  product's outputs and its outputs the product's k, weight transposed)."""
+  d, w = spec.depth, spec.width
+  dims = layer_dims(spec)
+  fwd = [(l, dims[l][1], dims[l][0], False)
+         for l in list(range(d)) + [d + 1, d + 2]]
+  cot = [(l, w, dims[l][1], True) for l in [d + 2, d + 1]
+         + list(range(d - 1, 0, -1))]
+  return fwd + cot
+
+
+def slab_counts(spec):
+  """(forward slabs, cotangent slabs) of the slab pack (csrc/
+  mlp_common.cuh: Spec.fwd_slabs, Spec.cot_slabs)."""
+  counts = [0, 0]
+  for _, n, k, transposed in slab_products(spec):
+    counts[transposed] += -(-k // SLAB_K) * (n // SLAB_N)
+  return tuple(counts)
+
+
+def slab_pack(spec, params):
+  """The warpgroup engine's bf16 weight slabs, flat, in the order K4 and
+  K5 take them (slab_products): per product, per panel of SLAB_N outputs,
+  per SLAB_K-slab of its inputs (zero past them), a [SLAB_N, SLAB_K]
+  K-major block whose element (c, k) sits at c * SLAB_K + ((k // 8) ^
+  (c % 8)) * 8 + k % 8 (csrc/mlp_common.cuh: desc_sw128)."""
+  if wide(spec):
+    raise ValueError("slab_pack: a wide geometry (layers past 256 or more "
+                     "than 128 padded input columns) runs no warpgroup "
+                     "products")
+  weights = [w.detach() for w in params[0::2]]
+  dev = weights[0].device
+  chunk = torch.arange(8, device=dev)
+  # Stored chunk p of row c holds chunk p ^ (c % 8).
+  swz = chunk[None, :] ^ (torch.arange(SLAB_N, device=dev) % 8)[:, None]
+  out = []
+  for l, _, _, transposed in slab_products(spec):
+    w = weights[l].t()[:spec.width] if transposed else weights[l]
+    n, k = w.shape
+    kp = -(-k // SLAB_K) * SLAB_K
+    w = torch.nn.functional.pad(w.to(torch.bfloat16), (0, kp - k))
+    w = w.reshape(n // SLAB_N, SLAB_N, kp // SLAB_K, 8, 8).transpose(1, 2)
+    w = torch.gather(w, 3, swz[None, None, :, :, None].expand(w.shape))
+    out.append(w.reshape(-1))
+  return torch.cat(out).contiguous()
+
+
+def shared_bytes(spec, dtype, kernel):
+  """(bytes, feed stages) of the shared memory a block of `kernel`
+  ("mlp_fwd" or "mlp_bwd") takes (csrc/mlp_common.cuh: tile_bytes,
+  csrc/mlp_bwd.cu: smem_bytes), the feed holding as many slabs as fit up
+  to MAX_FEED_STAGES (0 without the warpgroup engine)."""
+  if kernel not in ("mlp_fwd", "mlp_bwd"):
+    raise ValueError(f"shared_bytes: kernel {kernel!r} is not mlp_fwd or "
+                     f"mlp_bwd")
+  size = 2 if dtype == torch.bfloat16 else 4
+  rows, pad = tile_rows(spec, dtype), 16 // size
+  maxw = max(spec.width, spec.cond_width)
+  bufs = size * (2 * rows * (maxw + pad) + rows * (
+      feature_cols(spec.feat) + pad + feature_cols(spec.cond) + pad))
+  group = warpgroup(spec, dtype)
+  extra = 0
+  if kernel == "mlp_bwd":
+    extra = (4 + size) * rows * OUT_COLS + 4 * (8 * SLAB_N if group
+                                                 else 2 * 256)
+    if group:  # the sigma head's weights, copied
+      extra += size * spec.num_sigma * spec.width
+  if not group:
+    slab = 16 if size == 4 else 32
+    return bufs + size * 3 * slab * (min(maxw, 256) + pad) + extra, 0
+  for stages in range(MAX_FEED_STAGES, 1, -1):
+    total = 1024 + stages * SLAB_BYTES + 128 + bufs + extra
+    if total <= MAX_SMEM or stages == 2:
+      return total, stages
 
 
 def unpack_grads(spec, flat):
@@ -288,8 +404,8 @@ def wide(spec):
 
 
 def tile_rows(spec, dtype):
-  """Rows of K5's row tile (csrc/mlp_common.cuh:Policy): 128 in bf16, 64
-  in fp32, a quarter of that for a wide geometry."""
+  """Rows of K4's and K5's row tile (csrc/mlp_common.cuh:Policy): 128 in
+  bf16, 64 in fp32, a quarter of that for a wide geometry."""
   rows = 128 if dtype == torch.bfloat16 else 64
   return rows // 4 if wide(spec) else rows
 
@@ -356,11 +472,13 @@ def _pack_for(spec, params, dtype, pack):
   if pack is None:
     return pack_params(params, dtype)
   dims = layer_dims(spec)
+  slabs = sum(slab_counts(spec)) if warpgroup(spec, dtype) else 0
   want = (sum(k * n for k, n in dims),
-          sum(wnk_row_len(k) * n for k, n in dims), sum(n for _, n in dims))
+          sum(wnk_row_len(k) * n for k, n in dims), sum(n for _, n in dims),
+          slabs * SLAB_K * SLAB_N)
   got = tuple(t.numel() for t in pack)
   if (got != want or pack.wkn.dtype != dtype or pack.wnk.dtype != dtype
-      or pack.bias.dtype != torch.float32
+      or pack.bias.dtype != torch.float32 or pack.slabs.dtype != dtype
       or any(t.device != params[0].device for t in pack)):
     raise ValueError(f"a pack of {got} {pack.wkn.dtype} values on "
                      f"{pack.wkn.device} does not fit this MLP in {dtype}")
@@ -404,6 +522,12 @@ def stored_values(spec, stash, rows):
       scratch[b, sr * col:sr * col + (hi - lo) * width].view(hi - lo, width)
       for b, (lo, hi) in enumerate(zip(bounds, bounds[1:]))])
           for name, col, width in scratch_sections(spec)}
+
+
+def default_super_rows(spec, dtype):
+  """mlp_bwd's super-tile rows: SUPER_ROWS_WARPGROUP for the warpgroup
+  engine, else SUPER_ROWS."""
+  return SUPER_ROWS_WARPGROUP if warpgroup(spec, dtype) else SUPER_ROWS
 
 
 def _dtype_of(dtype):
@@ -452,7 +576,7 @@ def mlp_fwd(spec, params, x, cond, dtype, pack=None, acts=None):
   if dev.type != "cuda":
     raise ValueError(f"mlp_fwd runs on CUDA or CPU tensors, not {dev}")
   _check(spec, x, cond, params, "mlp_fwd")
-  wkn, _, bias = _pack_for(spec, params, dtype, pack)
+  wkn, wnk, bias, slabs = _pack_for(spec, params, dtype, pack)
   rows, out_dim = x.shape[0], spec.num_rgb + spec.num_sigma
   out = torch.empty((rows, out_dim), dtype=torch.float32, device=dev)
   stored = None
@@ -463,6 +587,8 @@ def mlp_fwd(spec, params, x, cond, dtype, pack=None, acts=None):
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.mlp_fwd_launch(x.data_ptr(), cond.data_ptr(), wkn.data_ptr(),
+                             wnk.data_ptr(), wnk.numel(),
+                             _ptr(slabs), slabs.numel() // (SLAB_K * SLAB_N),
                              bias.data_ptr(), out.data_ptr(),
                              stored.data_ptr() if stored is not None else None,
                              rows, *_spec_args(spec, dtype), stream)
@@ -480,7 +606,7 @@ mlp_fwd.launches = 0
 
 
 def mlp_bwd(spec, params, x, cond, drgb, dsigma, dtype, pack=None,
-            super_rows=SUPER_ROWS, stash=None):
+            super_rows=None, stash=None):
   """K5: the flat fp32 [dW_0, db_0, ...] (nn.Linear layout) from the
   cotangents of mlp_fwd's outputs; arguments as mlp_fwd. super_rows, a
   multiple of the tile's rows, sizes the super-tiles over which each
@@ -504,10 +630,12 @@ def mlp_bwd(spec, params, x, cond, drgb, dsigma, dtype, pack=None,
     raise ValueError(f"mlp_bwd: cotangents of shape {tuple(drgb.shape)} "
                      f"and {tuple(dsigma.shape)} do not fit {rows} rows")
   tile = tile_rows(spec, dtype)
+  if super_rows is None:
+    super_rows = default_super_rows(spec, dtype)
   if super_rows <= 0 or super_rows % tile:
     raise ValueError(f"mlp_bwd: super_rows must be a positive multiple of "
                      f"{tile}, got {super_rows}")
-  wkn, wnk, bias = _pack_for(spec, params, dtype, pack)
+  wkn, wnk, bias, slabs = _pack_for(spec, params, dtype, pack)
   count = wkn.numel() + bias.numel()
   if rows == 0:
     return unpack_grads(spec, torch.zeros((count,), dtype=torch.float32,
@@ -525,7 +653,8 @@ def mlp_bwd(spec, params, x, cond, drgb, dsigma, dtype, pack=None,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.mlp_bwd_launch(
         x.data_ptr(), cond.data_ptr(), dout.data_ptr(), wkn.data_ptr(),
-        wnk.data_ptr(), bias.data_ptr(), scratch.data_ptr(),
+        wnk.data_ptr(), _ptr(slabs), slabs.numel() // (SLAB_K * SLAB_N),
+        bias.data_ptr(), scratch.data_ptr(),
         partial.data_ptr(), grads.data_ptr(), rows, blocks, super_rows,
         *_spec_args(spec, dtype), wnk.numel(), stream)
   if err != 0:
@@ -584,6 +713,11 @@ def fused_nerf_mlp(mlp, x, cond, *, dtype, pe=None):
                             *mlp_params(mlp))
 
 
+def _ptr(t):
+  """A tensor's address for a kernel, None for an empty one."""
+  return t.data_ptr() if t.numel() else None
+
+
 def _library(name):
   lib = cuda_build.load(name, TRIAL_DEFINES)
   fn = getattr(lib, f"{name}_launch")
@@ -591,8 +725,10 @@ def _library(name):
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     spec = [ci] * 10 + [cl]
     if name == "mlp_fwd":
-      fn.argtypes = [vp] * 6 + [cl] + spec + [vp]
+      fn.argtypes = ([vp] * 4 + [cl, vp, cl] + [vp] * 3 + [cl] + spec
+                     + [vp])
     else:
-      fn.argtypes = [vp] * 9 + [cl, ci, ci] + spec + [cl, vp]
+      fn.argtypes = ([vp] * 6 + [cl] + [vp] * 4 + [cl, ci, ci] + spec
+                     + [cl, vp])
     fn.restype = ci
   return lib

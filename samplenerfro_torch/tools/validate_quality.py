@@ -3,6 +3,7 @@
     python -m samplenerfro_torch.tools.validate_quality [--steps 2000] \
         [--batching single_image|tile] [--tile_stride 1] [--tile_images] \
         [--batch_size 1024] [--mlp_dtype float32|bfloat16] \
+        [--mlp_kernel xla|pallas|pallas_pe] [--steps_per_dispatch 1] \
         [--march_interp highest|high|default] \
         [--all_steps 0] [--march_interp_all inherit|highest|high|default] \
         [--march_bwd_dtype float32|bfloat16] [--all_tag TAG] [--ipe] \
@@ -15,7 +16,10 @@ main, evaluates the test views through eval's main, and prints
 `RESULT <tag>: PSNR = <mean>, SSIM = <mean>`. --ipe featurizes the
 samples with mip-NeRF's integrated positional encoding
 (`NerfModel.use_ipe = True` in the gin file, as the JAX script writes it)
-and tags the run `_ipe`. --seed seeds the weights, the batches, the
+and tags the run `_ipe`. --mlp_kernel trains and scores the radiance
+MLPs through that path (`pallas`, `pallas_pe`: the fused kernels K4/K5,
+tagged `_<value>`). --steps_per_dispatch runs the training steps K a
+dispatch (train's flag; bit for bit K = 1, so the tag stays). --seed seeds the weights, the batches, the
 density noise and the jitters (train's and eval's --seed) and tags the
 run `_s<seed>`; 0 keeps the draws of a run without it. --march_interp
 trains and scores the radiance stage at that interpolation precision
@@ -40,6 +44,7 @@ import time
 from samplenerfro_torch import eval as eval_lib
 from samplenerfro_torch.tools import synth
 from samplenerfro_torch.train import loop as train_loop
+from samplenerfro_torch.utils import config as config_lib
 
 CONFIG_YAML = """\
 dataset: blender
@@ -103,6 +108,13 @@ def parse_args(argv=None):
                  help="sample each training tile from an independent image")
   p.add_argument("--mlp_dtype", default="float32",
                  choices=["float32", "bfloat16"])
+  p.add_argument("--mlp_kernel", default="xla",
+                 choices=list(config_lib.MLP_KERNELS),
+                 help="the radiance MLPs' path: nn.Linear (xla) or the "
+                 "fused kernels")
+  p.add_argument("--steps_per_dispatch", type=int, default=1,
+                 help="training steps a dispatch (a divisor of --steps, "
+                 "--all_steps and 100)")
   p.add_argument("--all_steps", type=int, default=0,
                  help="after the radiance stage, train the 'all' stage "
                  "from its checkpoint for this many more steps")
@@ -138,6 +150,8 @@ def run_tag(args):
     tag += f"_b{args.batch_size}"
   if args.mlp_dtype != "float32":
     tag += f"_{args.mlp_dtype}"
+  if args.mlp_kernel != "xla":
+    tag += f"_{args.mlp_kernel}"
   if args.tile_stride != 1:
     tag += f"_ts{args.tile_stride}"
   if args.tile_images:
@@ -161,6 +175,8 @@ def write_config(args, cfg_base):
                                batch_size=args.batch_size,
                                anneal_max=anneal_max))
     f.write(f"mlp_dtype: {args.mlp_dtype}\n")
+    f.write(f"mlp_kernel: {args.mlp_kernel}\n")
+    f.write(f"steps_per_dispatch: {args.steps_per_dispatch}\n")
   with open(cfg_base + ".gin", "w") as f:
     f.write(GIN)
     if args.ipe:

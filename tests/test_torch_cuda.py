@@ -397,6 +397,20 @@ def test_cuda_fused_mlp_forward_matches_plain_version(cuda_device, dtype, pe,
     assert float(err.mean()) <= K4_BF16_MEAN
 
 
+def _k5_want(spec, params, x, c, drgb, dsigma, dtype):
+  """The plain K5's gradients K5 is held to: in fp32 its own, in bf16 at
+  the activations K4 stored (fused_nerf_mlp_bwd_reference's `at`), whose
+  tensor-core sums round some pre-activations to the other bf16 neighbour
+  than the plain version's do."""
+  from samplenerfro_torch.ops import mlp_kernel
+  acts = None
+  if dtype == torch.bfloat16:
+    acts = {}
+    mlp_kernel.mlp_fwd(spec, params, x, c, dtype, acts=acts)
+  return mlp_kernel.fused_nerf_mlp_bwd_reference(spec, params, x, c, drgb,
+                                                 dsigma, dtype, at=acts)
+
+
 def _assert_mlp_grads(got, want, frac):
   for i, (g, w) in enumerate(zip(got, want)):
     assert g.shape == w.shape
@@ -414,7 +428,8 @@ def test_cuda_fused_mlp_backward_matches_plain_version(cuda_device, dtype,
   """K5 against its plain version, per tensor at a fraction of its scale:
   1e-4 in fp32 (summation order only), 2e-2 in bf16 (a pre-activation
   rounded to the other bf16 neighbour moves its row's contributions by an
-  ulp, and a ReLU mask near 0 may flip)."""
+  ulp, and a ReLU mask near 0 may flip). bf16 is held at K4's activations
+  (_k5_want): K5 differentiates the forward K4 ran on tensor cores."""
   from samplenerfro_torch.ops import mlp_kernel
   spec, params, x, c = _mlp_case(cuda_device, n, pe, seed=3)
   gen = torch.Generator().manual_seed(4)
@@ -424,8 +439,7 @@ def test_cuda_fused_mlp_backward_matches_plain_version(cuda_device, dtype,
   got = mlp_kernel.mlp_bwd(spec, params, x, c, drgb, dsigma, dtype)
   torch.cuda.synchronize()
   assert mlp_kernel.mlp_bwd.launches == before + 1
-  want = mlp_kernel.fused_nerf_mlp_bwd_reference(spec, params, x, c, drgb,
-                                                 dsigma, dtype)
+  want = _k5_want(spec, params, x, c, drgb, dsigma, dtype)
   _assert_mlp_grads(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
   again = mlp_kernel.mlp_bwd(spec, params, x, c, drgb, dsigma, dtype)
   assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -447,8 +461,9 @@ def test_cuda_fused_mlp_backward_matches_plain_version(cuda_device, dtype,
     (torch.bfloat16, None, 39601, 128, 4, 2, 256)])
 def test_cuda_fused_mlp_tiling(cuda_device, dtype, pe, n, width, depth, skip,
                                super_rows):
-  """K4 and K5 against their plain versions at the tolerances above, K5
-  bit for bit across two runs, at the edges of the new tiling."""
+  """K4 and K5 against their plain versions at the tolerances above (K5 in
+  bf16 at K4's activations), K5 bit for bit across two runs, at the edges
+  of the new tiling."""
   from samplenerfro_torch.ops import mlp_kernel
   spec, params, x, c = _mlp_case(cuda_device, n, pe, depth=depth,
                                  width=width, skip=skip, seed=5)
@@ -466,7 +481,7 @@ def test_cuda_fused_mlp_tiling(cuda_device, dtype, pe, n, width, depth, skip,
   dsigma = torch.randn((n, 1), generator=gen).to(cuda_device)
   args = (spec, params, x, c, drgb, dsigma, dtype)
   grads = mlp_kernel.mlp_bwd(*args, super_rows=super_rows)
-  _assert_mlp_grads(grads, mlp_kernel.fused_nerf_mlp_bwd_reference(*args),
+  _assert_mlp_grads(grads, _k5_want(*args),
                     1e-4 if dtype == torch.float32 else 2e-2)
   again = mlp_kernel.mlp_bwd(*args, super_rows=super_rows)
   assert all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -744,6 +759,55 @@ def test_cuda_k5_recomputes_k4_activations(cuda_device, width, deg, pe):
   stored = mlp_kernel.stored_values(spec, stash, n)
   for name, value in acts.items():
     assert torch.equal(stored[name], value), name
+
+
+# The bf16 arm's tensor-core engines at the edges of their tiles: the
+# warpgroup engine (128-row tiles of two 64-row warpgroups) at row counts
+# around a warpgroup and a tile and at 39,601 rows (each K5 block's range
+# short of a whole tile), widths 128 and 256 with and without the skip
+# layer (depth 3, skip 4 has none), fed and pe; mma.sync at a wide
+# geometry (width 512: 32-row tiles).
+BF16_ENGINE_CASES = [
+    (1, 256, 4, 2, (10, 4)), (63, 128, 3, 4, None), (64, 256, 4, 2, None),
+    (65, 256, 3, 4, (10, 4)), (127, 128, 4, 2, None),
+    (129, 128, 3, 4, (10, 4)), (39601, 256, 4, 2, None),
+    (39601, 128, 3, 4, (10, 4)), (1000, 512, 4, 2, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,width,depth,skip,pe", BF16_ENGINE_CASES)
+def test_cuda_fused_mlp_bf16_engines(cuda_device, n, width, depth, skip, pe):
+  """bf16 K4 within its tolerances of its plain version; K5's stored
+  activations K4's bit for bit (F2); K5 at the bf16 fraction of the tests
+  above (2e-2 of each tensor's scale) of the plain backward at K4's
+  activations; each kernel twice, bit for bit."""
+  from samplenerfro_torch.ops import mlp_kernel
+  bf16 = torch.bfloat16
+  spec, params, x, c = _mlp_case(cuda_device, n, pe, depth=depth,
+                                 width=width, skip=skip, seed=7)
+  assert mlp_kernel.warpgroup(spec, bf16) == (width <= 256)
+  acts = {}
+  got = torch.cat(mlp_kernel.mlp_fwd(spec, params, x, c, bf16, acts=acts),
+                  -1)
+  again = torch.cat(mlp_kernel.mlp_fwd(spec, params, x, c, bf16), -1)
+  assert torch.equal(got, again)
+  err = (got - torch.cat(mlp_kernel.fused_nerf_mlp_reference(
+      spec, params, x, c, bf16), -1)).abs()
+  assert float(err.max()) <= K4_BF16_MAX
+  assert float(err.mean()) <= K4_BF16_MEAN
+  gen = torch.Generator().manual_seed(8)
+  drgb = (1e-3 * torch.randn((n, 3), generator=gen)).to(cuda_device)
+  dsigma = (1e-3 * torch.randn((n, 1), generator=gen)).to(cuda_device)
+  args = (spec, params, x, c, drgb, dsigma, bf16)
+  stash = {}
+  grads = mlp_kernel.mlp_bwd(*args, stash=stash)
+  stored = mlp_kernel.stored_values(spec, stash, n)
+  for name, value in acts.items():
+    assert torch.equal(stored[name], value), name
+  assert all(torch.equal(a, b) for a, b in zip(grads,
+                                                 mlp_kernel.mlp_bwd(*args)))
+  want = mlp_kernel.fused_nerf_mlp_bwd_reference(*args, at=acts)
+  _assert_mlp_grads(grads, want, 2e-2)
 
 
 DISPATCH_KERNELS = ("march_lean_kernel", "march_so3_kernel", "k3_sweep",

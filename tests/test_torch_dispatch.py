@@ -1,10 +1,6 @@
 """The port's multi-step dispatch, prefetch and grouped render on the CPU.
 
-K steps through train/step.make_train_step_multi against K sequential
-train_step calls, each on its own step's batch (loop.step_batch), bit
-for bit: parameters, Adam moments and counts,
-every per-step Stats field; radiance and 'all', K in {1, 3}, randomized
-with seeded generators. With randomized=False, the port's K steps
+The port's K steps
 against samplenerfro_tpu.train.step.make_train_step_multi from the same
 weights, batches and jitters, at tests/test_torch_train.py's tolerances
 (the first step's Stats at rtol 1e-5, parameters at 2 * the lr of each
@@ -14,7 +10,9 @@ a cadence that is not a multiple of K raises (tests/test_e2e_smoke.py:60
 for the JAX package). Then data/prefetch.py (order, end, early close, a
 worker's exception) and render_chunks_per_dispatch of 2, 4 and 8 bit for
 bit against one chunk a call, with a ragged tail
-(tests/test_render_image.py:88). The
+(tests/test_render_image.py:88). The K steps against sequential steps
+are in tests/test_torch_dispatch_steps.py, a file of their own so that
+pytest-xdist's --dist loadfile runs them on another worker. The
 CUDA graph itself is held against eager steps on the card in
 tests/test_torch_cuda.py.
 """
@@ -104,48 +102,6 @@ def _assert_equal_state(a, b):
 
 def _windows(first, last, k):
   return list(t_loop.dispatch_windows(first, last, k))
-
-
-@pytest.mark.parametrize("stage", ["radiance", "all"])
-@pytest.mark.parametrize("k", [1, 3])
-def test_multi_step_equals_sequential_steps(stage, k):
-  """6 steps from step 5 (alpha > 0 and changing): K a dispatch through
-  make_train_step_multi on loop.host_window's stacked batches, against
-  train_step called step by step on each step's loop.step_batch; bit for
-  bit."""
-  args = _args(stage)
-  first, last = 5, 10
-  seq, multi = _model(args), _model(args)
-  opt_s, _, _ = t_step.create_optimizer(seq, args)
-  opt_m, _, _ = t_step.create_optimizer(multi, args)
-  gen_s = torch.Generator().manual_seed(3)
-  gen_m = torch.Generator().manual_seed(3)
-  jit_s = torch.Generator().manual_seed(4)
-  jit_m = torch.Generator().manual_seed(4)
-
-  seq_stats = []
-  for step in range(first, last + 1):
-    jitter = t_nerf.make_jitter(args.num_coarse_samples,
-                                args.num_path_samples, jit_s)
-    batch = prefetch.to_device(t_loop.step_batch(
-        _host_batch(step), t_loop.annealed_alpha(step, args),
-        t_step.learning_rates(opt_s, step - 1), jitter, args), "cpu")
-    seq_stats.append(t_step.train_step(seq, opt_s, batch, args,
-                                       gen_s).as_floats())
-
-  dataset = iter([_host_batch(s) for s in range(first, last + 1)])
-  run = t_step.make_train_step_multi(multi, opt_m, args, k, gen_m)
-  got = []
-  for w0, w1 in _windows(first, last, k):
-    batch = prefetch.to_device(
-        t_loop.host_window(dataset, w0, w1, args, opt_m, jit_m), "cpu")
-    stats = run(batch)
-    assert stats.loss.shape == (w1 - w0 + 1,)
-    got += stats.per_step()
-  assert got == seq_stats
-  _assert_equal_state(_state(seq, opt_s), _state(multi, opt_m))
-  counts = {int(s["step"]) for s in opt_m.state_dict()["state"].values()}
-  assert counts == {last - first + 1}
 
 
 def test_multi_step_matches_jax_multi_step():

@@ -192,11 +192,11 @@ def test_pack_and_unpack_round_trip():
   _, port, *_ = _setup(8, **SMALL)
   spec = mlp_kernel.mlp_spec(port)
   params = mlp_kernel.mlp_params(port)
-  wkn, wnk, bias = mlp_kernel.pack_params(params, torch.bfloat16)
+  wkn, wnk, bias, _ = mlp_kernel.pack_params(params, torch.bfloat16)
   assert wkn.dtype == wnk.dtype == torch.bfloat16
   assert bias.dtype == torch.float32
   assert wkn.numel() == sum(k * n for k, n in mlp_kernel.layer_dims(spec))
-  wkn32, _, _ = mlp_kernel.pack_params(params, torch.float32)
+  wkn32, _, _, _ = mlp_kernel.pack_params(params, torch.float32)
   back = mlp_kernel.unpack_grads(spec, torch.cat([wkn32, bias]))
   for g, p in zip(back, params):
     assert torch.equal(g, p.detach())
